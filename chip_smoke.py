@@ -1,0 +1,477 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+It imports only ``onset_fingerprinting_torch`` (never jax) and fails with a
+non-zero exit code, printing no result, on any error or without CUDA.
+
+Phase 0  prints the card's name and power limit and builds the three
+         kernels from ``onset_fingerprinting_torch/csrc`` with nvcc.
+Phase 1  holds each kernel against its plain PyTorch version on the card
+         (TF32 off for cuDNN and matmuls): K1 the fused detector (fleet
+         width, coupled_off + backtrack, warmup mode), K2 the window gather
+         (both contracts, 32768 hits), K3 the fused conv stack (flagship,
+         131072 signals, float32 and bfloat16).
+Phase 2  drives the fleet path at full width — 8192 four-channel 96 kHz
+         streams, three carried chunks of 32000 samples after a 38-block
+         warmup, the flagship CCCNN in bfloat16 with random weights carried
+         across in flax layout — gates recall/precision/dropped hits, shows
+         that every kernel launched and no plain version ran, times each
+         stage with CUDA events (median over 5 iterations of varied
+         input), and compares the path with its plain version on the CPU at
+         32 streams.
+
+Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+{...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+N_STREAMS = 8192
+CHUNK = 32000
+CHUNKS = 3
+WARMUP_BLOCKS = 38
+ITERS = 5
+#: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FMA-unit
+#: FLOP/s, dense bf16 tensor FLOP/s
+HBM_BPS = 3.35e12
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
+#: float operations per channel-sample of the detector kernel, counting
+#: each transcendental as one: IIR 17, dB 5, envelopes 11, linear 5,
+#: min/max 12, block thresholds 4
+DETECTOR_OPS_PER_SAMPLE = 54
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def time_ms(fn, n=5, warm=1):
+    """Mean device time of ``fn`` over ``n`` calls, by CUDA events."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(n):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / n
+
+
+def check(ok, what):
+    if not ok:
+        raise AssertionError(what)
+
+
+def max_err(a, b):
+    return float((a.float() - b.float()).abs().max()) if a.numel() else 0.0
+
+
+def states_equal(a, b):
+    return all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def phase_detector(report):
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.detect.amplitude import (
+        detect_offline,
+        warmup_minmax,
+    )
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_detect_offline,
+        fused_warmup_minmax,
+        make_fused_detector,
+    )
+    from onset_fingerprinting_torch.pipeline import fleet_detector_config
+    from onset_fingerprinting_torch.workload import make_audio
+
+    worst_rel = 0.0
+    cases = [
+        ("fleet C=32768 hipass", fleet_detector_config(N_STREAMS), 64),
+        ("C=3 coupled_off backtrack", DetectorConfig(
+            n_channels=3, backtrack=True, backtrack_buffer_size=256), 64),
+        ("C=1000 coupled_off backtrack (scratch stage)", DetectorConfig(
+            n_channels=1000, backtrack=True, backtrack_buffer_size=256), 64),
+    ]
+    for name, cfg, nb in cases:
+        fst, params, st0, _ = make_fused_detector(cfg, emit_rel=True)
+        x = make_audio(nb * 128, cfg.n_channels, seed=1)
+        # warmup mode
+        wk = fused_warmup_minmax(fst, params, st0, x[: WARMUP_BLOCKS * 128])
+        wp = warmup_minmax(fst.plain, params, st0, x[: WARMUP_BLOCKS * 128])
+        check(states_equal(wk, wp), f"K1 warmup state differs ({name})")
+        # detection from the warmed state
+        sk, (on_k, d_k, rel_k) = fused_detect_offline(fst, params, wk, x)
+        sp, (on_p, d_p, rel_p) = detect_offline(fst.plain, params, wp, x)
+        torch.cuda.synchronize()
+        check(torch.equal(on_k, on_p), f"K1 on differs ({name})")
+        check(torch.equal(d_k, d_p), f"K1 deltas differ ({name})")
+        err = max_err(rel_k, rel_p)
+        worst_rel = max(worst_rel, err)
+        check(err <= 2e-2, f"K1 rel err {err} > 2e-2 ({name})")
+        state_err = max(max_err(u, v) for u, v in zip(sk, sp))
+        check(state_err <= 1e-6, f"K1 state err {state_err} ({name})")
+        log(f"K1 {name}: {int(on_k.sum())} events, on/deltas exact, "
+            f"rel max err {err:.3g}, state max err {state_err:.3g}, "
+            "warmup state exact")
+    # times at the main path's shape (one chunk, events only)
+    cfg = fleet_detector_config(N_STREAMS)
+    fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
+    x = make_audio(CHUNK, cfg.n_channels, seed=2)
+    ms = time_ms(lambda: fused_detect_offline(fst, params, st0, x, False))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    detect_offline(fst.plain, params, st0, x)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    t, c = x.shape
+    nb = t // 128
+    state_bytes = 2 * c * (4 * 4 + 6 * 4 + 1)
+    bytes_ = t * c * 4 + nb * c * (1 + 4) + state_bytes
+    ops = t * c * DETECTOR_OPS_PER_SAMPLE
+    report["detector"] = dict(
+        max_abs_err=worst_rel, ms=ms, plain_ms=plain_ms,
+        bytes=bytes_, ops=ops, peak=F32_FLOPS, library_ms=None,
+    )
+    log(f"K1 time at [{t}, {c}]: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.1f} ms (one call)")
+
+
+def phase_gather(report, x):
+    import numpy as np
+
+    from onset_fingerprinting_torch.ops.windows import (
+        gather_hit_windows,
+        gather_hit_windows_reference,
+    )
+    from onset_fingerprinting_torch.workload import PRE, WINDOW
+
+    t, c = x.shape
+    g = 32768
+    rng = np.random.default_rng(3)
+    starts = rng.integers(0, t, g).astype(np.int32)
+    starts[:4] = [0, 5, t - 1, t - WINDOW - 3]  # both clip edges
+    sids = rng.integers(0, c // 4, g).astype(np.int32)
+    starts = torch.as_tensor(starts, device="cuda")
+    sids = torch.as_tensor(sids, device="cuda")
+    for anchored in (True, False):
+        k = gather_hit_windows(x, starts, sids, 4, WINDOW, PRE, anchored)
+        p = gather_hit_windows_reference(x, starts, sids, 4, WINDOW, PRE,
+                                         anchored)
+        torch.cuda.synchronize()
+        check(torch.equal(k, p), f"K2 differs (anchored={anchored})")
+        log(f"K2 anchored={anchored}: {g} windows bit-exact")
+    ms = time_ms(lambda: gather_hit_windows(x, starts, sids, 4, WINDOW, PRE,
+                                            True), n=20)
+    plain_ms = time_ms(lambda: gather_hit_windows_reference(
+        x, starts, sids, 4, WINDOW, PRE, True), n=5)
+    rows = torch.clamp(starts.long() - PRE, 0, t - WINDOW - 8)
+    r = (rows[:, None] + torch.arange(WINDOW, device="cuda"))[:, None, :]
+    cols = (sids.long()[:, None] * 4 + torch.arange(4, device="cuda")
+            )[:, :, None]
+    library_ms = time_ms(lambda: x[r, cols], n=5)
+    bytes_ = 2 * g * 4 * WINDOW * 4 + 2 * g * 4
+    report["gather"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                            bytes=bytes_, ops=0, peak=F32_FLOPS,
+                            library_ms=library_ms)
+    log(f"K2 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"advanced indexing {library_ms:.3f} ms")
+    return gather_hit_windows(x, starts, sids, 4, WINDOW, PRE, True)
+
+
+def phase_conv(report, windows):
+    import torch.nn.functional as F
+
+    from onset_fingerprinting_torch.models.jax_import import (
+        cccnn_state_dict_from_flax,
+    )
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        conv_stack,
+        conv_stack_reference,
+    )
+    from onset_fingerprinting_torch.workload import flagship_flax_params
+
+    sd = cccnn_state_dict_from_flax(flagship_flax_params(seed=5))
+    n = len([k for k in sd if k.endswith(".weight") and "convs" in k])
+    ws = [sd[f"convs.{i}.weight"].cuda() for i in range(n)]
+    bs = [(0.1 * torch.randn(w.shape[0])).cuda() for w in ws]
+    x = windows.reshape(-1, windows.shape[-1]).contiguous()  # [131072, 256]
+    errs = {}
+    for dt, atol, rtol in ((torch.float32, 5e-4, 1e-4),
+                           (torch.bfloat16, 3e-2, 2e-2)):
+        k = conv_stack(x, ws, bs, 1, "silu", dt)
+        p = conv_stack_reference(x, ws, bs, 1, "silu", dt)
+        torch.cuda.synchronize()
+        check(k.shape == p.shape, f"K3 shape {k.shape} != {p.shape}")
+        err = max_err(k, p)
+        bad = ((k - p).abs() > atol + rtol * p.abs()).sum()
+        check(int(bad) == 0, f"K3 {dt}: {int(bad)} values outside atol "
+              f"{atol} rtol {rtol} (max err {err})")
+        errs[dt] = err
+        log(f"K3 {dt} B={x.shape[0]}: max err {err:.3g} vs plain "
+            f"(atol {atol}, rtol {rtol})")
+    ms = time_ms(lambda: conv_stack(x, ws, bs, 1, "silu", torch.bfloat16))
+    ms32 = time_ms(lambda: conv_stack(x, ws, bs, 1, "silu", torch.float32))
+    plain_ms = time_ms(lambda: conv_stack_reference(
+        x, ws, bs, 1, "silu", torch.bfloat16))
+    wb = [w.to(torch.bfloat16) for w in ws]
+    bb = [b.to(torch.bfloat16) for b in bs]
+    xb = x.to(torch.bfloat16)[:, None, :]
+
+    def library():
+        y = xb
+        for w, b in zip(wb, bb):
+            y = F.silu(F.conv1d(y, w, b, padding=1))
+        return y
+
+    library_ms = time_ms(library)
+    b_n, length = x.shape
+    flops, t = 0, length
+    for w in ws:
+        o, i, kk = w.shape
+        t = t + 2 - kk + 1
+        flops += 2 * o * i * kk * t * b_n
+    bytes_ = b_n * length * 4 + b_n * t * ws[-1].shape[0] * 4
+    report["conv_stack"] = dict(
+        max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
+        bytes=bytes_, ops=flops, peak=BF16_FLOPS, library_ms=library_ms,
+    )
+    log(f"K3 time bf16: kernel {ms:.3f} ms (f32 {ms32:.3f} ms), plain "
+        f"{plain_ms:.3f} ms, cuDNN conv1d chain {library_ms:.3f} ms; "
+        f"{flops / 1e9:.1f} GFLOP")
+
+
+def profile_path(run, state, audio):
+    """Device time by kernel over one second of audio through ``run``
+    (torch.profiler), and the device's busy share of the wall clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for x in audio:
+            state, _, _, _ = run(state, x)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count)
+         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=lambda r: -r[1],
+    )
+    busy = sum(r[1] for r in rows)
+    log(f"profile, one second of audio through run(): wall {wall_ms:.3f} ms "
+        f"(profiler on), device busy {busy:.3f} ms "
+        f"({100 * busy / wall_ms:.1f}%)")
+    for name, ms, n in rows[:12]:
+        log(f"  {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+
+
+def phase_main_path(report):
+    import numpy as np
+
+    from onset_fingerprinting_torch.models.cccnn import CCCNN
+    from onset_fingerprinting_torch.models.jax_import import (
+        cccnn_state_dict_from_flax,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.pipeline import (
+        fleet_detector_config,
+        make_detect_fingerprint,
+    )
+    from onset_fingerprinting_torch.workload import (
+        FLAGSHIP,
+        WINDOW,
+        chunk_capacities,
+        correctness,
+        flagship_flax_params,
+        make_audio,
+        n_injected,
+    )
+
+    def build(n_streams, t, device):
+        model = CCCNN(input_size=WINDOW, dtype=torch.bfloat16, **FLAGSHIP)
+        model.load_state_dict(
+            cccnn_state_dict_from_flax(flagship_flax_params(seed=0)))
+        max_hits, cap = chunk_capacities(n_streams, t)
+        run = make_detect_fingerprint(
+            fleet_detector_config(n_streams), model, n_streams, t, cap,
+            device=device)
+        return run, max_hits, cap
+
+    run, max_hits, cap = build(N_STREAMS, CHUNK, None)
+    audio = [make_audio(CHUNK, N_STREAMS * 4, seed=10 + j)
+             for j in range(CHUNKS)]
+    n_exp = N_STREAMS * n_injected(CHUNK)
+    log(f"main path: {N_STREAMS} streams x {CHUNKS} chunks of {CHUNK} "
+        f"samples, G={cap}, {n_exp} injected hits per chunk")
+
+    _cuda.reset_counts()
+    state = run.warmup(run.init_state(), audio[0][: WARMUP_BLOCKS * 128])
+    for j in range(CHUNKS):
+        state, on, deltas = run.detect(state, audio[j])
+        preds, n_hits, n_dropped = run.fingerprint(audio[j], on, deltas)
+        tp, spur, matched = correctness(on, 128, N_STREAMS, max_hits, CHUNK)
+        recall = matched / n_exp
+        precision = tp / max(tp + spur, 1)
+        log(f"chunk {j}: recall {recall} precision {precision} "
+            f"n_hits {int(n_hits)} dropped {int(n_dropped)}")
+        check(recall == 1.0 and precision == 1.0, "recall/precision gate")
+        check(int(n_dropped) == 0, "dropped hits")
+        check(int(n_hits) == n_exp, f"n_hits {int(n_hits)} != {n_exp}")
+        check(tuple(preds.shape) == (cap, 2), f"preds shape {preds.shape}")
+        check(bool(torch.isfinite(preds).all()), "non-finite predictions")
+    counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
+    log(f"launches/plain calls on the main path (warmup + {CHUNKS} "
+        f"chunks): {counts}")
+    for k in _cuda.KERNELS:
+        check(k.launches > 0, f"kernel {k.name} never launched")
+        check(k.plain_calls == 0, f"plain {k.name} ran on the main path")
+    report["_launches"] = {k.name: k.launches for k in _cuda.KERNELS}
+
+    # timed iterations: each is one second of audio (3 carried chunks),
+    # chunk order rotated so every iteration sees other input
+    stages = ("detect", "hit_list", "gather", "model")
+    per = {s: [] for s in stages}
+    totals = []
+    for it in range(ITERS):
+        ev = {s: [] for s in stages}
+        for j in range(CHUNKS):
+            x = audio[(it + j) % CHUNKS]
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            marks[0].record()
+            state, on, deltas = run.detect(state, x)
+            marks[1].record()
+            starts, sids, valid, _ = run.hit_list(on, deltas)
+            marks[2].record()
+            win = run.windows(x, starts, sids)
+            marks[3].record()
+            preds = run.predict(win, valid)
+            marks[4].record()
+            for si, s in enumerate(stages):
+                ev[s].append((marks[si], marks[si + 1]))
+        torch.cuda.synchronize()
+        for s in stages:
+            per[s].append(sum(a.elapsed_time(b) for a, b in ev[s]))
+        t0 = time.perf_counter()
+        for j in range(CHUNKS):
+            state, preds, n_hits, n_dropped = run(
+                state, audio[(it + j + 1) % CHUNKS])
+        torch.cuda.synchronize()
+        totals.append(1e3 * (time.perf_counter() - t0))
+    check(all(k.plain_calls == 0 for k in _cuda.KERNELS),
+          "a plain version ran during the timed iterations")
+    med = {s: float(np.median(per[s])) for s in stages}
+    dev_total = sum(med.values())
+    host_total = float(np.median(totals))
+    log("per second of audio (median of %d, CUDA events): %s; sum %.3f ms "
+        "-> %.0fx realtime" % (
+            ITERS, ", ".join(f"{s} {med[s]:.3f} ms" for s in stages),
+            dev_total, N_STREAMS / (dev_total / 1e3)))
+    log(f"run() wall clock per second of audio (median, one read per "
+        f"chunk): {host_total:.3f} ms -> "
+        f"{N_STREAMS / (host_total / 1e3):.0f}x realtime "
+        f"(min {min(totals):.3f}, max {max(totals):.3f})")
+    profile_path(run, state, audio)
+
+    # the same path at 32 streams on the card and, plain, on the CPU
+    small_s, small_t = 32, 20480
+    xs = make_audio(small_t, small_s * 4, seed=20, device="cpu")
+    outs = []
+    for device in ("cuda", "cpu"):
+        r, _, _ = build(small_s, small_t, device)
+        st = r.warmup(r.init_state(), xs[: WARMUP_BLOCKS * 128].to(device))
+        xd = xs.to(device)
+        st, on, deltas = r.detect(st, xd)
+        preds, n_hits, _ = r.fingerprint(xd, on, deltas)
+        outs.append((on.cpu(), deltas.cpu(), preds.cpu(), int(n_hits)))
+    (on_g, d_g, p_g, n_g), (on_c, d_c, p_c, n_c) = outs
+    check(torch.equal(on_g, on_c) and torch.equal(d_g, d_c),
+          "card and CPU events differ at 32 streams")
+    perr = max_err(p_g, p_c)
+    check(n_g == n_c and perr <= 2e-2,
+          f"card vs CPU predictions differ by {perr}")
+    log(f"32-stream path, card vs plain CPU: events exact, {n_g} hits, "
+        f"predictions max err {perr:.3g} (bound 2e-2)")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.workload import make_audio
+
+    t0 = time.perf_counter()
+    logs = _cuda.build()
+    log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    report = {}
+    phase_detector(report)
+    x = make_audio(CHUNK, N_STREAMS * 4, seed=4)
+    windows = phase_gather(report, x)
+    del x
+    phase_conv(report, windows)
+    del windows
+    torch.cuda.empty_cache()
+    phase_main_path(report)
+
+    sources = {
+        "detector": ("onset_fingerprinting_torch/csrc/detector.cu",
+                     "onset_fingerprinting_tpu/ops/pallas_detector.py:85"),
+        "gather": ("onset_fingerprinting_torch/csrc/gather.cu",
+                   "onset_fingerprinting_tpu/ops/windows.py:136"),
+        "conv_stack": ("onset_fingerprinting_torch/csrc/conv_stack.cu",
+                       "onset_fingerprinting_tpu/ops/pallas_conv.py:187"),
+    }
+    kernels = []
+    for name, (src, replaces) in sources.items():
+        r = report[name]
+        t_bytes = 1e3 * r["bytes"] / HBM_BPS
+        t_ops = 1e3 * r["ops"] / r["peak"]
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=replaces,
+            launches=report["_launches"][name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=r["library_ms"],
+        ))
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

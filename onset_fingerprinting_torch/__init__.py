@@ -1,0 +1,26 @@
+"""onset_fingerprinting_torch — the PyTorch/CUDA port of
+``onset_fingerprinting_tpu``.
+
+The layout mirrors the JAX package so that each module's counterpart is
+found under the same path:
+
+- ``core``     — the configuration tree (a jax-free copy).
+- ``ops``      — IIR filters, hit lists and window gathers, DFT
+                 correlations, and the three hand-written Hopper kernels
+                 (``ops/_cuda.py`` builds ``csrc/*.cu`` with ``nvcc``):
+                 the fused detector, the window gather and the fused conv
+                 stack.
+- ``detect``   — the amplitude onset detector in plain PyTorch (the
+                 reference the detector kernel is held against).
+- ``models``   — the CCCNN fingerprint model and the flax-params importer.
+- ``workload`` — the injected-hit fleet workload and its recall/precision
+                 gate.
+- ``pipeline`` — the offline detect → fingerprint fleet path.
+
+Every entry point takes ``device=None``, which means ``"cuda"``; without a
+card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run
+the plain PyTorch versions of the kernels (the tests do).  The package
+never imports jax.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,390 @@
+"""Multi-channel streaming amplitude onset detector in plain PyTorch.
+
+Port of ``onset_fingerprinting_tpu.detect.amplitude`` (reference:
+onset_fingerprinting/detection.py:595-888): FluCoMa-AmpSlice-style fast
+minus slow AR envelope on rectified floor-clipped dB, adaptive min/max
+thresholds, per-channel hysteresis, cooldown debounce and optional
+backtracking, as a per-block step
+
+    (state, block [B, C]) -> (state, (on [C], deltas [C], rel [B, C]))
+
+Here the per-sample recurrences are a Python loop of element-wise tensor
+ops over the samples, vectorised across channels.  This is the plain
+version of the fused detector kernel (``ops/fused_detector.py``): every
+sample runs the same float32 operations in the same order, so on the card
+the kernel is bit-identical to it.  ``detect_offline`` and
+``warmup_minmax`` count their calls in ``ops._cuda.DETECTOR.plain_calls``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from onset_fingerprinting_torch.core.config import DetectorConfig
+from onset_fingerprinting_torch.device import resolve_device
+from onset_fingerprinting_torch.ops import _cuda
+from onset_fingerprinting_torch.ops.filters import butterworth
+
+_LOG2_10_OVER_20 = math.log2(10.0) / 20.0
+_20_OVER_LOG2_10 = 20.0 / math.log2(10.0)
+_EPS = 1e-10
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+class DetectorState(NamedTuple):
+    """Carried streaming state (float32/int32/bool, shape [.., C])."""
+
+    zi: torch.Tensor         # [order, C] high-pass filter state
+    fast: torch.Tensor       # [C] fast AR envelope
+    slow: torch.Tensor       # [C] slow AR envelope
+    min_val: torch.Tensor    # [C] EMA minimum of relative envelope
+    max_val: torch.Tensor    # [C] EMA maximum of relative envelope
+    gate: torch.Tensor       # [C] bool hysteresis state
+    prev_rel: torch.Tensor   # [C] last rel sample of the previous block
+    debounce: torch.Tensor   # [C] int32 cooldown countdown
+    bt_buffer: torch.Tensor  # [Nb, C] rel ring for backtracking (Nb may be 0)
+    bt_pos: torch.Tensor     # scalar int32 ring cursor
+
+
+@dataclass(frozen=True)
+class _Static:
+    """Static detector parameters (float32-rounded where the reference
+    rounds them)."""
+
+    n_channels: int
+    block_size: int
+    floor: float
+    fast_attack: float
+    fast_release: float
+    slow_attack: float
+    slow_release: float
+    cooldown: int
+    manual: bool
+    use_hipass: bool
+    backtrack: bool
+    bt_size: int
+    bt_alpha: float
+    bt_tol: float
+    alpha_min: float
+    alpha_max: float
+    minmin: float
+    #: reference quirk (detection.py:790): the off-threshold check ignores
+    #: rows before the block's cross-channel first-onset index.  False =
+    #: per-channel gating, required when independent streams are batched
+    #: as channels.
+    coupled_off: bool = True
+
+
+class DetectorParams(NamedTuple):
+    on_threshold: torch.Tensor   # [C]
+    off_threshold: torch.Tensor  # [C]
+    b: torch.Tensor  # IIR numerator (unused when use_hipass=False)
+    a: torch.Tensor  # IIR denominator
+
+
+def _make_static(cfg: DetectorConfig) -> _Static:
+    if cfg.backtrack and cfg.backtrack_buffer_size < cfg.block_size:
+        # the reference asserts this too (detection.py:716-718)
+        raise ValueError(
+            f"backtrack_buffer_size ({cfg.backtrack_buffer_size}) must be "
+            f">= block_size ({cfg.block_size}) when backtrack=True"
+        )
+    bt_alpha = np.float32(2.0 / (cfg.backtrack_smooth_size + 1))
+    return _Static(
+        n_channels=cfg.n_channels,
+        block_size=cfg.block_size,
+        floor=float(cfg.floor),
+        fast_attack=_f32(1.0 / cfg.fast_attack),
+        fast_release=_f32(1.0 / cfg.fast_release),
+        slow_attack=_f32(1.0 / cfg.slow_attack),
+        slow_release=_f32(1.0 / cfg.slow_release),
+        cooldown=int(cfg.cooldown),
+        manual=bool(np.max(cfg.on_threshold) > 1),
+        use_hipass=cfg.hipass_freq != 0,
+        backtrack=cfg.backtrack,
+        bt_size=int(cfg.backtrack_buffer_size) if cfg.backtrack else 0,
+        bt_alpha=float(bt_alpha),
+        bt_tol=_f32((1 - bt_alpha) ** cfg.backtrack_buffer_size),
+        alpha_min=float(cfg.minmax_alpha_min),
+        alpha_max=float(cfg.minmax_alpha_max),
+        minmin=float(cfg.minmax_floor),
+        coupled_off=cfg.coupled_off_gate,
+    )
+
+
+def sample_constants(static: _Static) -> dict:
+    """The float32 constants of the per-sample recurrences, shared by the
+    plain loop and the kernel so that both use identical values."""
+    am, ax = np.float32(static.alpha_min), np.float32(static.alpha_max)
+    alpha = np.float32(static.bt_alpha)
+    return dict(
+        eps=_f32(_EPS), k_db=_f32(_20_OVER_LOG2_10),
+        k_lin=_f32(_LOG2_10_OVER_20), floor=_f32(static.floor),
+        fa=static.fast_attack, fr=static.fast_release,
+        sa=static.slow_attack, sr=static.slow_release,
+        am=float(am), ax=float(ax),
+        iam=float(np.float32(1) - am), iax=float(np.float32(1) - ax),
+        minmin=_f32(static.minmin),
+        bt_alpha=float(alpha), bt_omba=float(np.float32(1) - alpha),
+        bt_tol=_f32(static.bt_tol),
+    )
+
+
+def detector_init(
+    cfg: DetectorConfig, device=None
+) -> tuple[_Static, DetectorParams, DetectorState]:
+    """Build (static config, params, initial state) on ``device`` (None =
+    the card).  Initial values mirror detection.py:697-711: envelopes at
+    ``floor``, min/max tracker at (0, 10)."""
+    dev = resolve_device(device)
+    static = _make_static(cfg)
+    c = cfg.n_channels
+    if static.use_hipass:
+        iir = butterworth(cfg.hipass_freq, c, order=4, sr=cfg.sr,
+                          btype="high", device=dev)
+        b, a, zi = iir.b, iir.a, iir.zi
+    else:
+        b = torch.ones(1, dtype=torch.float32, device=dev)
+        a = torch.ones(1, dtype=torch.float32, device=dev)
+        zi = torch.zeros((0, c), dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    params = DetectorParams(
+        on_threshold=torch.as_tensor(cfg.on_threshold, **f32).expand(c)
+        .contiguous(),
+        off_threshold=torch.as_tensor(cfg.off_threshold, **f32).expand(c)
+        .contiguous(),
+        b=b,
+        a=a,
+    )
+    state = DetectorState(
+        zi=zi,
+        fast=torch.full((c,), cfg.floor, **f32),
+        slow=torch.full((c,), cfg.floor, **f32),
+        min_val=torch.zeros((c,), **f32),
+        max_val=torch.full((c,), 10.0, **f32),
+        gate=torch.zeros((c,), dtype=torch.bool, device=dev),
+        prev_rel=torch.zeros((c,), **f32),
+        debounce=torch.zeros((c,), dtype=torch.int32, device=dev),
+        bt_buffer=torch.zeros((static.bt_size, c), **f32),
+        bt_pos=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    return static, params, state
+
+
+def _fused_sample_scan(static: _Static, params: DetectorParams,
+                       state: DetectorState, x: torch.Tensor):
+    """One pass over the B samples of a block: IIR high-pass → rectified
+    floor-clipped dB → fast & slow AR envelopes → relative envelope →
+    EMA min/max.  Returns ((zi, fast, slow, min, max), rel [B, C])."""
+    k = sample_constants(static)
+    eps, floor = k["eps"], k["floor"]
+    b = params.b.tolist()
+    a = params.a.tolist()
+    order = state.zi.shape[0]
+    z = list(state.zi.unbind(0))
+    yf, ys, mn, mx = state.fast, state.slow, state.min_val, state.max_val
+    rels = []
+    for xt in x.to(torch.float32).unbind(0):
+        if static.use_hipass:
+            y = b[0] * xt + z[0]
+            z = [
+                (b[i + 1] * xt + z[i + 1] if i + 1 < order else b[i + 1] * xt)
+                - a[i + 1] * y
+                for i in range(order)
+            ]
+        else:
+            y = xt
+        xdb = k["k_db"] * torch.log2(torch.abs(y + eps))
+        xdb = torch.clamp(xdb, min=floor)
+        df = xdb - yf + eps
+        yf = yf + torch.where(df > 0, k["fa"], k["fr"]) * df
+        ds = xdb - ys + eps
+        ys = ys + torch.where(ds > 0, k["sa"], k["sr"]) * ds
+        rel = torch.exp2((yf - ys) * k["k_lin"]) - eps
+        rel = torch.clamp(rel, 0.0, -floor)
+        if not static.manual:
+            mn = torch.where(
+                rel < k["minmin"], k["minmin"],
+                torch.where(rel < mn, rel, mn * k["iam"] + rel * k["am"]),
+            )
+            mx = torch.where(rel > mx, rel, mx * k["iax"] + rel * k["ax"])
+        rels.append(rel)
+    zi = torch.stack(z) if order else state.zi
+    return (zi, yf, ys, mn, mx), torch.stack(rels)
+
+
+def _backtrack(static: _Static, buffer_lin: torch.Tensor,
+               deltas: torch.Tensor) -> torch.Tensor:
+    """Walk each onset backwards through the EMA-smoothed history while the
+    envelope keeps decreasing (envelope_follower.c:59-85), for every
+    channel at once (callers keep the channels that fired)."""
+    k = sample_constants(static)
+    n = static.bt_size
+    alpha, omba, tol = k["bt_alpha"], k["bt_omba"], k["bt_tol"]
+    c = buffer_lin.shape[1]
+    chans = torch.arange(c, device=buffer_lin.device)
+    i = static.block_size - deltas.long()
+    cur = buffer_lin[(n - i) % n, chans]
+    i = i + 1
+    prev = buffer_lin[(n - i) % n, chans]  # negative index wraps, as in numpy
+    prevs = alpha * prev + omba * cur
+    d = deltas.clone()
+    active = torch.ones(c, dtype=torch.bool, device=buffer_lin.device)
+    for _ in range(n):
+        go = active & (cur > prevs) & ((prevs - prev).abs() > tol) & (i + 1 < n)
+        d = torch.where(go, d - 1, d)
+        i = torch.where(go, i + 1, i)
+        cur = torch.where(go, prevs, cur)
+        new_prev = buffer_lin[torch.clamp(n - i, 0, n - 1), chans]
+        prev = torch.where(go, new_prev, prev)
+        prevs = torch.where(go, alpha * prev + omba * cur, prevs)
+        active = go
+    return d
+
+
+def detect_block(static: _Static, params: DetectorParams,
+                 state: DetectorState, x: torch.Tensor):
+    """Process one ``[B, C]`` block → ``(state, (on [C] bool, deltas [C]
+    int32, rel [B, C]))``: channel c fired iff ``on[c]``, at block-relative
+    sample ``deltas[c]`` (detection.py:727-798)."""
+    bsz = static.block_size
+    (zi, yf, ys, mn, mx), rel = _fused_sample_scan(static, params, state, x)
+    dev = rel.device
+    if static.backtrack:
+        nb = static.bt_size
+        idx = (state.bt_pos + torch.arange(bsz, device=dev)) % nb
+        bt_buffer = state.bt_buffer.clone()
+        bt_buffer[idx] = rel
+        bt_pos = ((state.bt_pos + bsz) % nb).to(torch.int32)
+    else:
+        bt_buffer, bt_pos = state.bt_buffer, state.bt_pos
+
+    if static.manual:
+        on_th, off_th = params.on_threshold, params.off_threshold
+    else:
+        on_th = mx * params.on_threshold + mn
+        off_th = mx * params.off_threshold + mn
+
+    crossed_on = (rel > on_th) & ~state.gate & (state.debounce < 1)
+    prev_full = torch.cat([state.prev_rel[None], rel[:-1]], dim=0)
+    crossed_on &= prev_full < on_th
+    on = crossed_on.any(dim=0)
+    # first crossing row, 0 where none (the argmax of the bool column)
+    row = torch.arange(bsz, device=dev)[:, None]
+    on_idx = torch.where(crossed_on, row, bsz).amin(dim=0)
+    on_idx = torch.where(on, on_idx, 0).to(torch.int32)
+
+    gate = state.gate | on
+    debounce = torch.where(on, static.cooldown, state.debounce)
+    debounce = torch.where(debounce > 0, debounce - bsz, debounce)
+    debounce = debounce.to(torch.int32)
+
+    crossed_off = rel < off_th
+    if static.coupled_off:
+        crossed_off &= row >= on_idx.max()
+    else:
+        crossed_off &= row >= on_idx[None, :]
+    gate = torch.where(crossed_off.any(dim=0), False, gate)
+
+    deltas = on_idx
+    if static.backtrack:
+        n = static.bt_size
+        lin = (bt_pos + torch.arange(n, device=dev)) % n
+        bt_deltas = _backtrack(static, bt_buffer[lin], deltas)
+        deltas = torch.where(on, bt_deltas, deltas).to(torch.int32)
+
+    new_state = DetectorState(
+        zi=zi, fast=yf, slow=ys, min_val=mn, max_val=mx, gate=gate,
+        prev_rel=rel[-1], debounce=debounce, bt_buffer=bt_buffer,
+        bt_pos=bt_pos,
+    )
+    return new_state, (on, deltas, rel)
+
+
+def warmup_minmax(static: _Static, params: DetectorParams,
+                  state: DetectorState, x: torch.Tensor) -> DetectorState:
+    """Warm up envelopes and min/max tracker on ``x [T, C]`` without
+    detecting (detection.py:827-840).  T must be a multiple of the block
+    size."""
+    _cuda.DETECTOR.plain_calls += 1
+    bsz = static.block_size
+    for blk in x.reshape(-1, bsz, x.shape[-1]):
+        (zi, yf, ys, mn, mx), _ = _fused_sample_scan(static, params, state,
+                                                      blk)
+        state = state._replace(zi=zi, fast=yf, slow=ys, min_val=mn,
+                               max_val=mx)
+    return state
+
+
+def detect_offline(static: _Static, params: DetectorParams,
+                   state: DetectorState, x: torch.Tensor):
+    """Run the block detector over a whole recording ``[T, C]`` (T a
+    multiple of the block size) → ``(state, (on [nb, C] bool, deltas
+    [nb, C] int32, rel [T, C]))`` (detection.py:73-82)."""
+    _cuda.DETECTOR.plain_calls += 1
+    bsz = static.block_size
+    c = x.shape[-1]
+    ons, ds, rels = [], [], []
+    for blk in x.reshape(-1, bsz, c):
+        state, (on, d, rel) = detect_block(static, params, state, blk)
+        ons.append(on)
+        ds.append(d)
+        rels.append(rel)
+    if not ons:
+        dev = x.device
+        return state, (torch.zeros((0, c), dtype=torch.bool, device=dev),
+                       torch.zeros((0, c), dtype=torch.int32, device=dev),
+                       x[:0].to(torch.float32))
+    return state, (torch.stack(ons), torch.stack(ds), torch.cat(rels))
+
+
+def detect_offline_chunked(
+    static: _Static,
+    params: DetectorParams,
+    state: DetectorState,
+    x,
+    chunk_blocks: int = 4096,
+    emit_rel: bool = True,
+) -> tuple[DetectorState, tuple[np.ndarray, np.ndarray, Optional[np.ndarray]]]:
+    """Constant-memory offline detection over arbitrarily long recordings.
+
+    The detector carries all its state across blocks, so chunk-by-chunk is
+    exact.  Each chunk of ``chunk_blocks`` blocks goes to the state's
+    device and through the fused detector (its kernel on the card, the
+    plain version on the CPU); results come back as host arrays.
+    """
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        detector_static,
+        fused_detect_offline,
+    )
+
+    dev = state.fast.device
+    fstatic = detector_static(static, params)
+    bsz = static.block_size
+    t = (x.shape[0] // bsz) * bsz
+    step = chunk_blocks * bsz
+    ons, deltas, rels = [], [], []
+    for start in range(0, t, step):
+        xc = torch.as_tensor(x[start: min(start + step, t)], device=dev,
+                             dtype=torch.float32)
+        state, (on, d, rel) = fused_detect_offline(
+            fstatic, params, state, xc.contiguous(), emit_rel
+        )
+        ons.append(on.cpu().numpy())
+        deltas.append(d.cpu().numpy())
+        if emit_rel:
+            rels.append(rel.cpu().numpy())
+    c = x.shape[1]
+    on = np.concatenate(ons) if ons else np.zeros((0, c), bool)
+    d = np.concatenate(deltas) if deltas else np.zeros((0, c), np.int32)
+    rel = (np.concatenate(rels) if rels else np.zeros((0, c), np.float32)
+           ) if emit_rel else None
+    return state, (on, d, rel)

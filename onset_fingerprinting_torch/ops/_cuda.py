@@ -1,0 +1,152 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled at first use by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, loaded with
+ctypes (no PyTorch headers: a build takes seconds, not minutes).  The
+library name carries a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one is reused.  Libraries go to
+``build/torch_kernels/`` beside the package (git-ignored).
+
+Every kernel has a :class:`Kernel` record here with two plain integer
+counters: ``launches`` (its wrapper adds one each time it launches the
+kernel, and nowhere else) and ``plain_calls`` (its plain PyTorch version
+adds one per call).  ``chip_smoke.py`` reads both to show which path ran.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch; a
+non-zero code raises here, since a refused launch never runs and a later
+``torch.cuda.synchronize()`` would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class Kernel:
+    """One ``.cu`` source: its C entry points, build flags and counters."""
+
+    def __init__(self, name: str, source: str, entries: dict,
+                 extra_flags: tuple = ()):
+        self.name = name
+        self.source = source
+        self.entries = entries
+        self.flags = NVCC_FLAGS + tuple(extra_flags)
+        self.launches = 0
+        self.plain_calls = 0
+        self._lib = None
+
+    def library_path(self) -> Path:
+        h = hashlib.sha256(
+            (CSRC / self.source).read_bytes() + " ".join(self.flags).encode()
+        ).hexdigest()[:16]
+        return BUILD_DIR / f"lib{self.name}_{h}.so"
+
+    def _load(self, path: Path) -> None:
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in self.entries.items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.ofpt_error_string.argtypes = [ctypes.c_int]
+        lib.ofpt_error_string.restype = ctypes.c_char_p
+        self._lib = lib
+
+    def launch(self, entry: str, *args) -> None:
+        """Call C entry ``entry`` (which launches the kernel on the given
+        stream), raise on a CUDA error, count the launch."""
+        if self._lib is None:
+            build([self])
+        rc = getattr(self._lib, entry)(*args)
+        if rc != 0:
+            msg = self._lib.ofpt_error_string(rc).decode()
+            raise RuntimeError(f"{self.name}.{entry}: CUDA error {rc} ({msg})")
+        self.launches += 1
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
+            "are built from source at first use"
+        )
+    return path
+
+
+def build(kernels=None) -> dict[str, str]:
+    """Compile (one ``nvcc`` per source, all started together) and load the
+    given kernels, default all.  Returns each newly compiled kernel's
+    compiler output (``-Xptxas -v``: registers, shared memory, spills)."""
+    kernels = list(KERNELS if kernels is None else kernels)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for k in kernels:
+        out = k.library_path()
+        if k._lib is not None or out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc(), *k.flags, "-o", str(tmp), str(CSRC / k.source)]
+        procs[k.name] = (k, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    logs = {}
+    failed = []
+    for name, (k, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{k.source}:\n{log}")
+        else:
+            os.replace(tmp, k.library_path())
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    for k in kernels:
+        if k._lib is None:
+            k._load(k.library_path())
+    return logs
+
+
+def stream() -> int:
+    """Handle of PyTorch's current CUDA stream (kernels launch on it)."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+        k.plain_calls = 0
+
+
+DETECTOR = Kernel(
+    "detector", "detector.cu",
+    {"ofpt_detect": [_P] * 19 + [_I, _P]},
+    # every multiply and add rounds on its own, as in the plain version
+    extra_flags=("-fmad=false",),
+)
+GATHER = Kernel(
+    "gather", "gather.cu",
+    {"ofpt_gather": [_P, _P, _P, _P] + [_I] * 7 + [_P]},
+)
+CONV_STACK = Kernel(
+    "conv_stack", "conv_stack.cu",
+    {"ofpt_conv_stack": [_P, _P, _P, _P, _P, _P]},
+)
+KERNELS = (DETECTOR, GATHER, CONV_STACK)

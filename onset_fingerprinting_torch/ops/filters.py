@@ -1,0 +1,65 @@
+"""Stateful IIR filters (port of ``onset_fingerprinting_tpu.ops.filters``).
+
+Filter design stays on the host (scipy) with float32 coefficients, like the
+reference's ``ButterworthFilter`` (detection.py:492-497); the application is
+a direct-form-II-transposed loop over samples equal to
+``scipy.signal.lfilter(b, a, x, axis=0, zi=zi)``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from scipy import signal as _sig
+
+
+class IIRState(NamedTuple):
+    b: torch.Tensor  # [order + 1] numerator
+    a: torch.Tensor  # [order + 1] denominator (a[0] == 1)
+    zi: torch.Tensor  # [order, C] carried filter state
+
+
+def butterworth(
+    cutoff: float,
+    n_channels: int,
+    order: int = 2,
+    sr: int = 44100,
+    btype: str = "high",
+    device=None,
+) -> IIRState:
+    """Design a Butterworth filter on the host, zero initial state."""
+    b, a = _sig.butter(order, cutoff, btype=btype, analog=False, output="ba",
+                       fs=sr)
+    return IIRState(
+        torch.as_tensor(np.float32(b), device=device),
+        torch.as_tensor(np.float32(a), device=device),
+        torch.zeros((order, n_channels), dtype=torch.float32, device=device),
+    )
+
+
+def iir_apply(state: IIRState, x: torch.Tensor
+              ) -> tuple[torch.Tensor, IIRState]:
+    """Apply the IIR filter along axis 0 of ``x [T, C]``, carrying state:
+
+        y[t]   = b0 x[t] + z0[t-1]
+        z_i[t] = b_{i+1} x[t] + z_{i+1}[t-1] - a_{i+1} y[t]
+    """
+    b, a, zi = state
+    order = zi.shape[0]
+    bl = [float(v) for v in b.cpu()]
+    al = [float(v) for v in a.cpu()]
+    z = list(zi.to(torch.float32).unbind(0))
+    x = x.to(torch.float32)
+    ys = []
+    for xt in x.unbind(0):
+        y = bl[0] * xt + z[0]
+        z = [
+            (bl[i + 1] * xt + z[i + 1] if i + 1 < order else bl[i + 1] * xt)
+            - al[i + 1] * y
+            for i in range(order)
+        ]
+        ys.append(y)
+    y = torch.stack(ys) if ys else x.clone()
+    return y, IIRState(b, a, torch.stack(z) if z else zi)

@@ -1,0 +1,99 @@
+"""The three kernels against their plain versions on the card, at small
+shapes (the full-width checks are in chip_smoke.py).  Marked ``cuda``:
+they skip on a machine without CUDA.  Run on the card with
+
+    python -m pytest tests/test_torch_port_cuda.py -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.parametrize("coupled,backtrack,hipass,on_th", [
+    (False, False, 2000.0, 0.5), (True, True, 2000.0, 0.5),
+    (True, False, 0.0, 0.5), (False, True, 0.0, 0.5),
+    (False, False, 2000.0, 3.0),  # manual (absolute) thresholds
+])
+def test_detector_kernel_matches_plain(coupled, backtrack, hipass, on_th):
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.detect.amplitude import (
+        detect_offline,
+        warmup_minmax,
+    )
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_detect_offline,
+        fused_warmup_minmax,
+        make_fused_detector,
+    )
+    from onset_fingerprinting_torch.workload import make_audio
+
+    cfg = DetectorConfig(n_channels=200, coupled_off_gate=coupled,
+                         backtrack=backtrack, backtrack_buffer_size=256,
+                         hipass_freq=hipass, on_threshold=on_th,
+                         off_threshold=on_th / 5)
+    fst, params, st, _ = make_fused_detector(cfg)
+    x = make_audio(128 * 60, 200, seed=1)
+    wk = fused_warmup_minmax(fst, params, st, x[: 128 * 38])
+    wp = warmup_minmax(fst.plain, params, st, x[: 128 * 38])
+    sk, (on_k, d_k, r_k) = fused_detect_offline(fst, params, wk, x)
+    sp, (on_p, d_p, r_p) = detect_offline(fst.plain, params, wp, x)
+    assert int(on_p.sum()) > 0
+    assert torch.equal(on_k, on_p) and torch.equal(d_k, d_p)
+    assert torch.equal(r_k, r_p)
+    for a, b in zip(sk, sp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("anchored", [True, False])
+def test_gather_kernel_matches_plain(anchored):
+    from onset_fingerprinting_torch.ops.windows import (
+        gather_hit_windows,
+        gather_hit_windows_reference,
+    )
+
+    rng = np.random.default_rng(0)
+    x = torch.randn(4096, 256, device="cuda")
+    starts = torch.as_tensor(rng.integers(0, 4096, 999).astype(np.int32),
+                             device="cuda")
+    sids = torch.as_tensor(rng.integers(0, 64, 999).astype(np.int32),
+                           device="cuda")
+    k = gather_hit_windows(x, starts, sids, 4, 256, 64, anchored)
+    p = gather_hit_windows_reference(x, starts, sids, 4, 256, 64, anchored)
+    assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, 5e-4, 1e-4), (torch.bfloat16, 3e-2, 2e-2)])
+@pytest.mark.parametrize("ks,widths,pad", [
+    ((1, 33, 64, 15, 15, 15, 1), (5,) * 7, 1), ((3, 3), (8, 16), 1),
+    ((7, 4), (3, 5), 0)])
+def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad):
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        conv_stack,
+        conv_stack_reference,
+    )
+
+    g = torch.Generator().manual_seed(0)
+    ws, bs, cin = [], [], 1
+    for o, k in zip(widths, ks):
+        ws.append((torch.randn(o, cin, k, generator=g) / (k * cin) ** 0.5
+                   ).cuda())
+        bs.append((0.1 * torch.randn(o, generator=g)).cuda())
+        cin = o
+    x = torch.randn(1000, 256, generator=g).cuda()
+    k = conv_stack(x, ws, bs, pad, "silu", dtype)
+    p = conv_stack_reference(x, ws, bs, pad, "silu", dtype)
+    torch.testing.assert_close(k, p, atol=atol, rtol=rtol)
+    with pytest.raises(RuntimeError, match="forward only"):
+        conv_stack(x.requires_grad_(), ws, bs, pad, "silu", dtype)

@@ -1,0 +1,64 @@
+"""Hermetic guards for the PyTorch/CUDA port: it never imports jax or the
+JAX package, and its entry points never fall back to the CPU quietly."""
+
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import onset_fingerprinting_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'\n"
+        "             or m.startswith(('jax.', 'flax', 'bench',\n"
+        "                              'onset_fingerprinting_tpu')))\n"
+        "assert not bad, bad\n"
+        "print('CLEAN')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "CLEAN" in out.stdout
+
+
+def test_chip_smoke_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    from onset_fingerprinting_torch.models.cccnn import CCCNN
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        make_fused_detector,
+    )
+    from onset_fingerprinting_torch.pipeline import (
+        fleet_detector_config,
+        make_detect_fingerprint,
+    )
+    from onset_fingerprinting_torch.workload import FLAGSHIP, make_audio
+
+    cfg = fleet_detector_config(2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_fused_detector(cfg)
+    model = CCCNN(input_size=256, **FLAGSHIP)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_detect_fingerprint(cfg, model, 2, 20480, 128)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_audio(128, 8)

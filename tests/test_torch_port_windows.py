@@ -1,0 +1,121 @@
+"""Hit lists and window gathers (the plain version of kernel K2) against
+``onset_fingerprinting_tpu.ops.windows``.  Bar: bit-exact — the JAX
+gathers run at ``Precision.HIGHEST``, where the lane select is exact."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from onset_fingerprinting_tpu.ops import windows as jw
+from onset_fingerprinting_torch.ops import _cuda
+from onset_fingerprinting_torch.ops import windows as tw
+
+HI = jax.lax.Precision.HIGHEST
+
+
+def events(nb, n_streams, cps, p, seed):
+    rng = np.random.default_rng(seed)
+    on = rng.random((nb, n_streams * cps)) < p
+    deltas = rng.integers(0, 128, (nb, n_streams * cps)).astype(np.int32)
+    return on, deltas
+
+
+def eq(t, j):
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("with_deltas", [False, True])
+@pytest.mark.parametrize("capacity", [2, 6])
+def test_top_hit_blocks(with_deltas, capacity):
+    on, deltas = events(40, 32, 4, 0.03, seed=capacity)
+    d_t = torch.as_tensor(deltas) if with_deltas else None
+    d_j = jnp.asarray(deltas) if with_deltas else None
+    st_t, v_t = tw.top_hit_blocks(torch.as_tensor(on), 128, 32, capacity, d_t)
+    st_j, v_j = jw.top_hit_blocks(jnp.asarray(on), 128, 32, capacity, d_j)
+    assert int(v_t.sum()) > 0
+    eq(st_t, st_j)
+    eq(v_t, v_j)
+    assert st_t.dtype == torch.int32
+
+
+@pytest.mark.parametrize("capacity", [16, 1024])
+def test_compact_hits(capacity):
+    on, _ = events(30, 16, 4, 0.05, seed=7)
+    out_t = tw.compact_hits(torch.as_tensor(on), 128, 16, capacity)
+    out_j = jw.compact_hits(jnp.asarray(on), 128, 16, capacity)
+    for t, j in zip(out_t, out_j):
+        eq(t, j)
+    assert (int(out_t[3]) > 0) == (capacity == 16)
+
+
+@pytest.mark.parametrize("capacity", [20, 512])
+@pytest.mark.parametrize("return_indices", [False, True])
+def test_compact_hit_list(capacity, return_indices):
+    on, deltas = events(40, 32, 4, 0.03, seed=11)
+    st_j, v_j = jw.top_hit_blocks(jnp.asarray(on), 128, 32, 6,
+                                  jnp.asarray(deltas))
+    out_j = jw.compact_hit_list(st_j, v_j, capacity, return_indices)
+    out_t = tw.compact_hit_list(torch.as_tensor(np.array(st_j)),
+                                torch.as_tensor(np.array(v_j)), capacity,
+                                return_indices)
+    assert len(out_t) == len(out_j) == (5 if return_indices else 4)
+    for t, j in zip(out_t, out_j):
+        eq(t, j)
+    # overflow is counted, never silent
+    assert int(out_t[3]) == max(int(np.asarray(v_j).sum()) - capacity, 0)
+    assert (int(out_t[3]) > 0) == (capacity == 20)
+
+
+def hits(t, n_streams, n, seed, window):
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, t, n).astype(np.int32)
+    # both clip edges and in-between residuals
+    starts[:5] = [0, 3, t - 1, t - window - 3, 64 + 5]
+    sids = rng.integers(0, n_streams, n).astype(np.int32)
+    return starts, sids
+
+
+@pytest.mark.parametrize("anchored", [True, False])
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+def test_gather_hit_windows(anchored, backend):
+    t, c, cps, w, pre = 1024, 128, 4, 256, 64
+    x = np.random.default_rng(0).normal(size=(t, c)).astype(np.float32)
+    starts, sids = hits(t, c // cps, 37, seed=1, window=w)
+    want = jw.gather_hit_windows(
+        jnp.asarray(x), jnp.asarray(starts), jnp.asarray(sids), cps, w, pre,
+        backend=backend, interpret=True, precision=HI, anchored=anchored,
+    )
+    before = _cuda.GATHER.plain_calls
+    got = tw.gather_hit_windows(torch.as_tensor(x), torch.as_tensor(starts),
+                                torch.as_tensor(sids), cps, w, pre, anchored)
+    assert _cuda.GATHER.plain_calls == before + 1
+    assert got.shape == (37, cps, w)
+    eq(got, want)
+
+
+@pytest.mark.parametrize("anchored", [True, False])
+def test_gather_block_windows(anchored):
+    t, c, cps, w, pre = 768, 64, 2, 128, 32
+    x = np.random.default_rng(2).normal(size=(t, c)).astype(np.float32)
+    rng = np.random.default_rng(3)
+    block_starts = (rng.integers(0, t // 128, (c // cps, 3)) * 128).astype(
+        np.int32)
+    want = jw.gather_block_windows(
+        jnp.asarray(x), jnp.asarray(block_starts), cps, w, pre,
+        backend="xla", precision=HI, anchored=anchored,
+    )
+    got = tw.gather_block_windows(torch.as_tensor(x),
+                                  torch.as_tensor(block_starts), cps, w, pre,
+                                  anchored)
+    assert got.shape == (c // cps, 3, cps, w)
+    eq(got, want)
+
+
+def test_gather_rejects_short_input():
+    x = torch.zeros((100, 8))
+    with pytest.raises(ValueError, match="shorter"):
+        tw.gather_hit_windows(x, torch.zeros(1, dtype=torch.int32),
+                              torch.zeros(1, dtype=torch.int32), 4, 96,
+                              anchored=True)
