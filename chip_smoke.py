@@ -8,13 +8,15 @@ Run from the repository root with no arguments:
 It imports only ``onset_fingerprinting_torch`` (never jax) and fails with a
 non-zero exit code, printing no result, on any error or without CUDA.
 
-Phase 0  prints the card's name and power limit and builds the three
+Phase 0  prints the card's name and power limit and builds the four
          kernels from ``onset_fingerprinting_torch/csrc`` with nvcc.
 Phase 1  holds each kernel against its plain PyTorch version on the card
          (TF32 off for cuDNN and matmuls): K1 the fused detector (fleet
          width, coupled_off + backtrack, warmup mode), K2 the window gather
-         (both contracts, 32768 hits), K3 the fused conv stack (flagship,
-         131072 signals, float32 and bfloat16).
+         (both contracts, 32768 hits), K4 the roll gather (32768 hits with
+         tile-edge streams and clamped starts, bit-exact, and equal to K2's
+         block-aligned windows), K3 the fused conv stack (flagship, 131072
+         signals, float32 and bfloat16).
 Phase 2  drives the fleet path at full width — 8192 four-channel 96 kHz
          streams, three carried chunks of 32000 samples after a 38-block
          warmup, the flagship CCCNN in bfloat16 with random weights carried
@@ -23,6 +25,12 @@ Phase 2  drives the fleet path at full width — 8192 four-channel 96 kHz
          stage with CUDA events (median over 5 iterations of varied
          input), and compares the path with its plain version on the CPU at
          32 streams.
+Phase 3  drives the fingerprint-stage anatomy
+         (``tools.fingerprint_anatomy.main``) at full width — 8192 streams,
+         G = 32768, W = 256 — shows that K2, K3 and K4 launched and no
+         plain version ran, checks the pair head's predictions, prints the
+         per-chunk table, and compares the pair-head CCCNN on the card with
+         its plain version on the CPU at 32 streams (float32, TF32 off).
 
 Prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.
@@ -42,6 +50,8 @@ CHUNK = 32000
 CHUNKS = 3
 WARMUP_BLOCKS = 38
 ITERS = 5
+#: global hit capacity of the gather and anatomy phases
+G = 32768
 #: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FMA-unit
 #: FLOP/s, dense bf16 tensor FLOP/s
 HBM_BPS = 3.35e12
@@ -193,6 +203,55 @@ def phase_gather(report, x):
     return gather_hit_windows(x, starts, sids, 4, WINDOW, PRE, True)
 
 
+def phase_gather_roll(report, x):
+    import numpy as np
+
+    from onset_fingerprinting_torch.ops.windows import (
+        _roll_indices,
+        gather_hit_windows,
+        gather_windows_roll,
+        gather_windows_roll_reference,
+    )
+    from onset_fingerprinting_torch.workload import PRE, WINDOW
+
+    t, c = x.shape
+    g, cps = G, 4
+    rng = np.random.default_rng(5)
+    starts = rng.integers(0, t, g).astype(np.int32)
+    sids = rng.integers(0, c // cps, g).astype(np.int32)
+    # tile-edge streams (lanes wrap inside their 128-lane tile) and starts
+    # past T - W (clamped)
+    sids[:6] = [31, 32, 63, 4095, c // cps - 1, 0]
+    starts[:6] = [t - 1, t - WINDOW + 5, 0, t - WINDOW - 3, 7, t - 8]
+    starts = torch.as_tensor(starts, device=x.device)
+    sids = torch.as_tensor(sids, device=x.device)
+    k = gather_windows_roll(x, starts, sids, cps, WINDOW)
+    p = gather_windows_roll_reference(x, starts, sids, cps, WINDOW)
+    torch.cuda.synchronize()
+    check(torch.equal(k, p), "K4 differs from its plain version")
+    rows8 = torch.clamp(starts - PRE, 0, t - WINDOW) // 8 * 8
+    roll = gather_windows_roll(x, rows8, sids, cps, WINDOW)
+    block = gather_hit_windows(x, starts, sids, cps, WINDOW, PRE, False)
+    torch.cuda.synchronize()
+    check(torch.equal(roll[:, :, :cps].transpose(1, 2), block),
+          "K4 windows differ from K2's block-aligned windows")
+    log(f"K4: {g} slabs bit-exact vs plain; [:, :, :{cps}] transposed "
+        "equals K2's block-aligned windows")
+    ms = time_ms(lambda: gather_windows_roll(x, starts, sids, cps, WINDOW),
+                 n=20)
+    plain_ms = time_ms(lambda: gather_windows_roll_reference(
+        x, starts, sids, cps, WINDOW), n=5)
+    rows, cols = _roll_indices(starts, sids, t, c, cps, WINDOW)
+    rows, cols = rows[:, :, None], cols[:, None, :]
+    library_ms = time_ms(lambda: x[rows, cols], n=5)
+    bytes_ = 2 * g * WINDOW * 8 * 4
+    report["gather_roll"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                 bytes=bytes_, ops=0, peak=F32_FLOPS,
+                                 library_ms=library_ms)
+    log(f"K4 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"advanced indexing {library_ms:.3f} ms")
+
+
 def phase_conv(report, windows):
     import torch.nn.functional as F
 
@@ -339,10 +398,11 @@ def phase_main_path(report):
     counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
     log(f"launches/plain calls on the main path (warmup + {CHUNKS} "
         f"chunks): {counts}")
-    for k in _cuda.KERNELS:
+    for k in (_cuda.DETECTOR, _cuda.GATHER, _cuda.CONV_STACK):
         check(k.launches > 0, f"kernel {k.name} never launched")
+        report["_launches"][k.name] = k.launches
+    for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran on the main path")
-    report["_launches"] = {k.name: k.launches for k in _cuda.KERNELS}
 
     # timed iterations: each is one second of audio (3 carried chunks),
     # chunk order rotated so every iteration sees other input
@@ -410,6 +470,70 @@ def phase_main_path(report):
         f"predictions max err {perr:.3g} (bound 2e-2)")
 
 
+def phase_anatomy(report):
+    from onset_fingerprinting_torch.models.cccnn import CCCNN
+    from onset_fingerprinting_torch.models.jax_import import (
+        cccnn_state_dict_from_flax,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.windows import (
+        compact_hit_list,
+        gather_hit_windows,
+        top_hit_blocks,
+    )
+    from onset_fingerprinting_torch.tools import fingerprint_anatomy as fa
+    from onset_fingerprinting_torch.workload import (
+        FLAGSHIP,
+        PRE,
+        WINDOW,
+        cccnn_flax_params,
+    )
+
+    g = G
+    _cuda.reset_counts()
+    outputs = {}
+    rows = fa.main(n_streams=N_STREAMS, chunk=CHUNK, capacity=g,
+                   iters=ITERS, outputs=outputs)
+    counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
+    log(f"launches/plain calls on the anatomy path ({ITERS} + 1 "
+        f"iterations): {counts}")
+    for k in (_cuda.GATHER, _cuda.CONV_STACK, _cuda.GATHER_ROLL):
+        check(k.launches > 0, f"kernel {k.name} never launched")
+    for k in _cuda.KERNELS:
+        check(k.plain_calls == 0, f"plain {k.name} ran on the anatomy path")
+    report["_launches"]["gather_roll"] = _cuda.GATHER_ROLL.launches
+    for name in ("preds", "preds_pairs"):
+        out = outputs[name]
+        check(tuple(out.shape) == (g, 2), f"{name} shape {out.shape}")
+        check(bool(torch.isfinite(out).all()), f"non-finite {name}")
+    log(f"anatomy per chunk ({CHUNK} samples, {N_STREAMS} streams, G={g}, "
+        f"W={WINDOW}; CUDA events, median of {ITERS}):")
+    for name, ms in rows.items():
+        log(f"  {name:24s} {ms:9.3f} ms")
+
+    # the pair-head CCCNN at 32 streams: card vs its plain version on the
+    # CPU, float32, on windows of the anatomy's own hit grid
+    small_s, small_t, small_g = 32, 20480, 128
+    gen = torch.Generator().manual_seed(21)
+    xs = torch.randn((small_t, small_s * 4), generator=gen)
+    st, v = top_hit_blocks(fa.hit_grid(small_t, small_s, 0, "cpu"), 128,
+                           small_s, fa.MAX_HITS)
+    starts, sids, _, _ = compact_hit_list(st, v, small_g)
+    windows = gather_hit_windows(xs, starts, sids, 4, WINDOW, PRE, True)
+    config = dict(FLAGSHIP, **fa.PAIR_HEAD)
+    model = CCCNN(input_size=WINDOW, **config).eval()
+    model.load_state_dict(cccnn_state_dict_from_flax(
+        cccnn_flax_params(config, seed=7)))
+    with torch.inference_mode():
+        want = model(windows)
+        got = model.cuda()(windows.cuda()).cpu()
+    err = max_err(got, want)
+    check(bool(torch.isfinite(got).all()) and err <= 1e-3,
+          f"pair head card vs CPU differ by {err}")
+    log(f"pair-head CCCNN, 32 streams ({small_g} windows), card vs plain "
+        f"CPU in float32: max err {err:.3g} (bound 1e-3)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -435,15 +559,18 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    report = {}
+    report = {"_launches": {}}
     phase_detector(report)
     x = make_audio(CHUNK, N_STREAMS * 4, seed=4)
     windows = phase_gather(report, x)
+    phase_gather_roll(report, x)
     del x
     phase_conv(report, windows)
     del windows
     torch.cuda.empty_cache()
     phase_main_path(report)
+    torch.cuda.empty_cache()
+    phase_anatomy(report)
 
     sources = {
         "detector": ("onset_fingerprinting_torch/csrc/detector.cu",
@@ -452,6 +579,8 @@ def main() -> int:
                    "onset_fingerprinting_tpu/ops/windows.py:136"),
         "conv_stack": ("onset_fingerprinting_torch/csrc/conv_stack.cu",
                        "onset_fingerprinting_tpu/ops/pallas_conv.py:187"),
+        "gather_roll": ("onset_fingerprinting_torch/csrc/gather_roll.cu",
+                        "onset_fingerprinting_tpu/ops/windows.py:187"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -22,30 +22,42 @@ from onset_fingerprinting_torch.device import resolve_device
 
 
 def cccnn_state_dict_from_flax(variables: Mapping) -> dict:
-    """Flax CCCNN (shared-weights form) params → the port's ``state_dict``.
+    """Flax CCCNN params → the port's ``state_dict``.
 
-    ``_ConvStack_0/Conv_i/kernel [K, I, O]`` → ``convs.i.weight [O, I, K]``,
-    ``Dense_0/kernel [in, out]`` → ``fc.weight [out, in]``; biases as they
-    are.  Accepts ``{"params": ...}`` or the params dict itself.
+    ``_ConvStack_0/Conv_i/kernel [K, I/groups, O]`` → ``convs.i.weight [O,
+    I/groups, K]`` (shared or grouped), ``_ConvStack_0/GroupNorm_i/{scale,
+    bias}`` → ``norms.i.{weight,bias}``, ``Dense_0/kernel [in, out]`` →
+    ``fc.weight [out, in]``; biases as they are.  Accepts ``{"params":
+    ...}`` or the params dict itself.
     """
     params = variables.get("params", variables)
     stack = params["_ConvStack_0"]
-    sd = {}
     n = len([k for k in stack if k.startswith("Conv_")])
-    if set(stack) != {f"Conv_{i}" for i in range(n)}:
+    n_norm = len([k for k in stack if k.startswith("GroupNorm_")])
+    expected = ({f"Conv_{i}" for i in range(n)}
+                | {f"GroupNorm_{i}" for i in range(n_norm)})
+    if set(stack) != expected or n_norm not in (0, n):
         raise ValueError(
-            f"unsupported conv stack entries {sorted(stack)} (only the "
-            "shared-weights stack without norms is ported)"
+            f"unsupported conv stack entries {sorted(stack)} (expected "
+            "Conv_0..n-1 and, with batch_norm, GroupNorm_0..n-1)"
         )
+
+    def t(a, *perm):
+        a = np.asarray(a, np.float32)
+        return torch.tensor(a.transpose(*perm) if perm else a)
+
+    sd = {}
     for i in range(n):
         conv = stack[f"Conv_{i}"]
-        sd[f"convs.{i}.weight"] = torch.tensor(
-            np.asarray(conv["kernel"], np.float32).transpose(2, 1, 0))
-        sd[f"convs.{i}.bias"] = torch.tensor(
-            np.asarray(conv["bias"], np.float32))
+        sd[f"convs.{i}.weight"] = t(conv["kernel"], 2, 1, 0)
+        sd[f"convs.{i}.bias"] = t(conv["bias"])
+    for i in range(n_norm):
+        norm = stack[f"GroupNorm_{i}"]
+        sd[f"norms.{i}.weight"] = t(norm["scale"])
+        sd[f"norms.{i}.bias"] = t(norm["bias"])
     dense = params["Dense_0"]
-    sd["fc.weight"] = torch.tensor(np.asarray(dense["kernel"], np.float32).T)
-    sd["fc.bias"] = torch.tensor(np.asarray(dense["bias"], np.float32))
+    sd["fc.weight"] = t(dense["kernel"], 1, 0)
+    sd["fc.bias"] = t(dense["bias"])
     return sd
 
 

@@ -149,4 +149,8 @@ CONV_STACK = Kernel(
     "conv_stack", "conv_stack.cu",
     {"ofpt_conv_stack": [_P, _P, _P, _P, _P, _P]},
 )
-KERNELS = (DETECTOR, GATHER, CONV_STACK)
+GATHER_ROLL = Kernel(
+    "gather_roll", "gather_roll.cu",
+    {"ofpt_gather_roll": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
+)
+KERNELS = (DETECTOR, GATHER, CONV_STACK, GATHER_ROLL)

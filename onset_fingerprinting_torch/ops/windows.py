@@ -12,7 +12,10 @@ For B batched streams stored channel-interleaved as ``x [T, S·cps]``:
   never dropped silently;
 - :func:`gather_hit_windows` cuts ``[N, cps, W]`` windows: kernel K2
   (``csrc/gather.cu``) for a CUDA tensor, the plain indexing version
-  :func:`gather_hit_windows_reference` for a CPU tensor.
+  :func:`gather_hit_windows_reference` for a CPU tensor;
+- :func:`gather_windows_roll` cuts window-major ``[N, W, 8]`` lane slabs
+  of the wide layout: kernel K4 (``csrc/gather_roll.cu``) for a CUDA
+  tensor, :func:`gather_windows_roll_reference` for a CPU tensor.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from __future__ import annotations
 import torch
 
 from onset_fingerprinting_torch.ops import _cuda
+
+LANE = 128  # lane tile of the wide layout
 
 
 def top_hit_blocks(
@@ -190,3 +195,75 @@ def gather_block_windows(x, block_starts, channels_per_stream, window,
         channels_per_stream, window, pre, anchored,
     )
     return out.reshape(s, k, channels_per_stream, window)
+
+
+def _roll_indices(row_start, stream_ids, t, c, cps, window):
+    """``(rows [N, W], cols [N, 8])`` int64 of K4's contract."""
+    dev = row_start.device
+    groups = LANE // cps
+    r = torch.clamp(torch.div(row_start.long(), 8, rounding_mode="floor")
+                    * 8, 0, t - window)
+    sids = torch.clamp(stream_ids.long(), 0, c // cps - 1)
+    lanes = ((sids % groups) * cps)[:, None] + torch.arange(8, device=dev)
+    cols = (sids // groups * LANE)[:, None] + lanes % LANE
+    return r[:, None] + torch.arange(window, device=dev), cols
+
+
+def gather_windows_roll_reference(x, row_start, stream_ids,
+                                  channels_per_stream, window):
+    """Plain version of K4: the same ``[N, W, 8]`` slabs by one
+    advanced-indexing read."""
+    _cuda.GATHER_ROLL.plain_calls += 1
+    t, c = x.shape
+    rows, cols = _roll_indices(row_start, stream_ids, t, c,
+                               channels_per_stream, window)
+    return x[rows[:, :, None], cols[:, None, :]].to(torch.float32)
+
+
+def gather_windows_roll(
+    x: torch.Tensor,
+    row_start: torch.Tensor,
+    stream_ids: torch.Tensor,
+    channels_per_stream: int,
+    window: int,
+) -> torch.Tensor:
+    """Window-major lane slabs of the wide layout → ``[N, W, 8]`` float32
+    (port of the JAX package's ``_gather_pallas_roll``):
+
+    ``out[i, w, l] = x[r_i + w, tile_i*128 + (g_i*cps + l) mod 128]`` with
+    ``r_i = clip(floor8(row_start_i), 0, T - W)``, ``tile_i = sid_i //
+    (128/cps)`` and ``g_i = sid_i mod (128/cps)``.  Lanes ``l < cps`` are
+    stream ``sid_i``'s channels; lanes ``cps..7`` hold the next streams of
+    the same 128-lane tile, wrapping inside it (a lane rotation).  Stream
+    ids are clamped to ``[0, C/cps - 1]``.  ``out[:, :, :cps].transpose(1,
+    2)`` equals :func:`gather_hit_windows`'s block-aligned windows when
+    ``row_start`` is its floored row.  Needs the wide layout: ``C % 128 ==
+    0`` and ``128 % cps == 0``."""
+    t, c = x.shape
+    cps = channels_per_stream
+    if c % LANE or LANE % cps:
+        raise ValueError(
+            f"the roll gather needs the wide layout (C={c} divisible by "
+            f"{LANE} with cps={cps} dividing {LANE})"
+        )
+    if t < window:
+        raise ValueError(f"T={t} is shorter than the window read")
+    if x.device.type == "cpu":
+        return gather_windows_roll_reference(x, row_start, stream_ids, cps,
+                                             window)
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32 [T, C] tensor")
+    n = row_start.shape[0]
+    for v in (row_start, stream_ids):
+        if (v.dtype != torch.int32 or v.shape != (n,) or v.device != x.device
+                or not v.is_contiguous()):
+            raise ValueError("row_start and stream_ids must be contiguous "
+                             f"int32 [{n}] tensors on x's device")
+    out = torch.empty((n, window, 8), dtype=torch.float32, device=x.device)
+    if n:
+        _cuda.GATHER_ROLL.launch(
+            "ofpt_gather_roll", x.data_ptr(), row_start.data_ptr(),
+            stream_ids.data_ptr(), out.data_ptr(), n, t, c, cps, window,
+            _cuda.stream(),
+        )
+    return out

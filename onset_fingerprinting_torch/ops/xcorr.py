@@ -3,7 +3,9 @@
 
 ``batch_full_correlate`` is the rFFT form; ``batch_self_correlate_dft`` is
 self-correlation as plain matrix products with constant DFT matrices (the
-serving head's ``cc_impl='dft'``).  The products are ``torch.matmul`` in
+serving head's ``cc_impl='dft'``), and ``self_and_pair_correlate_dft`` adds
+channel-pair cross-correlation on the same forward products (the
+``cc_pairs`` head).  The products are ``torch.matmul`` in
 float32: PyTorch's default (``torch.backends.cuda.matmul.allow_tf32`` is
 False) keeps them full float32 on the card, no TF32.
 """
@@ -73,7 +75,9 @@ def _dft_inv_sin(n: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=8)
 def _dft_tensors(n: int, device: torch.device):
-    return tuple(torch.as_tensor(m, device=device) for m in _dft_matrices(n))
+    """``(dft_re, dft_im, inv_cos, inv_sin)`` on ``device``."""
+    return tuple(torch.as_tensor(m, device=device)
+                 for m in (*_dft_matrices(n), _dft_inv_sin(n)))
 
 
 def batch_self_correlate_dft(a: torch.Tensor, sum_axis: int | None = None
@@ -82,10 +86,35 @@ def batch_self_correlate_dft(a: torch.Tensor, sum_axis: int | None = None
     inverse.  ``sum_axis`` sums over that axis on the power spectrum,
     before the (linear) inverse — equal to summing the result, with
     K-fold less inverse work."""
-    re_m, im_m, inv = _dft_tensors(a.shape[-1], a.device)
+    re_m, im_m, inv, _ = _dft_tensors(a.shape[-1], a.device)
     re = torch.matmul(a, re_m)
     im = torch.matmul(a, im_m)
     power = re * re + im * im
     if sum_axis is not None:
         power = power.sum(dim=sum_axis)
     return torch.matmul(power, inv)
+
+
+def self_and_pair_correlate_dft(feats: torch.Tensor, pi, pj
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel self-CC plus channel-pair cross-CC, sharing one set of
+    forward DFT products (xcorr.py:149-178 of the JAX package).
+
+    :param feats: ``[B, C, K, V]`` per-channel feature maps
+    :param pi, pj: ``[P]`` channel indices of each pair
+    :returns: ``(self_cc [B, C, 2V-1], pair_cc [B, P, 2V-1])``, both summed
+        over the K maps on the spectrum, before the inverse.  Pair index
+        ``V-1+l`` holds ``sum_m feats[:, pi][..., m+l] feats[:, pj][..., m]``.
+    """
+    re_m, im_m, inv_cos, inv_sin = _dft_tensors(feats.shape[-1],
+                                                feats.device)
+    re = torch.matmul(feats, re_m)  # [B, C, K, F]
+    im = torch.matmul(feats, im_m)
+    self_cc = torch.matmul((re * re + im * im).sum(dim=2), inv_cos)
+    re_i, im_i = re[:, pi], im[:, pi]  # [B, P, K, F]
+    re_j, im_j = re[:, pj], im[:, pj]
+    cross_re = (re_i * re_j + im_i * im_j).sum(dim=2)  # [B, P, F]
+    cross_im = (im_i * re_j - re_i * im_j).sum(dim=2)
+    pair_cc = (torch.matmul(cross_re, inv_cos)
+               + torch.matmul(cross_im, inv_sin))
+    return self_cc, pair_cc

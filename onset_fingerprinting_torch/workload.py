@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from onset_fingerprinting_torch.device import resolve_device
+from onset_fingerprinting_torch.models.cccnn import CCCNN
 from onset_fingerprinting_torch.ops.windows import top_hit_blocks
 
 SR = 96000
@@ -107,25 +108,38 @@ def correctness(on: torch.Tensor, block_size: int, n_streams: int,
     return int(tp.sum()), int(spurious.sum()), int(matched)
 
 
-def flagship_flax_params(seed: int = 0, window: int = WINDOW) -> dict:
-    """Random flagship CCCNN parameters in flax layout (numpy, LeCun-normal
-    kernels, zero biases) — the repo ships no trained checkpoint."""
+def cccnn_flax_params(config: dict, seed: int = 0,
+                      window: int = WINDOW) -> dict:
+    """Random parameters in flax layout (numpy) for the CCCNN built from
+    ``config`` (keyword arguments of ``models.cccnn.CCCNN``) on windows of
+    ``window`` samples: LeCun-normal conv and dense kernels, drawn in that
+    order from one seeded generator; zero biases; GroupNorm scale 1 and
+    bias 0.  The repo ships no trained checkpoint."""
+    shape = CCCNN(input_size=window, **config)
     rng = np.random.default_rng(seed)
     stack = {}
-    cin, t = 1, window
-    for i, (o, k) in enumerate(zip(FLAGSHIP["layer_sizes"],
-                                   FLAGSHIP["kernel_sizes"])):
+    for i, conv in enumerate(shape.convs):
+        o, cin, k = conv.weight.shape
         stack[f"Conv_{i}"] = {
             "kernel": (rng.standard_normal((k, cin, o)) / np.sqrt(k * cin))
             .astype(np.float32),
             "bias": np.zeros(o, np.float32),
         }
-        cin, t = o, t + 2 - k + 1
-    c = FLAGSHIP["channels"]
-    dense_in = c * (2 * t - 1) + c
+    for i, norm in enumerate(shape.norms):
+        stack[f"GroupNorm_{i}"] = {
+            "scale": np.ones(norm.num_channels, np.float32),
+            "bias": np.zeros(norm.num_channels, np.float32),
+        }
+    dense_in, out = shape.fc.in_features, shape.fc.out_features
     dense = {
-        "kernel": (rng.standard_normal((dense_in, FLAGSHIP["output_size"]))
-                   / np.sqrt(dense_in)).astype(np.float32),
-        "bias": np.zeros(FLAGSHIP["output_size"], np.float32),
+        "kernel": (rng.standard_normal((dense_in, out)) / np.sqrt(dense_in))
+        .astype(np.float32),
+        "bias": np.zeros(out, np.float32),
     }
     return {"params": {"_ConvStack_0": stack, "Dense_0": dense}}
+
+
+def flagship_flax_params(seed: int = 0, window: int = WINDOW) -> dict:
+    """Random flagship CCCNN parameters in flax layout (see
+    :func:`cccnn_flax_params`)."""
+    return cccnn_flax_params(FLAGSHIP, seed, window)

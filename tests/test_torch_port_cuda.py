@@ -1,4 +1,4 @@
-"""The three kernels against their plain versions on the card, at small
+"""The four kernels against their plain versions on the card, at small
 shapes (the full-width checks are in chip_smoke.py).  Marked ``cuda``:
 they skip on a machine without CUDA.  Run on the card with
 
@@ -97,3 +97,49 @@ def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad):
     torch.testing.assert_close(k, p, atol=atol, rtol=rtol)
     with pytest.raises(RuntimeError, match="forward only"):
         conv_stack(x.requires_grad_(), ws, bs, pad, "silu", dtype)
+
+
+def _roll_case(t=1000, c=512, n=999, cps=4, w=256):
+    rng = np.random.default_rng(1)
+    groups = 128 // cps
+    x = torch.randn(t, c, device="cuda")
+    row_start = rng.integers(0, t, n).astype(np.int32)
+    sids = rng.integers(0, c // cps, n).astype(np.int32)
+    # tile-edge streams (the in-tile lane wrap) and starts past T - W
+    sids[:3] = [groups - 1, 2 * groups - 1, c // cps - 1]
+    row_start[:3] = [t - 1, t - w + 3, 5]
+    return (x, torch.as_tensor(row_start, device="cuda"),
+            torch.as_tensor(sids, device="cuda"))
+
+
+@pytest.mark.parametrize("cps", [1, 2, 4, 8])
+def test_gather_roll_kernel_matches_plain(cps):
+    from onset_fingerprinting_torch.ops.windows import (
+        gather_windows_roll,
+        gather_windows_roll_reference,
+    )
+
+    x, rs, sids = _roll_case(cps=cps)
+    k = gather_windows_roll(x, rs, sids, cps, 256)
+    p = gather_windows_roll_reference(x, rs, sids, cps, 256)
+    torch.cuda.synchronize()
+    assert torch.equal(k, p)
+
+
+def test_gather_roll_counts_launches_and_never_runs_plain():
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.windows import gather_windows_roll
+
+    x, rs, sids = _roll_case()
+    launches = _cuda.GATHER_ROLL.launches
+    plain = _cuda.GATHER_ROLL.plain_calls
+    gather_windows_roll(x, rs, sids, 4, 256)
+    assert _cuda.GATHER_ROLL.launches == launches + 1
+    assert _cuda.GATHER_ROLL.plain_calls == plain
+    # a CUDA tensor the kernel does not take raises; it never goes plain
+    with pytest.raises(ValueError, match="int32"):
+        gather_windows_roll(x, rs.long(), sids, 4, 256)
+    strided = x.t().contiguous().t()  # same shape, column-major
+    with pytest.raises(ValueError, match="contiguous float32"):
+        gather_windows_roll(strided, rs, sids, 4, 256)
+    assert _cuda.GATHER_ROLL.plain_calls == plain

@@ -18,6 +18,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "import onset_fingerprinting_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import onset_fingerprinting_torch.tools.fingerprint_anatomy\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'flax', 'bench',\n"
@@ -52,6 +53,7 @@ def test_entry_points_default_to_the_card():
         fleet_detector_config,
         make_detect_fingerprint,
     )
+    from onset_fingerprinting_torch.tools import fingerprint_anatomy
     from onset_fingerprinting_torch.workload import FLAGSHIP, make_audio
 
     cfg = fleet_detector_config(2)
@@ -62,3 +64,5 @@ def test_entry_points_default_to_the_card():
         make_detect_fingerprint(cfg, model, 2, 20480, 128)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_audio(128, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fingerprint_anatomy.main(n_streams=32, chunk=20480, capacity=128)

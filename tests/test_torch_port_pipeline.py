@@ -97,9 +97,10 @@ def test_slice_matches_jax_composition(audio, flax_model):
     # bf16 conv stacks round at the same points in both; summation order
     # differs, so a rare activation rounds one bf16 ulp apart
     np.testing.assert_allclose(preds.numpy(), preds_j, atol=1e-2, rtol=1e-2)
-    # on the CPU every kernel wrapper ran its plain version
+    # on the CPU every kernel wrapper of the path ran its plain version
+    path = (_cuda.DETECTOR, _cuda.GATHER, _cuda.CONV_STACK)
     assert all(k.launches == 0 for k in _cuda.KERNELS)
-    assert all(k.plain_calls > 0 for k in _cuda.KERNELS)
+    assert all(k.plain_calls > 0 for k in path)
 
     tp, spur, matched = wl.correctness(on, 128, S, max_hits, T)
     assert matched == S * wl.n_injected(T)  # recall 1.0

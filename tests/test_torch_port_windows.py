@@ -1,6 +1,7 @@
-"""Hit lists and window gathers (the plain version of kernel K2) against
-``onset_fingerprinting_tpu.ops.windows``.  Bar: bit-exact — the JAX
-gathers run at ``Precision.HIGHEST``, where the lane select is exact."""
+"""Hit lists and window gathers (the plain versions of kernels K2 and K4)
+against ``onset_fingerprinting_tpu.ops.windows``.  Bar: bit-exact — the JAX
+gathers run at ``Precision.HIGHEST``, where the lane select is exact, and
+the roll gather is a pure permutation."""
 
 import jax
 import jax.numpy as jnp
@@ -119,3 +120,54 @@ def test_gather_rejects_short_input():
         tw.gather_hit_windows(x, torch.zeros(1, dtype=torch.int32),
                               torch.zeros(1, dtype=torch.int32), 4, 96,
                               anchored=True)
+
+
+@pytest.mark.parametrize("cps", [1, 2, 4, 8])
+def test_gather_windows_roll_matches_jax_interpret(cps):
+    """K4's plain version == the Pallas roll kernel in interpret mode,
+    including the in-tile lane wrap and the start clamp."""
+    t, c, w = 500, 256, 64
+    groups = 128 // cps
+    rng = np.random.default_rng(cps)
+    x = rng.normal(size=(t, c)).astype(np.float32)
+    n = 24
+    row_start = rng.integers(0, t, n).astype(np.int32)
+    sids = rng.integers(0, c // cps, n).astype(np.int32)
+    # tile-edge streams (lanes wrap inside their own tile), starts past
+    # T - W (clamped to T - W: 496 reads from 436) and off-8 starts
+    sids[:4] = [groups - 1, groups, 2 * groups - 1, c // cps - 1]
+    row_start[:4] = [496, 3, t - 1, t - w + 5]
+    want = jw._gather_pallas_roll(jnp.asarray(x), jnp.asarray(row_start),
+                                  jnp.asarray(sids), cps, w, interpret=True)
+    before = _cuda.GATHER_ROLL.plain_calls
+    got = tw.gather_windows_roll(torch.as_tensor(x),
+                                 torch.as_tensor(row_start),
+                                 torch.as_tensor(sids), cps, w)
+    assert _cuda.GATHER_ROLL.plain_calls == before + 1
+    assert got.shape == (n, w, 8) and got.dtype == torch.float32
+    eq(got, want)
+    # the contract, written out for the wrapping stream of hit 0
+    r = 436
+    lanes = (groups - 1) * cps + np.arange(8)
+    np.testing.assert_array_equal(got[0].numpy(),
+                                  x[r:r + w][:, lanes % 128])
+
+
+def test_gather_windows_roll_equals_block_aligned_gather():
+    t, c, cps, w, pre = 1024, 256, 4, 256, 64
+    x = np.random.default_rng(8).normal(size=(t, c)).astype(np.float32)
+    starts, sids = hits(t, c // cps, 37, seed=9, window=w)
+    starts_t = torch.as_tensor(starts)
+    rows8 = torch.clamp(starts_t - pre, 0, t - w) // 8 * 8
+    roll = tw.gather_windows_roll(torch.as_tensor(x), rows8,
+                                  torch.as_tensor(sids), cps, w)
+    block = tw.gather_hit_windows(torch.as_tensor(x), starts_t,
+                                  torch.as_tensor(sids), cps, w, pre)
+    assert torch.equal(roll[:, :, :cps].transpose(1, 2), block)
+
+
+@pytest.mark.parametrize("c,cps", [(96, 4), (384, 3)])
+def test_gather_windows_roll_rejects_narrow_layout(c, cps):
+    z = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="wide layout"):
+        tw.gather_windows_roll(torch.zeros((300, c)), z, z, cps, 64)
