@@ -6,10 +6,11 @@ found under the same path:
 
 - ``core``     — the configuration tree (a jax-free copy).
 - ``ops``      — IIR filters, hit lists and window gathers, DFT
-                 correlations, and the four hand-written Hopper kernels
+                 correlations, and the five hand-written Hopper kernels
                  (``ops/_cuda.py`` builds ``csrc/*.cu`` with ``nvcc``):
                  the fused detector, the window gather, the fused conv
-                 stack and the roll gather.
+                 stack (bf16 on the tensor cores, f32 on the CUDA cores)
+                 and the roll gather.
 - ``detect``   — the amplitude onset detector in plain PyTorch (the
                  reference the detector kernel is held against).
 - ``models``   — the CCCNN fingerprint model and the flax-params importer.
@@ -17,7 +18,8 @@ found under the same path:
                  gate.
 - ``pipeline`` — the offline detect → fingerprint fleet path.
 - ``tools``    — ``fingerprint_anatomy``: per-component times of the
-                 fingerprint stage on the card.
+                 fingerprint stage on the card; ``conv_stack_bench``: the
+                 conv stack's kernels alone.
 
 Every entry point takes ``device=None``, which means ``"cuda"``; without a
 card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run

@@ -1,4 +1,7 @@
-// Fused stride-1 Conv1d stack (K3) for Hopper, sm_90a.
+// Fused stride-1 Conv1d stack (K3) on the CUDA cores, for Hopper, sm_90a.
+// It runs every float32 stack (golden mode) and the bfloat16 stacks that
+// the tensor-core kernel, conv_stack_mma.cu, cannot hold in shared memory
+// (ops/conv_stack.py::kernel_for); the flagship's bf16 stack takes that one.
 //
 // Replaces onset_fingerprinting_tpu/ops/pallas_conv.py:_stack_kernel_unrolled
 // (the serving body) and _stack_kernel (body='looped'), both reached through
@@ -10,18 +13,16 @@
 // What bounds it on the H100: operations.  The flagship stack is ~1.24
 // MFLOP per signal (163 GFLOP for the 131072 serving signals) against ~2.5
 // KB of HBM traffic per signal, so every intermediate must stay on chip.
-// Its bound is the bf16 tensor-core rate (~0.17 ms), but with 5 features a
-// layer is a poor matrix product; this kernel runs on the CUDA cores (67
-// TFLOP/s f32 FMA) and sits far above that bound -- wgmma is later work.
+// In float32 its bound is the 67 TFLOP/s f32 FMA rate (2.4 ms): bf16 or
+// TF32 tensor cores would break the golden mode's 5e-4 / 1e-4 bound.
 //
 // What the design does about it: a CTA holds NS signals and all layers'
 // activations live in shared memory in two ping-pong buffers laid out
 // [feature][time row][signal], with `pad` zero rows on both ends of every
 // feature so no tap needs a bounds check.  HBM sees one read of x and one
 // write of the output.  NS is the largest power of two up to 32 whose
-// buffers fit (the flagship: 32 signals in bf16, 16 in f32; wider stacks
-// get fewer).  A warp computes a chunk of output positions for all NS
-// signals at once: its lanes are the signals times 32/NS interleaved
+// buffers fit (the flagship: 16 in f32; wider stacks get fewer).  A warp
+// computes a chunk of output positions for all NS signals at once: its lanes are the signals times 32/NS interleaved
 // position phases, so every activation load is 32 consecutive
 // shared-memory elements (no bank conflict) and every weight load is a
 // broadcast.  Each lane keeps 8 positions x up to 8 output features of f32
@@ -85,7 +86,7 @@ __device__ __forceinline__ float activate(float x, int act) {
 
 // One warp: output positions t0 + P*j + phase (j < TT, P = 32 / NS) of OW
 // output features (og*8 ...) for the lane's signal s.  NSC is NS when it is
-// known at compile time (the flagship's counts), else 0.
+// known at compile time (the flagship's f32 count), else 0.
 template <typename S, int NSC, int OW>
 __device__ void conv_unit(const S* __restrict__ cur, S* __restrict__ nxt,
                           const float* __restrict__ wsm,
@@ -234,7 +235,8 @@ static int launch_ns(const StackDesc& d, int ns, size_t smem, const float* x,
 }
 
 // FAST_NS: the signals per CTA that the flagship stack gets in this storage
-// type, compiled with NS constant (runtime NS costs ~8% in bf16).
+// type, compiled with NS constant (runtime NS costs ~8% in bf16); 0 for
+// none.
 template <typename S, int FAST_NS>
 static int launch(const StackDesc& d, const float* x, const float* w,
                   const float* b, float* out, cudaStream_t stream) {
@@ -258,6 +260,6 @@ extern "C" int ofpt_conv_stack(const StackDesc* hd, const float* x,
         return (int)cudaErrorInvalidValue;
     if (d.B == 0) return 0;
     if (d.bf16)
-        return launch<__nv_bfloat16, 32>(d, x, w, b, out, (cudaStream_t)stream);
+        return launch<__nv_bfloat16, 0>(d, x, w, b, out, (cudaStream_t)stream);
     return launch<float, 16>(d, x, w, b, out, (cudaStream_t)stream);
 }

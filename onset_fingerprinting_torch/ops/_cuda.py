@@ -149,8 +149,12 @@ CONV_STACK = Kernel(
     "conv_stack", "conv_stack.cu",
     {"ofpt_conv_stack": [_P, _P, _P, _P, _P, _P]},
 )
+CONV_STACK_MMA = Kernel(
+    "conv_stack_mma", "conv_stack_mma.cu",
+    {"ofpt_conv_stack_mma": [_P, _P, _P, _P, _P, _P]},
+)
 GATHER_ROLL = Kernel(
     "gather_roll", "gather_roll.cu",
     {"ofpt_gather_roll": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
 )
-KERNELS = (DETECTOR, GATHER, CONV_STACK, GATHER_ROLL)
+KERNELS = (DETECTOR, GATHER, CONV_STACK, CONV_STACK_MMA, GATHER_ROLL)

@@ -4,22 +4,38 @@ Port of ``onset_fingerprinting_tpu.ops.pallas_conv.conv_stack_fused``: a
 chain of stride-1 ``Conv1d`` layers with the same zero ``padding`` on every
 layer and bias + activation after every layer (the last included),
 ``x [B, L] → [B, T_out, O_last]`` float32.  On the card the whole stack is
-one kernel (``csrc/conv_stack.cu``) with every layer's activations in
-shared memory; on the CPU it is :func:`conv_stack_reference`, an
-``F.conv1d`` chain with the kernel's rounding points (inputs and weights
-in ``compute_dtype``, float32 accumulation, bias and activation in
-float32, activations stored in ``compute_dtype`` between layers).
+one kernel with every layer's activations in shared memory; on the CPU it
+is :func:`conv_stack_reference`, an ``F.conv1d`` chain with the kernel's
+rounding points (inputs and weights in ``compute_dtype``, float32
+accumulation, bias and activation in float32, activations stored in
+``compute_dtype`` between layers).
+
+Which kernel runs (:func:`kernel_for`, a shape test, no fallback):
+
+- ``compute_dtype=bfloat16`` with ``padding <= 16`` and a plan
+  (:func:`mma_plan`) whose shared memory fits one CTA of 16 signals
+  (232448 bytes): ``csrc/conv_stack_mma.cu``, the tensor-core kernel
+  (counter ``_cuda.CONV_STACK_MMA``).  The flagship stack takes it.
+- every other stack, and every ``float32`` stack (golden mode: bf16 or
+  TF32 tensor cores would break its 5e-4/1e-4 bound):
+  ``csrc/conv_stack.cu``, the CUDA-core kernel (``_cuda.CONV_STACK``).
+  A stack whose two activation buffers do not fit shared memory even for
+  one signal per CTA (about 220 KB: e.g. 128 features at L=256 in
+  float32) raises.
+
+The plain version counts its calls on the kernel it stands in for.  The
+packed weights are cached per weight and bias tensor (``data_ptr`` and
+``_version``), so an in-place update repacks.
 
 Weights are PyTorch ``Conv1d`` layout ``[O, I, K]``, biases ``[O]``.
-Forward only: the gradient comes with the training slice.  On the card a
-stack whose two activation buffers do not fit shared memory even for one
-signal per CTA (about 220 KB: e.g. 128 features at L=256 in float32)
-raises.
+Forward only: the gradient comes with the training slice.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -28,10 +44,19 @@ from onset_fingerprinting_torch.models.fcnn import ACTIVATIONS
 from onset_fingerprinting_torch.ops import _cuda
 
 _ACTIVATIONS = dict(ACTIVATIONS, linear=lambda x: x)
-#: activation codes of csrc/conv_stack.cu::activate
+#: activation codes of the kernels' ``activate``
 _ACT_CODES = {"linear": 0, "relu": 1, "silu": 2, "leakyrelu": 3, "elu": 4,
               "tanh": 5, "sigmoid": 6}
 MAX_LAYERS = 16
+#: shared memory one CTA may take on the H100 (bytes)
+SMEM_LIMIT = 232448
+#: tensor-core kernel: leading zero rows of every activation buffer (the
+#: largest padding it takes), output positions per block (one m16 tile),
+#: signals per CTA (two n8 tiles), bytes of one buffer row
+ZR = 16
+TB = 16
+MMA_SIGNALS = 16
+_ROW_BYTES = 2 * MMA_SIGNALS
 
 
 class _StackDesc(ctypes.Structure):
@@ -41,6 +66,16 @@ class _StackDesc(ctypes.Structure):
         "max_w", "max_o8",
     )] + [(n, ctypes.c_int * MAX_LAYERS) for n in (
         "K", "I", "O", "T_out", "w_off", "b_off",
+    )]
+
+
+class _MmaDesc(ctypes.Structure):
+    # must match csrc/conv_stack_mma.cu::MmaDesc field for field
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "n_layers", "B", "L", "act", "buf_rows", "max_feat", "in_zero_end",
+        "max_taps", "win0",
+    )] + [(n, ctypes.c_int * MAX_LAYERS) for n in (
+        "I", "O", "T_out", "S", "n_blk", "zero_end", "tap_off", "b_off",
     )]
 
 
@@ -64,11 +99,92 @@ def stack_lengths(length: int, weights, padding: int) -> list[int]:
     return outs
 
 
+@dataclass(frozen=True)
+class MmaLayer:
+    """One layer of the tensor-core kernel's schedule."""
+
+    in_feat: int
+    out_feat: int
+    t_out: int
+    #: window rows per input feature: the band's width per feature
+    s: int
+    #: blocks of ``TB`` output positions, even: a warp task is two blocks
+    #: (positions past ``t_out`` are written as zeros)
+    n_blk: int
+    #: the next layer's windows end here: this layer's output rows
+    #: ``[ZR + n_blk * TB, zero_end)`` are zeroed after it runs
+    zero_end: int
+
+
+@dataclass(frozen=True)
+class MmaPlan:
+    """Static schedule of the tensor-core kernel.  Block ``b`` of a layer
+    reads rows ``[win0 + TB * b, win0 + TB * b + s)`` of every input
+    feature's buffer and writes rows ``[ZR + TB * b, ZR + TB * (b + 1))`` of
+    every output feature's."""
+
+    layers: tuple
+    win0: int
+    buf_rows: int
+    #: the input's rows ``[ZR + L, in_zero_end)`` are zeroed
+    in_zero_end: int
+    #: shared memory of one CTA of ``MMA_SIGNALS`` signals (bytes)
+    smem: int
+
+
+def mma_plan(length: int, shapes, padding: int) -> MmaPlan | None:
+    """The tensor-core kernel's schedule for ``shapes`` ``[(O, I, K), ...]``,
+    or None when it cannot take the stack (``padding > ZR`` or more shared
+    memory than one CTA may have).
+
+    Every window starts at the first row it needs, ``t0 - padding``, so
+    ``s = rnd(TB + K - 1, 16)`` and the band is
+    ``band[o * TB + tau, i * s + j] = w[o, i, j - tau]``."""
+    if padding > ZR or len(shapes) > MAX_LAYERS:
+        return None
+    win0 = ZR - padding
+    t_in = length
+    layers = []
+    for o, i, k in shapes:
+        t_out = t_in + 2 * padding - k + 1
+        n_blk = -(-t_out // (2 * TB)) * 2
+        s = -(-(TB + k - 1) // 16) * 16
+        layers.append([i, o, t_out, s, n_blk, 0])
+        t_in = t_out
+    read_end = [win0 + TB * (lp[4] - 1) + lp[3] for lp in layers]
+    for li, lp in enumerate(layers):
+        lp[5] = read_end[li + 1] if li + 1 < len(layers) else 0
+    layers = tuple(MmaLayer(*lp) for lp in layers)
+    buf_rows = max([ZR + length] + read_end
+                   + [ZR + TB * lp.n_blk for lp in layers])
+    smem = (2 * max([1] + [lp.out_feat for lp in layers]) * buf_rows
+            * _ROW_BYTES + 4 * max_taps(layers))
+    if smem > SMEM_LIMIT:
+        return None
+    return MmaPlan(layers, win0, buf_rows, read_end[0], smem)
+
+
+def max_taps(layers) -> int:
+    """32-bit words of the largest layer's pair table (``pack_taps``)."""
+    return max(lp.out_feat * lp.in_feat * (lp.s + 16) for lp in layers)
+
+
+def kernel_for(length: int, weights, padding: int,
+               compute_dtype: torch.dtype) -> _cuda.Kernel:
+    """The kernel that runs this stack on the card: the tensor-core kernel
+    for a bfloat16 stack it has a plan for, else the CUDA-core kernel."""
+    if compute_dtype == torch.bfloat16 and mma_plan(
+        length, [tuple(w.shape) for w in weights], padding
+    ) is not None:
+        return _cuda.CONV_STACK_MMA
+    return _cuda.CONV_STACK
+
+
 def conv_stack_reference(x, weights, biases, padding=1, activation="silu",
                          compute_dtype=torch.bfloat16):
     """Plain version of K3: an ``F.conv1d`` + activation chain with the
     kernel's rounding points.  ``[B, L] → [B, T_out, O_last]`` float32."""
-    _cuda.CONV_STACK.plain_calls += 1
+    kernel_for(x.shape[1], weights, padding, compute_dtype).plain_calls += 1
     act = _ACTIVATIONS[activation]
     y = x.to(compute_dtype).to(torch.float32)[:, None, :]
     for w, b in zip(weights, biases):
@@ -80,32 +196,82 @@ def conv_stack_reference(x, weights, biases, padding=1, activation="silu",
 
 
 def _pack(weights, biases, compute_dtype):
-    """Weights rounded to ``compute_dtype``, packed per layer as
-    ``[O/8, I, K, 8]`` float32 (output features padded to groups of 8),
-    and the biases as float32, both flat."""
-    ws, bs, w_off, b_off = [], [], [], []
-    nw = nb = 0
+    """CUDA-core kernel: weights rounded to ``compute_dtype``, packed per
+    layer as ``[O/8, I, K, 8]`` float32 (output features padded to groups
+    of 8), and the biases as float32, both flat."""
+    ws, bs = [], []
     for w, b in zip(weights, biases):
         o, i, k = w.shape
         o8 = -(-o // 8) * 8
         wr = w.detach().to(compute_dtype).to(torch.float32)
         wr = F.pad(wr, (0, 0, 0, 0, 0, o8 - o))  # [o8, I, K]
-        wr = wr.reshape(o8 // 8, 8, i, k).permute(0, 2, 3, 1).reshape(-1)
-        ws.append(wr)
+        ws.append(wr.reshape(o8 // 8, 8, i, k).permute(0, 2, 3, 1).reshape(-1))
         bs.append(b.detach().to(torch.float32).reshape(-1))
-        w_off.append(nw)
-        b_off.append(nb)
-        nw += wr.numel()
-        nb += o
-    return torch.cat(ws).contiguous(), torch.cat(bs).contiguous(), w_off, b_off
+    return (torch.cat(ws).contiguous(), torch.cat(bs).contiguous(),
+            _offsets(ws), _offsets(bs))
+
+
+def pack_taps(w: torch.Tensor, s: int) -> torch.Tensor:
+    """Tensor-core kernel: the pair table of one layer's band, ``[O, I,
+    s + 16]`` int32.  Word ``j`` holds the bfloat16 pair ``(w[j - 15],
+    w[j - 14])`` (zero outside ``[0, K)``), the first in the low half: the
+    band is Toeplitz, ``band[tau, j'] = w[j' - tau]``, so register ``r`` of
+    an m16n8k16 A fragment is the pair at ``j = kc + 2 * (lane % 4) -
+    lane // 4 + 15`` plus ``(0, -8, +8, 0)[r]`` (``csrc/conv_stack_mma.cu``
+    ``mma_task``)."""
+    o, i, k = w.shape
+    tw = s + 16
+    wz = torch.zeros((o, i, tw + 1), dtype=torch.bfloat16, device=w.device)
+    wz[:, :, 15:15 + k] = w.detach().to(torch.bfloat16)
+    pairs = torch.stack([wz[:, :, :tw], wz[:, :, 1:]], dim=-1)
+    return pairs.view(torch.int32)[..., 0]
+
+
+def _pack_mma(weights, biases, plan: MmaPlan):
+    """Tensor-core kernel: every layer's pair table and bias, flat, with
+    their offsets."""
+    taps = [pack_taps(w, lp.s).reshape(-1)
+            for w, lp in zip(weights, plan.layers)]
+    bs = [b.detach().to(torch.float32).reshape(-1) for b in biases]
+    return (torch.cat(taps).contiguous(), torch.cat(bs).contiguous(),
+            _offsets(taps), _offsets(bs))
+
+
+def _offsets(parts) -> list[int]:
+    return [0, *itertools.accumulate(p.numel() for p in parts)][:-1]
+
+
+#: packed weights by (kernel, dtype, each tensor's device, pointer, version,
+#: shape and dtype);
+#: an entry keeps its tensors alive, so no other tensor takes their memory
+_PACKED: dict = {}
+_PACKED_MAX = 8
+
+
+def packed_weights(kernel, weights, biases, compute_dtype, pack):
+    """``pack()`` for these weights, from the cache unless a tensor changed
+    (an in-place update bumps its ``_version``).  Inference tensors keep no
+    version counter and are packed on every call."""
+    tensors = (*weights, *biases)
+    if any(t.is_inference() for t in tensors):
+        return pack()
+    key = (kernel.name, compute_dtype) + tuple(
+        (t.device, t.data_ptr(), t._version, tuple(t.shape), t.dtype)
+        for t in tensors)
+    hit = _PACKED.get(key)
+    if hit is None:
+        if len(_PACKED) >= _PACKED_MAX:
+            _PACKED.clear()
+        hit = _PACKED[key] = (tensors, pack())
+    return hit[1]
 
 
 def conv_stack(x: torch.Tensor, weights, biases, padding: int = 1,
                activation: str = "silu",
                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Run the whole stride-1 conv stack ``x [B, L] → [B, T_out, O_last]``
-    float32: kernel K3 for a CUDA tensor, :func:`conv_stack_reference` for
-    a CPU tensor."""
+    float32: the kernel :func:`kernel_for` names for a CUDA tensor,
+    :func:`conv_stack_reference` for a CPU tensor."""
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     if compute_dtype not in (torch.float32, torch.bfloat16):
@@ -131,7 +297,27 @@ def conv_stack(x: torch.Tensor, weights, biases, padding: int = 1,
     if len(weights) > MAX_LAYERS:
         raise ValueError(f"at most {MAX_LAYERS} layers")
     bsz, length = x.shape
-    w_flat, b_flat, w_off, b_off = _pack(weights, biases, compute_dtype)
+    out = torch.empty((bsz, t_outs[-1], weights[-1].shape[0]),
+                      dtype=torch.float32, device=x.device)
+    kernel = kernel_for(length, weights, padding, compute_dtype)
+    if kernel is _cuda.CONV_STACK_MMA:
+        plan = mma_plan(length, [tuple(w.shape) for w in weights], padding)
+        d = _mma_desc(plan, bsz, length, activation)
+        taps, b_flat, tap_off, b_off = packed_weights(
+            kernel, weights, biases, compute_dtype,
+            lambda: _pack_mma(weights, biases, plan))
+        for li in range(len(weights)):
+            d.tap_off[li] = tap_off[li]
+            d.b_off[li] = b_off[li]
+        kernel.launch(
+            "ofpt_conv_stack_mma", ctypes.addressof(d), x.data_ptr(),
+            taps.data_ptr(), b_flat.data_ptr(), out.data_ptr(),
+            _cuda.stream(),
+        )
+        return out
+    w_flat, b_flat, w_off, b_off = packed_weights(
+        kernel, weights, biases, compute_dtype,
+        lambda: _pack(weights, biases, compute_dtype))
     d = _StackDesc(
         n_layers=len(weights), B=bsz, L=length, pad=padding,
         act=_ACT_CODES[activation], bf16=int(compute_dtype == torch.bfloat16),
@@ -146,10 +332,23 @@ def conv_stack(x: torch.Tensor, weights, biases, padding: int = 1,
         d.T_out[li] = t
         d.w_off[li] = w_off[li]
         d.b_off[li] = b_off[li]
-    out = torch.empty((bsz, t_outs[-1], weights[-1].shape[0]),
-                      dtype=torch.float32, device=x.device)
-    _cuda.CONV_STACK.launch(
+    kernel.launch(
         "ofpt_conv_stack", ctypes.addressof(d), x.data_ptr(),
         w_flat.data_ptr(), b_flat.data_ptr(), out.data_ptr(), _cuda.stream(),
     )
     return out
+
+
+def _mma_desc(plan: MmaPlan, bsz: int, length: int,
+              activation: str) -> _MmaDesc:
+    lay = plan.layers
+    d = _MmaDesc(
+        n_layers=len(lay), B=bsz, L=length, act=_ACT_CODES[activation],
+        buf_rows=plan.buf_rows,
+        max_feat=max([1] + [lp.out_feat for lp in lay]),
+        in_zero_end=plan.in_zero_end, max_taps=max_taps(lay), win0=plan.win0,
+    )
+    for li, lp in enumerate(lay):
+        d.I[li], d.O[li], d.T_out[li] = lp.in_feat, lp.out_feat, lp.t_out
+        d.S[li], d.n_blk[li], d.zero_end[li] = lp.s, lp.n_blk, lp.zero_end
+    return d

@@ -1,4 +1,4 @@
-"""The four kernels against their plain versions on the card, at small
+"""The five kernels against their plain versions on the card, at small
 shapes (the full-width checks are in chip_smoke.py).  Marked ``cuda``:
 they skip on a machine without CUDA.  Run on the card with
 
@@ -73,30 +73,110 @@ def test_gather_kernel_matches_plain(anchored):
     assert torch.equal(k, p)
 
 
-@pytest.mark.parametrize("dtype,atol,rtol", [
-    (torch.float32, 5e-4, 1e-4), (torch.bfloat16, 3e-2, 2e-2)])
-@pytest.mark.parametrize("ks,widths,pad", [
-    ((1, 33, 64, 15, 15, 15, 1), (5,) * 7, 1), ((3, 3), (8, 16), 1),
-    ((7, 4), (3, 5), 0)])
-def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad):
-    from onset_fingerprinting_torch.ops.conv_stack import (
-        conv_stack,
-        conv_stack_reference,
-    )
-
-    g = torch.Generator().manual_seed(0)
+def _stack(ks, widths, seed=0):
+    g = torch.Generator().manual_seed(seed)
     ws, bs, cin = [], [], 1
     for o, k in zip(widths, ks):
         ws.append((torch.randn(o, cin, k, generator=g) / (k * cin) ** 0.5
                    ).cuda())
         bs.append((0.1 * torch.randn(o, generator=g)).cuda())
         cin = o
-    x = torch.randn(1000, 256, generator=g).cuda()
+    return ws, bs
+
+
+FLAGSHIP_KS = (1, 33, 64, 15, 15, 15, 1)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    (torch.float32, 5e-4, 1e-4), (torch.bfloat16, 3e-2, 2e-2)])
+@pytest.mark.parametrize("ks,widths,pad,length,batch", [
+    (FLAGSHIP_KS, (5,) * 7, 1, 256, 1000), ((3, 3), (8, 16), 1, 256, 1000),
+    ((7, 4), (3, 5), 0, 256, 1000),
+    # 16 features fit the tensor-core kernel's buffers at L = 64
+    ((3, 3), (8, 16), 1, 64, 1000),
+    # a batch that is a multiple of neither kernel's signals per CTA
+    (FLAGSHIP_KS, (5,) * 7, 1, 256, 37)])
+def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad,
+                                         length, batch):
+    """Each stack runs on the kernel ``kernel_for`` names (bf16: the
+    tensor-core kernel wherever it has a plan) and equals the plain
+    version."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        conv_stack,
+        conv_stack_reference,
+        kernel_for,
+    )
+
+    ws, bs = _stack(ks, widths)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(batch, length, generator=g).cuda()
+    kernel = kernel_for(length, ws, pad, dtype)
+    too_wide = widths[-1] == 16 and length == 256
+    assert kernel is (_cuda.CONV_STACK_MMA if dtype == torch.bfloat16
+                      and not too_wide else _cuda.CONV_STACK)
+    before = kernel.launches
     k = conv_stack(x, ws, bs, pad, "silu", dtype)
+    assert kernel.launches == before + 1
     p = conv_stack_reference(x, ws, bs, pad, "silu", dtype)
+    torch.cuda.synchronize()
     torch.testing.assert_close(k, p, atol=atol, rtol=rtol)
+    # the same rounding points: few values, from sums taken in another
+    # order, round more than about one bf16 ulp apart (chip_smoke.n_far)
+    far = int(((k - p).abs() > 1e-3 + 4e-3 * p.abs()).sum())
+    assert far <= max(2, k.numel() // 10000)
     with pytest.raises(RuntimeError, match="forward only"):
         conv_stack(x.requires_grad_(), ws, bs, pad, "silu", dtype)
+
+
+def test_flagship_bf16_runs_the_tensor_core_kernel_only():
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        conv_stack,
+        conv_stack_reference,
+    )
+
+    ws, bs = _stack(FLAGSHIP_KS, (5,) * 7)
+    x = torch.randn(4096, 256, device="cuda")
+    mma, simt = _cuda.CONV_STACK_MMA, _cuda.CONV_STACK
+    before = (mma.launches, mma.plain_calls, simt.launches, simt.plain_calls)
+    with torch.inference_mode():
+        out = conv_stack(x, ws, bs, 1, "silu", torch.bfloat16)
+    assert (mma.launches, mma.plain_calls, simt.launches,
+            simt.plain_calls) == (before[0] + 1, *before[1:])
+    torch.cuda.synchronize()
+    assert out.shape == (4096, 133, 5) and bool(torch.isfinite(out).all())
+    want = conv_stack_reference(x, ws, bs, 1, "silu", torch.bfloat16)
+    torch.testing.assert_close(out, want, atol=3e-2, rtol=2e-2)
+
+
+def test_float32_runs_the_cuda_core_kernel():
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.conv_stack import conv_stack
+
+    ws, bs = _stack(FLAGSHIP_KS, (5,) * 7)
+    x = torch.randn(100, 256, device="cuda")
+    mma, simt = _cuda.CONV_STACK_MMA, _cuda.CONV_STACK
+    before = (mma.launches, simt.launches)
+    conv_stack(x, ws, bs, 1, "silu", torch.float32)
+    assert (mma.launches, simt.launches) == (before[0], before[1] + 1)
+
+
+def test_conv_stack_weight_update_repacks_on_the_card():
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        conv_stack,
+        conv_stack_reference,
+    )
+
+    ws, bs = _stack(FLAGSHIP_KS, (5,) * 7)
+    x = torch.randn(64, 256, device="cuda")
+    for dtype in (torch.bfloat16, torch.float32):
+        conv_stack(x, ws, bs, 1, "silu", dtype)
+        ws[2].mul_(0.5)
+        bs[6].add_(0.25)
+        k = conv_stack(x, ws, bs, 1, "silu", dtype)
+        p = conv_stack_reference(x, ws, bs, 1, "silu", dtype)
+        torch.testing.assert_close(k, p, atol=3e-2, rtol=2e-2)
 
 
 def _roll_case(t=1000, c=512, n=999, cps=4, w=256):
