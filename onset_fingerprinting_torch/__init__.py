@@ -18,8 +18,8 @@ found under the same path:
                  gate.
 - ``pipeline`` — the offline detect → fingerprint fleet path.
 - ``tools``    — ``fingerprint_anatomy``: per-component times of the
-                 fingerprint stage on the card; ``conv_stack_bench``: the
-                 conv stack's kernels alone.
+                 fingerprint stage on the card; ``conv_stack_gate``: the
+                 bf16 conv stack's parity gate and its calibration.
 
 Every entry point takes ``device=None``, which means ``"cuda"``; without a
 card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run

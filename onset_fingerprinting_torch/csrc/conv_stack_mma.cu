@@ -364,9 +364,9 @@ extern "C" int ofpt_conv_stack_mma(const MmaDesc* hd, const float* x,
     if (d.n_layers < 1 || d.n_layers > MAX_LAYERS)
         return (int)cudaErrorInvalidValue;
     if (d.B == 0) return 0;
+    // a plan past the card's shared memory is refused here
     const size_t smem = 2 * (size_t)d.max_feat * d.buf_rows * ROW_BYTES +
                         4 * (size_t)d.max_taps;
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaFuncSetAttribute(
         conv_stack_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);

@@ -23,7 +23,9 @@ Which kernel runs (:func:`kernel_for`, a shape test, no fallback):
   one signal per CTA (about 220 KB: e.g. 128 features at L=256 in
   float32) raises.
 
-The plain version counts its calls on the kernel it stands in for.  The
+The plain version counts its calls on the kernel it stands in for;
+:func:`far_signals` lists where a bf16 run parts from it by more than about
+one ulp (``tools/conv_stack_gate.py`` holds those to one rounding flip).  The
 packed weights are cached per weight and bias tensor (``data_ptr`` and
 ``_version``), so an in-place update repacks.
 
@@ -169,6 +171,13 @@ def max_taps(layers) -> int:
     return max(lp.out_feat * lp.in_feat * (lp.s + 16) for lp in layers)
 
 
+def issued_flops(plan: MmaPlan, batch: int) -> int:
+    """FLOPs the tensor-core kernel issues for ``batch`` signals: every
+    block is the full ``[O * TB, I * s]`` band times its window."""
+    return batch * sum(2 * lp.out_feat * TB * lp.in_feat * lp.s * lp.n_blk
+                       for lp in plan.layers)
+
+
 def kernel_for(length: int, weights, padding: int,
                compute_dtype: torch.dtype) -> _cuda.Kernel:
     """The kernel that runs this stack on the card: the tensor-core kernel
@@ -193,6 +202,23 @@ def conv_stack_reference(x, weights, biases, padding=1, activation="silu",
         y = act(y + b.to(torch.float32)[None, :, None])
         y = y.to(compute_dtype).to(torch.float32)
     return y.transpose(1, 2).contiguous()
+
+
+def far_values(out: torch.Tensor, plain: torch.Tensor) -> torch.Tensor:
+    """The values of ``out`` more than about one bf16 ulp
+    (``1e-3 + 4e-3 * |plain|``) from the plain version's."""
+    return (out - plain).abs() > 1e-3 + 4e-3 * plain.abs()
+
+
+def far_signals(out: torch.Tensor, plain: torch.Tensor) -> torch.Tensor:
+    """Indices of the signals (rows of ``[B, T, O]``) with any
+    :func:`far_values`.
+
+    A bf16 stack and its plain version share every rounding point, so they
+    part only where an f32 sum taken in another order falls on the other
+    side of a bf16 rounding boundary; the flipped activation then moves the
+    later layers of that one signal, often by several ulps."""
+    return far_values(out, plain).flatten(1).any(1).nonzero().flatten()
 
 
 def _pack(weights, biases, compute_dtype):
@@ -301,20 +327,8 @@ def conv_stack(x: torch.Tensor, weights, biases, padding: int = 1,
                       dtype=torch.float32, device=x.device)
     kernel = kernel_for(length, weights, padding, compute_dtype)
     if kernel is _cuda.CONV_STACK_MMA:
-        plan = mma_plan(length, [tuple(w.shape) for w in weights], padding)
-        d = _mma_desc(plan, bsz, length, activation)
-        taps, b_flat, tap_off, b_off = packed_weights(
-            kernel, weights, biases, compute_dtype,
-            lambda: _pack_mma(weights, biases, plan))
-        for li in range(len(weights)):
-            d.tap_off[li] = tap_off[li]
-            d.b_off[li] = b_off[li]
-        kernel.launch(
-            "ofpt_conv_stack_mma", ctypes.addressof(d), x.data_ptr(),
-            taps.data_ptr(), b_flat.data_ptr(), out.data_ptr(),
-            _cuda.stream(),
-        )
-        return out
+        return _launch_mma(kernel, x, weights, biases, padding, activation,
+                           out)
     w_flat, b_flat, w_off, b_off = packed_weights(
         kernel, weights, biases, compute_dtype,
         lambda: _pack(weights, biases, compute_dtype))
@@ -335,6 +349,25 @@ def conv_stack(x: torch.Tensor, weights, biases, padding: int = 1,
     kernel.launch(
         "ofpt_conv_stack", ctypes.addressof(d), x.data_ptr(),
         w_flat.data_ptr(), b_flat.data_ptr(), out.data_ptr(), _cuda.stream(),
+    )
+    return out
+
+
+def _launch_mma(kernel, x, weights, biases, padding, activation, out):
+    """Launch a build of ``csrc/conv_stack_mma.cu`` (``kernel``) on ``x`` into
+    ``out``; the caller has checked the stack and its plan."""
+    length = x.shape[1]
+    plan = mma_plan(length, [tuple(w.shape) for w in weights], padding)
+    d = _mma_desc(plan, x.shape[0], length, activation)
+    taps, b_flat, tap_off, b_off = packed_weights(
+        kernel, weights, biases, torch.bfloat16,
+        lambda: _pack_mma(weights, biases, plan))
+    for li in range(len(weights)):
+        d.tap_off[li] = tap_off[li]
+        d.b_off[li] = b_off[li]
+    kernel.launch(
+        "ofpt_conv_stack_mma", ctypes.addressof(d), x.data_ptr(),
+        taps.data_ptr(), b_flat.data_ptr(), out.data_ptr(), _cuda.stream(),
     )
     return out
 
