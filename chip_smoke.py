@@ -8,11 +8,14 @@ Run from the repository root with no arguments:
 It imports only ``onset_fingerprinting_torch`` (never jax) and fails with a
 non-zero exit code, printing no result, on any error or without CUDA.
 
-Phase 0  prints the card's name and power limit and builds the five
+Phase 0  prints the card's name and power limit and builds the six
          kernels from ``onset_fingerprinting_torch/csrc`` with nvcc.
 Phase 1  holds each kernel against its plain PyTorch version on the card
-         (TF32 off for cuDNN and matmuls): K1 the fused detector (fleet
-         width, coupled_off + backtrack, warmup mode), K2 the window gather
+         (TF32 off for cuDNN and matmuls): K1 the fused detector bit for
+         bit (warmup state, on, deltas, rel, state) on both of its kernels
+         — the pipe at the fleet width on two seeds and at a ragged width,
+         the one-thread-per-channel kernel in coupled_off + backtrack —
+         and the two kernels timed at the fleet shape; K2 the window gather
          (both contracts, 32768 hits), K4 the roll gather (32768 hits with
          tile-edge streams and clamped starts, bit-exact, and equal to K2's
          block-aligned windows), K3 the fused conv stack (flagship, 131072
@@ -28,7 +31,8 @@ Phase 2  drives the fleet path at full width — 8192 four-channel 96 kHz
          stage with CUDA events (median over 5 iterations of varied
          input), and compares the path with its plain version on the CPU at
          32 streams.  The bf16 path must take the tensor-core K3 and never
-         the CUDA-core one.
+         the CUDA-core one, and the pipelined K1 (4 launches) and never the
+         one-thread-per-channel one.
 Phase 3  drives the fingerprint-stage anatomy
          (``tools.fingerprint_anatomy.main``) at full width — 8192 streams,
          G = 32768, W = 256 — shows that K2, K3 and K4 launched and no
@@ -36,10 +40,12 @@ Phase 3  drives the fingerprint-stage anatomy
          per-chunk table, and compares the pair-head CCCNN on the card with
          its plain version on the CPU at 32 streams (float32, TF32 off).
 
-Prints one ``{"kernels": [...]}`` line (K3 as two rows: ``conv_stack_mma``
-in bfloat16, the main path's; ``conv_stack_f32`` in float32, golden mode,
-which the main path never launches) and, last, ``{"ok": true, "device":
-{...}}``.
+Prints one ``{"kernels": [...]}`` line (K1 as two rows: ``detector``, the
+pipe, the main path's; ``detector_coupled``, the one-thread-per-channel
+kernel in the coupled mode, which the main path never launches; K3 as two
+rows: ``conv_stack_mma`` in bfloat16, the main path's; ``conv_stack_f32``
+in float32, golden mode, which the main path never launches) and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -62,14 +68,19 @@ K3_SEEDS = 4
 #: global hit capacity of the gather and anatomy phases
 G = 32768
 #: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FMA-unit
-#: FLOP/s, dense bf16 tensor FLOP/s
+#: FLOP/s (an FMA counted as two), dense bf16 tensor FLOP/s
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
-#: float operations per channel-sample of the detector kernel, counting
-#: each transcendental as one: IIR 17, dB 5, envelopes 11, linear 5,
-#: min/max 12, block thresholds 4
-DETECTOR_OPS_PER_SAMPLE = 54
+#: FP32 lane instructions per second, an FMA or any other one counted as
+#: one: 132 SMs x 128 lanes x 1.98 GHz
+LANE_OPS = 33.5e12
+#: FP32-pipe instructions (F* and MUFU in SASS) per channel-sample of the
+#: detector's arithmetic in the fleet mode (high-pass, adaptive
+#: thresholds), counted by tools/detector_split.py in detector.cu's
+#: innermost loops (IIR, dB with log2f, envelopes, linear with exp2f,
+#: min/max, pass 2); -fmad=false leaves no FMA to fuse them
+DETECTOR_OPS_PER_SAMPLE = 77
 
 
 def log(*a):
@@ -104,8 +115,10 @@ def states_equal(a, b):
     return all(torch.equal(u, v) for u, v in zip(a, b))
 
 
-def phase_detector(report):
-    from onset_fingerprinting_torch.core.config import DetectorConfig
+def check_detector(name, cfg, x, warmup_blocks=WARMUP_BLOCKS):
+    """K1 (the kernel ``kernel_for`` names) against the plain detector on
+    ``x``, bit for bit: the warmup state, then on, deltas, rel and every
+    state tensor of detection from the warmed state."""
     from onset_fingerprinting_torch.detect.amplitude import (
         detect_offline,
         warmup_minmax,
@@ -113,61 +126,120 @@ def phase_detector(report):
     from onset_fingerprinting_torch.ops.fused_detector import (
         fused_detect_offline,
         fused_warmup_minmax,
+        kernel_for,
+        make_fused_detector,
+    )
+
+    fst, params, st0, _ = make_fused_detector(cfg, emit_rel=True)
+    kernel = kernel_for(fst.plain)
+    before = kernel.launches
+    lead = x[: warmup_blocks * 128]
+    wk = fused_warmup_minmax(fst, params, st0, lead)
+    wp = warmup_minmax(fst.plain, params, st0, lead)
+    check(states_equal(wk, wp), f"K1 warmup state differs ({name})")
+    sk, (on_k, d_k, rel_k) = fused_detect_offline(fst, params, wk, x)
+    sp, (on_p, d_p, rel_p) = detect_offline(fst.plain, params, wp, x)
+    torch.cuda.synchronize()
+    check(kernel.launches == before + 2, f"K1 {name} did not run on "
+          f"{kernel.name}")
+    check(torch.equal(on_k, on_p), f"K1 on differs ({name})")
+    check(torch.equal(d_k, d_p), f"K1 deltas differ ({name})")
+    check(torch.equal(rel_k, rel_p),
+          f"K1 rel differs ({name}): max err {max_err(rel_k, rel_p)}")
+    for field, u, v in zip(sk._fields, sk, sp):
+        check(torch.equal(u, v), f"K1 state {field} differs ({name})")
+    log(f"K1 {name} ({kernel.name}): {int(on_k.sum())} events; warmup "
+        "state, on, deltas, rel and state bit-identical to plain")
+    return kernel
+
+
+def phase_detector(report):
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.detect.amplitude import detect_offline
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        _launch,
+        fused_detect_offline,
         make_fused_detector,
     )
     from onset_fingerprinting_torch.pipeline import fleet_detector_config
     from onset_fingerprinting_torch.workload import make_audio
 
-    worst_rel = 0.0
+    c = N_STREAMS * 4
+    ragged = c - 20  # the last CTA holds 12 of 32 channels
     cases = [
-        ("fleet C=32768 hipass", fleet_detector_config(N_STREAMS), 64),
+        (f"fleet C={c} seed 1", fleet_detector_config(N_STREAMS), c, 1),
+        (f"fleet C={c} seed 7", fleet_detector_config(N_STREAMS), c, 7),
+        (f"C={ragged} per-channel gate (ragged)", DetectorConfig(
+            n_channels=ragged, hipass_freq=2000.0, coupled_off_gate=False),
+         ragged, 3),
         ("C=3 coupled_off backtrack", DetectorConfig(
-            n_channels=3, backtrack=True, backtrack_buffer_size=256), 64),
+            n_channels=3, backtrack=True, backtrack_buffer_size=256), 3, 1),
         ("C=1000 coupled_off backtrack (scratch stage)", DetectorConfig(
-            n_channels=1000, backtrack=True, backtrack_buffer_size=256), 64),
+            n_channels=1000, backtrack=True, backtrack_buffer_size=256),
+         1000, 1),
     ]
-    for name, cfg, nb in cases:
-        fst, params, st0, _ = make_fused_detector(cfg, emit_rel=True)
-        x = make_audio(nb * 128, cfg.n_channels, seed=1)
-        # warmup mode
-        wk = fused_warmup_minmax(fst, params, st0, x[: WARMUP_BLOCKS * 128])
-        wp = warmup_minmax(fst.plain, params, st0, x[: WARMUP_BLOCKS * 128])
-        check(states_equal(wk, wp), f"K1 warmup state differs ({name})")
-        # detection from the warmed state
-        sk, (on_k, d_k, rel_k) = fused_detect_offline(fst, params, wk, x)
-        sp, (on_p, d_p, rel_p) = detect_offline(fst.plain, params, wp, x)
-        torch.cuda.synchronize()
-        check(torch.equal(on_k, on_p), f"K1 on differs ({name})")
-        check(torch.equal(d_k, d_p), f"K1 deltas differ ({name})")
-        err = max_err(rel_k, rel_p)
-        worst_rel = max(worst_rel, err)
-        check(err <= 2e-2, f"K1 rel err {err} > 2e-2 ({name})")
-        state_err = max(max_err(u, v) for u, v in zip(sk, sp))
-        check(state_err <= 1e-6, f"K1 state err {state_err} ({name})")
-        log(f"K1 {name}: {int(on_k.sum())} events, on/deltas exact, "
-            f"rel max err {err:.3g}, state max err {state_err:.3g}, "
-            "warmup state exact")
-    # times at the main path's shape (one chunk, events only)
+    for name, cfg, n_ch, seed in cases:
+        x = make_audio(64 * 128, n_ch, seed=seed)
+        kernel = check_detector(name, cfg, x)
+        want = _cuda.DETECTOR if cfg.coupled_off_gate else _cuda.DETECTOR_PIPE
+        check(kernel is want, f"K1 {name} routed to {kernel.name}")
+        del x
+
+    # the fleet shape (one chunk, events only): the pipe, and the
+    # one-thread-per-channel kernel through its private launcher
     cfg = fleet_detector_config(N_STREAMS)
     fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
     x = make_audio(CHUNK, cfg.n_channels, seed=2)
+    sk, (on_k, d_k, _) = fused_detect_offline(fst, params, st0, x, False)
+    so, (on_o, d_o, _) = _launch(fst, params, st0, x, False, False,
+                                 _cuda.DETECTOR)
+    torch.cuda.synchronize()
+    check(torch.equal(on_k, on_o) and torch.equal(d_k, d_o)
+          and states_equal(sk, so), "K1: the two kernels differ at the "
+          "fleet shape")
+    ms = time_ms(lambda: fused_detect_offline(fst, params, st0, x, False))
+    old_ms = time_ms(lambda: _launch(fst, params, st0, x, False, False,
+                                     _cuda.DETECTOR))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    detect_offline(fst.plain, params, st0, x)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    report["detector"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                              library_ms=None, **detector_work(x.shape))
+    log(f"K1 time at [{x.shape[0]}, {x.shape[1]}]: pipe (detector_pipe.cu) "
+        f"{ms:.3f} ms, one thread per channel (detector.cu) {old_ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms (one call)")
+    del x, sk, so
+
+    # the one-thread-per-channel kernel in the mode only it takes
+    cfg = DetectorConfig(n_channels=1000, backtrack=True,
+                         backtrack_buffer_size=256)
+    fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
+    x = make_audio(64 * 128, 1000, seed=2)
     ms = time_ms(lambda: fused_detect_offline(fst, params, st0, x, False))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     detect_offline(fst.plain, params, st0, x)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    t, c = x.shape
+    report["detector_coupled"] = dict(max_abs_err=0.0, ms=ms,
+                                      plain_ms=plain_ms, library_ms=None,
+                                      **detector_work(x.shape))
+    log(f"K1 coupled_off backtrack at [{x.shape[0]}, 1000] (detector.cu): "
+        f"{ms:.3f} ms, plain {plain_ms:.1f} ms (one call)")
+
+
+def detector_work(shape):
+    """K1's least work on ``x [T, C]``, events only: x read once, events
+    and state read and written once; ``DETECTOR_OPS_PER_SAMPLE`` lane
+    instructions per channel-sample at the lane rate."""
+    t, c = shape
     nb = t // 128
     state_bytes = 2 * c * (4 * 4 + 6 * 4 + 1)
-    bytes_ = t * c * 4 + nb * c * (1 + 4) + state_bytes
-    ops = t * c * DETECTOR_OPS_PER_SAMPLE
-    report["detector"] = dict(
-        max_abs_err=worst_rel, ms=ms, plain_ms=plain_ms,
-        bytes=bytes_, ops=ops, peak=F32_FLOPS, library_ms=None,
-    )
-    log(f"K1 time at [{t}, {c}]: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.1f} ms (one call)")
+    return dict(bytes=t * c * 4 + nb * c * (1 + 4) + state_bytes,
+                ops=t * c * DETECTOR_OPS_PER_SAMPLE, peak=LANE_OPS)
 
 
 def phase_gather(report, x):
@@ -460,11 +532,16 @@ def phase_main_path(report):
     counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
     log(f"launches/plain calls on the main path (warmup + {CHUNKS} "
         f"chunks): {counts}")
-    for k in (_cuda.DETECTOR, _cuda.GATHER, _cuda.CONV_STACK_MMA):
+    for k in (_cuda.DETECTOR_PIPE, _cuda.GATHER, _cuda.CONV_STACK_MMA):
         check(k.launches > 0, f"kernel {k.name} never launched")
     for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran on the main path")
         report["_launches"][k.name] = k.launches
+    # the fleet detector runs the pipe only: warmup + one launch per chunk
+    check(_cuda.DETECTOR_PIPE.launches == 1 + CHUNKS,
+          f"{_cuda.DETECTOR_PIPE.launches} pipe launches, want {1 + CHUNKS}")
+    check(_cuda.DETECTOR.launches == 0,
+          "the one-thread-per-channel detector ran on the fleet path")
     # the bf16 path never takes the f32 CUDA-core kernel
     check(_cuda.CONV_STACK.launches == 0,
           "the CUDA-core conv stack ran on the bf16 main path")
@@ -641,9 +718,12 @@ def main() -> int:
 
     # row: (source, TPU kernel, launch counter)
     sources = {
-        "detector": ("onset_fingerprinting_torch/csrc/detector.cu",
+        "detector": ("onset_fingerprinting_torch/csrc/detector_pipe.cu",
                      "onset_fingerprinting_tpu/ops/pallas_detector.py:85",
-                     "detector"),
+                     "detector_pipe"),
+        "detector_coupled": ("onset_fingerprinting_torch/csrc/detector.cu",
+                             "onset_fingerprinting_tpu/ops/pallas_detector.py"
+                             ":85", "detector"),
         "gather": ("onset_fingerprinting_torch/csrc/gather.cu",
                    "onset_fingerprinting_tpu/ops/windows.py:136", "gather"),
         "conv_stack_mma": ("onset_fingerprinting_torch/csrc/conv_stack_mma.cu",

@@ -13,7 +13,8 @@ ops over the samples, vectorised across channels.  This is the plain
 version of the fused detector kernel (``ops/fused_detector.py``): every
 sample runs the same float32 operations in the same order, so on the card
 the kernel is bit-identical to it.  ``detect_offline`` and
-``warmup_minmax`` count their calls in ``ops._cuda.DETECTOR.plain_calls``.
+``warmup_minmax`` count their calls in the ``plain_calls`` of the kernel
+they stand in for (``ops.fused_detector.kernel_for``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ import torch
 
 from onset_fingerprinting_torch.core.config import DetectorConfig
 from onset_fingerprinting_torch.device import resolve_device
-from onset_fingerprinting_torch.ops import _cuda
 from onset_fingerprinting_torch.ops.filters import butterworth
 
 _LOG2_10_OVER_20 = math.log2(10.0) / 20.0
@@ -179,45 +179,67 @@ def detector_init(
     return static, params, state
 
 
+def iir_db_step(k: dict, b: list, a: list, z: list, xt: torch.Tensor,
+                use_hipass: bool):
+    """One sample of the first chain: DF2T high-pass (identity when off)
+    → rectified floor-clipped dB.  Returns ``(z, xdb)``."""
+    if use_hipass:
+        order = len(z)
+        y = b[0] * xt + z[0]
+        z = [
+            (b[i + 1] * xt + z[i + 1] if i + 1 < order else b[i + 1] * xt)
+            - a[i + 1] * y
+            for i in range(order)
+        ]
+    else:
+        y = xt
+    xdb = k["k_db"] * torch.log2(torch.abs(y + k["eps"]))
+    return z, torch.clamp(xdb, min=k["floor"])
+
+
+def envelope_rel_step(k: dict, yf: torch.Tensor, ys: torch.Tensor,
+                      xdb: torch.Tensor):
+    """One sample of the second chain: fast and slow AR envelopes → clipped
+    linear relative envelope.  Returns ``(yf, ys, rel)``."""
+    eps = k["eps"]
+    df = xdb - yf + eps
+    yf = yf + torch.where(df > 0, k["fa"], k["fr"]) * df
+    ds = xdb - ys + eps
+    ys = ys + torch.where(ds > 0, k["sa"], k["sr"]) * ds
+    rel = torch.exp2((yf - ys) * k["k_lin"]) - eps
+    return yf, ys, torch.clamp(rel, 0.0, -k["floor"])
+
+
+def minmax_step(k: dict, mn: torch.Tensor, mx: torch.Tensor,
+                rel: torch.Tensor):
+    """One sample of the third chain: the EMA min/max tracker."""
+    mn = torch.where(
+        rel < k["minmin"], k["minmin"],
+        torch.where(rel < mn, rel, mn * k["iam"] + rel * k["am"]),
+    )
+    mx = torch.where(rel > mx, rel, mx * k["iax"] + rel * k["ax"])
+    return mn, mx
+
+
 def _fused_sample_scan(static: _Static, params: DetectorParams,
                        state: DetectorState, x: torch.Tensor):
     """One pass over the B samples of a block: IIR high-pass → rectified
     floor-clipped dB → fast & slow AR envelopes → relative envelope →
-    EMA min/max.  Returns ((zi, fast, slow, min, max), rel [B, C])."""
+    EMA min/max (the three chains above, sample by sample).  Returns
+    ((zi, fast, slow, min, max), rel [B, C])."""
     k = sample_constants(static)
-    eps, floor = k["eps"], k["floor"]
     b = params.b.tolist()
     a = params.a.tolist()
-    order = state.zi.shape[0]
     z = list(state.zi.unbind(0))
     yf, ys, mn, mx = state.fast, state.slow, state.min_val, state.max_val
     rels = []
     for xt in x.to(torch.float32).unbind(0):
-        if static.use_hipass:
-            y = b[0] * xt + z[0]
-            z = [
-                (b[i + 1] * xt + z[i + 1] if i + 1 < order else b[i + 1] * xt)
-                - a[i + 1] * y
-                for i in range(order)
-            ]
-        else:
-            y = xt
-        xdb = k["k_db"] * torch.log2(torch.abs(y + eps))
-        xdb = torch.clamp(xdb, min=floor)
-        df = xdb - yf + eps
-        yf = yf + torch.where(df > 0, k["fa"], k["fr"]) * df
-        ds = xdb - ys + eps
-        ys = ys + torch.where(ds > 0, k["sa"], k["sr"]) * ds
-        rel = torch.exp2((yf - ys) * k["k_lin"]) - eps
-        rel = torch.clamp(rel, 0.0, -floor)
+        z, xdb = iir_db_step(k, b, a, z, xt, static.use_hipass)
+        yf, ys, rel = envelope_rel_step(k, yf, ys, xdb)
         if not static.manual:
-            mn = torch.where(
-                rel < k["minmin"], k["minmin"],
-                torch.where(rel < mn, rel, mn * k["iam"] + rel * k["am"]),
-            )
-            mx = torch.where(rel > mx, rel, mx * k["iax"] + rel * k["ax"])
+            mn, mx = minmax_step(k, mn, mx, rel)
         rels.append(rel)
-    zi = torch.stack(z) if order else state.zi
+    zi = torch.stack(z) if state.zi.shape[0] else state.zi
     return (zi, yf, ys, mn, mx), torch.stack(rels)
 
 
@@ -309,12 +331,18 @@ def detect_block(static: _Static, params: DetectorParams,
     return new_state, (on, deltas, rel)
 
 
+def _stands_in_for(static: _Static):
+    from onset_fingerprinting_torch.ops.fused_detector import kernel_for
+
+    return kernel_for(static)
+
+
 def warmup_minmax(static: _Static, params: DetectorParams,
                   state: DetectorState, x: torch.Tensor) -> DetectorState:
     """Warm up envelopes and min/max tracker on ``x [T, C]`` without
     detecting (detection.py:827-840).  T must be a multiple of the block
     size."""
-    _cuda.DETECTOR.plain_calls += 1
+    _stands_in_for(static).plain_calls += 1
     bsz = static.block_size
     for blk in x.reshape(-1, bsz, x.shape[-1]):
         (zi, yf, ys, mn, mx), _ = _fused_sample_scan(static, params, state,
@@ -329,7 +357,7 @@ def detect_offline(static: _Static, params: DetectorParams,
     """Run the block detector over a whole recording ``[T, C]`` (T a
     multiple of the block size) → ``(state, (on [nb, C] bool, deltas
     [nb, C] int32, rel [T, C]))`` (detection.py:73-82)."""
-    _cuda.DETECTOR.plain_calls += 1
+    _stands_in_for(static).plain_calls += 1
     bsz = static.block_size
     c = x.shape[-1]
     ons, ds, rels = [], [], []

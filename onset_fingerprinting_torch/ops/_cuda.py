@@ -141,6 +141,12 @@ DETECTOR = Kernel(
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )
+DETECTOR_PIPE = Kernel(
+    "detector_pipe", "detector_pipe.cu",
+    {"ofpt_detect_pipe": [_P] * 19},
+    # the same rounding as detector.cu and the plain version
+    extra_flags=("-fmad=false",),
+)
 GATHER = Kernel(
     "gather", "gather.cu",
     {"ofpt_gather": [_P, _P, _P, _P] + [_I] * 7 + [_P]},
@@ -157,4 +163,5 @@ GATHER_ROLL = Kernel(
     "gather_roll", "gather_roll.cu",
     {"ofpt_gather_roll": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
 )
-KERNELS = (DETECTOR, GATHER, CONV_STACK, CONV_STACK_MMA, GATHER_ROLL)
+KERNELS = (DETECTOR, DETECTOR_PIPE, GATHER, CONV_STACK, CONV_STACK_MMA,
+           GATHER_ROLL)

@@ -1,14 +1,25 @@
 """Fused streaming amplitude detector: the wrapper of kernel K1.
 
-Port of ``onset_fingerprinting_tpu.ops.pallas_detector``.  The kernel
-(``csrc/detector.cu``) runs a whole chunk ``x [T, C]`` in one launch with
-one thread per channel and all state carried in registers; the plain
-version is ``detect.amplitude.detect_offline`` / ``warmup_minmax``.
+Port of ``onset_fingerprinting_tpu.ops.pallas_detector``.  One launch runs
+a whole chunk ``x [T, C]`` with all state carried; the plain version is
+``detect.amplitude.detect_offline`` / ``warmup_minmax``.  Two kernels, and
+:func:`kernel_for` (a static test of the config, no fallback) says which:
+
+- ``coupled_off=False`` (the fleet path) with a block a multiple of
+  ``PIPE_SUB_ROWS``: ``csrc/detector_pipe.cu`` (counter
+  ``_cuda.DETECTOR_PIPE``), a warp-specialised pipeline.  A CTA owns 32
+  channels, one per lane, and runs three warps over them, one chain of the
+  per-sample scan each, handing sub-blocks of 16 rows through rings in
+  shared memory (:func:`pipe_plan`);
+- ``coupled_off=True`` (at most 1024 channels, a barrier across all of
+  them per block) and any other block size: ``csrc/detector.cu`` (counter
+  ``_cuda.DETECTOR``), one thread per channel.
 
 Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel (or raises on what the kernel does not take).  State
-is functional: the kernel updates fresh copies of the state tensors, and
-the caller's state is left as it was.
+launches the kernel ``kernel_for`` names (or raises on what it does not
+take; a failed build or launch raises too).  State is functional: the
+kernel updates fresh copies of the state tensors, and the caller's state
+is left as it was.
 """
 
 from __future__ import annotations
@@ -31,12 +42,30 @@ from onset_fingerprinting_torch.detect.amplitude import (
 from onset_fingerprinting_torch.ops import _cuda
 
 ORDER = 4
-#: threads per CTA (one channel each) outside the coupled_off mode
+#: detector.cu: threads per CTA (one channel each) outside coupled_off
 THREADS = 64
-#: largest shared-memory block stage; above it a device scratch is used
+#: detector.cu: largest shared-memory block stage; above it a device
+#: scratch is used
 _MAX_SMEM = 200 * 1024
 #: coupled_off runs every channel in one CTA (pallas_detector.py:551-555)
 MAX_COUPLED_CHANNELS = 1024
+
+# detector_pipe.cu's launch constants (its G, SB, NX, ND, THREADS, MIN_CTAS)
+#: channels per CTA, one per lane
+PIPE_CHANNELS = 32
+#: the warps of a CTA, in order, and the chain each runs
+PIPE_ROLES = ("iir_db", "envelopes_rel", "minmax_events")
+#: rows of one sub-block, the unit the warps hand each other
+PIPE_SUB_ROWS = 16
+#: slots of warp 0's x ring (cp.async prefetch) and of the dB ring
+PIPE_X_SLOTS = 3
+PIPE_DB_SLOTS = 2
+#: registers per thread that ``__launch_bounds__(96, 8)`` leaves
+PIPE_REGS = 80
+#: the H100's per-SM limits: shared memory (and the 1 KB the system
+#: reserves of it per CTA), resident threads, CTAs, registers; its SMs
+SM_SMEM, CTA_SMEM_RESERVED, CTA_SMEM_MAX = 233472, 1024, 232448
+SM_THREADS, SM_CTAS, SM_REGS, SMS = 2048, 32, 65536, 132
 
 
 class FusedDetectorStatic(NamedTuple):
@@ -55,6 +84,56 @@ class _DetParams(ctypes.Structure):
         "sr", "am", "ax", "iam", "iax", "minmin", "b0", "b1", "b2", "b3",
         "b4", "a1", "a2", "a3", "a4", "bt_alpha", "bt_omba", "bt_tol",
     )]
+
+
+class PipePlan(NamedTuple):
+    """How ``csrc/detector_pipe.cu`` lays a detector out on the card."""
+
+    channels_per_cta: int
+    roles: tuple          # one warp per role, in warp order
+    threads: int
+    sub_rows: int
+    x_slots: int          # warp 0's own ring of x sub-blocks
+    db_slots: int         # dB sub-blocks, warp 0 -> warp 1
+    rel_slots: int        # rel sub-blocks, warp 1 -> warp 2: a whole block
+    smem_bytes: int       # dynamic shared memory of one CTA
+    ctas: int
+    ctas_per_sm: int      # the least of the shared-memory, thread, CTA and
+    #                       register limits
+    waves: int
+
+
+def pipe_plan(n_channels: int, block_size: int) -> PipePlan | None:
+    """The pipelined kernel's launch plan, or None where it takes no such
+    block size (not a multiple of ``PIPE_SUB_ROWS``, or a whole block of
+    rel that would not fit one CTA's shared memory).  Mirrors
+    ``csrc/detector_pipe.cu::pipe_smem_bytes`` and its launch."""
+    if block_size <= 0 or block_size % PIPE_SUB_ROWS:
+        return None
+    rel_slots = block_size // PIPE_SUB_ROWS
+    slot = PIPE_SUB_ROWS * PIPE_CHANNELS * 4
+    n_bars = 2 * PIPE_DB_SLOTS + 2 * rel_slots
+    smem = (-(-8 * n_bars // 16) * 16
+            + (PIPE_X_SLOTS + PIPE_DB_SLOTS + rel_slots) * slot)
+    if smem > CTA_SMEM_MAX:
+        return None
+    threads = 32 * len(PIPE_ROLES)
+    ctas = -(-n_channels // PIPE_CHANNELS)
+    per_sm = min(SM_SMEM // (smem + CTA_SMEM_RESERVED), SM_THREADS // threads,
+                 SM_CTAS, SM_REGS // (threads * PIPE_REGS))
+    return PipePlan(PIPE_CHANNELS, PIPE_ROLES, threads, PIPE_SUB_ROWS,
+                    PIPE_X_SLOTS, PIPE_DB_SLOTS, rel_slots, smem, ctas, per_sm,
+                    -(-ctas // (SMS * per_sm)))
+
+
+def kernel_for(static: _Static) -> _cuda.Kernel:
+    """The kernel a CUDA chunk of this detector runs on: the pipelined
+    kernel unless the off-gate couples channels or the block size has no
+    pipe plan.  A static test; no launch ever swaps kernels."""
+    if static.coupled_off or pipe_plan(static.n_channels,
+                                       static.block_size) is None:
+        return _cuda.DETECTOR
+    return _cuda.DETECTOR_PIPE
 
 
 def detector_static(static: _Static, params: DetectorParams
@@ -106,9 +185,20 @@ def _check(fstatic: FusedDetectorStatic, params: DetectorParams,
 
 def _launch(fstatic: FusedDetectorStatic, params: DetectorParams,
             state: DetectorState, x: torch.Tensor, emit_rel: bool,
-            warmup: bool):
+            warmup: bool, kernel: _cuda.Kernel | None = None):
+    """Launch ``kernel`` (default: :func:`kernel_for`'s) over the chunk.
+    Only a measurement names another kernel, to time the one-thread-per-
+    channel kernel on the fleet shape beside the pipe."""
     _check(fstatic, params, state, x)
     s = fstatic.plain
+    if kernel is None:
+        kernel = kernel_for(s)
+    pipe = "ofpt_detect_pipe" in kernel.entries
+    if pipe and pipe_plan(s.n_channels, s.block_size) is None:
+        raise ValueError(f"the pipelined detector takes no block size "
+                         f"{s.block_size}")
+    if pipe and s.coupled_off:
+        raise ValueError("the pipelined detector does not couple channels")
     t, c = x.shape
     bsz = s.block_size
     nb = t // bsz
@@ -135,6 +225,25 @@ def _launch(fstatic: FusedDetectorStatic, params: DetectorParams,
         deltas = torch.empty((nb, c), dtype=torch.int32, device=dev)
         if emit_rel:
             rel = torch.empty((t, c), dtype=torch.float32, device=dev)
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
+    bt = s.backtrack
+    args = (
+        ctypes.addressof(p), x.data_ptr(),
+        params.on_threshold.contiguous().data_ptr(),
+        params.off_threshold.contiguous().data_ptr(),
+        ptr(new.zi) if s.use_hipass else None, new.fast.data_ptr(),
+        new.slow.data_ptr(), new.min_val.data_ptr(), new.max_val.data_ptr(),
+        new.gate.data_ptr(), new.prev_rel.data_ptr(), new.debounce.data_ptr(),
+        ptr(new.bt_buffer) if bt else None,
+        ptr(state.bt_pos) if bt else None, ptr(new.bt_pos) if bt else None,
+        ptr(on), ptr(deltas), ptr(rel),
+    )
+    if pipe:
+        kernel.launch("ofpt_detect_pipe", *args, _cuda.stream())
+        return new, (on, deltas, rel)
     if s.coupled_off:
         threads = -(-c // 32) * 32
         blocks = 1
@@ -145,22 +254,8 @@ def _launch(fstatic: FusedDetectorStatic, params: DetectorParams,
     if bsz * threads * 4 > _MAX_SMEM:
         scratch = torch.empty((bsz, blocks * threads), dtype=torch.float32,
                               device=dev)
-
-    def ptr(v):
-        return None if v is None else v.data_ptr()
-
-    bt = s.backtrack
-    _cuda.DETECTOR.launch(
-        "ofpt_detect", ctypes.addressof(p), x.data_ptr(),
-        params.on_threshold.contiguous().data_ptr(),
-        params.off_threshold.contiguous().data_ptr(),
-        ptr(new.zi) if s.use_hipass else None, new.fast.data_ptr(),
-        new.slow.data_ptr(), new.min_val.data_ptr(), new.max_val.data_ptr(),
-        new.gate.data_ptr(), new.prev_rel.data_ptr(), new.debounce.data_ptr(),
-        ptr(new.bt_buffer) if bt else None,
-        ptr(state.bt_pos) if bt else None, ptr(new.bt_pos) if bt else None,
-        ptr(on), ptr(deltas), ptr(rel), ptr(scratch), threads, _cuda.stream(),
-    )
+    kernel.launch("ofpt_detect", *args, ptr(scratch), threads,
+                  _cuda.stream())
     return new, (on, deltas, rel)
 
 

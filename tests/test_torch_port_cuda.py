@@ -1,4 +1,4 @@
-"""The five kernels against their plain versions on the card, at small
+"""The six kernels against their plain versions on the card, at small
 shapes (the full-width checks are in chip_smoke.py).  Marked ``cuda``:
 they skip on a machine without CUDA.  Run on the card with
 
@@ -20,39 +20,119 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-@pytest.mark.parametrize("coupled,backtrack,hipass,on_th", [
-    (False, False, 2000.0, 0.5), (True, True, 2000.0, 0.5),
-    (True, False, 0.0, 0.5), (False, True, 0.0, 0.5),
-    (False, False, 2000.0, 3.0),  # manual (absolute) thresholds
+@pytest.mark.parametrize("coupled,backtrack,hipass,on_th,c,nb", [
+    # per-channel gate: the pipelined kernel
+    (False, False, 2000.0, 0.5, 200, 60), (False, True, 0.0, 0.5, 200, 60),
+    (False, False, 2000.0, 3.0, 200, 60),  # manual (absolute) thresholds
+    (False, True, 2000.0, 0.5, 237, 60),  # ragged: 13 of 32 lanes
+    (False, False, 2000.0, 0.5, 200, 61),  # 488 sub-blocks: 3 x slots
+    # coupled_off: the one-thread-per-channel kernel
+    (True, True, 2000.0, 0.5, 200, 60), (True, False, 0.0, 0.5, 200, 60),
 ])
-def test_detector_kernel_matches_plain(coupled, backtrack, hipass, on_th):
+def test_detector_kernel_matches_plain(coupled, backtrack, hipass, on_th, c,
+                                       nb):
     from onset_fingerprinting_torch.core.config import DetectorConfig
     from onset_fingerprinting_torch.detect.amplitude import (
         detect_offline,
         warmup_minmax,
     )
+    from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.ops.fused_detector import (
         fused_detect_offline,
         fused_warmup_minmax,
+        kernel_for,
         make_fused_detector,
     )
     from onset_fingerprinting_torch.workload import make_audio
 
-    cfg = DetectorConfig(n_channels=200, coupled_off_gate=coupled,
+    cfg = DetectorConfig(n_channels=c, coupled_off_gate=coupled,
                          backtrack=backtrack, backtrack_buffer_size=256,
                          hipass_freq=hipass, on_threshold=on_th,
                          off_threshold=on_th / 5)
     fst, params, st, _ = make_fused_detector(cfg)
-    x = make_audio(128 * 60, 200, seed=1)
+    kernel = kernel_for(fst.plain)
+    assert kernel is (_cuda.DETECTOR if coupled else _cuda.DETECTOR_PIPE)
+    before = kernel.launches
+    x = make_audio(128 * nb, c, seed=1)
     wk = fused_warmup_minmax(fst, params, st, x[: 128 * 38])
     wp = warmup_minmax(fst.plain, params, st, x[: 128 * 38])
     sk, (on_k, d_k, r_k) = fused_detect_offline(fst, params, wk, x)
     sp, (on_p, d_p, r_p) = detect_offline(fst.plain, params, wp, x)
+    assert kernel.launches == before + 2
     assert int(on_p.sum()) > 0
+    for a, b in zip(wk, wp):
+        assert torch.equal(a, b)
     assert torch.equal(on_k, on_p) and torch.equal(d_k, d_p)
     assert torch.equal(r_k, r_p)
     for a, b in zip(sk, sp):
         assert torch.equal(a, b)
+    # events only: the same events, no rel
+    sk2, (on_k2, d_k2, r_k2) = fused_detect_offline(fst, params, wk, x,
+                                                    emit_rel=False)
+    assert r_k2 is None
+    assert torch.equal(on_k2, on_p) and torch.equal(d_k2, d_p)
+    for a, b in zip(sk2, sp):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("backtrack", [False, True])
+def test_detector_pipe_carries_state_across_launches(backtrack):
+    """Two launches over the halves of a recording equal one launch over
+    the whole, bit for bit."""
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        make_fused_detector,
+    )
+    from onset_fingerprinting_torch.workload import make_audio
+
+    cfg = DetectorConfig(n_channels=300, hipass_freq=2000.0,
+                         coupled_off_gate=False, backtrack=backtrack,
+                         backtrack_buffer_size=256)
+    _, _, st, run = make_fused_detector(cfg)
+    x = make_audio(128 * 50, 300, seed=4)
+    s_all, (on, d, rel) = run(st, x)
+    s1, (on1, d1, r1) = run(st, x[: 128 * 21])
+    s2, (on2, d2, r2) = run(s1, x[128 * 21:])
+    assert int(on.sum()) > 0
+    assert torch.equal(torch.cat([on1, on2]), on)
+    assert torch.equal(torch.cat([d1, d2]), d)
+    assert torch.equal(torch.cat([r1, r2]), rel)
+    for a, b in zip(s2, s_all):
+        assert torch.equal(a, b)
+
+
+def test_fleet_detector_runs_the_pipe_kernel_only():
+    from onset_fingerprinting_torch.models.cccnn import CCCNN
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.fused_detector import kernel_for
+    from onset_fingerprinting_torch.pipeline import (
+        fleet_detector_config,
+        make_detect_fingerprint,
+    )
+    from onset_fingerprinting_torch.workload import (
+        FLAGSHIP,
+        WINDOW,
+        chunk_capacities,
+        make_audio,
+    )
+
+    streams, t = 64, 32000  # one chunk of the fleet path, 64 streams
+    model = CCCNN(input_size=WINDOW, dtype=torch.bfloat16, **FLAGSHIP)
+    run = make_detect_fingerprint(fleet_detector_config(streams), model,
+                                  streams, t,
+                                  chunk_capacities(streams, t)[1])
+    assert kernel_for(run.static.plain) is _cuda.DETECTOR_PIPE
+    pipe, old = _cuda.DETECTOR_PIPE, _cuda.DETECTOR
+    before = (pipe.launches, pipe.plain_calls, old.launches, old.plain_calls)
+    audio = [make_audio(t, streams * 4, seed=5 + j) for j in range(3)]
+    state = run.warmup(run.init_state(), audio[0][: 128 * 38])
+    events = 0
+    for x in audio:
+        state, on, deltas = run.detect(state, x)
+        events += int(on.sum())
+    assert (pipe.launches, pipe.plain_calls, old.launches,
+            old.plain_calls) == (before[0] + 4, *before[1:])
+    assert events > 0
 
 
 @pytest.mark.parametrize("anchored", [True, False])

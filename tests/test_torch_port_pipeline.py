@@ -98,8 +98,9 @@ def test_slice_matches_jax_composition(audio, flax_model):
     # differs, so a rare activation rounds one bf16 ulp apart
     np.testing.assert_allclose(preds.numpy(), preds_j, atol=1e-2, rtol=1e-2)
     # on the CPU every kernel wrapper of the path ran its plain version
-    # (the bf16 flagship stack stands in for the tensor-core kernel)
-    path = (_cuda.DETECTOR, _cuda.GATHER, _cuda.CONV_STACK_MMA)
+    # (the fleet detector stands in for the pipelined kernel, the bf16
+    # flagship stack for the tensor-core kernel)
+    path = (_cuda.DETECTOR_PIPE, _cuda.GATHER, _cuda.CONV_STACK_MMA)
     assert all(k.launches == 0 for k in _cuda.KERNELS)
     assert all(k.plain_calls > 0 for k in path)
 
