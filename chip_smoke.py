@@ -15,7 +15,9 @@ Phase 1  holds each kernel against its plain PyTorch version on the card
          bit (warmup state, on, deltas, rel, state) on both of its kernels
          — the pipe at the fleet width on two seeds and at a ragged width,
          the one-thread-per-channel kernel in coupled_off + backtrack —
-         and the two kernels timed at the fleet shape; K2 the window gather
+         and, at the fleet shape as the main path runs it (events only),
+         the pipe against the plain detector and against the other
+         kernel bit for bit, and the two kernels timed; K2 the window gather
          (both contracts, 32768 hits), K4 the roll gather (32768 hits with
          tile-edge streams and clamped starts, bit-exact, and equal to K2's
          block-aligned windows), K3 the fused conv stack (flagship, 131072
@@ -186,8 +188,9 @@ def phase_detector(report):
         check(kernel is want, f"K1 {name} routed to {kernel.name}")
         del x
 
-    # the fleet shape (one chunk, events only): the pipe, and the
-    # one-thread-per-channel kernel through its private launcher
+    # the fleet shape as the main path runs it (one chunk, events only: the
+    # pipe's instantiation without rel), held to the plain detector and to
+    # the one-thread-per-channel kernel through its private launcher
     cfg = fleet_detector_config(N_STREAMS)
     fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
     x = make_audio(CHUNK, cfg.n_channels, seed=2)
@@ -195,17 +198,22 @@ def phase_detector(report):
     so, (on_o, d_o, _) = _launch(fst, params, st0, x, False, False,
                                  _cuda.DETECTOR)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sp, (on_p, d_p, rel_p) = detect_offline(fst.plain, params, st0, x)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    check(torch.equal(on_k, on_p) and torch.equal(d_k, d_p)
+          and states_equal(sk, sp), "K1: the pipe differs from the plain "
+          "detector at the fleet shape, events only")
     check(torch.equal(on_k, on_o) and torch.equal(d_k, d_o)
           and states_equal(sk, so), "K1: the two kernels differ at the "
           "fleet shape")
+    log(f"K1 fleet shape events only: {int(on_k.sum())} events; on, deltas "
+        "and state of the pipe bit-identical to plain and to detector.cu")
+    del sp, on_p, d_p, rel_p
     ms = time_ms(lambda: fused_detect_offline(fst, params, st0, x, False))
     old_ms = time_ms(lambda: _launch(fst, params, st0, x, False, False,
                                      _cuda.DETECTOR))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    detect_offline(fst.plain, params, st0, x)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
     report["detector"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                               library_ms=None, **detector_work(x.shape))
     log(f"K1 time at [{x.shape[0]}, {x.shape[1]}]: pipe (detector_pipe.cu) "

@@ -48,7 +48,7 @@
 // 32768 in one wave, 24 warps per SM.  ops/fused_detector.py::pipe_plan
 // mirrors these numbers.  About 103 instructions per sample, 5.2 ms a
 // chunk on the H100 against detector.cu's 10.7 (PERF.md); a fourth warp
-// for the dB alone was slower (tools/detector_split.py, pipe4).
+// for the dB alone was slower (5.8 ms, PERF.md).
 //
 // Numerics: compiled with -fmad=false, so every multiply and add rounds on
 // its own exactly as the element-wise plain PyTorch version does, and

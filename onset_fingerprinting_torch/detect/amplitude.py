@@ -12,9 +12,8 @@ Here the per-sample recurrences are a Python loop of element-wise tensor
 ops over the samples, vectorised across channels.  This is the plain
 version of the fused detector kernel (``ops/fused_detector.py``): every
 sample runs the same float32 operations in the same order, so on the card
-the kernel is bit-identical to it.  ``detect_offline`` and
-``warmup_minmax`` count their calls in the ``plain_calls`` of the kernel
-they stand in for (``ops.fused_detector.kernel_for``).
+the kernel is bit-identical to it.  The kernel's wrappers count the
+calls they make to it (``_cuda.Kernel.plain_calls``).
 """
 
 from __future__ import annotations
@@ -331,18 +330,11 @@ def detect_block(static: _Static, params: DetectorParams,
     return new_state, (on, deltas, rel)
 
 
-def _stands_in_for(static: _Static):
-    from onset_fingerprinting_torch.ops.fused_detector import kernel_for
-
-    return kernel_for(static)
-
-
 def warmup_minmax(static: _Static, params: DetectorParams,
                   state: DetectorState, x: torch.Tensor) -> DetectorState:
     """Warm up envelopes and min/max tracker on ``x [T, C]`` without
     detecting (detection.py:827-840).  T must be a multiple of the block
     size."""
-    _stands_in_for(static).plain_calls += 1
     bsz = static.block_size
     for blk in x.reshape(-1, bsz, x.shape[-1]):
         (zi, yf, ys, mn, mx), _ = _fused_sample_scan(static, params, state,
@@ -357,7 +349,6 @@ def detect_offline(static: _Static, params: DetectorParams,
     """Run the block detector over a whole recording ``[T, C]`` (T a
     multiple of the block size) → ``(state, (on [nb, C] bool, deltas
     [nb, C] int32, rel [T, C]))`` (detection.py:73-82)."""
-    _stands_in_for(static).plain_calls += 1
     bsz = static.block_size
     c = x.shape[-1]
     ons, ds, rels = [], [], []

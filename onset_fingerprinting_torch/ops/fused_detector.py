@@ -12,14 +12,17 @@ a whole chunk ``x [T, C]`` with all state carried; the plain version is
   per-sample scan each, handing sub-blocks of 16 rows through rings in
   shared memory (:func:`pipe_plan`);
 - ``coupled_off=True`` (at most 1024 channels, a barrier across all of
-  them per block) and any other block size: ``csrc/detector.cu`` (counter
-  ``_cuda.DETECTOR``), one thread per channel.
+  them per block): ``csrc/detector.cu`` (counter ``_cuda.DETECTOR``), one
+  thread per channel.  So does a block size the pipe has no plan for (not
+  a multiple of 16, or above 1712 samples).  That route exists only to
+  keep such block sizes working: every config in this package and in the
+  JAX one uses 128, 64 or 32.
 
-Dispatch is by device: a CPU tensor runs the plain version, a CUDA tensor
-launches the kernel ``kernel_for`` names (or raises on what it does not
-take; a failed build or launch raises too).  State is functional: the
-kernel updates fresh copies of the state tensors, and the caller's state
-is left as it was.
+Dispatch is by device: a CPU tensor runs the plain version (counted in
+the ``plain_calls`` of the kernel ``kernel_for`` names), a CUDA tensor
+launches that kernel (or raises on what it does not take; a failed build
+or launch raises too).  State is functional: the kernel updates fresh
+copies of the state tensors, and the caller's state is left as it was.
 """
 
 from __future__ import annotations
@@ -129,7 +132,8 @@ def pipe_plan(n_channels: int, block_size: int) -> PipePlan | None:
 def kernel_for(static: _Static) -> _cuda.Kernel:
     """The kernel a CUDA chunk of this detector runs on: the pipelined
     kernel unless the off-gate couples channels or the block size has no
-    pipe plan.  A static test; no launch ever swaps kernels."""
+    pipe plan (a size no config uses; kept working on ``detector.cu``).  A
+    static test; no launch ever swaps kernels."""
     if static.coupled_off or pipe_plan(static.n_channels,
                                        static.block_size) is None:
         return _cuda.DETECTOR
@@ -267,6 +271,7 @@ def fused_detect_offline(fstatic: FusedDetectorStatic, params: DetectorParams,
     None))``, the contract of ``detect_offline``.  ``emit_rel=False``
     writes no relative envelope."""
     if x.device.type == "cpu":
+        kernel_for(fstatic.plain).plain_calls += 1
         st, (on, d, rel) = detect_offline(fstatic.plain, params, state, x)
         return st, (on, d, rel if emit_rel else None)
     return _launch(fstatic, params, state, x, emit_rel, warmup=False)
@@ -278,6 +283,7 @@ def fused_warmup_minmax(fstatic: FusedDetectorStatic, params: DetectorParams,
     """``warmup_minmax`` through the kernel's warmup mode: advances the
     filter, envelopes and min/max tracker only, writes no events."""
     if x.device.type == "cpu":
+        kernel_for(fstatic.plain).plain_calls += 1
         return warmup_minmax(fstatic.plain, params, state, x)
     new, _ = _launch(fstatic, params, state, x, False, warmup=True)
     return new

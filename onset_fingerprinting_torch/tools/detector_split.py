@@ -7,20 +7,16 @@ directory (the sources in the package stay as they are):
   memory and then runs every later block on the column already in shared
   memory (the last block's relative envelope), so it times the arithmetic
   and the shared-memory traffic without the loads;
-- ``loads``: the block loop stages each block and skips everything else;
+- ``loads``: the block loop stages each block and skips everything else.
 
-and one of ``csrc/detector_pipe.cu``:
-
-- ``pipe4``: four warps instead of three (the dB in a warp of its own,
-  after the IIR's), sub-blocks of 8 rows so that 8 CTAs still fit.
-
-Times each variant beside the kernels themselves (the one-thread-per-
-channel ``detector.cu`` and the pipelined ``detector_pipe.cu``) at the
-fleet shape ``[32000, 32768]`` (events only, as the fleet path runs it) by
-CUDA events, and counts the SASS of each kernel's innermost loops
-(``cuobjdump -sass``): instructions per loop iteration, the samples one
-iteration handles (its most shared-memory loads or stores), and their
-ratio.  Run on the card from the repository root:
+Times each variant beside ``detector.cu`` itself at the fleet shape
+``[32000, 32768]`` (events only, as the fleet path runs it) by CUDA
+events, and counts the SASS of the innermost loops (``cuobjdump -sass``)
+of these kernels and of the pipelined ``detector_pipe.cu`` (counted, not
+timed: ``chip_smoke.py`` times it beside ``detector.cu``): instructions
+per loop iteration, the samples one iteration handles (its most
+shared-memory loads or stores), and their ratio.  Run on the card from the
+repository root:
 
     python -m onset_fingerprinting_torch.tools.detector_split
 
@@ -55,84 +51,15 @@ _VARIANTS = {
 }
 
 
-_IIR = """                if (IIR) {
-                    y = p.b0 * xt + z0;
-                    z0 = p.b1 * xt + z1 - p.a1 * y;
-                    z1 = p.b2 * xt + z2 - p.a2 * y;
-                    z2 = p.b3 * xt + z3 - p.a3 * y;
-                    z3 = p.b4 * xt - p.a4 * y;
-                }
-"""
-_PIPE4 = [
-    ("constexpr int SB = 16;", "constexpr int SB = 8;"),
-    ("constexpr int ND = 2;", "constexpr int NY = 2;\nconstexpr int ND = 2;"),
-    ("constexpr int THREADS = 96;", "constexpr int THREADS = 128;"),
-    ("(2 * ND + 2 * nsb) + 15)", "(2 * NY + 2 * ND + 2 * nsb) + 15)"),
-    ("(NX + ND + nsb) * SLOT", "(NX + NY + ND + nsb) * SLOT"),
-    ("    uint64_t* d_full = reinterpret_cast<uint64_t*>(smem);",
-     "    uint64_t* y_full = reinterpret_cast<uint64_t*>(smem);\n"
-     "    uint64_t* y_empty = y_full + NY;\n"
-     "    uint64_t* d_full = y_empty + NY;"),
-    ("    float* db = xs + NX * SLOT;",
-     "    float* yb = xs + NX * SLOT;\n    float* db = yb + NY * SLOT;"),
-    ("for (int i = 0; i < 2 * ND + 2 * nsb; ++i) bar_init(d_full + i, 32);",
-     "for (int i = 0; i < 2 * NY + 2 * ND + 2 * nsb; ++i)\n"
-     "            bar_init(y_full + i, 32);"),
-    # warp 0 hands the filtered sample on through the y ring
-    ("            const int ds = g % ND;\n"
-     "            bar_wait(d_empty + ds, ((g / ND) & 1) ^ 1);\n"
-     "            const float* xin", "            const int ys_ = g % NY;\n"
-     "            bar_wait(y_empty + ys_, ((g / NY) & 1) ^ 1);\n"
-     "            const float* xin"),
-    ("            float* dout = db + ds * SLOT + lane;\n#pragma unroll 4\n"
-     "            for (int r = 0; r < SB; ++r) {\n"
-     "                const float xt",
-     "            float* yout = yb + ys_ * SLOT + lane;\n#pragma unroll 4\n"
-     "            for (int r = 0; r < SB; ++r) {\n"
-     "                const float xt"),
-    (_IIR + "                const float xdb = p.k_db * log2f(fabsf(y + p.eps));"
-     "\n                dout[r * G] = fmaxf(xdb, p.floor_db);\n            }\n"
-     "            bar_arrive(d_full + ds);",
-     _IIR + "                yout[r * G] = y;\n            }\n"
-     "            bar_arrive(y_full + ys_);"),
-    # a new warp 1: the dB; warps 1 and 2 of detector_pipe.cu move up one
-    ("    } else if (warp == 1) {", """    } else if (warp == 1) {
-        for (int g = 0; g < ng; ++g) {
-            const int ys_ = g % NY;
-            const int ds = g % ND;
-            bar_wait(y_full + ys_, (g / NY) & 1);
-            bar_wait(d_empty + ds, ((g / ND) & 1) ^ 1);
-            const float* yin = yb + ys_ * SLOT + lane;
-            float* dout = db + ds * SLOT + lane;
-#pragma unroll 4
-            for (int r = 0; r < SB; ++r) {
-                const float xdb = p.k_db * log2f(fabsf(yin[r * G] + p.eps));
-                dout[r * G] = fmaxf(xdb, p.floor_db);
-            }
-            bar_arrive(y_empty + ys_);
-            bar_arrive(d_full + ds);
-        }
-    } else if (warp == 2) {"""),
-]
-
-
-def patch(src: str, pairs, what: str) -> str:
-    for old, new in pairs:
-        if src.count(old) != 1:
-            raise RuntimeError(f"the {what} variant no longer applies: "
-                               f"{old[:60]!r}")
-        src = src.replace(old, new)
-    return src
-
-
 def variant_source(src: str, name: str) -> str:
-    if name == "pipe4":
-        return patch(src, _PIPE4, name)
-    return patch(src, [_VARIANTS[name]], name)
+    old, new = _VARIANTS[name]
+    if src.count(old) != 1:
+        raise RuntimeError(f"the {name} variant no longer applies")
+    return src.replace(old, new)
 
 
 def variant_kernel(name: str) -> _cuda.Kernel:
-    base = _cuda.DETECTOR_PIPE if name == "pipe4" else _cuda.DETECTOR
+    base = _cuda.DETECTOR
     src = (_cuda.CSRC / base.source).read_text()
     path = _cuda.BUILD_DIR / f"detector_{name}.cu"
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -232,9 +159,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", default="detector,detector_compute,"
-                    "detector_loads,detector_pipe,detector_pipe4",
+                    "detector_loads,detector_pipe",
                     help="comma-separated: detector, detector_compute, "
-                    "detector_loads, detector_pipe, detector_pipe4")
+                    "detector_loads (timed and counted), detector_pipe "
+                    "(counted)")
     ap.add_argument("--out", type=Path,
                     default=_cuda.BUILD_DIR.parent / "detector_split",
                     help="directory for the SASS listings")
@@ -248,7 +176,7 @@ def main(argv=None) -> int:
     known = {"detector": lambda: _cuda.DETECTOR,
              "detector_pipe": lambda: _cuda.DETECTOR_PIPE,
              **{f"detector_{v}": lambda v=v: variant_kernel(v)
-                for v in (*_VARIANTS, "pipe4")}}
+                for v in _VARIANTS}}
     kernels = {n: known[n]() for n in args.kernels.split(",")}
     for name, log in _cuda.build(list(kernels.values())).items():
         for line in log.splitlines():
@@ -256,37 +184,24 @@ def main(argv=None) -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
     fst, params, st0, x = fleet_inputs()
     args.out.mkdir(parents=True, exist_ok=True)
-    result = {}
-    ref = None
+    times = {}
     for name, k in kernels.items():
-        if "ofpt_detect_pipe" in k.entries:
-            # the whole contract, rel included, against detector.cu
-            if ref is None:
-                ref = _launch(fst, params, st0, x, True, False, _cuda.DETECTOR)
-            st, outs = _launch(fst, params, st0, x, True, False, k)
-            same = all(torch.equal(u, v) for u, v in zip(
-                list(st) + list(outs), list(ref[0]) + list(ref[1])))
-            print(f"{name}: on, deltas, rel and state bit-identical to "
-                  f"detector.cu: {same}", flush=True)
-            del st, outs
-        ms = time_ms(lambda k=k: _launch(fst, params, st0, x, False, False,
-                                         k))
-        loops = {}
+        if name != "detector_pipe":
+            times[name] = time_ms(lambda k=k: _launch(fst, params, st0, x,
+                                                      False, False, k))
+            print(f"{name}: {times[name]:.3f} ms at [{T}, {x.shape[1]}]",
+                  flush=True)
         for fn, lines in sass_functions(k.library_path()).items():
             (args.out / f"{name}.{fn[:40]}.sass").write_text(
                 "\n".join(lines))
-            loops[fn] = inner_loops(lines)
-        result[name] = dict(ms=ms, loops=loops)
-        print(f"{name}: {ms:.3f} ms at [{T}, {x.shape[1]}]", flush=True)
-        for fn, ls in loops.items():
-            for lp in ls:
-                print(f"  {fn[:48]} loop {lp['start']}: {lp['n']} insns "
-                      f"({lp['fp']} FP32 pipe), {lp['samples']} samples/iter"
-                      f" -> {lp['per_sample']:.2f} ({lp['fp_per_sample']:.2f}"
-                      f" FP32 pipe)/sample (loads {lp['loads']}, stores "
-                      f"{lp['stores']}, MUFU {lp['mufu']}, device loads "
-                      f"{lp['ldg']})", flush=True)
-    print(json.dumps({k: v["ms"] for k, v in result.items()}))
+            for lp in inner_loops(lines):
+                print(f"  {name} {fn[:48]} loop {lp['start']}: {lp['n']} "
+                      f"insns ({lp['fp']} FP32 pipe), {lp['samples']} "
+                      f"samples/iter -> {lp['per_sample']:.2f} "
+                      f"({lp['fp_per_sample']:.2f} FP32 pipe)/sample (loads "
+                      f"{lp['loads']}, stores {lp['stores']}, MUFU "
+                      f"{lp['mufu']}, device loads {lp['ldg']})", flush=True)
+    print(json.dumps(times))
     return 0
 
 

@@ -93,13 +93,14 @@ def test_plain_detector_matches_jax_scan(opts):
     xd = x[128 * 8:]
     jst2, (on_j, d_j, rel_j) = jamp.detect_offline(js, jp, jst,
                                                    jnp.asarray(xd))
-    # the plain version counts on the kernel a CUDA chunk would take
+    # the wrapper runs the plain version on the CPU and counts it on the
+    # kernel a CUDA chunk would take
     kernel = kernel_for(ts)
     assert kernel is (_cuda.DETECTOR if opts["coupled_off_gate"]
                       else _cuda.DETECTOR_PIPE)
     before = kernel.plain_calls
-    tst2, (on_t, d_t, rel_t) = tamp.detect_offline(ts, tp, tst,
-                                                   torch.as_tensor(xd))
+    tst2, (on_t, d_t, rel_t) = fused_detect_offline(
+        detector_static(ts, tp), tp, tst, torch.as_tensor(xd))
     assert kernel.plain_calls == before + 1
     assert np.asarray(on_j).sum() > 0
     np.testing.assert_array_equal(on_t.numpy(), np.asarray(on_j))

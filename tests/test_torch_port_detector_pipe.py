@@ -32,6 +32,7 @@ from onset_fingerprinting_torch.ops.fused_detector import (
     SMS,
     detector_static,
     fused_detect_offline,
+    fused_warmup_minmax,
     kernel_for,
     pipe_plan,
 )
@@ -112,10 +113,27 @@ def test_plain_version_counts_on_the_routed_kernel():
     x = synth(128 * 4, 5, 0)
     pipe, old = _cuda.DETECTOR_PIPE, _cuda.DETECTOR
     before = (pipe.plain_calls, old.plain_calls, pipe.launches, old.launches)
-    fused_detect_offline(detector_static(static, params), params, state, x)
-    tamp.warmup_minmax(static, params, state, x)
+    fst = detector_static(static, params)
+    fused_detect_offline(fst, params, state, x)
+    fused_warmup_minmax(fst, params, state, x)
     assert (pipe.plain_calls, old.plain_calls, pipe.launches,
             old.launches) == (before[0] + 2, *before[1:])
+
+
+def test_coupled_plain_version_counts_on_the_old_kernel():
+    # the wrappers count; the plain functions called directly do not
+    cfg = DetectorConfig(n_channels=5, coupled_off_gate=True)
+    static, params, state = tamp.detector_init(cfg, device="cpu")
+    x = synth(128 * 4, 5, 0)
+    pipe, old = _cuda.DETECTOR_PIPE, _cuda.DETECTOR
+    before = (pipe.plain_calls, old.plain_calls, pipe.launches, old.launches)
+    fst = detector_static(static, params)
+    fused_detect_offline(fst, params, state, x)
+    fused_warmup_minmax(fst, params, state, x)
+    tamp.detect_offline(static, params, state, x)
+    tamp.warmup_minmax(static, params, state, x)
+    assert (pipe.plain_calls, old.plain_calls, pipe.launches,
+            old.launches) == (before[0], before[1] + 2, *before[2:])
 
 
 # ---- the ring hand-off ----
@@ -403,17 +421,13 @@ def test_emulation_catches_an_early_release():
 
 # ---- tools/detector_split.py: its variants still apply, its SASS count ----
 
-@pytest.mark.parametrize("name", ["compute", "loads", "pipe4"])
+@pytest.mark.parametrize("name", ["compute", "loads"])
 def test_split_variants_patch_the_current_sources(name):
     from onset_fingerprinting_torch.tools import detector_split as ds
 
-    base = "detector_pipe.cu" if name == "pipe4" else "detector.cu"
-    src = (_cuda.CSRC / base).read_text()
+    src = (_cuda.CSRC / "detector.cu").read_text()
     out = ds.variant_source(src, name)
     assert out != src
-    if name == "pipe4":
-        assert "constexpr int THREADS = 128;" in out
-        assert out.count("} else if (warp == ") == 2
 
 
 def test_split_counts_an_inner_loop_per_sample():
