@@ -8,8 +8,9 @@ Run from the repository root with no arguments:
 It imports only ``onset_fingerprinting_torch`` (never jax) and fails with a
 non-zero exit code, printing no result, on any error or without CUDA.
 
-Phase 0  prints the card's name and power limit and builds the six
-         kernels from ``onset_fingerprinting_torch/csrc`` with nvcc.
+Phase 0  prints the card's name and power limit and builds the ten
+         kernel libraries from ``onset_fingerprinting_torch/csrc`` with
+         nvcc, all started together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
          (TF32 off for cuDNN and matmuls): K1 the fused detector bit for
          bit (warmup state, on, deltas, rel, state) on both of its kernels
@@ -18,13 +19,18 @@ Phase 1  holds each kernel against its plain PyTorch version on the card
          and, at the fleet shape as the main path runs it (events only),
          the pipe against the plain detector and against the other
          kernel bit for bit, and the two kernels timed; K2 the window gather
-         (both contracts, 32768 hits), K4 the roll gather (32768 hits with
-         tile-edge streams and clamped starts, bit-exact, and equal to K2's
-         block-aligned windows), K3 the fused conv stack (flagship, 131072
-         signals): bfloat16 on the tensor-core kernel (four draws of weights,
-         biases and input; a far signal is saved under
-         ``build/conv_stack_far/``), float32 on the CUDA-core kernel, each
-         timed beside its cuDNN conv1d chain.
+         and K4 the roll gather on each of their three kernels
+         (``tools/gather_bench.run``: the row-vector kernels the routes
+         take, the old one-float-per-thread ones, the TMA ones), bit-exact
+         (K2 in both contracts, K4 also equal to K2's block-aligned
+         windows) on 32768 random hits with clipped starts and on the fleet
+         path's own hit list, timed in this process on both, with the
+         useful-bytes bound and the sector floor of those hits, and
+         bit-exact once more at a ragged C and N; K3 the fused conv stack
+         (flagship, 131072 signals): bfloat16 on the tensor-core kernel
+         (four draws of weights, biases and input; a far signal is saved
+         under ``build/conv_stack_far/``), float32 on the CUDA-core kernel,
+         each timed beside its cuDNN conv1d chain.
 Phase 2  drives the fleet path at full width — 8192 four-channel 96 kHz
          streams, three carried chunks of 32000 samples after a 38-block
          warmup, the flagship CCCNN in bfloat16 with random weights carried
@@ -33,21 +39,26 @@ Phase 2  drives the fleet path at full width — 8192 four-channel 96 kHz
          stage with CUDA events (median over 5 iterations of varied
          input), and compares the path with its plain version on the CPU at
          32 streams.  The bf16 path must take the tensor-core K3 and never
-         the CUDA-core one, and the pipelined K1 (4 launches) and never the
-         one-thread-per-channel one.
+         the CUDA-core one, the pipelined K1 (4 launches) and never the
+         one-thread-per-channel one, and K2's routed kernel and
+         instantiation (3 launches) and no other K2.
 Phase 3  drives the fingerprint-stage anatomy
          (``tools.fingerprint_anatomy.main``) at full width — 8192 streams,
-         G = 32768, W = 256 — shows that K2, K3 and K4 launched and no
-         plain version ran, checks the pair head's predictions, prints the
-         per-chunk table, and compares the pair-head CCCNN on the card with
-         its plain version on the CPU at 32 streams (float32, TF32 off).
+         G = 32768, W = 256 — shows that K3 and the routed K2 and K4
+         launched (and no other gather kernel) and no plain version ran,
+         checks the pair head's predictions, prints the per-chunk table,
+         and compares the pair-head CCCNN on the card with its plain
+         version on the CPU at 32 streams (float32, TF32 off).
 
 Prints one ``{"kernels": [...]}`` line (K1 as two rows: ``detector``, the
 pipe, the main path's; ``detector_coupled``, the one-thread-per-channel
-kernel in the coupled mode, which the main path never launches; K3 as two
-rows: ``conv_stack_mma`` in bfloat16, the main path's; ``conv_stack_f32``
-in float32, golden mode, which the main path never launches) and, last,
-``{"ok": true, "device": {...}}``.
+kernel in the coupled mode, which the main path never launches; K2 and K4
+as three rows each: ``gather_vec`` and ``gather_roll_vec``, the paths'
+kernels, ``gather`` and ``gather_roll``, the old kernels, ``gather_tma``
+and ``gather_roll_tma``, the TMA kernels, timed on the random hits; K3 as
+two rows: ``conv_stack_mma`` in bfloat16, the main path's;
+``conv_stack_f32`` in float32, golden mode, which the main path never
+launches) and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 N_STREAMS = 8192
@@ -250,95 +262,58 @@ def detector_work(shape):
                 ops=t * c * DETECTOR_OPS_PER_SAMPLE, peak=LANE_OPS)
 
 
+#: the gathers' kernels-line rows: (row, gather, route name)
+GATHER_ROWS = (("gather", "k2", "old"), ("gather_vec", "k2", "vec"),
+               ("gather_tma", "k2", "tma"), ("gather_roll", "k4", "old"),
+               ("gather_roll_vec", "k4", "vec"),
+               ("gather_roll_tma", "k4", "tma"))
+
+
 def phase_gather(report, x):
-    import numpy as np
-
-    from onset_fingerprinting_torch.ops.windows import (
-        gather_hit_windows,
-        gather_hit_windows_reference,
-    )
+    """K2 and K4 on every kernel that takes the fleet shape
+    (``tools/gather_bench.run``: bit-exact to plain, K4 also to K2's
+    block-aligned windows, on random and on the fleet path's hits, then
+    timed old against new in this process), and once more at a ragged
+    shape.  Returns K2's windows at the random hits for K3's check."""
+    from onset_fingerprinting_torch.ops import windows as ow
+    from onset_fingerprinting_torch.tools import gather_bench as gb
     from onset_fingerprinting_torch.workload import PRE, WINDOW
 
     t, c = x.shape
-    g = 32768
-    rng = np.random.default_rng(3)
-    starts = rng.integers(0, t, g).astype(np.int32)
-    starts[:4] = [0, 5, t - 1, t - WINDOW - 3]  # both clip edges
-    sids = rng.integers(0, c // 4, g).astype(np.int32)
-    starts = torch.as_tensor(starts, device="cuda")
-    sids = torch.as_tensor(sids, device="cuda")
+    res = gb.run(x, N_STREAMS, G, log=log)
+    for row, which, route in GATHER_ROWS:
+        r = res[which]["random"]
+        report[row] = dict(
+            max_abs_err=0.0, ms=float(np.mean(r["ms"][route])),
+            plain_ms=float(np.mean(r["ms"]["plain"])), bytes=r["useful_bytes"],
+            ops=0, peak=F32_FLOPS,
+            library_ms=float(np.mean(r["ms"]["library"])))
+    # a ragged shape: C not a multiple of 128 (K2), a hit count that fills
+    # no CTA or ring evenly, on every route that takes it
+    cr, n = c - 12, G - 13
+    xr = x[:, :cr].contiguous()
+    starts, sids = gb.random_hits(t, cr, 4, n, 11, x.device)
     for anchored in (True, False):
-        k = gather_hit_windows(x, starts, sids, 4, WINDOW, PRE, anchored)
-        p = gather_hit_windows_reference(x, starts, sids, 4, WINDOW, PRE,
-                                         anchored)
-        torch.cuda.synchronize()
-        check(torch.equal(k, p), f"K2 differs (anchored={anchored})")
-        log(f"K2 anchored={anchored}: {g} windows bit-exact")
-    ms = time_ms(lambda: gather_hit_windows(x, starts, sids, 4, WINDOW, PRE,
-                                            True), n=20)
-    plain_ms = time_ms(lambda: gather_hit_windows_reference(
-        x, starts, sids, 4, WINDOW, PRE, True), n=5)
-    rows = torch.clamp(starts.long() - PRE, 0, t - WINDOW - 8)
-    r = (rows[:, None] + torch.arange(WINDOW, device="cuda"))[:, None, :]
-    cols = (sids.long()[:, None] * 4 + torch.arange(4, device="cuda")
-            )[:, :, None]
-    library_ms = time_ms(lambda: x[r, cols], n=5)
-    bytes_ = 2 * g * 4 * WINDOW * 4 + 2 * g * 4
-    report["gather"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                            bytes=bytes_, ops=0, peak=F32_FLOPS,
-                            library_ms=library_ms)
-    log(f"K2 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"advanced indexing {library_ms:.3f} ms")
-    return gather_hit_windows(x, starts, sids, 4, WINDOW, PRE, True)
-
-
-def phase_gather_roll(report, x):
-    import numpy as np
-
-    from onset_fingerprinting_torch.ops.windows import (
-        _roll_indices,
-        gather_hit_windows,
-        gather_windows_roll,
-        gather_windows_roll_reference,
-    )
-    from onset_fingerprinting_torch.workload import PRE, WINDOW
-
-    t, c = x.shape
-    g, cps = G, 4
-    rng = np.random.default_rng(5)
-    starts = rng.integers(0, t, g).astype(np.int32)
-    sids = rng.integers(0, c // cps, g).astype(np.int32)
-    # tile-edge streams (lanes wrap inside their 128-lane tile) and starts
-    # past T - W (clamped)
-    sids[:6] = [31, 32, 63, 4095, c // cps - 1, 0]
-    starts[:6] = [t - 1, t - WINDOW + 5, 0, t - WINDOW - 3, 7, t - 8]
-    starts = torch.as_tensor(starts, device=x.device)
-    sids = torch.as_tensor(sids, device=x.device)
-    k = gather_windows_roll(x, starts, sids, cps, WINDOW)
-    p = gather_windows_roll_reference(x, starts, sids, cps, WINDOW)
-    torch.cuda.synchronize()
-    check(torch.equal(k, p), "K4 differs from its plain version")
+        plain = ow.gather_hit_windows_reference(xr, starts, sids, 4, WINDOW,
+                                                PRE, anchored)
+        for name, route in ow.gather_routes(cr, 4, WINDOW,
+                                            xr.data_ptr()).items():
+            got = ow._launch_gather(route, xr, starts, sids, 4, WINDOW, PRE,
+                                    anchored)
+            torch.cuda.synchronize()
+            check(torch.equal(got, plain), f"K2 {name} differs at the ragged "
+                  f"C={cr}, N={n}, anchored={anchored}")
+    del xr, plain, got
     rows8 = torch.clamp(starts - PRE, 0, t - WINDOW) // 8 * 8
-    roll = gather_windows_roll(x, rows8, sids, cps, WINDOW)
-    block = gather_hit_windows(x, starts, sids, cps, WINDOW, PRE, False)
-    torch.cuda.synchronize()
-    check(torch.equal(roll[:, :, :cps].transpose(1, 2), block),
-          "K4 windows differ from K2's block-aligned windows")
-    log(f"K4: {g} slabs bit-exact vs plain; [:, :, :{cps}] transposed "
-        "equals K2's block-aligned windows")
-    ms = time_ms(lambda: gather_windows_roll(x, starts, sids, cps, WINDOW),
-                 n=20)
-    plain_ms = time_ms(lambda: gather_windows_roll_reference(
-        x, starts, sids, cps, WINDOW), n=5)
-    rows, cols = _roll_indices(starts, sids, t, c, cps, WINDOW)
-    rows, cols = rows[:, :, None], cols[:, None, :]
-    library_ms = time_ms(lambda: x[rows, cols], n=5)
-    bytes_ = 2 * g * WINDOW * 8 * 4
-    report["gather_roll"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                 bytes=bytes_, ops=0, peak=F32_FLOPS,
-                                 library_ms=library_ms)
-    log(f"K4 time: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"advanced indexing {library_ms:.3f} ms")
+    plain = ow.gather_windows_roll_reference(x, rows8, sids, 4, WINDOW)
+    for name, route in ow.roll_routes(c, 4, WINDOW, x.data_ptr()).items():
+        got = ow._launch_roll(route, x, rows8, sids, 4, WINDOW)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), f"K4 {name} differs at N={n}")
+    log(f"K2 at C={cr}, N={n} (both contracts) and K4 at N={n}: every "
+        "route bit-exact")
+    starts, sids = gb.random_hits(t, c, 4, G, 3, x.device)
+    return ow.gather_hit_windows(x, starts, sids, 4, WINDOW, PRE, True)
 
 
 def gate_far(k, p, x, ws, bs, tag):
@@ -491,6 +466,10 @@ def phase_main_path(report):
         cccnn_state_dict_from_flax,
     )
     from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.windows import (
+        gather_kernel_for,
+        gather_routes,
+    )
     from onset_fingerprinting_torch.pipeline import (
         fleet_detector_config,
         make_detect_fingerprint,
@@ -540,11 +519,20 @@ def phase_main_path(report):
     counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
     log(f"launches/plain calls on the main path (warmup + {CHUNKS} "
         f"chunks): {counts}")
-    for k in (_cuda.DETECTOR_PIPE, _cuda.GATHER, _cuda.CONV_STACK_MMA):
+    for k in (_cuda.DETECTOR_PIPE, _cuda.CONV_STACK_MMA):
         check(k.launches > 0, f"kernel {k.name} never launched")
     for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran on the main path")
         report["_launches"][k.name] = k.launches
+    # K2: one launch per chunk, all on the routed kernel and instantiation
+    gather = gather_kernel_for(N_STREAMS * 4, 4, WINDOW)
+    check(gather.kernel.variants[gather.variant] == CHUNKS
+          and gather.kernel.launches == CHUNKS,
+          f"K2 ran {gather.kernel.variants} on {gather.kernel.name}, want "
+          f"{CHUNKS} x {gather.variant}")
+    for route in gather_routes(N_STREAMS * 4, 4, WINDOW).values():
+        check(route == gather or route.kernel.launches == 0,
+              f"the fleet path launched {route.kernel.name}")
     # the fleet detector runs the pipe only: warmup + one launch per chunk
     check(_cuda.DETECTOR_PIPE.launches == 1 + CHUNKS,
           f"{_cuda.DETECTOR_PIPE.launches} pipe launches, want {1 + CHUNKS}")
@@ -629,6 +617,10 @@ def phase_anatomy(report):
     from onset_fingerprinting_torch.ops.windows import (
         compact_hit_list,
         gather_hit_windows,
+        gather_kernel_for,
+        gather_routes,
+        roll_kernel_for,
+        roll_routes,
         top_hit_blocks,
     )
     from onset_fingerprinting_torch.tools import fingerprint_anatomy as fa
@@ -647,13 +639,26 @@ def phase_anatomy(report):
     counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
     log(f"launches/plain calls on the anatomy path ({ITERS} + 1 "
         f"iterations): {counts}")
-    for k in (_cuda.GATHER, _cuda.CONV_STACK_MMA, _cuda.GATHER_ROLL):
-        check(k.launches > 0, f"kernel {k.name} never launched")
+    check(_cuda.CONV_STACK_MMA.launches > 0, "kernel conv_stack_mma never "
+          "launched")
     check(_cuda.CONV_STACK.launches == 0,
           "the CUDA-core conv stack ran on the bf16 anatomy path")
     for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran on the anatomy path")
-    report["_launches"]["gather_roll"] = _cuda.GATHER_ROLL.launches
+    # K2 and K4 (2 calls each per iteration) only on their routed kernels
+    c = N_STREAMS * 4
+    for routes, route, calls in (
+            (gather_routes(c, 4, WINDOW), gather_kernel_for(c, 4, WINDOW), 2),
+            (roll_routes(c, 4, WINDOW), roll_kernel_for(c, 4, WINDOW), 2)):
+        want = calls * (ITERS + 1)
+        check(route.kernel.variants[route.variant] == want,
+              f"{route.kernel.name} ran {route.kernel.variants}, want {want}"
+              f" x {route.variant}")
+        for other in routes.values():
+            check(other == route or other.kernel.launches == 0,
+                  f"the anatomy launched {other.kernel.name}")
+    for k in (_cuda.GATHER_ROLL, _cuda.GATHER_ROLL_VEC, _cuda.GATHER_ROLL_TMA):
+        report["_launches"][k.name] = k.launches
     for name in ("preds", "preds_pairs"):
         out = outputs[name]
         check(tuple(out.shape) == (g, 2), f"{name} shape {out.shape}")
@@ -715,7 +720,6 @@ def main() -> int:
     phase_detector(report)
     x = make_audio(CHUNK, N_STREAMS * 4, seed=4)
     windows = phase_gather(report, x)
-    phase_gather_roll(report, x)
     del x
     phase_conv(report, windows)
     del windows
@@ -734,6 +738,12 @@ def main() -> int:
                              ":85", "detector"),
         "gather": ("onset_fingerprinting_torch/csrc/gather.cu",
                    "onset_fingerprinting_tpu/ops/windows.py:136", "gather"),
+        "gather_vec": ("onset_fingerprinting_torch/csrc/gather_vec.cu",
+                       "onset_fingerprinting_tpu/ops/windows.py:136",
+                       "gather_vec"),
+        "gather_tma": ("onset_fingerprinting_torch/csrc/gather_tma.cu",
+                       "onset_fingerprinting_tpu/ops/windows.py:136",
+                       "gather_tma"),
         "conv_stack_mma": ("onset_fingerprinting_torch/csrc/conv_stack_mma.cu",
                            "onset_fingerprinting_tpu/ops/pallas_conv.py:187",
                            "conv_stack_mma"),
@@ -743,6 +753,13 @@ def main() -> int:
         "gather_roll": ("onset_fingerprinting_torch/csrc/gather_roll.cu",
                         "onset_fingerprinting_tpu/ops/windows.py:187",
                         "gather_roll"),
+        "gather_roll_vec": ("onset_fingerprinting_torch/csrc/"
+                            "gather_roll_vec.cu",
+                            "onset_fingerprinting_tpu/ops/windows.py:187",
+                            "gather_roll_vec"),
+        "gather_roll_tma": ("onset_fingerprinting_torch/csrc/gather_tma.cu",
+                            "onset_fingerprinting_tpu/ops/windows.py:187",
+                            "gather_roll_tma"),
     }
     kernels = []
     for name, (src, replaces, counter) in sources.items():

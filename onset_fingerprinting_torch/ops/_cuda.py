@@ -10,7 +10,8 @@ source rebuilds and an unchanged one is reused.  Libraries go to
 Every kernel has a :class:`Kernel` record here with two plain integer
 counters: ``launches`` (its wrapper adds one each time it launches the
 kernel, and nowhere else) and ``plain_calls`` (its plain PyTorch version
-adds one per call).  ``chip_smoke.py`` reads both to show which path ran.
+adds one per call), and ``variants``, the launches by instantiation where
+a wrapper names one.  ``chip_smoke.py`` reads them to show which path ran.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; a
 non-zero code raises here, since a refused launch never runs and a later
@@ -19,6 +20,7 @@ non-zero code raises here, since a refused launch never runs and a later
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -51,6 +53,7 @@ class Kernel:
         self.flags = NVCC_FLAGS + tuple(extra_flags)
         self.launches = 0
         self.plain_calls = 0
+        self.variants = collections.Counter()
         self._lib = None
 
     def library_path(self) -> Path:
@@ -69,9 +72,10 @@ class Kernel:
         lib.ofpt_error_string.restype = ctypes.c_char_p
         self._lib = lib
 
-    def launch(self, entry: str, *args) -> None:
+    def launch(self, entry: str, *args, variant: str = "") -> None:
         """Call C entry ``entry`` (which launches the kernel on the given
-        stream), raise on a CUDA error, count the launch."""
+        stream), raise on a CUDA error, count the launch (and, under
+        ``variant``, the instantiation it took)."""
         if self._lib is None:
             build([self])
         rc = getattr(self._lib, entry)(*args)
@@ -79,6 +83,8 @@ class Kernel:
             msg = self._lib.ofpt_error_string(rc).decode()
             raise RuntimeError(f"{self.name}.{entry}: CUDA error {rc} ({msg})")
         self.launches += 1
+        if variant:
+            self.variants[variant] += 1
 
 
 def nvcc() -> str:
@@ -133,6 +139,7 @@ def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.plain_calls = 0
+        k.variants.clear()
 
 
 DETECTOR = Kernel(
@@ -163,5 +170,25 @@ GATHER_ROLL = Kernel(
     "gather_roll", "gather_roll.cu",
     {"ofpt_gather_roll": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
 )
+# K2 and K4 again: row-vector copies, and TMA tile copies (one source, one
+# library per gather so that each counts its own launches).  The plain
+# versions count their calls on GATHER and GATHER_ROLL.
+GATHER_VEC = Kernel(
+    "gather_vec", "gather_vec.cu",
+    {"ofpt_gather_vec": [_P, _P, _P, _P] + [_I] * 7 + [_P]},
+)
+GATHER_ROLL_VEC = Kernel(
+    "gather_roll_vec", "gather_roll_vec.cu",
+    {"ofpt_gather_roll_vec": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
+)
+GATHER_TMA = Kernel(
+    "gather_tma", "gather_tma.cu",
+    {"ofpt_gather_tma": [_P, _P, _P, _P] + [_I] * 7 + [_P]},
+)
+GATHER_ROLL_TMA = Kernel(
+    "gather_roll_tma", "gather_tma.cu",
+    {"ofpt_gather_roll_tma": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
+)
 KERNELS = (DETECTOR, DETECTOR_PIPE, GATHER, CONV_STACK, CONV_STACK_MMA,
-           GATHER_ROLL)
+           GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC, GATHER_TMA,
+           GATHER_ROLL_TMA)

@@ -10,15 +10,34 @@ For B batched streams stored channel-interleaved as ``x [T, S·cps]``:
   counterpart, so ranks come from ``cumsum`` and a ``scatter`` into fixed
   ``[G]`` buffers; overflow is counted in a device scalar ``n_dropped``,
   never dropped silently;
-- :func:`gather_hit_windows` cuts ``[N, cps, W]`` windows: kernel K2
-  (``csrc/gather.cu``) for a CUDA tensor, the plain indexing version
+- :func:`gather_hit_windows` cuts ``[N, cps, W]`` windows: kernel K2 for a
+  CUDA tensor, the plain indexing version
   :func:`gather_hit_windows_reference` for a CPU tensor;
 - :func:`gather_windows_roll` cuts window-major ``[N, W, 8]`` lane slabs
-  of the wide layout: kernel K4 (``csrc/gather_roll.cu``) for a CUDA
-  tensor, :func:`gather_windows_roll_reference` for a CPU tensor.
+  of the wide layout: kernel K4 for a CUDA tensor,
+  :func:`gather_windows_roll_reference` for a CPU tensor.
+
+Each gather has three kernels on the card, and a route function says
+which one a call takes (:func:`gather_kernel_for`, :func:`roll_kernel_for`;
+a static test of the shape and of x's alignment, no fallback):
+
+- ``csrc/gather_vec.cu`` / ``csrc/gather_roll_vec.cu``, row-vector copies
+  (each thread issues a fixed count of 16-byte loads before its stores),
+  the path's kernels wherever they take the shape;
+- ``csrc/gather.cu`` / ``csrc/gather_roll.cu``, one float per thread,
+  which take any shape: the route for the rest;
+- ``csrc/gather_tma.cu``, TMA tile copies into a ring of hit slots, which
+  no route picks: measured beside the others (:func:`gather_routes`,
+  :func:`roll_routes`).
+
+:func:`gather_vec_addresses`, :func:`roll_vec_addresses` and
+:func:`gather_tma_boxes` / :func:`roll_tma_boxes` spell out the kernels'
+addressing for the CPU tests, which replay it against the plain versions.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -127,6 +146,174 @@ def _rows(starts: torch.Tensor, t: int, window: int, pre: int,
     return torch.clamp(starts - pre, 0, t - window) // 8 * 8
 
 
+class Route(NamedTuple):
+    """The kernel a CUDA gather launches: its record, C entry point and
+    instantiation (counted in ``kernel.variants``)."""
+
+    kernel: _cuda.Kernel
+    entry: str
+    variant: str
+
+
+#: cps values with an instantiation of the row-vector K2
+VEC_CPS = (1, 2, 4, 8)
+#: the row-vector kernels' ROWS: rows (K2) or vectors (K4) per thread
+TILE_ROWS = 4
+#: the TMA kernels' limit on W (a box dimension is at most 256)
+TMA_MAX_ROWS = 256
+#: the TMA kernels' consecutive hits per CTA and ring slots per CTA
+TMA_K2_HITS, TMA_K2_SLOTS = 16, 8
+TMA_K4_HITS, TMA_K4_SLOTS = 8, 4
+#: the route each gather takes, by preference: the first kernel that
+#: takes the shape
+PATH_ORDER = ("vec", "old")
+
+
+def _tma_rows(window: int) -> bool:
+    """A W the TMA kernels take: one box (at most 256 rows), and slots of
+    ``W * 16`` or ``W * 32`` bytes that keep every box 128-byte aligned."""
+    return window <= TMA_MAX_ROWS and window % 8 == 0
+
+
+def vec_width(cps: int) -> int:
+    """Floats per load of the row-vector K2: the largest of 4, 2, 1 that
+    divides ``cps`` (and so C, and every window row's offset)."""
+    return 4 if cps % 4 == 0 else 2 if cps % 2 == 0 else 1
+
+
+def roll_vec_width(cps: int) -> int:
+    """Floats per load of the row-vector K4: ``min(cps, 4)``, which divides
+    every stream's first lane ``g * cps`` and 128, so no load straddles
+    the rotation's wrap."""
+    return min(cps, 4)
+
+
+def gather_routes(c: int, cps: int, window: int,
+                  data_ptr: int = 0) -> dict[str, Route]:
+    """Every K2 kernel that takes this shape, by name: ``old``
+    (``gather.cu``, any shape), ``vec`` (``gather_vec.cu``: cps in
+    :data:`VEC_CPS`, W % 4 == 0, x aligned to its vector width) and
+    ``tma`` (``gather_tma.cu``: cps 4 or 8, W <= 256 and W % 8 == 0, x
+    16-byte aligned)."""
+    routes = {"old": Route(_cuda.GATHER, "ofpt_gather", "")}
+    v = vec_width(cps)
+    if cps in VEC_CPS and window % TILE_ROWS == 0 and data_ptr % (4 * v) == 0:
+        routes["vec"] = Route(_cuda.GATHER_VEC, "ofpt_gather_vec",
+                              f"cps{cps}")
+    if cps in (4, 8) and _tma_rows(window) and data_ptr % 16 == 0:
+        routes["tma"] = Route(_cuda.GATHER_TMA, "ofpt_gather_tma",
+                              f"cps{cps}")
+    return routes
+
+
+def gather_kernel_for(c: int, cps: int, window: int,
+                      data_ptr: int = 0) -> Route:
+    """The kernel a CUDA gather of this shape runs on (the first of
+    :data:`PATH_ORDER` that takes it)."""
+    routes = gather_routes(c, cps, window, data_ptr)
+    return next(routes[k] for k in PATH_ORDER if k in routes)
+
+
+def roll_routes(c: int, cps: int, window: int,
+                data_ptr: int = 0) -> dict[str, Route]:
+    """Every K4 kernel that takes this (wide-layout) shape, by name:
+    ``old`` (``gather_roll.cu``, any), ``vec`` (``gather_roll_vec.cu``:
+    ``W * 8 / V`` a multiple of :data:`TILE_ROWS`, x aligned to V floats)
+    and ``tma`` (``gather_tma.cu``: cps % 4 == 0, W <= 256 and W % 8 ==
+    0, x 16-byte aligned)."""
+    routes = {"old": Route(_cuda.GATHER_ROLL, "ofpt_gather_roll", "")}
+    v = roll_vec_width(cps)
+    if window * (8 // v) % TILE_ROWS == 0 and data_ptr % (4 * v) == 0:
+        routes["vec"] = Route(_cuda.GATHER_ROLL_VEC, "ofpt_gather_roll_vec",
+                              f"v{v}")
+    if cps % 4 == 0 and _tma_rows(window) and data_ptr % 16 == 0:
+        routes["tma"] = Route(_cuda.GATHER_ROLL_TMA, "ofpt_gather_roll_tma",
+                              f"cps{cps}")
+    return routes
+
+
+def roll_kernel_for(c: int, cps: int, window: int,
+                    data_ptr: int = 0) -> Route:
+    """The kernel a CUDA roll gather of this shape runs on (the first of
+    :data:`PATH_ORDER` that takes it)."""
+    routes = roll_routes(c, cps, window, data_ptr)
+    return next(routes[k] for k in PATH_ORDER if k in routes)
+
+
+def gather_vec_addresses(starts, stream_ids, t, c, cps, window, pre=0,
+                         anchored=False):
+    """``gather_vec.cu``'s addressing.  Thread ``e = i * W/4 + q`` copies
+    rows ``4q .. 4q+3`` of hit ``i``'s window → ``(loads [N, W/4, 4,
+    cps/V], stores [N, W/4, cps])`` int64: the flat x offset of each
+    V-float load (row r of the quad, vector j: channels ``jV .. jV+V-1``),
+    all issued before the stores, and the flat out offset of each 16-byte
+    store (channel c, rows ``4q .. 4q+3`` of ``out[i, c]``)."""
+    dev = starts.device
+    v = vec_width(cps)
+    q = torch.arange(window // TILE_ROWS, device=dev)
+    rows = _rows(starts.long(), t, window, pre, anchored)
+    sids = torch.clamp(stream_ids.long(), 0, c // cps - 1)
+    row = (rows[:, None, None, None] + TILE_ROWS * q[:, None, None]
+           + torch.arange(TILE_ROWS, device=dev)[:, None])
+    loads = row * c + (sids * cps)[:, None, None, None] + v * torch.arange(
+        cps // v, device=dev)
+    hit = torch.arange(starts.shape[0], device=dev)[:, None, None]
+    stores = (hit * cps * window + torch.arange(cps, device=dev) * window
+              + TILE_ROWS * q[:, None])
+    return loads, stores
+
+
+def roll_vec_addresses(row_start, stream_ids, t, c, cps, window):
+    """``gather_roll_vec.cu``'s addressing.  Hit i's ``[W, 8]`` slab is
+    ``W * 8 / V`` vectors of V floats in order; thread t of the hit's
+    ``P = W * 8 / (V * 4)`` takes vectors ``p = t + kP``, k < 4 → ``(loads
+    [N, P, 4], stores [N, P, 4])`` int64 flat offsets of each V-float load
+    (row ``p // (8/V)``, lanes ``(lane0 + V * (p % (8/V))) & 127`` of the
+    stream's tile) and store."""
+    dev = row_start.device
+    v = roll_vec_width(cps)
+    lpr = 8 // v
+    per_hit = window * lpr // TILE_ROWS
+    groups = LANE // cps
+    r = torch.clamp(row_start.long() & ~7, 0, t - window)
+    sids = torch.clamp(stream_ids.long(), 0, c // cps - 1)
+    tile = sids // groups
+    lane0 = (sids - tile * groups) * cps
+    p = (torch.arange(per_hit, device=dev)[:, None]
+         + per_hit * torch.arange(TILE_ROWS, device=dev))
+    loads = ((r[:, None, None] + p // lpr) * c + (tile * LANE)[:, None, None]
+             + ((lane0[:, None, None] + v * (p % lpr)) & (LANE - 1)))
+    hit = torch.arange(row_start.shape[0], device=dev)[:, None, None]
+    return loads, hit * window * 8 + v * p
+
+
+def gather_tma_boxes(starts, stream_ids, t, c, cps, window, pre=0,
+                     anchored=False):
+    """``gather_tma.cu``'s K2 boxes: one box ``{4 * ceil(cps/4), W}`` per
+    hit at ``(col, row)`` of x → ``(cols [N], rows [N])`` int64; CTA b
+    takes hits ``b * TMA_K2_HITS`` onwards through a ring of
+    ``TMA_K2_SLOTS`` slots, and the consumers store slot row w's channel c
+    to ``out[i, c, w]``."""
+    rows = _rows(starts.long(), t, window, pre, anchored)
+    sids = torch.clamp(stream_ids.long(), 0, c // cps - 1)
+    return sids * cps, rows
+
+
+def roll_tma_boxes(row_start, stream_ids, t, c, cps, window):
+    """``gather_tma.cu``'s K4 boxes ``{8, W}``: ``(cols, wrap, rows,
+    lane0)`` [N].  Box A at ``cols = tile * 128 + lane0``; a stream whose 8
+    lanes pass its tile's lane 127 (``wrap``: ``lane0 + 8 > 128``) takes
+    box B at ``cols - 128`` too, and half-row h of the slab (lanes ``4h ..
+    4h+3``) comes from B where ``lane0 + 4h >= 128``.  Columns outside
+    ``[0, C)`` read zeros (box B of tile 0 starts left of column 0)."""
+    groups = LANE // cps
+    rows = torch.clamp(row_start.long() & ~7, 0, t - window)
+    sids = torch.clamp(stream_ids.long(), 0, c // cps - 1)
+    tile = sids // groups
+    lane0 = (sids - tile * groups) * cps
+    return tile * LANE + lane0, lane0 + 8 > LANE, rows, lane0
+
+
 def gather_hit_windows_reference(x, starts, stream_ids, channels_per_stream,
                                  window, pre=0, anchored=False):
     """Plain version of K2: the same windows by advanced indexing."""
@@ -172,12 +359,23 @@ def gather_hit_windows(
                 or not v.is_contiguous()):
             raise ValueError("starts and stream_ids must be contiguous int32 "
                              f"[{n}] tensors on x's device")
+    route = gather_kernel_for(c, cps, window, x.data_ptr())
+    return _launch_gather(route, x, starts, stream_ids, cps, window, pre,
+                          anchored)
+
+
+def _launch_gather(route: Route, x, starts, stream_ids, cps, window, pre,
+                   anchored):
+    """Launch K2 on ``route`` (checked by the caller).  Only a measurement
+    names a route other than :func:`gather_kernel_for`'s."""
+    t, c = x.shape
+    n = starts.shape[0]
     out = torch.empty((n, cps, window), dtype=torch.float32, device=x.device)
     if n:
-        _cuda.GATHER.launch(
-            "ofpt_gather", x.data_ptr(), starts.data_ptr(),
+        route.kernel.launch(
+            route.entry, x.data_ptr(), starts.data_ptr(),
             stream_ids.data_ptr(), out.data_ptr(), n, t, c, cps, window, pre,
-            int(anchored), _cuda.stream(),
+            int(anchored), _cuda.stream(), variant=route.variant,
         )
     return out
 
@@ -259,11 +457,20 @@ def gather_windows_roll(
                 or not v.is_contiguous()):
             raise ValueError("row_start and stream_ids must be contiguous "
                              f"int32 [{n}] tensors on x's device")
+    route = roll_kernel_for(c, cps, window, x.data_ptr())
+    return _launch_roll(route, x, row_start, stream_ids, cps, window)
+
+
+def _launch_roll(route: Route, x, row_start, stream_ids, cps, window):
+    """Launch K4 on ``route`` (checked by the caller).  Only a measurement
+    names a route other than :func:`roll_kernel_for`'s."""
+    t, c = x.shape
+    n = row_start.shape[0]
     out = torch.empty((n, window, 8), dtype=torch.float32, device=x.device)
     if n:
-        _cuda.GATHER_ROLL.launch(
-            "ofpt_gather_roll", x.data_ptr(), row_start.data_ptr(),
+        route.kernel.launch(
+            route.entry, x.data_ptr(), row_start.data_ptr(),
             stream_ids.data_ptr(), out.data_ptr(), n, t, c, cps, window,
-            _cuda.stream(),
+            _cuda.stream(), variant=route.variant,
         )
     return out

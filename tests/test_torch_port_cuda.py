@@ -1,5 +1,5 @@
-"""The six kernels against their plain versions on the card, at small
-shapes (the full-width checks are in chip_smoke.py).  Marked ``cuda``:
+"""The kernels against their plain versions on the card, at small shapes
+(the full-width checks are in chip_smoke.py).  Marked ``cuda``:
 they skip on a machine without CUDA.  Run on the card with
 
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda
@@ -293,13 +293,18 @@ def test_gather_roll_kernel_matches_plain(cps):
 
 def test_gather_roll_counts_launches_and_never_runs_plain():
     from onset_fingerprinting_torch.ops import _cuda
-    from onset_fingerprinting_torch.ops.windows import gather_windows_roll
+    from onset_fingerprinting_torch.ops.windows import (
+        gather_windows_roll,
+        roll_kernel_for,
+    )
 
     x, rs, sids = _roll_case()
-    launches = _cuda.GATHER_ROLL.launches
+    kernel = roll_kernel_for(512, 4, 256, x.data_ptr()).kernel
+    assert kernel is _cuda.GATHER_ROLL_VEC
+    launches = kernel.launches
     plain = _cuda.GATHER_ROLL.plain_calls
     gather_windows_roll(x, rs, sids, 4, 256)
-    assert _cuda.GATHER_ROLL.launches == launches + 1
+    assert kernel.launches == launches + 1
     assert _cuda.GATHER_ROLL.plain_calls == plain
     # a CUDA tensor the kernel does not take raises; it never goes plain
     with pytest.raises(ValueError, match="int32"):
@@ -308,3 +313,137 @@ def test_gather_roll_counts_launches_and_never_runs_plain():
     with pytest.raises(ValueError, match="contiguous float32"):
         gather_windows_roll(strided, rs, sids, 4, 256)
     assert _cuda.GATHER_ROLL.plain_calls == plain
+
+
+def _gather_hits(kind, t, c, cps, n, seed):
+    """Random hits with both clip edges and both end streams, or the fleet
+    path's own list for the injected grid (``tools/gather_bench``)."""
+    from onset_fingerprinting_torch.tools import gather_bench as gb
+
+    if kind == "grid":
+        return gb.fleet_hits(t, c // cps, "cuda")
+    rng = np.random.default_rng(seed)
+    starts = rng.integers(0, t, n).astype(np.int32)
+    sids = rng.integers(0, c // cps, n).astype(np.int32)
+    edges = [0, 67, t - 1, t - 195, 5][:n]
+    starts[:len(edges)] = edges
+    sids[:2] = [c // cps - 1, 0][:min(n, 2)]
+    return (torch.as_tensor(starts, device="cuda"),
+            torch.as_tensor(sids, device="cuda"))
+
+
+@pytest.mark.parametrize("cps,c,n,kind,routes", [
+    (4, 512, 999, "random", {"old", "vec", "tma"}),
+    (1, 256, 999, "random", {"old", "vec"}),
+    (2, 256, 999, "random", {"old", "vec"}),
+    (8, 512, 999, "random", {"old", "vec", "tma"}),
+    (2, 102, 999, "random", {"old", "vec"}),  # ragged C, C % 4 == 2
+    (3, 96, 999, "random", {"old"}),  # an odd cps
+    (4, 500, 37, "random", {"old", "vec", "tma"}),  # C % 128 != 0
+    (4, 512, 1, "random", {"old", "vec", "tma"}),
+    (4, 512, 0, "random", {"old", "vec", "tma"}),
+    (4, 512, 0, "grid", {"old", "vec", "tma"}),  # the fleet path's list
+])
+def test_gather_routes_match_plain(cps, c, n, kind, routes):
+    """Every K2 kernel that takes the shape is bit-exact to plain in both
+    contracts and counts its launch under its instantiation; the wrapper
+    takes ``gather_kernel_for``'s and never the plain version."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops import windows as ow
+
+    t = 32000 if kind == "grid" else 4096
+    x = torch.randn(t, c, device="cuda")
+    starts, sids = _gather_hits(kind, t, c, cps, n, seed=cps)
+    n = starts.shape[0]
+    table = ow.gather_routes(c, cps, 256, x.data_ptr())
+    assert set(table) == routes
+    for anchored in (True, False):
+        plain = ow.gather_hit_windows_reference(x, starts, sids, cps, 256, 64,
+                                                anchored)
+        for route in table.values():
+            before = (route.kernel.launches,
+                      route.kernel.variants[route.variant])
+            got = ow._launch_gather(route, x, starts, sids, cps, 256, 64,
+                                    anchored)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain), (route, anchored)
+            hit = int(n > 0)
+            assert route.kernel.launches == before[0] + hit
+            if route.variant:
+                assert route.kernel.variants[route.variant] == before[1] + hit
+    route = ow.gather_kernel_for(c, cps, 256, x.data_ptr())
+    assert route.kernel is (_cuda.GATHER_VEC if "vec" in routes
+                            else _cuda.GATHER)
+    counts = [(k.launches, k.plain_calls) for k in _cuda.KERNELS]
+    got = ow.gather_hit_windows(x, starts, sids, cps, 256, 64, True)
+    torch.cuda.synchronize()
+    after = [(k.launches, k.plain_calls) for k in _cuda.KERNELS]
+    for k, a, b in zip(_cuda.KERNELS, counts, after):
+        assert b == (a[0] + int(k is route.kernel and n > 0), a[1]), k.name
+    assert torch.equal(got, ow.gather_hit_windows_reference(
+        x, starts, sids, cps, 256, 64, True))
+
+
+def test_gather_misaligned_x_takes_the_old_kernel():
+    """A view 4 bytes into its storage: no 16-byte loads, so gather.cu."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops import windows as ow
+
+    x = torch.randn(4096 * 512 + 1, device="cuda")[1:].view(4096, 512)
+    starts, sids = _gather_hits("random", 4096, 512, 4, 999, seed=2)
+    assert ow.gather_kernel_for(512, 4, 256, x.data_ptr()).kernel is \
+        _cuda.GATHER
+    before = _cuda.GATHER.launches
+    got = ow.gather_hit_windows(x, starts, sids, 4, 256, 64, True)
+    assert _cuda.GATHER.launches == before + 1
+    assert torch.equal(got, ow.gather_hit_windows_reference(
+        x, starts, sids, 4, 256, 64, True))
+
+
+@pytest.mark.parametrize("cps,n,kind,routes", [
+    (4, 999, "random", {"old", "vec", "tma"}),
+    (1, 999, "random", {"old", "vec"}),
+    (2, 999, "random", {"old", "vec"}),
+    (8, 999, "random", {"old", "vec", "tma"}),
+    (4, 1, "random", {"old", "vec", "tma"}),
+    (4, 0, "random", {"old", "vec", "tma"}),
+    (4, 0, "grid", {"old", "vec", "tma"}),
+])
+def test_roll_routes_match_plain(cps, n, kind, routes):
+    """Every K4 kernel that takes the shape is bit-exact to plain (the
+    in-tile wrap, clamped starts) and to K2's block-aligned windows, and
+    counts its launch; the wrapper takes ``roll_kernel_for``'s."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops import windows as ow
+
+    c = 512
+    if kind == "grid":
+        x = torch.randn(32000, c, device="cuda")
+        starts, sids = _gather_hits("grid", 32000, c, cps, 0, 0)
+        rs = torch.clamp(starts - 64, 0, 32000 - 256) // 8 * 8
+    else:
+        x, rs, sids = _roll_case(t=1000, c=c, n=max(n, 3), cps=cps)
+        rs, sids = rs[:n].contiguous(), sids[:n].contiguous()
+    table = ow.roll_routes(c, cps, 256, x.data_ptr())
+    assert set(table) == routes
+    plain = ow.gather_windows_roll_reference(x, rs, sids, cps, 256)
+    for route in table.values():
+        before = (route.kernel.launches,
+                  route.kernel.variants[route.variant])
+        got = ow._launch_roll(route, x, rs, sids, cps, 256)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), route
+        hit = int(rs.shape[0] > 0)
+        assert route.kernel.launches == before[0] + hit
+        if route.variant:
+            assert route.kernel.variants[route.variant] == before[1] + hit
+    if kind == "grid":
+        block = ow.gather_hit_windows(x, starts, sids, cps, 256, 64, False)
+        assert torch.equal(plain[:, :, :cps].transpose(1, 2), block)
+    route = ow.roll_kernel_for(c, cps, 256, x.data_ptr())
+    assert route.kernel is _cuda.GATHER_ROLL_VEC
+    before = (route.kernel.launches, _cuda.GATHER_ROLL.plain_calls)
+    got = ow.gather_windows_roll(x, rs, sids, cps, 256)
+    assert (route.kernel.launches, _cuda.GATHER_ROLL.plain_calls) == (
+        before[0] + int(rs.shape[0] > 0), before[1])
+    assert torch.equal(got, plain)
