@@ -8,7 +8,7 @@ Run from the repository root with no arguments:
 It imports only ``onset_fingerprinting_torch`` (never jax) and fails with a
 non-zero exit code, printing no result, on any error or without CUDA.
 
-Phase 0  prints the card's name and power limit and builds the ten
+Phase 0  prints the card's name and power limit and builds the eight
          kernel libraries from ``onset_fingerprinting_torch/csrc`` with
          nvcc, all started together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
@@ -19,9 +19,9 @@ Phase 1  holds each kernel against its plain PyTorch version on the card
          and, at the fleet shape as the main path runs it (events only),
          the pipe against the plain detector and against the other
          kernel bit for bit, and the two kernels timed; K2 the window gather
-         and K4 the roll gather on each of their three kernels
+         and K4 the roll gather on each of their two kernels
          (``tools/gather_bench.run``: the row-vector kernels the routes
-         take, the old one-float-per-thread ones, the TMA ones), bit-exact
+         take and the old one-float-per-thread ones), bit-exact
          (K2 in both contracts, K4 also equal to K2's block-aligned
          windows) on 32768 random hits with clipped starts and on the fleet
          path's own hit list, timed in this process on both, with the
@@ -53,9 +53,9 @@ Phase 3  drives the fingerprint-stage anatomy
 Prints one ``{"kernels": [...]}`` line (K1 as two rows: ``detector``, the
 pipe, the main path's; ``detector_coupled``, the one-thread-per-channel
 kernel in the coupled mode, which the main path never launches; K2 and K4
-as three rows each: ``gather_vec`` and ``gather_roll_vec``, the paths'
-kernels, ``gather`` and ``gather_roll``, the old kernels, ``gather_tma``
-and ``gather_roll_tma``, the TMA kernels, timed on the random hits; K3 as
+as two rows each, timed on the random hits: ``gather_vec`` and
+``gather_roll_vec``, the paths' kernels, and ``gather`` and
+``gather_roll``, the old kernels, which the paths never launch; K3 as
 two rows: ``conv_stack_mma`` in bfloat16, the main path's;
 ``conv_stack_f32`` in float32, golden mode, which the main path never
 launches) and, last, ``{"ok": true, "device": {...}}``.
@@ -264,9 +264,7 @@ def detector_work(shape):
 
 #: the gathers' kernels-line rows: (row, gather, route name)
 GATHER_ROWS = (("gather", "k2", "old"), ("gather_vec", "k2", "vec"),
-               ("gather_tma", "k2", "tma"), ("gather_roll", "k4", "old"),
-               ("gather_roll_vec", "k4", "vec"),
-               ("gather_roll_tma", "k4", "tma"))
+               ("gather_roll", "k4", "old"), ("gather_roll_vec", "k4", "vec"))
 
 
 def phase_gather(report, x):
@@ -296,7 +294,7 @@ def phase_gather(report, x):
     for anchored in (True, False):
         plain = ow.gather_hit_windows_reference(xr, starts, sids, 4, WINDOW,
                                                 PRE, anchored)
-        for name, route in ow.gather_routes(cr, 4, WINDOW,
+        for name, route in ow.gather_routes(4, WINDOW,
                                             xr.data_ptr()).items():
             got = ow._launch_gather(route, xr, starts, sids, 4, WINDOW, PRE,
                                     anchored)
@@ -306,7 +304,7 @@ def phase_gather(report, x):
     del xr, plain, got
     rows8 = torch.clamp(starts - PRE, 0, t - WINDOW) // 8 * 8
     plain = ow.gather_windows_roll_reference(x, rows8, sids, 4, WINDOW)
-    for name, route in ow.roll_routes(c, 4, WINDOW, x.data_ptr()).items():
+    for name, route in ow.roll_routes(4, WINDOW, x.data_ptr()).items():
         got = ow._launch_roll(route, x, rows8, sids, 4, WINDOW)
         torch.cuda.synchronize()
         check(torch.equal(got, plain), f"K4 {name} differs at N={n}")
@@ -525,12 +523,12 @@ def phase_main_path(report):
         check(k.plain_calls == 0, f"plain {k.name} ran on the main path")
         report["_launches"][k.name] = k.launches
     # K2: one launch per chunk, all on the routed kernel and instantiation
-    gather = gather_kernel_for(N_STREAMS * 4, 4, WINDOW)
+    gather = gather_kernel_for(4, WINDOW)
     check(gather.kernel.variants[gather.variant] == CHUNKS
           and gather.kernel.launches == CHUNKS,
           f"K2 ran {gather.kernel.variants} on {gather.kernel.name}, want "
           f"{CHUNKS} x {gather.variant}")
-    for route in gather_routes(N_STREAMS * 4, 4, WINDOW).values():
+    for route in gather_routes(4, WINDOW).values():
         check(route == gather or route.kernel.launches == 0,
               f"the fleet path launched {route.kernel.name}")
     # the fleet detector runs the pipe only: warmup + one launch per chunk
@@ -646,10 +644,9 @@ def phase_anatomy(report):
     for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran on the anatomy path")
     # K2 and K4 (2 calls each per iteration) only on their routed kernels
-    c = N_STREAMS * 4
     for routes, route, calls in (
-            (gather_routes(c, 4, WINDOW), gather_kernel_for(c, 4, WINDOW), 2),
-            (roll_routes(c, 4, WINDOW), roll_kernel_for(c, 4, WINDOW), 2)):
+            (gather_routes(4, WINDOW), gather_kernel_for(4, WINDOW), 2),
+            (roll_routes(4, WINDOW), roll_kernel_for(4, WINDOW), 2)):
         want = calls * (ITERS + 1)
         check(route.kernel.variants[route.variant] == want,
               f"{route.kernel.name} ran {route.kernel.variants}, want {want}"
@@ -657,7 +654,7 @@ def phase_anatomy(report):
         for other in routes.values():
             check(other == route or other.kernel.launches == 0,
                   f"the anatomy launched {other.kernel.name}")
-    for k in (_cuda.GATHER_ROLL, _cuda.GATHER_ROLL_VEC, _cuda.GATHER_ROLL_TMA):
+    for k in (_cuda.GATHER_ROLL, _cuda.GATHER_ROLL_VEC):
         report["_launches"][k.name] = k.launches
     for name in ("preds", "preds_pairs"):
         out = outputs[name]
@@ -741,9 +738,6 @@ def main() -> int:
         "gather_vec": ("onset_fingerprinting_torch/csrc/gather_vec.cu",
                        "onset_fingerprinting_tpu/ops/windows.py:136",
                        "gather_vec"),
-        "gather_tma": ("onset_fingerprinting_torch/csrc/gather_tma.cu",
-                       "onset_fingerprinting_tpu/ops/windows.py:136",
-                       "gather_tma"),
         "conv_stack_mma": ("onset_fingerprinting_torch/csrc/conv_stack_mma.cu",
                            "onset_fingerprinting_tpu/ops/pallas_conv.py:187",
                            "conv_stack_mma"),
@@ -757,9 +751,6 @@ def main() -> int:
                             "gather_roll_vec.cu",
                             "onset_fingerprinting_tpu/ops/windows.py:187",
                             "gather_roll_vec"),
-        "gather_roll_tma": ("onset_fingerprinting_torch/csrc/gather_tma.cu",
-                            "onset_fingerprinting_tpu/ops/windows.py:187",
-                            "gather_roll_tma"),
     }
     kernels = []
     for name, (src, replaces, counter) in sources.items():

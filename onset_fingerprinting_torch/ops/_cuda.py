@@ -170,9 +170,8 @@ GATHER_ROLL = Kernel(
     "gather_roll", "gather_roll.cu",
     {"ofpt_gather_roll": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
 )
-# K2 and K4 again: row-vector copies, and TMA tile copies (one source, one
-# library per gather so that each counts its own launches).  The plain
-# versions count their calls on GATHER and GATHER_ROLL.
+# K2 and K4 again, as row-vector copies; the plain versions count their
+# calls on GATHER and GATHER_ROLL.
 GATHER_VEC = Kernel(
     "gather_vec", "gather_vec.cu",
     {"ofpt_gather_vec": [_P, _P, _P, _P] + [_I] * 7 + [_P]},
@@ -181,14 +180,5 @@ GATHER_ROLL_VEC = Kernel(
     "gather_roll_vec", "gather_roll_vec.cu",
     {"ofpt_gather_roll_vec": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
 )
-GATHER_TMA = Kernel(
-    "gather_tma", "gather_tma.cu",
-    {"ofpt_gather_tma": [_P, _P, _P, _P] + [_I] * 7 + [_P]},
-)
-GATHER_ROLL_TMA = Kernel(
-    "gather_roll_tma", "gather_tma.cu",
-    {"ofpt_gather_roll_tma": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
-)
 KERNELS = (DETECTOR, DETECTOR_PIPE, GATHER, CONV_STACK, CONV_STACK_MMA,
-           GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC, GATHER_TMA,
-           GATHER_ROLL_TMA)
+           GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC)

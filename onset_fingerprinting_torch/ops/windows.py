@@ -17,22 +17,21 @@ For B batched streams stored channel-interleaved as ``x [T, S·cps]``:
   of the wide layout: kernel K4 for a CUDA tensor,
   :func:`gather_windows_roll_reference` for a CPU tensor.
 
-Each gather has three kernels on the card, and a route function says
-which one a call takes (:func:`gather_kernel_for`, :func:`roll_kernel_for`;
-a static test of the shape and of x's alignment, no fallback):
+Each gather has two kernels on the card, and a route function says which
+one a call takes (:func:`gather_kernel_for`, :func:`roll_kernel_for`; a
+static test of the shape and of x's alignment, no fallback):
 
 - ``csrc/gather_vec.cu`` / ``csrc/gather_roll_vec.cu``, row-vector copies
   (each thread issues a fixed count of 16-byte loads before its stores),
-  the path's kernels wherever they take the shape;
+  wherever they take the shape;
 - ``csrc/gather.cu`` / ``csrc/gather_roll.cu``, one float per thread,
-  which take any shape: the route for the rest;
-- ``csrc/gather_tma.cu``, TMA tile copies into a ring of hit slots, which
-  no route picks: measured beside the others (:func:`gather_routes`,
-  :func:`roll_routes`).
+  which take any shape: the route for the rest.
 
-:func:`gather_vec_addresses`, :func:`roll_vec_addresses` and
-:func:`gather_tma_boxes` / :func:`roll_tma_boxes` spell out the kernels'
-addressing for the CPU tests, which replay it against the plain versions.
+:func:`gather_routes` and :func:`roll_routes` name both where both take a
+shape, so that a measurement can time them side by side.
+:func:`gather_vec_addresses` and :func:`roll_vec_addresses` spell out the
+row-vector kernels' addressing for the CPU tests, which replay it against
+the plain versions.
 """
 
 from __future__ import annotations
@@ -159,20 +158,6 @@ class Route(NamedTuple):
 VEC_CPS = (1, 2, 4, 8)
 #: the row-vector kernels' ROWS: rows (K2) or vectors (K4) per thread
 TILE_ROWS = 4
-#: the TMA kernels' limit on W (a box dimension is at most 256)
-TMA_MAX_ROWS = 256
-#: the TMA kernels' consecutive hits per CTA and ring slots per CTA
-TMA_K2_HITS, TMA_K2_SLOTS = 16, 8
-TMA_K4_HITS, TMA_K4_SLOTS = 8, 4
-#: the route each gather takes, by preference: the first kernel that
-#: takes the shape
-PATH_ORDER = ("vec", "old")
-
-
-def _tma_rows(window: int) -> bool:
-    """A W the TMA kernels take: one box (at most 256 rows), and slots of
-    ``W * 16`` or ``W * 32`` bytes that keep every box 128-byte aligned."""
-    return window <= TMA_MAX_ROWS and window % 8 == 0
 
 
 def vec_width(cps: int) -> int:
@@ -188,56 +173,45 @@ def roll_vec_width(cps: int) -> int:
     return min(cps, 4)
 
 
-def gather_routes(c: int, cps: int, window: int,
-                  data_ptr: int = 0) -> dict[str, Route]:
+def gather_routes(cps: int, window: int, data_ptr: int = 0
+                  ) -> dict[str, Route]:
     """Every K2 kernel that takes this shape, by name: ``old``
-    (``gather.cu``, any shape), ``vec`` (``gather_vec.cu``: cps in
-    :data:`VEC_CPS`, W % 4 == 0, x aligned to its vector width) and
-    ``tma`` (``gather_tma.cu``: cps 4 or 8, W <= 256 and W % 8 == 0, x
-    16-byte aligned)."""
+    (``gather.cu``, any shape) and ``vec`` (``gather_vec.cu``: cps in
+    :data:`VEC_CPS`, W % 4 == 0, x aligned to its vector width)."""
     routes = {"old": Route(_cuda.GATHER, "ofpt_gather", "")}
     v = vec_width(cps)
     if cps in VEC_CPS and window % TILE_ROWS == 0 and data_ptr % (4 * v) == 0:
         routes["vec"] = Route(_cuda.GATHER_VEC, "ofpt_gather_vec",
                               f"cps{cps}")
-    if cps in (4, 8) and _tma_rows(window) and data_ptr % 16 == 0:
-        routes["tma"] = Route(_cuda.GATHER_TMA, "ofpt_gather_tma",
-                              f"cps{cps}")
     return routes
 
 
-def gather_kernel_for(c: int, cps: int, window: int,
-                      data_ptr: int = 0) -> Route:
-    """The kernel a CUDA gather of this shape runs on (the first of
-    :data:`PATH_ORDER` that takes it)."""
-    routes = gather_routes(c, cps, window, data_ptr)
-    return next(routes[k] for k in PATH_ORDER if k in routes)
+def gather_kernel_for(cps: int, window: int, data_ptr: int = 0) -> Route:
+    """The kernel a CUDA gather of this shape runs on: the row-vector one
+    where it takes the shape, else the old one."""
+    routes = gather_routes(cps, window, data_ptr)
+    return routes.get("vec", routes["old"])
 
 
-def roll_routes(c: int, cps: int, window: int,
-                data_ptr: int = 0) -> dict[str, Route]:
+def roll_routes(cps: int, window: int, data_ptr: int = 0
+                ) -> dict[str, Route]:
     """Every K4 kernel that takes this (wide-layout) shape, by name:
-    ``old`` (``gather_roll.cu``, any), ``vec`` (``gather_roll_vec.cu``:
-    ``W * 8 / V`` a multiple of :data:`TILE_ROWS`, x aligned to V floats)
-    and ``tma`` (``gather_tma.cu``: cps % 4 == 0, W <= 256 and W % 8 ==
-    0, x 16-byte aligned)."""
+    ``old`` (``gather_roll.cu``, any) and ``vec`` (``gather_roll_vec.cu``:
+    ``W * 8 / V`` a multiple of :data:`TILE_ROWS`, x aligned to V
+    floats)."""
     routes = {"old": Route(_cuda.GATHER_ROLL, "ofpt_gather_roll", "")}
     v = roll_vec_width(cps)
     if window * (8 // v) % TILE_ROWS == 0 and data_ptr % (4 * v) == 0:
         routes["vec"] = Route(_cuda.GATHER_ROLL_VEC, "ofpt_gather_roll_vec",
                               f"v{v}")
-    if cps % 4 == 0 and _tma_rows(window) and data_ptr % 16 == 0:
-        routes["tma"] = Route(_cuda.GATHER_ROLL_TMA, "ofpt_gather_roll_tma",
-                              f"cps{cps}")
     return routes
 
 
-def roll_kernel_for(c: int, cps: int, window: int,
-                    data_ptr: int = 0) -> Route:
-    """The kernel a CUDA roll gather of this shape runs on (the first of
-    :data:`PATH_ORDER` that takes it)."""
-    routes = roll_routes(c, cps, window, data_ptr)
-    return next(routes[k] for k in PATH_ORDER if k in routes)
+def roll_kernel_for(cps: int, window: int, data_ptr: int = 0) -> Route:
+    """The kernel a CUDA roll gather of this shape runs on: the row-vector
+    one where it takes the shape, else the old one."""
+    routes = roll_routes(cps, window, data_ptr)
+    return routes.get("vec", routes["old"])
 
 
 def gather_vec_addresses(starts, stream_ids, t, c, cps, window, pre=0,
@@ -287,33 +261,6 @@ def roll_vec_addresses(row_start, stream_ids, t, c, cps, window):
     return loads, hit * window * 8 + v * p
 
 
-def gather_tma_boxes(starts, stream_ids, t, c, cps, window, pre=0,
-                     anchored=False):
-    """``gather_tma.cu``'s K2 boxes: one box ``{4 * ceil(cps/4), W}`` per
-    hit at ``(col, row)`` of x → ``(cols [N], rows [N])`` int64; CTA b
-    takes hits ``b * TMA_K2_HITS`` onwards through a ring of
-    ``TMA_K2_SLOTS`` slots, and the consumers store slot row w's channel c
-    to ``out[i, c, w]``."""
-    rows = _rows(starts.long(), t, window, pre, anchored)
-    sids = torch.clamp(stream_ids.long(), 0, c // cps - 1)
-    return sids * cps, rows
-
-
-def roll_tma_boxes(row_start, stream_ids, t, c, cps, window):
-    """``gather_tma.cu``'s K4 boxes ``{8, W}``: ``(cols, wrap, rows,
-    lane0)`` [N].  Box A at ``cols = tile * 128 + lane0``; a stream whose 8
-    lanes pass its tile's lane 127 (``wrap``: ``lane0 + 8 > 128``) takes
-    box B at ``cols - 128`` too, and half-row h of the slab (lanes ``4h ..
-    4h+3``) comes from B where ``lane0 + 4h >= 128``.  Columns outside
-    ``[0, C)`` read zeros (box B of tile 0 starts left of column 0)."""
-    groups = LANE // cps
-    rows = torch.clamp(row_start.long() & ~7, 0, t - window)
-    sids = torch.clamp(stream_ids.long(), 0, c // cps - 1)
-    tile = sids // groups
-    lane0 = (sids - tile * groups) * cps
-    return tile * LANE + lane0, lane0 + 8 > LANE, rows, lane0
-
-
 def gather_hit_windows_reference(x, starts, stream_ids, channels_per_stream,
                                  window, pre=0, anchored=False):
     """Plain version of K2: the same windows by advanced indexing."""
@@ -359,7 +306,7 @@ def gather_hit_windows(
                 or not v.is_contiguous()):
             raise ValueError("starts and stream_ids must be contiguous int32 "
                              f"[{n}] tensors on x's device")
-    route = gather_kernel_for(c, cps, window, x.data_ptr())
+    route = gather_kernel_for(cps, window, x.data_ptr())
     return _launch_gather(route, x, starts, stream_ids, cps, window, pre,
                           anchored)
 
@@ -457,7 +404,7 @@ def gather_windows_roll(
                 or not v.is_contiguous()):
             raise ValueError("row_start and stream_ids must be contiguous "
                              f"int32 [{n}] tensors on x's device")
-    route = roll_kernel_for(c, cps, window, x.data_ptr())
+    route = roll_kernel_for(cps, window, x.data_ptr())
     return _launch_roll(route, x, row_start, stream_ids, cps, window)
 
 

@@ -12,7 +12,7 @@ G = 32768 hits, cps = 4, W = 256):
   read stream 0 at row 0),
 
 each kernel the route functions know (``ops/windows.gather_routes``,
-``roll_routes``: ``old``, ``vec``, ``tma``) is first held bit-exact to the
+``roll_routes``: ``old`` and ``vec``) is first held bit-exact to the
 plain version (K2 in both contracts, K4 also against K2's block-aligned
 windows), then timed with CUDA events: the mean of ``iters`` calls after a
 warm call, in two rounds (kernels in order, then in reverse).  Beside each
@@ -21,7 +21,9 @@ bytes (each distinct input float read once, the output written once, the
 indices read) and the sectors (each distinct 32-byte input sector, the
 output's sectors, the indices).
 
-Run on the card: ``python -m onset_fingerprinting_torch.tools.gather_bench``.
+Run on the card: ``python -m onset_fingerprinting_torch.tools.gather_bench``
+(``--orders``: the same hits in other orders; ``--l2``: random hits on an
+x the L2 holds; ``--variants``: patched copies of the row-vector kernels).
 ``chip_smoke.py`` phase 1 calls :func:`run`.
 """
 
@@ -142,7 +144,7 @@ def bench_k2(x, starts, sids, cps=CHANNELS_PER_STREAM, iters=20,
     """K2 on every route that takes the shape: bit-exact to plain in both
     contracts, then timed (sample-anchored, the path's contract)."""
     t, c = x.shape
-    routes = ow.gather_routes(c, cps, WINDOW, x.data_ptr())
+    routes = ow.gather_routes(cps, WINDOW, x.data_ptr())
     for anchored in (True, False):
         plain = ow.gather_hit_windows_reference(x, starts, sids, cps, WINDOW,
                                                 PRE, anchored)
@@ -177,7 +179,7 @@ def bench_k4(x, starts, sids, cps=CHANNELS_PER_STREAM, iters=20,
     to K2's block-aligned windows, then timed."""
     t, c = x.shape
     rows8 = torch.clamp(starts - PRE, 0, t - WINDOW) // 8 * 8
-    routes = ow.roll_routes(c, cps, WINDOW, x.data_ptr())
+    routes = ow.roll_routes(cps, WINDOW, x.data_ptr())
     plain = ow.gather_windows_roll_reference(x, rows8, sids, cps, WINDOW)
     block = ow.gather_hit_windows_reference(x, starts, sids, cps, WINDOW, PRE,
                                             False)
@@ -242,8 +244,8 @@ def order_sweep(x, starts, sids, log=print, iters: int = 20) -> dict:
     orders = {"given": None, "start": torch.argsort(starts, stable=True),
               "start_stream": torch.argsort(key_ts),
               "stream_start": torch.argsort(key_st)}
-    k2 = ow.gather_kernel_for(c, cps, WINDOW, x.data_ptr())
-    k4 = ow.roll_kernel_for(c, cps, WINDOW, x.data_ptr())
+    k2 = ow.gather_kernel_for(cps, WINDOW, x.data_ptr())
+    k4 = ow.roll_kernel_for(cps, WINDOW, x.data_ptr())
     fns = {}
     for name, perm in orders.items():
         st = starts if perm is None else starts[perm].contiguous()
@@ -257,6 +259,29 @@ def order_sweep(x, starts, sids, log=print, iters: int = 20) -> dict:
     times = _rounds(fns, iters)
     log("orders: " + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}"
                                for k, v in times.items()) + " ms")
+    return times
+
+
+def l2_resident(log=print, iters: int = 20) -> dict:
+    """The random-hit times at an x the L2 holds: 32768 hits (the same 8.4M
+    window rows, the same output) on x ``[2048, 4096]`` (32 MB, resident
+    in the 50 MB L2 after the warm call).  Beside the fleet width's times
+    it says how much of those is DRAM reading isolated sectors at random
+    rather than the kernels' own issue and stores."""
+    t, c, cps = 2048, 4096, CHANNELS_PER_STREAM
+    x = torch.randn(t, c, device="cuda")
+    starts, sids = random_hits(t, c, cps, 32768, 3, x.device)
+    rows8 = torch.clamp(starts - PRE, 0, t - WINDOW) // 8 * 8
+    fns = {}
+    for name, r in ow.gather_routes(cps, WINDOW, x.data_ptr()).items():
+        fns[f"k2_{name}"] = (lambda r=r: ow._launch_gather(
+            r, x, starts, sids, cps, WINDOW, PRE, True))
+    for name, r in ow.roll_routes(cps, WINDOW, x.data_ptr()).items():
+        fns[f"k4_{name}"] = (lambda r=r: ow._launch_roll(
+            r, x, rows8, sids, cps, WINDOW))
+    times = _rounds(fns, iters)
+    log(f"L2-resident x [{t}, {c}], {len(starts)} random hits: " + ", ".join(
+        f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in times.items()) + " ms")
     return times
 
 
@@ -319,8 +344,8 @@ def variant_sweep(x, n_streams, g, log=print, iters: int = 20) -> dict:
 
     t, c = x.shape
     cps = CHANNELS_PER_STREAM
-    k2 = ow.gather_routes(c, cps, WINDOW, x.data_ptr())
-    k4 = ow.roll_routes(c, cps, WINDOW, x.data_ptr())
+    k2 = ow.gather_routes(cps, WINDOW, x.data_ptr())
+    k4 = ow.roll_routes(cps, WINDOW, x.data_ptr())
     k2v = {n: variant_route(k2["vec"], n) for n in VARIANTS
            if _K2 in VARIANTS[n]}
     k4v = {n: variant_route(k4["vec"], n) for n in VARIANTS
@@ -366,9 +391,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    logs = _cuda.build([_cuda.GATHER, _cuda.GATHER_VEC, _cuda.GATHER_TMA,
-                        _cuda.GATHER_ROLL, _cuda.GATHER_ROLL_VEC,
-                        _cuda.GATHER_ROLL_TMA])
+    logs = _cuda.build([_cuda.GATHER, _cuda.GATHER_VEC, _cuda.GATHER_ROLL,
+                        _cuda.GATHER_ROLL_VEC])
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -384,6 +408,8 @@ def main() -> int:
                 ("fleet", fleet_hits(32000, n_streams, "cuda"))):
             say(f"{dist}:")
             out[f"orders_{dist}"] = order_sweep(x, *hits, log=say)
+    if "--l2" in sys.argv:
+        out["l2_resident"] = l2_resident(log=say)
     if "--variants" in sys.argv:
         out["variants"] = variant_sweep(x, n_streams, 32768, log=say)
     print(json.dumps(out))

@@ -299,7 +299,7 @@ def test_gather_roll_counts_launches_and_never_runs_plain():
     )
 
     x, rs, sids = _roll_case()
-    kernel = roll_kernel_for(512, 4, 256, x.data_ptr()).kernel
+    kernel = roll_kernel_for(4, 256, x.data_ptr()).kernel
     assert kernel is _cuda.GATHER_ROLL_VEC
     launches = kernel.launches
     plain = _cuda.GATHER_ROLL.plain_calls
@@ -333,16 +333,16 @@ def _gather_hits(kind, t, c, cps, n, seed):
 
 
 @pytest.mark.parametrize("cps,c,n,kind,routes", [
-    (4, 512, 999, "random", {"old", "vec", "tma"}),
+    (4, 512, 999, "random", {"old", "vec"}),
     (1, 256, 999, "random", {"old", "vec"}),
     (2, 256, 999, "random", {"old", "vec"}),
-    (8, 512, 999, "random", {"old", "vec", "tma"}),
+    (8, 512, 999, "random", {"old", "vec"}),
     (2, 102, 999, "random", {"old", "vec"}),  # ragged C, C % 4 == 2
     (3, 96, 999, "random", {"old"}),  # an odd cps
-    (4, 500, 37, "random", {"old", "vec", "tma"}),  # C % 128 != 0
-    (4, 512, 1, "random", {"old", "vec", "tma"}),
-    (4, 512, 0, "random", {"old", "vec", "tma"}),
-    (4, 512, 0, "grid", {"old", "vec", "tma"}),  # the fleet path's list
+    (4, 500, 37, "random", {"old", "vec"}),  # C % 128 != 0
+    (4, 512, 1, "random", {"old", "vec"}),
+    (4, 512, 0, "random", {"old", "vec"}),
+    (4, 512, 0, "grid", {"old", "vec"}),  # the fleet path's list
 ])
 def test_gather_routes_match_plain(cps, c, n, kind, routes):
     """Every K2 kernel that takes the shape is bit-exact to plain in both
@@ -355,7 +355,7 @@ def test_gather_routes_match_plain(cps, c, n, kind, routes):
     x = torch.randn(t, c, device="cuda")
     starts, sids = _gather_hits(kind, t, c, cps, n, seed=cps)
     n = starts.shape[0]
-    table = ow.gather_routes(c, cps, 256, x.data_ptr())
+    table = ow.gather_routes(cps, 256, x.data_ptr())
     assert set(table) == routes
     for anchored in (True, False):
         plain = ow.gather_hit_windows_reference(x, starts, sids, cps, 256, 64,
@@ -371,7 +371,7 @@ def test_gather_routes_match_plain(cps, c, n, kind, routes):
             assert route.kernel.launches == before[0] + hit
             if route.variant:
                 assert route.kernel.variants[route.variant] == before[1] + hit
-    route = ow.gather_kernel_for(c, cps, 256, x.data_ptr())
+    route = ow.gather_kernel_for(cps, 256, x.data_ptr())
     assert route.kernel is (_cuda.GATHER_VEC if "vec" in routes
                             else _cuda.GATHER)
     counts = [(k.launches, k.plain_calls) for k in _cuda.KERNELS]
@@ -391,7 +391,7 @@ def test_gather_misaligned_x_takes_the_old_kernel():
 
     x = torch.randn(4096 * 512 + 1, device="cuda")[1:].view(4096, 512)
     starts, sids = _gather_hits("random", 4096, 512, 4, 999, seed=2)
-    assert ow.gather_kernel_for(512, 4, 256, x.data_ptr()).kernel is \
+    assert ow.gather_kernel_for(4, 256, x.data_ptr()).kernel is \
         _cuda.GATHER
     before = _cuda.GATHER.launches
     got = ow.gather_hit_windows(x, starts, sids, 4, 256, 64, True)
@@ -401,13 +401,13 @@ def test_gather_misaligned_x_takes_the_old_kernel():
 
 
 @pytest.mark.parametrize("cps,n,kind,routes", [
-    (4, 999, "random", {"old", "vec", "tma"}),
+    (4, 999, "random", {"old", "vec"}),
     (1, 999, "random", {"old", "vec"}),
     (2, 999, "random", {"old", "vec"}),
-    (8, 999, "random", {"old", "vec", "tma"}),
-    (4, 1, "random", {"old", "vec", "tma"}),
-    (4, 0, "random", {"old", "vec", "tma"}),
-    (4, 0, "grid", {"old", "vec", "tma"}),
+    (8, 999, "random", {"old", "vec"}),
+    (4, 1, "random", {"old", "vec"}),
+    (4, 0, "random", {"old", "vec"}),
+    (4, 0, "grid", {"old", "vec"}),
 ])
 def test_roll_routes_match_plain(cps, n, kind, routes):
     """Every K4 kernel that takes the shape is bit-exact to plain (the
@@ -424,7 +424,7 @@ def test_roll_routes_match_plain(cps, n, kind, routes):
     else:
         x, rs, sids = _roll_case(t=1000, c=c, n=max(n, 3), cps=cps)
         rs, sids = rs[:n].contiguous(), sids[:n].contiguous()
-    table = ow.roll_routes(c, cps, 256, x.data_ptr())
+    table = ow.roll_routes(cps, 256, x.data_ptr())
     assert set(table) == routes
     plain = ow.gather_windows_roll_reference(x, rs, sids, cps, 256)
     for route in table.values():
@@ -440,7 +440,7 @@ def test_roll_routes_match_plain(cps, n, kind, routes):
     if kind == "grid":
         block = ow.gather_hit_windows(x, starts, sids, cps, 256, 64, False)
         assert torch.equal(plain[:, :, :cps].transpose(1, 2), block)
-    route = ow.roll_kernel_for(c, cps, 256, x.data_ptr())
+    route = ow.roll_kernel_for(cps, 256, x.data_ptr())
     assert route.kernel is _cuda.GATHER_ROLL_VEC
     before = (route.kernel.launches, _cuda.GATHER_ROLL.plain_calls)
     got = ow.gather_windows_roll(x, rs, sids, cps, 256)

@@ -176,57 +176,54 @@ def test_gather_windows_roll_rejects_narrow_layout(c, cps):
 # ---- the redesigned gathers' routes and addressing (the card kernels are
 # ---- held to the plain versions in test_torch_port_cuda.py)
 
-@pytest.mark.parametrize("c,cps,w,ptr,want,variant", [
-    (32768, 4, 256, 0, "gather_vec", "cps4"),  # the fleet path
-    (128, 1, 256, 0, "gather_vec", "cps1"),
-    (102, 2, 256, 0, "gather_vec", "cps2"),  # ragged C, C % 4 == 2
-    (256, 8, 64, 0, "gather_vec", "cps8"),
-    (96, 3, 256, 0, "gather", ""),  # an odd cps: no instantiation
-    (128, 4, 254, 0, "gather", ""),  # W % 4 != 0
-    (128, 4, 256, 8, "gather", ""),  # x 8-byte aligned: no 16-byte loads
-    (128, 2, 256, 8, "gather_vec", "cps2"),  # 8 bytes are enough at V = 2
+@pytest.mark.parametrize("cps,w,ptr,want,variant", [
+    (4, 256, 0, "gather_vec", "cps4"),  # the fleet path
+    (1, 256, 0, "gather_vec", "cps1"),
+    (2, 256, 0, "gather_vec", "cps2"),  # also a ragged C, C % 4 == 2
+    (8, 64, 0, "gather_vec", "cps8"),
+    (3, 256, 0, "gather", ""),  # an odd cps: no instantiation
+    (4, 254, 0, "gather", ""),  # W % 4 != 0
+    (4, 256, 8, "gather", ""),  # x 8-byte aligned: no 16-byte loads
+    (2, 256, 8, "gather_vec", "cps2"),  # 8 bytes are enough at V = 2
 ])
-def test_gather_kernel_for(c, cps, w, ptr, want, variant):
-    route = tw.gather_kernel_for(c, cps, w, ptr)
+def test_gather_kernel_for(cps, w, ptr, want, variant):
+    route = tw.gather_kernel_for(cps, w, ptr)
     assert (route.kernel.name, route.variant) == (want, variant)
     assert route.entry in route.kernel.entries
 
 
-@pytest.mark.parametrize("c,cps,w,ptr,want,variant", [
-    (32768, 4, 256, 0, "gather_roll_vec", "v4"),  # the anatomy
-    (256, 1, 64, 0, "gather_roll_vec", "v1"),
-    (256, 2, 64, 0, "gather_roll_vec", "v2"),
-    (256, 8, 256, 0, "gather_roll_vec", "v4"),
-    (128, 4, 255, 0, "gather_roll", ""),  # W * 2 % 4 != 0
-    (128, 4, 256, 4, "gather_roll", ""),  # x 4-byte aligned only
+@pytest.mark.parametrize("cps,w,ptr,want,variant", [
+    (4, 256, 0, "gather_roll_vec", "v4"),  # the anatomy
+    (1, 64, 0, "gather_roll_vec", "v1"),
+    (2, 64, 0, "gather_roll_vec", "v2"),
+    (8, 256, 0, "gather_roll_vec", "v4"),
+    (4, 255, 0, "gather_roll", ""),  # W * 2 % 4 != 0
+    (4, 256, 4, "gather_roll", ""),  # x 4-byte aligned only
 ])
-def test_roll_kernel_for(c, cps, w, ptr, want, variant):
-    route = tw.roll_kernel_for(c, cps, w, ptr)
+def test_roll_kernel_for(cps, w, ptr, want, variant):
+    route = tw.roll_kernel_for(cps, w, ptr)
     assert (route.kernel.name, route.variant) == (want, variant)
     assert route.entry in route.kernel.entries
 
 
 def test_every_shape_routes_to_a_kernel():
-    """Any shape the wrappers accept names a kernel record and one of its
-    C entry points; the TMA kernels are never a route, only measured."""
+    """Any shape the wrappers accept names a kernel record, one of its C
+    entry points, and the row-vector kernel wherever it takes the shape."""
     for cps in range(1, 17):
         for w in (1, 2, 3, 4, 64, 254, 256, 300):
             for ptr in (0, 4, 8, 16):
-                c = cps * 96
-                routes = tw.gather_routes(c, cps, w, ptr)
-                route = tw.gather_kernel_for(c, cps, w, ptr)
-                assert route in routes.values() and route.kernel in _cuda.KERNELS
+                routes = tw.gather_routes(cps, w, ptr)
+                route = tw.gather_kernel_for(cps, w, ptr)
+                assert route.kernel in _cuda.KERNELS
                 assert route.entry in route.kernel.entries
-                assert route.kernel is not _cuda.GATHER_TMA
+                assert route == routes.get("vec", routes["old"])
                 if 128 % cps == 0:
-                    route = tw.roll_kernel_for(128, cps, w, ptr)
+                    routes = tw.roll_routes(cps, w, ptr)
+                    route = tw.roll_kernel_for(cps, w, ptr)
                     assert route.kernel in (_cuda.GATHER_ROLL_VEC,
                                             _cuda.GATHER_ROLL)
                     assert route.entry in route.kernel.entries
-    assert tw.gather_routes(32768, 4, 256)["tma"].kernel is _cuda.GATHER_TMA
-    assert tw.roll_routes(32768, 4, 256)["tma"].kernel is _cuda.GATHER_ROLL_TMA
-    assert "tma" not in tw.gather_routes(32768, 4, 512)  # box rows <= 256
-    assert "tma" not in tw.roll_routes(256, 2, 256)  # lanes not in 16 bytes
+                    assert route == routes.get("vec", routes["old"])
 
 
 def replay_gather_vec(x, starts, sids, cps, w, pre, anchored):
@@ -351,73 +348,3 @@ def test_roll_vec_addressing_replays_jax(cps, n):
     keep = row_start >= 0
     assert not keep.all() if n > 1 else keep.all()
     eq(got[torch.as_tensor(keep)], np.asarray(want)[keep])
-
-
-def box(x, col, row, width, rows):
-    """A TMA box of x at (col, row): columns outside [0, C) read zeros."""
-    t, c = x.shape
-    out = torch.zeros(rows, width)
-    lo, hi = max(col, 0), min(col + width, c)
-    if hi > lo:
-        out[:, lo - col:hi - col] = x[row:row + rows, lo:hi]
-    return out
-
-
-def ring(n, hits_per_cta, slots):
-    """The TMA kernels' schedule: CTA b takes hits ``b * hits_per_cta``
-    onwards, its k-th hit goes to slot ``k % slots`` in ring round
-    ``k // slots``."""
-    for i in range(n):
-        b, k = divmod(i, hits_per_cta)
-        yield b, k % slots, k // slots, i
-
-
-@pytest.mark.parametrize("anchored", [True, False])
-@pytest.mark.parametrize("cps,n", [(4, 37), (8, 37), (4, 1), (4, 0)])
-def test_gather_tma_boxes_replay_plain(anchored, cps, n):
-    """K2's TMA boxes and the consumers' transposed stores, replayed
-    through the kernel's rings (37 hits leave the last CTA's ring
-    part-filled)."""
-    t, c, w, pre = 1024, 256, 256, 64
-    x = torch.as_tensor(np.random.default_rng(cps).normal(size=(t, c))
-                        .astype(np.float32))
-    starts, sids = (torch.as_tensor(a) for a in cut_hits(
-        t, c // cps, n, seed=3, window=w, pre=pre))
-    cols, rows = tw.gather_tma_boxes(starts, sids, t, c, cps, w, pre,
-                                     anchored)
-    bw = -(-cps // 4) * 4
-    slots = torch.full((tw.TMA_K2_SLOTS, w, bw), float("nan"))
-    out = torch.full((n, cps, w), float("nan"))
-    for _, s, _, i in ring(n, tw.TMA_K2_HITS, tw.TMA_K2_SLOTS):
-        slots[s] = box(x, int(cols[i]), int(rows[i]), bw, w)  # producer
-        out[i] = slots[s][:, :cps].t()  # consumers: out[i, c, w] = slot[w, c]
-        slots[s] = float("nan")  # released
-    assert torch.equal(out, tw.gather_hit_windows_reference(
-        x, starts, sids, cps, w, pre, anchored))
-
-
-@pytest.mark.parametrize("cps,n", [(4, 29), (8, 29), (4, 1)])
-def test_roll_tma_boxes_replay_plain(cps, n):
-    """K4's boxes: a stream whose lanes pass its tile's lane 127 takes a
-    second box, and each half-row comes from the box that holds it."""
-    t, c, w = 500, 256, 64
-    x = torch.as_tensor(np.random.default_rng(cps).normal(size=(t, c))
-                        .astype(np.float32))
-    row_start, sids = (torch.as_tensor(a) for a in roll_hits(
-        t, c, cps, n, seed=n, w=w))
-    cols, wraps, rows, lane0 = tw.roll_tma_boxes(row_start, sids, t, c, cps,
-                                                w)
-    if cps == 4 and n > 1:
-        assert int(wraps.sum()) >= 2  # the tile-edge streams
-    if cps == 8:
-        assert not bool(wraps.any())  # 8-lane streams never wrap
-    out = torch.full((n, w, 8), float("nan"))
-    for _, _, _, i in ring(n, tw.TMA_K4_HITS, tw.TMA_K4_SLOTS):
-        a = box(x, int(cols[i]), int(rows[i]), 8, w)
-        b = (box(x, int(cols[i]) - 128, int(rows[i]), 8, w) if wraps[i]
-             else torch.full((w, 8), float("nan")))
-        for h in (0, 4):
-            src = a if int(lane0[i]) + h < 128 else b
-            out[i, :, h:h + 4] = src[:, h:h + 4]
-    assert torch.equal(out, tw.gather_windows_roll_reference(
-        x, row_start, sids, cps, w))
