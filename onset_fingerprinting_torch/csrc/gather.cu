@@ -23,6 +23,10 @@
 // contiguous floats -- every sector touched is either fully used (stores)
 // or the unavoidable partial row (loads).  A grid-stride loop over hits
 // keeps the grid at a few waves of the card.
+//
+// ops/windows.py routes K2 here only where gather_vec.cu does not take the
+// shape (a cps outside 1, 2, 4, 8, W % 4 != 0, or x not aligned to the
+// vector width); measurements time the two side by side.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -22,6 +22,10 @@
 // warp stores four whole contiguous 32-byte rows (fully used sectors) and
 // reads four rows' 8-lane runs, each the unavoidable sector per row.  No
 // shared memory: nothing is reused.
+//
+// ops/windows.py routes K4 here only where gather_roll_vec.cu does not take
+// the shape (W * 8 / V not a multiple of 4, or x not aligned to V floats);
+// measurements time the two side by side.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -1,5 +1,6 @@
 // Window-major lane-slab gather (K4) for Hopper, sm_90a, as row-vector
-// copies.
+// copies: the kernel ops/windows.py routes K4 to wherever it takes the
+// shape.
 //
 // Replaces onset_fingerprinting_tpu/ops/windows.py:_gather_kernel_roll (a
 // per-hit [W, 128] slab DMA followed by a dynamic lane rotation): for hit i,
@@ -12,11 +13,13 @@
 // next streams of the same 128-lane tile, wrapping inside it.  An exact
 // copy: no arithmetic on values.
 //
-// What bounds it on the H100: bytes, read at random.  A hit writes W * 8
-// floats (8 KB at W = 256) and reads one 32-byte run per row; rows are C
-// floats apart, so every row costs one or two 32-byte sectors of its own.
-// gather_roll.cu had one 4-byte load in flight per thread and wrote one
-// float per thread.
+// What bounds it on the H100: isolated sector reads, as for K2
+// (gather_vec.cu).  A hit writes W * 8 floats (8 KB at W = 256) and reads
+// one 32-byte run per row; rows are C floats apart, so every row costs one
+// or two 32-byte sectors of its own.  On random hits 0.398 ms against
+// gather_roll.cu's 0.405 (useful-bytes bound 0.158, sector floor 0.195;
+// an H100 SXM at 700 W, PERF.md): the card's rate for such reads, not the
+// kernel, sets it.
 //
 // What the design does about it: lane0 = g * cps is a multiple of
 // V = min(cps, 4), and so is 128, so a row's 8 lanes are 8 / V vectors of
@@ -26,13 +29,12 @@
 // of them, a stride of (threads per hit) apart, issues its 4 loads
 // together, then its 4 stores.  Consecutive threads take consecutive
 // vectors, so a warp stores 512 contiguous bytes per instruction and reads
-// 16 rows' 32-byte runs.  At 2048 threads per SM that is 128 KB of useful
-// bytes in flight per SM.  A CTA per 256 threads, no grid-stride loop: the
+// 16 rows' 32-byte runs.  A CTA per 256 threads, no grid-stride loop: the
 // card starts CTAs in order, so the hits in flight are neighbours in the
-// list, which on the anatomy's list share rows and sectors (a persistent
-// grid took 38% longer there, PERF.md).  ops/windows.py::roll_kernel_for
-// says which shapes take this kernel (the rest runs on gather_roll.cu), and
-// roll_vec_addresses spells out its addressing for the CPU tests.
+// list, which on the anatomy's list share rows and sectors: 0.147 ms
+// against gather_roll.cu's 0.198, and 0.203 with a persistent grid.  ops/windows.py::roll_kernel_for says which shapes take this
+// kernel (the rest runs on gather_roll.cu), and roll_vec_addresses spells
+// out its addressing for the CPU tests.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

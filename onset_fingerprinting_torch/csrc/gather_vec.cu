@@ -1,4 +1,5 @@
-// Onset-window gather (K2) for Hopper, sm_90a, as row-vector copies.
+// Onset-window gather (K2) for Hopper, sm_90a, as row-vector copies: the
+// kernel ops/windows.py routes K2 to wherever it takes the shape.
 //
 // Replaces onset_fingerprinting_tpu/ops/windows.py:_gather_kernel_mh_anchored
 // (anchored=1) and its block-aligned siblings _gather_kernel_mh and
@@ -10,28 +11,29 @@
 //
 // an exact copy: no arithmetic on values.
 //
-// What bounds it on the H100: bytes, read at random.  A window row is
+// What bounds it on the H100: isolated sector reads.  A window row is
 // cps * 4 bytes (16 at the serving width) and rows are C floats apart, so
-// every row is its own 32-byte sector, and for independent hits its own
-// DRAM page.  The card then needs many independent sector reads in flight
-// (Little's law: ~18 KB of useful bytes per SM at 3.35 TB/s and ~0.7 us).
-// gather.cu kept about one 4-byte load in flight per thread (~8 KB per
-// SM), with a runtime division per element.
+// every row is its own 32-byte sector.  On independent (random) hits the
+// card's rate for such reads sets the time, not the kernel: gather.cu (one
+// 4-byte load per thread), this kernel and a TMA tile-copy design all took
+// 0.324 ms for 32768 hits at C = 32768 (useful-bytes bound 0.080 ms,
+// sector floor 0.118), and 0.149 ms even with x resident in L2 (an H100
+// SXM at 700 W, PERF.md).
+// Where hits share rows and sectors, as on the fleet path's list (every
+// stream's hits in the same rows, neighbouring streams in one sector), the
+// order of the reads decides how many meet in L2 and in open DRAM pages.
 //
 // What the design does about it: a thread copies ROWS = 4 consecutive rows
 // of one hit.  cps is a template constant, so its 4 * cps / V loads of V
 // floats (V = 4 when cps % 4 == 0: one 16-byte load per row at cps = 4)
 // are a fixed count, issued together before any store.  The transpose to
 // [cps, W] happens in registers: each channel's 4 values go out as one
-// 16-byte store, and a warp writes 512 contiguous bytes per channel.  At
-// 2048 threads per SM that is 128 KB of useful bytes in flight per SM at
-// cps = 4.  One thread per (hit, row quad) item, one division per item
-// (16 floats at cps = 4), and a CTA per 256 items with no grid-stride
-// loop: the card starts CTAs in order, so the hits in flight are always
-// neighbours in the list, and on the fleet path's list (every stream's hits
-// in the same rows, neighbouring streams in the same sectors) their reads
-// meet in L2 and in open DRAM pages.  A persistent grid, whose CTAs drift
-// apart along the list, took 10% longer there (PERF.md).
+// 16-byte store, and a warp writes 512 contiguous bytes per channel.  One
+// thread per (hit, row quad) item, one division per item, and a CTA per
+// 256 items with no grid-stride loop: the card starts CTAs in order, so
+// the hits in flight are neighbours in the list.  On the fleet path's
+// list that is 0.103 ms against gather.cu's 0.129; a persistent grid,
+// whose CTAs drift apart along the list, took 0.114.
 // ops/windows.py::gather_kernel_for says which cps, W and base alignment
 // take this kernel (the rest runs on gather.cu), and gather_vec_addresses
 // spells out its addressing for the CPU tests.

@@ -23,7 +23,8 @@ output's sectors, the indices).
 
 Run on the card: ``python -m onset_fingerprinting_torch.tools.gather_bench``
 (``--orders``: the same hits in other orders; ``--l2``: random hits on an
-x the L2 holds; ``--variants``: patched copies of the row-vector kernels).
+x the L2 holds; ``--granularity``: random rows of 4 to 32 bytes;
+``--variants``: patched copies of the row-vector kernels).
 ``chip_smoke.py`` phase 1 calls :func:`run`.
 """
 
@@ -285,6 +286,28 @@ def l2_resident(log=print, iters: int = 20) -> dict:
     return times
 
 
+def granularity(x, g: int, log=print, iters: int = 20) -> dict:
+    """The routed K2 on ``g`` random hits at cps = 1, 2, 4 and 8 (window rows
+    of 4, 8, 16 and 32 bytes, one sector each) on the same x, beside a
+    fill of each output (``out.zero_()``, the same bytes written): whether
+    a random row costs by its bytes or as one unit."""
+    t, c = x.shape
+    out = {}
+    for cps in (1, 2, 4, 8):
+        starts, sids = random_hits(t, c, cps, g, 3, x.device)
+        route = ow.gather_kernel_for(cps, WINDOW, x.data_ptr())
+        windows = torch.empty((g, cps, WINDOW), device=x.device)
+        times = _rounds({
+            "gather": lambda r=route, s=starts, i=sids, k=cps: (
+                ow._launch_gather(r, x, s, i, k, WINDOW, PRE, True)),
+            "fill": windows.zero_}, iters)
+        out[cps] = times
+        log(f"cps={cps} ({route.kernel.name}): gather "
+            f"{times['gather'][0]:.4f}/{times['gather'][1]:.4f} ms, output "
+            f"fill {times['fill'][0]:.4f}/{times['fill'][1]:.4f} ms")
+    return out
+
+
 #: patched copies of the row-vector kernels that ``--variants`` times
 #: beside them: name -> {source: [(text, replacement), ...]}
 _K2, _K4 = "gather_vec.cu", "gather_roll_vec.cu"
@@ -408,6 +431,8 @@ def main() -> int:
                 ("fleet", fleet_hits(32000, n_streams, "cuda"))):
             say(f"{dist}:")
             out[f"orders_{dist}"] = order_sweep(x, *hits, log=say)
+    if "--granularity" in sys.argv:
+        out["granularity"] = granularity(x, 32768, log=say)
     if "--l2" in sys.argv:
         out["l2_resident"] = l2_resident(log=say)
     if "--variants" in sys.argv:
