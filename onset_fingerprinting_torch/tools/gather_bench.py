@@ -135,6 +135,10 @@ def _rounds(fns: dict, iters: int) -> dict:
     return out
 
 
+def _fmt(times: dict) -> str:
+    return ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in times.items())
+
+
 def check(ok, what):
     if not ok:
         raise AssertionError(what)
@@ -169,8 +173,7 @@ def bench_k2(x, starts, sids, cps=CHANNELS_PER_STREAM, iters=20,
     times = _rounds(fns, iters)
     useful, sectors = gather_traffic(x.shape, starts, sids, cps, WINDOW, PRE,
                                      True)
-    return dict(ms=times, useful_bytes=useful, sector_bytes=sectors,
-                kernels={k: r.kernel.name for k, r in routes.items()})
+    return dict(ms=times, useful_bytes=useful, sector_bytes=sectors)
 
 
 def bench_k4(x, starts, sids, cps=CHANNELS_PER_STREAM, iters=20,
@@ -202,14 +205,12 @@ def bench_k4(x, starts, sids, cps=CHANNELS_PER_STREAM, iters=20,
         x, rows8, sids, cps, WINDOW)
     times = _rounds(fns, iters)
     useful, sectors = roll_traffic(x.shape, rows8, sids, cps, WINDOW)
-    return dict(ms=times, useful_bytes=useful, sector_bytes=sectors,
-                kernels={k: r.kernel.name for k, r in routes.items()})
+    return dict(ms=times, useful_bytes=useful, sector_bytes=sectors)
 
 
 def summary(name: str, r: dict) -> str:
     """One line: each route's two times, the floors."""
-    ms = ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in r["ms"].items())
-    return (f"{name}: {ms} ms; useful-bytes bound "
+    return (f"{name}: {_fmt(r['ms'])} ms; useful-bytes bound "
             f"{1e3 * r['useful_bytes'] / HBM_BPS:.4f} ms, sector floor "
             f"{1e3 * r['sector_bytes'] / HBM_BPS:.4f} ms")
 
@@ -258,8 +259,7 @@ def order_sweep(x, starts, sids, log=print, iters: int = 20) -> dict:
             k4, x, r, i, cps, WINDOW))
     fns["argsort_start_stream"] = lambda: torch.argsort(key_ts)
     times = _rounds(fns, iters)
-    log("orders: " + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}"
-                               for k, v in times.items()) + " ms")
+    log(f"orders: {_fmt(times)} ms")
     return times
 
 
@@ -281,8 +281,8 @@ def l2_resident(log=print, iters: int = 20) -> dict:
         fns[f"k4_{name}"] = (lambda r=r: ow._launch_roll(
             r, x, rows8, sids, cps, WINDOW))
     times = _rounds(fns, iters)
-    log(f"L2-resident x [{t}, {c}], {len(starts)} random hits: " + ", ".join(
-        f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in times.items()) + " ms")
+    log(f"L2-resident x [{t}, {c}], {len(starts)} random hits: "
+        f"{_fmt(times)} ms")
     return times
 
 
@@ -397,9 +397,7 @@ def variant_sweep(x, n_streams, g, log=print, iters: int = 20) -> dict:
                                  ow._launch_roll(r, x, s, i, cps, WINDOW))
         del k2p, k4p
         out[dist] = _rounds(fns, iters)
-        log(f"variants, {dist}: " + ", ".join(
-            f"{k} {v[0]:.4f}/{v[1]:.4f}" for k, v in out[dist].items())
-            + " ms")
+        log(f"variants, {dist}: {_fmt(out[dist])} ms")
     return out
 
 
