@@ -8,17 +8,20 @@ Run from the repository root with no arguments:
 It imports only ``onset_fingerprinting_torch`` (never jax) and fails with a
 non-zero exit code, printing no result, on any error or without CUDA.
 
-Phase 0  prints the card's name and power limit and builds the eight
-         kernel libraries from ``onset_fingerprinting_torch/csrc`` with
-         nvcc, all started together.
+Phase 0  prints the card's name and power limit, starts the plain
+         realtime engine on the CPU in a child process (phase 4's
+         reference), and builds the nine kernel libraries from
+         ``onset_fingerprinting_torch/csrc`` with nvcc, all started
+         together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
          (TF32 off for cuDNN and matmuls): K1 the fused detector bit for
          bit (warmup state, on, deltas, rel, state) on both of its kernels
          — the pipe at the fleet width on two seeds and at a ragged width,
-         the one-thread-per-channel kernel in coupled_off + backtrack —
-         and, at the fleet shape as the main path runs it (events only),
-         the pipe against the plain detector and against the other
-         kernel bit for bit, and the two kernels timed; K2 the window gather
+         the one-thread-per-channel kernel in coupled_off + backtrack and
+         at the realtime engine's config (C = 3, no high-pass) — and, at
+         the fleet shape as the main path runs it (events only), the pipe
+         against the plain detector and against the other kernel bit for
+         bit, and the two kernels timed; K2 the window gather
          and K4 the roll gather on each of their two kernels
          (``tools/gather_bench.run``: the row-vector kernels the routes
          take and the old one-float-per-thread ones), bit-exact
@@ -46,19 +49,37 @@ Phase 3  drives the fingerprint-stage anatomy
          (``tools.fingerprint_anatomy.main``) at full width — 8192 streams,
          G = 32768, W = 256 — shows that K3 and the routed K2 and K4
          launched (and no other gather kernel) and no plain version ran,
-         checks the pair head's predictions, prints the per-chunk table,
-         and compares the pair-head CCCNN on the card with its plain
-         version on the CPU at 32 streams (float32, TF32 off).
+         checks the pair head's predictions, prints the per-chunk table
+         (with the DFT head at bf16 and at f32, and on a contiguous copy of
+         its input), holds the bf16 head to its CPU emulation on the path's
+         features, and compares the pair-head CCCNN on the card with its
+         plain version on the CPU at 32 streams (float32, TF32 off).
+Phase 4  drives the realtime engine (``tools.realtime_sim``: 3 sensors at
+         96 kHz, 128-sample blocks, the step replayed from a CUDA graph)
+         over a 20 s stream of 80 strikes, harvesting every 64 blocks and
+         classifying each hit with the bf16 flagship CCCNN (3 x 512) from
+         the device ring; gates the locate rate and median error, shows
+         that K1 (coupled, one launch per block) and the locate kernel ran
+         on every step and K3 for the classifier, with no plain version;
+         holds the events of the first 5 s to the plain engine on the CPU
+         and the classifier to its plain version on the same windows;
+         times the step (graph replays and eager, CUDA events), K1 at
+         [128, 3] per launch beside an empty kernel, and the locate kernel
+         beside its plain version, which it is held to on the stream's
+         first blocks.
 
 Prints one ``{"kernels": [...]}`` line (K1 as two rows: ``detector``, the
-pipe, the main path's; ``detector_coupled``, the one-thread-per-channel
-kernel in the coupled mode, which the main path never launches; K2 and K4
-as two rows each, timed on the random hits: ``gather_vec`` and
+pipe, the fleet path's; ``detector_coupled``, the one-thread-per-channel
+kernel in the coupled mode, the realtime engine's, timed at [128, 3]; K2
+and K4 as two rows each, timed on the random hits: ``gather_vec`` and
 ``gather_roll_vec``, the paths' kernels, and ``gather`` and
-``gather_roll``, the old kernels, which the paths never launch; K3 as
-two rows: ``conv_stack_mma`` in bfloat16, the main path's;
-``conv_stack_f32`` in float32, golden mode, which the main path never
-launches) and, last, ``{"ok": true, "device": {...}}``.
+``gather_roll``, the old kernels, which the paths never launch; K3 as two
+rows: ``conv_stack_mma`` in bfloat16, the fleet path's and the realtime
+classifier's; ``conv_stack_f32`` in float32, golden mode, which no path
+launches; ``locate_block``, the realtime engine's locate step, which
+replaces no TPU kernel).  Launch counts are the sums over the paths that
+phases 2-4 drive, each from counts set to 0 just before it.  Last comes
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -170,6 +191,7 @@ def check_detector(name, cfg, x, warmup_blocks=WARMUP_BLOCKS):
 def phase_detector(report):
     from onset_fingerprinting_torch.core.config import DetectorConfig
     from onset_fingerprinting_torch.detect.amplitude import detect_offline
+    from onset_fingerprinting_torch.locate.multilaterate import locator_init
     from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.ops.fused_detector import (
         _launch,
@@ -189,6 +211,8 @@ def phase_detector(report):
          ragged, 3),
         ("C=3 coupled_off backtrack", DetectorConfig(
             n_channels=3, backtrack=True, backtrack_buffer_size=256), 3, 1),
+        ("C=3 coupled_off, no high-pass (the realtime engine's)",
+         DetectorConfig(n_channels=3, hipass_freq=0.0), 3, 5),
         ("C=1000 coupled_off backtrack (scratch stage)", DetectorConfig(
             n_channels=1000, backtrack=True, backtrack_buffer_size=256),
          1000, 1),
@@ -232,23 +256,6 @@ def phase_detector(report):
         f"{ms:.3f} ms, one thread per channel (detector.cu) {old_ms:.3f} ms, "
         f"plain {plain_ms:.1f} ms (one call)")
     del x, sk, so
-
-    # the one-thread-per-channel kernel in the mode only it takes
-    cfg = DetectorConfig(n_channels=1000, backtrack=True,
-                         backtrack_buffer_size=256)
-    fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
-    x = make_audio(64 * 128, 1000, seed=2)
-    ms = time_ms(lambda: fused_detect_offline(fst, params, st0, x, False))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    detect_offline(fst.plain, params, st0, x)
-    torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    report["detector_coupled"] = dict(max_abs_err=0.0, ms=ms,
-                                      plain_ms=plain_ms, library_ms=None,
-                                      **detector_work(x.shape))
-    log(f"K1 coupled_off backtrack at [{x.shape[0]}, 1000] (detector.cu): "
-        f"{ms:.3f} ms, plain {plain_ms:.1f} ms (one call)")
 
 
 def detector_work(shape):
@@ -664,6 +671,7 @@ def phase_anatomy(report):
         f"W={WINDOW}; CUDA events, median of {ITERS}):")
     for name, ms in rows.items():
         log(f"  {name:24s} {ms:9.3f} ms")
+    check_bf16_head(outputs["feats"], outputs["cc"])
 
     # the pair-head CCCNN at 32 streams: card vs its plain version on the
     # CPU, float32, on windows of the anatomy's own hit grid
@@ -688,6 +696,345 @@ def phase_anatomy(report):
         f"CPU in float32: max err {err:.3g} (bound 1e-3)")
 
 
+#: rows of the path's features whose bf16 head the CPU emulates
+HEAD_ROWS = 2048
+
+
+def check_bf16_head(feats, cc):
+    """The bf16 DFT head on the card (bf16 x bf16 -> f32 GEMMs) against its
+    CPU emulation (operands rounded to bf16, f32 products) on the first
+    rows of the path's own features: within 1e-3 of the output's scale (f32
+    sums in another order can flip a bf16 rounding of one spectral term)."""
+    from onset_fingerprinting_torch.ops.xcorr import batch_self_correlate_dft
+
+    want = batch_self_correlate_dft(feats[:HEAD_ROWS].cpu(), sum_axis=2,
+                                    precision="default")
+    got = cc[:HEAD_ROWS].cpu()
+    scale = float(want.abs().max())
+    err = max_err(got, want)
+    check(got.dtype == torch.float32 and err <= 1e-3 * scale,
+          f"bf16 DFT head: card vs CPU emulation differ by {err} "
+          f"(scale {scale})")
+    log(f"bf16 DFT head (tensor-core bf16 GEMMs, f32 accumulation) on "
+        f"{HEAD_ROWS} windows of the path's features: max err {err:.3g} vs "
+        f"the CPU emulation, {err / scale:.2e} of the scale (bound 1e-3)")
+
+
+#: phase 4: the realtime stream's length and the CPU reference's prefix
+RT_SECONDS = 20.0
+RT_CPU_SECONDS = 5.0
+#: graph replays, eager steps and bare K1 / empty launches timed
+RT_REPLAYS = 1000
+RT_EAGER = 300
+RT_LAUNCHES = 2000
+
+
+def realtime_cpu_reference(seconds, prefix, seed, out):
+    """The plain engine on the CPU over the first ``prefix`` seconds of the
+    ``seconds``-long stream (run in a child process beside the card
+    phases): its event queue as numpy arrays, put on ``out``."""
+    from onset_fingerprinting_torch.tools import realtime_sim as sim
+
+    torch.set_num_threads(1)  # thousands of tiny ops per block
+    audio, _, _ = sim.synth_stream(seconds, seed)
+    eng = sim.build_engine("cpu")
+    sim.run(eng, audio[: int(prefix * sim.SR)], classify=False)
+    st = eng.state
+    out.put({k: getattr(st, k).numpy() for k in
+             ("ev_count", "ev_points", "ev_onsets", "ev_emits")})
+
+
+def start_cpu_reference():
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=realtime_cpu_reference,
+                    args=(RT_SECONDS, RT_CPU_SECONDS, 0, q), daemon=True)
+    p.start()
+    return p, q
+
+
+def wait_cpu_reference(proc, q):
+    import queue
+
+    while True:
+        try:
+            ref = q.get(timeout=5)
+            break
+        except queue.Empty:
+            check(proc.is_alive(), f"the CPU reference died ({proc.exitcode})")
+    proc.join(timeout=60)
+    check(proc.exitcode == 0, f"the CPU reference exited {proc.exitcode}")
+    return ref
+
+
+def per_launch_ms(fn, n, backlog_cycles):
+    """Median and p99 device time of ``fn`` over ``n`` calls, each between
+    its own CUDA events, with the stream held back first (a spin kernel of
+    ``backlog_cycles``, 1e9 ~ 0.5 s at ~2 GHz: longer than the host takes
+    to enqueue the calls) so that they run back to back (host enqueue time
+    excluded)."""
+    st = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    en = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(backlog_cycles))
+    for i in range(n):
+        st[i].record()
+        fn(i)
+        en[i].record()
+    torch.cuda.synchronize()
+    d = np.array([a.elapsed_time(b) for a, b in zip(st, en)])
+    return float(np.median(d)), float(np.percentile(d, 99))
+
+
+def phase_realtime(report, cpu_ref):
+    """Slice B: the realtime engine on the card at the demo's configuration
+    (tools/realtime_sim): a 20 s three-sensor stream, the step replayed
+    from its CUDA graph through process_nosync, harvests every 64 blocks,
+    every harvested hit classified by the bf16 flagship CCCNN from the
+    device ring."""
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.detect.amplitude import detect_offline
+    from onset_fingerprinting_torch.locate.multilaterate import locator_init
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.conv_stack import kernel_for
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_warmup_minmax,
+        launch_args,
+        make_fused_detector,
+    )
+    from onset_fingerprinting_torch.ops.locate_block import (
+        EventQueue,
+        LocateBlock,
+        locate_block,
+        locate_block_reference,
+    )
+    from onset_fingerprinting_torch.realtime.engine import (
+        EngineState,
+        _clone,
+        _leaves,
+        make_classify_fn,
+    )
+    from onset_fingerprinting_torch.tools import realtime_sim as sim
+
+    audio, _, hits = sim.synth_stream(RT_SECONDS, 0)
+    eng = sim.build_engine(None)
+    check(eng._graph is not None, "the engine did not capture its step")
+    model = sim.classifier(0)
+    eng.attach_classifier(model, window=sim.CLS_WINDOW, pre=sim.CLS_PRE,
+                          capacity=sim.CLS_CAPACITY)
+    n_blocks = len(sim.blocks_of(audio))
+    _cuda.reset_counts()
+    events, preds, wall = sim.run(eng, audio)
+    counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
+    log(f"realtime: {RT_SECONDS:g} s stream, {len(hits)} strikes, "
+        f"{n_blocks} blocks after a {sim.WARMUP}-sample warmup; "
+        f"launches/plain calls: {counts}")
+    for k in _cuda.KERNELS:
+        check(k.plain_calls == 0, f"plain {k.name} ran on the realtime path")
+    check(_cuda.DETECTOR.launches == n_blocks + 1,
+          f"coupled K1 launched {_cuda.DETECTOR.launches} times, want "
+          f"{n_blocks} steps + the warmup")
+    check(_cuda.LOCATE_BLOCK.launches == n_blocks,
+          f"the locate kernel launched {_cuda.LOCATE_BLOCK.launches} times")
+    k3 = kernel_for(sim.CLS_WINDOW, [m.weight for m in model.convs], 1,
+                    torch.bfloat16)
+    check(k3.launches > 0 and all(k.launches == 0 for k in _cuda.KERNELS
+                                  if k not in (_cuda.DETECTOR,
+                                               _cuda.LOCATE_BLOCK, k3)),
+          f"the classifier's K3 ({k3.name}) did not launch, or another "
+          "kernel did")
+    log(f"classifier: K3 route for B = {3 * sim.CLS_CAPACITY} signals of "
+        f"L = {sim.CLS_WINDOW}: {k3.name} ({k3.launches} launches)")
+    for name in ("detector", "locate_block", k3.name):
+        report["_launches"][name] = (report["_launches"].get(name, 0)
+                                     + dict(counts)[name][0])
+    matched, med, ok = sim.locate_gates(hits, events)
+    log(f"locate gates: {len(events)} hits located, {matched}/{len(hits)} "
+        f"strikes matched ({matched / len(hits):.3f}, gate "
+        f"{sim.MIN_LOCATED}), median error {med:.4f} cm (gate "
+        f"{sim.MAX_MEDIAN_CM}); {n_blocks} blocks in {wall:.3f} s host wall "
+        f"({1e3 * wall / n_blocks:.4f} ms per block incl. harvests and "
+        "classification)")
+    check(ok, "realtime locate gates failed")
+    check(eng.harvest_drops == 0, "harvest overflowed")
+    check(preds is not None and preds.shape == (len(events), sim.N_ZONES)
+          and bool(np.isfinite(preds).all()),
+          f"classifier predictions {None if preds is None else preds.shape}")
+    check(eng.classify_stale == 0, "stale classifications")
+
+    # the classifier on the card against its plain version on the CPU, on
+    # the same ring windows: the last 48 hits, B = 48 signals per call
+    last = events[-sim.CLS_CAPACITY * 3:]
+    got = eng.classify_hits(last)
+    cpu_ring = type(eng.state.ring)(*(v.cpu() for v in eng.state.ring))
+    cpu_fn = make_classify_fn(sim.classifier(0), window=sim.CLS_WINDOW,
+                              pre=sim.CLS_PRE, capacity=sim.CLS_CAPACITY,
+                              device="cpu")
+    want = []
+    for b in range(0, len(last), sim.CLS_CAPACITY):
+        chunk = last[b: b + sim.CLS_CAPACITY]
+        ons = torch.tensor([o for o, _ in chunk], dtype=torch.int32)
+        p, fresh = cpu_fn(cpu_ring, ons, torch.ones(len(chunk),
+                                                    dtype=torch.bool))
+        check(bool(fresh.all()), "CPU classifier: stale windows")
+        want.append(p.numpy())
+    cerr = float(np.abs(got - np.concatenate(want)).max())
+    check(cerr <= 2e-2, f"classifier card vs CPU differ by {cerr}")
+    log(f"classifier (bf16 flagship CCCNN, 3 x {sim.CLS_WINDOW}): "
+        f"{len(last)} hits, card vs plain CPU on the same ring windows "
+        f"max err {cerr:.3g} (bound 2e-2)")
+
+    # the first RT_CPU_SECONDS against the plain engine on the CPU: the
+    # card's events emitted in the blocks the CPU ran
+    t_wait = time.perf_counter()
+    ref = wait_cpu_reference(*cpu_ref)
+    log(f"waited {time.perf_counter() - t_wait:.1f} s for the CPU reference")
+    n_ref = int(ref["ev_count"])
+    cpu_end = 128 * len(sim.blocks_of(audio[: int(RT_CPU_SECONDS * sim.SR)]))
+    st = eng.state
+    n_card = int(st.ev_count)
+    emits = st.ev_emits.cpu().numpy()[:n_card]
+    onsets = st.ev_onsets.cpu().numpy()[:n_ref]
+    pts = st.ev_points.cpu().numpy()[:n_ref]
+    check(n_ref > 0 and int((emits < cpu_end).sum()) == n_ref
+          and np.array_equal(onsets, ref["ev_onsets"][:n_ref])
+          and np.array_equal(emits[:n_ref], ref["ev_emits"][:n_ref]),
+          "card and CPU engines' events differ")
+    perr = float(np.abs(pts - ref["ev_points"][:n_ref]).max())
+    check(perr <= 1e-3, f"card and CPU points differ by {perr} cm")
+    log(f"first {RT_CPU_SECONDS:g} s: {n_ref} events, onsets and emit "
+        f"stamps identical to the plain engine on the CPU, points max err "
+        f"{perr:.3g} cm (bound 1e-3)")
+
+    # the step's device time: graph replays on the stream's own blocks
+    g = eng._graph
+    blocks = torch.as_tensor(np.stack(sim.blocks_of(audio)), device="cuda")
+
+    def replay(i):
+        g.block.copy_(blocks[i % len(blocks)])
+        g.graph.replay()
+
+    rep = per_launch_ms(replay, RT_REPLAYS, backlog_cycles=1e9)
+    # the same step run eagerly, from the warmed initial state: equal to
+    # the replays on the stream's first 2 s, then timed
+    a, b = sim.build_engine(None), sim.build_engine(None)
+    short = audio[: 2 * sim.SR]
+    sim.run(a, short, classify=False)
+    b.warmup(short[: sim.WARMUP])
+    st = EngineState(*_clone(b.state))
+    for blk in blocks[: len(sim.blocks_of(short))]:
+        st, _ = b._step(st, blk, b.params)
+    check(all(torch.equal(u, v) for u, v in zip(_leaves(a.state),
+                                                  _leaves(st))),
+          "graph replay and eager step differ")
+    log(f"graph replay == eager step on 2 s: state identical, "
+        f"{int(st.ev_count)} events")
+
+    def eager_step(i):
+        nonlocal st
+        st, _ = b._step(st, blocks[i % len(blocks)], b.params)
+
+    eag = per_launch_ms(eager_step, RT_EAGER, backlog_cycles=2e9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(RT_EAGER):
+        eager_step(i)
+    torch.cuda.synchronize()
+    eager_host = 1e3 * (time.perf_counter() - t0) / RT_EAGER
+    budget = eng.budget_ms
+    log(f"engine step, per block (budget {budget:.4f} ms): graph replay "
+        f"{rep[0]:.4f} ms median, {rep[1]:.4f} ms p99 over {RT_REPLAYS} "
+        f"replays (CUDA events); eager step {eag[0]:.4f} / {eag[1]:.4f} ms "
+        f"on the card, {eager_host:.4f} ms host wall per step")
+    check(rep[0] < budget, f"graph-replayed step {rep[0]} ms over budget")
+
+    # K1 at the engine's shape, per bare launch, beside an empty kernel
+    cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
+                         sr=sim.SR)
+    fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
+    xb = blocks[len(blocks) // 2].contiguous()
+    kern, entry, args, _, keep = launch_args(fst, params, st0, xb, False,
+                                             False)
+    entry_fn = getattr(kern._lib, entry)
+    k1 = per_launch_ms(lambda i: entry_fn(*args), RT_LAUNCHES,
+                       backlog_cycles=1e9)
+    stream = _cuda.stream()
+    empty = per_launch_ms(lambda i: _cuda.DETECTOR._lib.ofpt_empty(stream),
+                          RT_LAUNCHES, backlog_cycles=1e9)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    detect_offline(fst.plain, params, st0, xb)
+    torch.cuda.synchronize()
+    k1_plain = 1e3 * (time.perf_counter() - t0)
+    report["detector_coupled"] = dict(max_abs_err=0.0, ms=k1[0],
+                                      plain_ms=k1_plain, library_ms=None,
+                                      **detector_work(xb.shape))
+    log(f"K1 coupled at [128, 3] (detector.cu), per bare launch over "
+        f"{RT_LAUNCHES}: {k1[0]:.5f} ms median, {k1[1]:.5f} ms p99; an empty "
+        f"kernel launched the same way {empty[0]:.5f} / {empty[1]:.5f} ms; "
+        f"plain {k1_plain:.3f} ms (one call)")
+    del keep
+
+    # the locate kernel at the engine's shape against its plain version on
+    # the first RT_CPU_SECONDS of the stream: K1 runs every block, the two
+    # locate versions every block where a channel fired (a quiet block
+    # leaves the locator and the queue as they are, in both)
+    lb = LocateBlock(eng.locator, 3, 128, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    fst_k, p_k, s_k, run_k = make_fused_detector(cfg, emit_rel=False)
+    det = fused_warmup_minmax(fst_k, p_k, s_k, torch.as_tensor(
+        audio[: sim.WARMUP // 128 * 128], device="cuda"))
+    calls = []
+    for i in range(int(RT_CPU_SECONDS * sim.SR) // 128):
+        det, (on, d, _) = run_k(det, blocks[i])
+        if bool(on.any()):
+            calls.append((on[0], d[0], torch.tensor(128 * i, **i32)))
+    lk = lp = locator_init(8, "cuda")
+    qk = qp = EventQueue(torch.zeros((64, 2), device="cuda"),
+                         torch.zeros(64, **i32), torch.zeros(64, **i32),
+                         torch.zeros((), **i32))
+    lerr, n_hit = 0.0, 0
+    for i, args_i in enumerate(calls):
+        lk, qk, hk = locate_block(lb, lk, qk, *args_i)
+        lp, qp, hp = locate_block_reference(lb, lp, qp, *args_i)
+        check(all(torch.equal(u, v) for u, v in zip(lk, lp))
+              and torch.equal(hk.emits, hp.emits)
+              and all(torch.equal(u, v) for u, v in zip(qk[1:], qp[1:])),
+              f"locate kernel differs from plain at fired block {i}")
+        lerr = max(lerr, max_err(hk.points, hp.points))
+        n_hit += int(hk.emits.sum())
+    check(n_hit >= 2 and lerr <= 1e-3,
+          f"locate kernel: {n_hit} hits, points max err {lerr}")
+    lt = per_launch_ms(lambda i: locate_block(lb, lk, qk,
+                                              *calls[i % len(calls)]),
+                       RT_REPLAYS, backlog_cycles=2e9)
+    on, d, count = calls[-1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        locate_block_reference(lb, lp, qp, on, d, count)
+    torch.cuda.current_stream().wait_stream(side)
+    plain_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(plain_graph):
+        locate_block_reference(lb, lp, qp, on, d, count)
+    lplain = per_launch_ms(lambda i: plain_graph.replay(), 100,
+                           backlog_cycles=1e9)
+    state_bytes = sum(v.numel() * v.element_size()
+                      for v in (*lk, *qk)) + 3 * (1 + 4 + 4 + 8 + 1)
+    report["locate_block"] = dict(max_abs_err=lerr, ms=lt[0],
+                                  plain_ms=lplain[0], library_ms=None,
+                                  bytes=2 * state_bytes, ops=0,
+                                  peak=F32_FLOPS)
+    log(f"locate kernel (locate_block.cu) at the engine's shape: {n_hit} "
+        f"hits in the {len(calls)} blocks of the first {RT_CPU_SECONDS:g} s "
+        "where a channel fired, state and events identical to plain, points "
+        f"max err {lerr:.3g}; {lt[0]:.5f} ms median, {lt[1]:.5f} ms p99 per "
+        f"launch; the plain version replayed from a CUDA graph "
+        f"{lplain[0]:.4f} ms")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -706,6 +1053,12 @@ def main() -> int:
     from onset_fingerprinting_torch.workload import make_audio
 
     t0 = time.perf_counter()
+
+    def phase(name):
+        log(f"[{time.perf_counter() - t0:.1f} s] {name}")
+
+    # the plain engine on the CPU, beside the card phases
+    cpu_ref = start_cpu_reference()
     logs = _cuda.build()
     log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -714,6 +1067,7 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     report = {"_launches": {}}
+    phase("phase 1: kernels against their plain versions")
     phase_detector(report)
     x = make_audio(CHUNK, N_STREAMS * 4, seed=4)
     windows = phase_gather(report, x)
@@ -721,9 +1075,15 @@ def main() -> int:
     phase_conv(report, windows)
     del windows
     torch.cuda.empty_cache()
+    phase("phase 2: the fleet path")
     phase_main_path(report)
     torch.cuda.empty_cache()
+    phase("phase 3: the fingerprint-stage anatomy")
     phase_anatomy(report)
+    torch.cuda.empty_cache()
+    phase("phase 4: the realtime engine")
+    phase_realtime(report, cpu_ref)
+    phase("done")
 
     # row: (source, TPU kernel, launch counter)
     sources = {
@@ -751,6 +1111,10 @@ def main() -> int:
                             "gather_roll_vec.cu",
                             "onset_fingerprinting_tpu/ops/windows.py:187",
                             "gather_roll_vec"),
+        # no TPU kernel: the JAX engine's locate loop, which XLA fuses
+        "locate_block": ("onset_fingerprinting_torch/csrc/locate_block.cu",
+                         "onset_fingerprinting_tpu/realtime/engine.py:249",
+                         "locate_block"),
     }
     kernels = []
     for name, (src, replaces, counter) in sources.items():
@@ -759,7 +1123,7 @@ def main() -> int:
         t_ops = 1e3 * r["ops"] / r["peak"]
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=report["_launches"][counter],
+            launches=report["_launches"].get(counter, 0),
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",

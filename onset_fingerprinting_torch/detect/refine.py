@@ -1,0 +1,138 @@
+"""Onset refinement by cross-correlation (port of the device side of
+``onset_fingerprinting_tpu.detect.refine``, plus its two host helpers
+``adjust_onset_rel`` and ``adjust_onset``; reference: detection.py:271-352
+and multilateration.py:457-501).
+
+The device functions keep the JAX names (``cc_refine_lag_jax``,
+``cc_refine_adjust_jax``): fixed shapes, no host read, so the locator's
+``cc_refine`` step stays capturable in a CUDA graph.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from onset_fingerprinting_torch.ops.filters import median_filter_1d
+from onset_fingerprinting_torch.ops.xcorr import cross_correlation_lag_jax
+
+
+def _cc_section(window: torch.Tensor, pos0, lookaround: int) -> torch.Tensor:
+    """The reference's section prep (multilateration.py:465-474): zero the
+    audio before the seed, median filter, keep only downward motion,
+    rectify.  ``[W, 2]`` → ``[W - 1, 2]``."""
+    row = torch.arange(window.shape[0], device=window.device)[:, None]
+    x = torch.where(row >= pos0 - lookaround, window.to(torch.float32), 0.0)
+    x = median_filter_1d(x, 5)
+    d = torch.diff(x, dim=0)
+    return torch.abs(torch.where(d >= 0, 0.0, d))
+
+
+def _in_bounds(window, pos0, pos1, lookaround):
+    return (pos0 >= lookaround) & (pos1 > pos0) & (
+        pos1 < window.shape[0] - 1)
+
+
+def cc_refine_lag_jax(window: torch.Tensor, pos0: torch.Tensor,
+                      pos1: torch.Tensor, lookaround: int = 60,
+                      onset_tolerance: int = 50,
+                      normalization_cutoff: int = 10):
+    """Lag refinement of an onset pair over a fixed live-audio window
+    ``[W, 2]`` (chronological; audio before ``pos0 - lookaround`` is
+    zeroed, as the reference trims its section).  ``pos0``/``pos1`` are the
+    window positions of the seed and the new onset.  Returns ``(refined
+    lag pos1' − pos0, valid)``."""
+    d = _cc_section(window, pos0, lookaround)
+    lag, cc_valid = cross_correlation_lag_jax(
+        d[:, 0], d[:, 1], torch.stack([pos0, pos1]),
+        onset_tolerance=onset_tolerance,
+        normalization_cutoff=normalization_cutoff)
+    return lag, cc_valid & _in_bounds(window, pos0, pos1, lookaround)
+
+
+def cc_refine_adjust_jax(window: torch.Tensor, pos0: torch.Tensor,
+                         pos1: torch.Tensor, lookaround: int = 60,
+                         onset_tolerance: int = 50,
+                         normalization_cutoff: int = 10):
+    """CC refinement plus the reference's energy heuristic (adjust_onset,
+    detection.py:299-352): which onset of the pair moves to the CC lag is
+    decided by exponentially weighted rectified energy between each
+    onset's old and CC-implied position.  The shift is at most
+    ``onset_tolerance`` (the CC search window), so the weights have a fixed
+    length.  Returns ``(c_seed, c_new, valid)``, the corrections to add to
+    the seed and the new onset; one of them is 0."""
+    d = _cc_section(window, pos0, lookaround)
+    x, y = d[:, 0], d[:, 1]
+    lag, cc_valid = cross_correlation_lag_jax(
+        x, y, torch.stack([pos0, pos1]), onset_tolerance=onset_tolerance,
+        normalization_cutoff=normalization_cutoff)
+    ld = (pos1 - pos0) - lag  # |ld| <= onset_tolerance by CC construction
+    k = torch.arange(onset_tolerance + 1, device=window.device)
+    n = torch.abs(ld)
+    act = k < n
+    denom = torch.clamp(n - 1, min=1).to(torch.float32)
+    # the host adjust_onset: the x window weighted exp(linspace(0, -e, n))
+    # descending from its start, the y window the same weights reversed.
+    # Past n the ascending weights overflow to inf: selected away, not
+    # multiplied by 0 (which gives NaN; XLA rewrites the JAX function's
+    # product by the 0/1 mask into this select)
+    w_desc = torch.where(act, torch.exp(-math.e * k / denom), 0.0)
+    w_asc = torch.where(act, torch.exp(-math.e * (n - 1 - k) / denom), 0.0)
+    sx = torch.minimum(pos0, pos0 + ld)
+    sy = torch.minimum(pos1, pos1 - ld)
+    last = x.shape[0] - 1
+    xa = x[torch.clamp(sx + k, 0, last)]
+    ya = y[torch.clamp(sy + k, 0, last)]
+    da = torch.sum(xa * w_desc) / torch.clamp(torch.max(x), min=1e-20)
+    db = torch.sum(ya * w_asc) / torch.clamp(torch.max(y), min=1e-20)
+    move_seed = (da > db) & (pos0 + ld >= 0)
+    c_seed = torch.where(move_seed, ld, 0).to(torch.int32)
+    c_new = torch.where(move_seed, 0, -ld).to(torch.int32)
+    return c_seed, c_new, cc_valid & _in_bounds(window, pos0, pos1,
+                                                lookaround)
+
+
+def adjust_onset_rel(onsets: list[int], relx: np.ndarray, rely: np.ndarray,
+                     new_lag: int) -> tuple[int, int]:
+    """Move whichever onset of a pair gains more relative-envelope height at
+    the CC-suggested lag (detection.py:271-296).  Returns the new onsets."""
+    oa, ob = onsets[0], onsets[1]
+    lag_diff = (ob - oa) - new_lag
+    da = relx[oa + lag_diff] - relx[oa]
+    db = rely[ob - lag_diff] - rely[ob]
+    if da > db:
+        oa += lag_diff
+    else:
+        ob -= lag_diff
+    return oa, ob
+
+
+def adjust_onset(onsets: list[int], x: np.ndarray, y: np.ndarray,
+                 new_lag: int) -> tuple[int, int]:
+    """Which onset of a pair to move to a CC-suggested lag, by
+    exponentially weighted signal energy between the old and new positions
+    (detection.py:299-352).  Returns corrections ``(ca, cb)`` to add to the
+    two onsets."""
+    oa, ob = onsets[0], onsets[1]
+    lag_diff = (ob - oa) - new_lag
+    exp = np.exp(np.linspace(0, -np.e, abs(lag_diff)))
+    n = len(x)
+    if lag_diff < 0:
+        x_start, x_end = max(oa + lag_diff, 0), min(oa, n)
+        y_start, y_end = min(ob, n), min(ob - lag_diff, n)
+    else:
+        x_start, x_end = oa, min(oa + lag_diff, n)
+        y_start, y_end = max(ob - lag_diff, 0), min(ob, n)
+    da = np.sum(x[x_start:x_end] * exp[-(x_end - x_start):]) / x.max()
+    if y_end == y_start:
+        db = 0.0
+    else:
+        db = (np.sum(y[y_start:y_end] * exp[-(y_end - y_start):][::-1])
+              / y.max())
+    if da > db:
+        if oa + lag_diff < 0:
+            return 0, -lag_diff
+        return lag_diff, 0
+    return 0, -lag_diff

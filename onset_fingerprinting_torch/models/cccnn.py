@@ -214,18 +214,25 @@ class CCCNN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
         feats = (self.fused_features(x) if self.fused
-                 else self.chain_features(x))
-        feats = feats.to(torch.float32)  # [B, C, K, V]
+                 else self.chain_features(x))  # [B, C, K, V]
         pcc = None
         if self.cc_impl == "dft":
+            # as the JAX package chooses (cccnn.py:479-497 there): a bf16
+            # model's features carry bf16 error already, so its head runs
+            # one bf16 pass accumulating in f32; f32 models run full f32.
+            # The features go in as they are: rounding them to bf16 again
+            # is exact.
+            prec = "default" if self.dtype == torch.bfloat16 else "highest"
             # sum over the K maps on the power spectrum (linear: the same
             # values with K-fold less inverse work)
             if self.pairs is not None:
-                cc, pcc = self_and_pair_correlate_dft(feats, self.pair_i,
-                                                      self.pair_j)
+                cc, pcc = self_and_pair_correlate_dft(
+                    feats, self.pair_i, self.pair_j, precision=prec)
             else:
-                cc = batch_self_correlate_dft(feats, sum_axis=2)
+                cc = batch_self_correlate_dft(feats, sum_axis=2,
+                                              precision=prec)
         else:
+            feats = feats.to(torch.float32)
             cc = batch_full_correlate(feats, feats).sum(dim=2)  # [B,C,2V-1]
         v = feats.shape[-1]
         if self.cc_norm:

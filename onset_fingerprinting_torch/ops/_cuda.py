@@ -144,7 +144,7 @@ def reset_counts() -> None:
 
 DETECTOR = Kernel(
     "detector", "detector.cu",
-    {"ofpt_detect": [_P] * 19 + [_I, _P]},
+    {"ofpt_detect": [_P] * 19 + [_I, _P], "ofpt_empty": [_P]},
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )
@@ -180,5 +180,13 @@ GATHER_ROLL_VEC = Kernel(
     "gather_roll_vec", "gather_roll_vec.cu",
     {"ofpt_gather_roll_vec": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
 )
+# the realtime engine's locate step (no TPU kernel: the JAX engine's XLA
+# program); the plain version counts its calls here too
+LOCATE_BLOCK = Kernel(
+    "locate_block", "locate_block.cu",
+    {"ofpt_locate_block": [_P] * 31},
+    # every multiply and add rounds on its own, as in the plain version
+    extra_flags=("-fmad=false",),
+)
 KERNELS = (DETECTOR, DETECTOR_PIPE, GATHER, CONV_STACK, CONV_STACK_MMA,
-           GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC)
+           GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC, LOCATE_BLOCK)

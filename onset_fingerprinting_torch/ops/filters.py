@@ -1,4 +1,5 @@
-"""Stateful IIR filters (port of ``onset_fingerprinting_tpu.ops.filters``).
+"""Stateful IIR filters and the median filter (port of
+``onset_fingerprinting_tpu.ops.filters``).
 
 Filter design stays on the host (scipy) with float32 coefficients, like the
 reference's ``ButterworthFilter`` (detection.py:492-497); the application is
@@ -63,3 +64,20 @@ def iir_apply(state: IIRState, x: torch.Tensor
         ys.append(y)
     y = torch.stack(ys) if ys else x.clone()
     return y, IIRState(b, a, torch.stack(z) if z else zi)
+
+
+def median_filter_1d(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Median filter along axis 0, edge-replicated (scipy.ndimage.
+    median_filter with mode='nearest', detection.py:421 of the reference);
+    an even ``size`` averages the two middle values, as ``jnp.median``."""
+    pad_l = size // 2
+    pad_r = size - 1 - pad_l
+    xp = torch.cat([x[:1].expand(pad_l, *x.shape[1:]), x,
+                    x[-1:].expand(pad_r, *x.shape[1:])])
+    idx = (torch.arange(x.shape[0], device=x.device)[:, None]
+           + torch.arange(size, device=x.device)[None, :])
+    w = torch.sort(xp[idx], dim=1).values
+    mid = size // 2
+    if size % 2:
+        return w[:, mid]
+    return (w[:, mid - 1] + w[:, mid]) / 2

@@ -193,6 +193,20 @@ def _launch(fstatic: FusedDetectorStatic, params: DetectorParams,
     """Launch ``kernel`` (default: :func:`kernel_for`'s) over the chunk.
     Only a measurement names another kernel, to time the one-thread-per-
     channel kernel on the fleet shape beside the pipe."""
+    kernel, entry, args, out, _keep = launch_args(fstatic, params, state, x,
+                                                  emit_rel, warmup, kernel)
+    kernel.launch(entry, *args)
+    return out
+
+
+def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
+                state: DetectorState, x: torch.Tensor, emit_rel: bool,
+                warmup: bool, kernel: _cuda.Kernel | None = None):
+    """``(kernel, C entry, its arguments, (new_state, (on, deltas, rel)),
+    keep)`` of one launch: the outputs allocated, nothing launched.  Hold
+    ``keep`` (the parameter block and scratch the arguments point to) until
+    the launch.  The kernel updates the new state in place, so calling the
+    entry again carries it on (a measurement times the bare entry so)."""
     _check(fstatic, params, state, x)
     s = fstatic.plain
     if kernel is None:
@@ -245,9 +259,9 @@ def _launch(fstatic: FusedDetectorStatic, params: DetectorParams,
         ptr(state.bt_pos) if bt else None, ptr(new.bt_pos) if bt else None,
         ptr(on), ptr(deltas), ptr(rel),
     )
+    out = (new, (on, deltas, rel))
     if pipe:
-        kernel.launch("ofpt_detect_pipe", *args, _cuda.stream())
-        return new, (on, deltas, rel)
+        return kernel, "ofpt_detect_pipe", (*args, _cuda.stream()), out, p
     if s.coupled_off:
         threads = -(-c // 32) * 32
         blocks = 1
@@ -258,9 +272,8 @@ def _launch(fstatic: FusedDetectorStatic, params: DetectorParams,
     if bsz * threads * 4 > _MAX_SMEM:
         scratch = torch.empty((bsz, blocks * threads), dtype=torch.float32,
                               device=dev)
-    kernel.launch("ofpt_detect", *args, ptr(scratch), threads,
-                  _cuda.stream())
-    return new, (on, deltas, rel)
+    return (kernel, "ofpt_detect", (*args, ptr(scratch), threads,
+                                    _cuda.stream()), out, (p, scratch))
 
 
 def fused_detect_offline(fstatic: FusedDetectorStatic, params: DetectorParams,

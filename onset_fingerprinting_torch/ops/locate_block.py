@@ -1,0 +1,192 @@
+"""The realtime engine's per-block locate step: every channel that fired in
+a block goes through the fixed-capacity locator in onset order, and the
+completed hits go to the device event queue.
+
+This is the locate half of the JAX engine's step (``realtime/engine.py:
+232-320`` of the JAX package), which XLA fuses into the block's program.
+Written as PyTorch ops it is about a thousand small operations per channel
+(the masked slot table, two feasibility tiers, twenty unrolled Newton
+iterations), several thousand kernels per block: even replayed from a
+CUDA graph that is more than the block's 1.333 ms.  So on the card it is
+one kernel, ``csrc/locate_block.cu`` (counter ``_cuda.LOCATE_BLOCK``), and
+:func:`locate_block_reference` is its plain version: the JAX step's masks
+ported literally (``locate/multilaterate.make_locate_update``), which the
+CPU runs and the card tests hold the kernel to.
+
+Dispatch is by device, as for the other kernels: a CPU tensor runs the
+plain version (counted in ``plain_calls``), a CUDA tensor launches the
+kernel or raises.  The kernel takes the Newton locator without CC
+refinement (the engine's configuration); ``cc_refine=True`` runs only on
+the CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from onset_fingerprinting_torch.locate.multilaterate import (
+    LocatorState,
+    Multilaterate3D,
+    _at,
+    make_locate_update,
+)
+from onset_fingerprinting_torch.ops import _cuda
+
+#: _BIG sorts the channels that did not fire after every real onset
+_BIG = 10 ** 9
+#: the kernel's static limits (csrc/locate_block.cu)
+MAX_CHANNELS = 32
+MAX_SLOTS = 64
+MAX_TIERS = 4
+
+
+class EventQueue(NamedTuple):
+    """The device ring of located hits."""
+
+    points: torch.Tensor  # [E, 2] float32
+    onsets: torch.Tensor  # [E] int32 absolute onset sample
+    emits: torch.Tensor   # [E] int32 start sample of the emitting block
+    count: torch.Tensor   # 0-d int32 cumulative hit counter
+
+
+class BlockHits(NamedTuple):
+    onsets: torch.Tensor  # [C] int32 absolute onset sample of each channel
+    points: torch.Tensor  # [C, 2] float32, zero where no hit completed
+    emits: torch.Tensor   # [C] bool: a hit completed at this channel
+
+
+class _LocDesc(ctypes.Structure):
+    # must match csrc/locate_block.cu::LocDesc field for field
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "C", "G", "S", "H", "W", "E", "T", "B")] + [
+        ("radius", ctypes.c_float), ("c_over_sr", ctypes.c_float),
+        ("tols", ctypes.c_float * MAX_TIERS)]
+
+
+class LocateBlock:
+    """The locate step of one engine: the locator's update function (its
+    lag maps and geometry on ``device``) and the constants the kernel
+    takes."""
+
+    def __init__(self, locator: Multilaterate3D, n_channels: int,
+                 block_size: int, capacity: int = 8, cc_refine: bool = False,
+                 model=None, model_input: str = "arrival", device=None):
+        self.update = make_locate_update(
+            locator, capacity=capacity, cc_refine=cc_refine, model=model,
+            model_input=model_input, device=device)
+        self.tables = self.update.tables
+        self.n_channels = n_channels
+        self.block_size = block_size
+        self.capacity = capacity
+        self.cc_refine = cc_refine
+        self.radius = float(locator.radius)
+        self.c_over_sr = float(locator.c / locator.sr)
+        self.tols = tuple(float(locator.samples_per_cm) * float(t)
+                          for t in locator.feasibility_tols)
+        self.window_len = self.update.window_len
+
+    def check_kernel_shape(self) -> None:
+        """Raise on what ``csrc/locate_block.cu`` does not take."""
+        if self.cc_refine:
+            raise NotImplementedError(
+                "the locate kernel runs the Newton locator without CC "
+                "refinement; cc_refine=True runs on the CPU only")
+        if self.n_channels > MAX_CHANNELS or self.capacity > MAX_SLOTS \
+                or len(self.tols) > MAX_TIERS:
+            raise ValueError(
+                f"the locate kernel takes at most {MAX_CHANNELS} channels, "
+                f"{MAX_SLOTS} slots and {MAX_TIERS} feasibility tiers")
+
+
+def locate_block_reference(lb: LocateBlock, lstate: LocatorState,
+                           queue: EventQueue, on: torch.Tensor,
+                           deltas: torch.Tensor, sample_count: torch.Tensor,
+                           window=None, win_start=None):
+    """Plain version: the JAX engine's locate loop and queue push
+    (engine.py:249-304 there), every slot's state selected by the
+    channel's validity, never branched on.  Returns ``(locator state,
+    event queue, BlockHits)``."""
+    _cuda.LOCATE_BLOCK.plain_calls += 1
+    dev = on.device
+    c = lb.n_channels
+    onsets_abs = sample_count + deltas
+    extra = () if window is None else (window, win_start)
+    # the fired channels in onset order (a stable sort, as jnp.argsort:
+    # ties keep channel order)
+    order = torch.sort(torch.where(on, deltas, _BIG), stable=True).indices
+    chans = torch.arange(c, device=dev)
+    points = torch.zeros((c, 2), dtype=torch.float32, device=dev)
+    emits = torch.zeros((c,), dtype=torch.bool, device=dev)
+    for i in range(c):  # unrolled over the static channel count
+        ch = order[i]
+        valid = _at(on, ch)
+        new_l, point, emit = lb.update(lstate, ch, _at(onsets_abs, ch),
+                                       *extra)
+        lstate = LocatorState(*(torch.where(valid, n, o)
+                                for n, o in zip(new_l, lstate)))
+        row = chans == ch
+        points = torch.where(row[:, None],
+                             torch.where(valid & emit, point, 0.0), points)
+        emits = torch.where(row, valid & emit, emits)
+    # completed hits go to the event queue, in channel order
+    e = queue.points.shape[0]
+    slots = torch.arange(e, device=dev)
+    qp, qo, qe, qc = queue
+    for i in range(c):
+        put = emits[i] & (slots == torch.remainder(qc, e))
+        qp = torch.where(put[:, None], points[i], qp)
+        qo = torch.where(put, onsets_abs[i], qo)
+        qe = torch.where(put, sample_count, qe)
+        qc = qc + emits[i].to(torch.int32)
+    return lstate, EventQueue(qp, qo, qe, qc), BlockHits(onsets_abs, points,
+                                                         emits)
+
+
+def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
+                 on: torch.Tensor, deltas: torch.Tensor,
+                 sample_count: torch.Tensor, window=None, win_start=None):
+    """The block's locate step: :func:`locate_block_reference` for CPU
+    tensors, ``csrc/locate_block.cu`` for CUDA tensors.  Functional: new
+    tensors out, the inputs left as they were."""
+    if on.device.type == "cpu":
+        return locate_block_reference(lb, lstate, queue, on, deltas,
+                                      sample_count, window, win_start)
+    lb.check_kernel_shape()
+    c, g = lb.n_channels, lb.capacity
+    e = queue.points.shape[0]
+    maps = lb.tables.maps
+    if on.shape != (c,) or deltas.shape != (c,) or on.dtype != torch.bool \
+            or deltas.dtype != torch.int32:
+        raise ValueError(f"on must be bool [{c}] and deltas int32 [{c}]")
+    i32 = [lstate.sensors, lstate.onsets, lstate.count, lstate.age,
+           lstate.next_age, queue.onsets, queue.emits, queue.count,
+           sample_count]
+    if any(v.dtype != torch.int32 or not v.is_contiguous() for v in i32) \
+            or queue.points.dtype != torch.float32 \
+            or not queue.points.is_contiguous():
+        raise ValueError("the locator state and queue must be contiguous "
+                         "int32 (points float32)")
+    tensors = i32 + [on, deltas, queue.points, *lb.tables]
+    if any(v.device != on.device for v in tensors):
+        raise ValueError("state, queue, tables and events must be on one "
+                         "device")
+    d = _LocDesc(C=c, G=g, S=maps.shape[0], H=maps.shape[2],
+                 W=maps.shape[3], E=e, T=len(lb.tols), B=lb.block_size,
+                 radius=lb.radius, c_over_sr=lb.c_over_sr)
+    for i, t in enumerate(lb.tols):
+        d.tols[i] = t
+    new_l = LocatorState(*(torch.empty_like(v) for v in lstate))
+    new_q = EventQueue(*(torch.empty_like(v) for v in queue))
+    hits = BlockHits(torch.empty_like(deltas),
+                     torch.empty((c, 2), dtype=torch.float32,
+                                 device=on.device),
+                     torch.empty_like(on))
+    ptrs = [v.data_ptr() for v in (
+        on, deltas, sample_count, *lstate, *new_l, *lb.tables,
+        *queue, *new_q, *hits)]
+    _cuda.LOCATE_BLOCK.launch("ofpt_locate_block", ctypes.addressof(d),
+                              *ptrs, _cuda.stream())
+    return new_l, new_q, hits

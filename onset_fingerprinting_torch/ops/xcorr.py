@@ -5,17 +5,39 @@
 self-correlation as plain matrix products with constant DFT matrices (the
 serving head's ``cc_impl='dft'``), and ``self_and_pair_correlate_dft`` adds
 channel-pair cross-correlation on the same forward products (the
-``cc_pairs`` head).  The products are ``torch.matmul`` in
-float32: PyTorch's default (``torch.backends.cuda.matmul.allow_tf32`` is
-False) keeps them full float32 on the card, no TF32.
+``cc_pairs`` head).
+
+Both DFT heads take the JAX package's ``precision`` (xcorr.py:149-216
+there), chosen per call and never by a process-wide flag:
+
+- ``"highest"`` (the default): float32 operands, full float32 products.
+  On the card a float32 ``torch.matmul`` stays full float32 as long as
+  ``torch.backends.cuda.matmul.allow_tf32`` is False, PyTorch's default.
+- ``"default"``: the TPU's one-pass semantics.  Both operands of every
+  product (the two forward transforms, the inverse of the power spectrum,
+  the pair inverses) are rounded to bfloat16, the sums accumulate in
+  float32 and the result is float32.  On the card that is one bf16 × bf16
+  → f32 GEMM on the tensor cores (``torch.mm(..., out_dtype=float32)``);
+  on the CPU its plain version rounds both operands to bfloat16 and back
+  and multiplies in float32.  A bf16 CCCNN runs its head this way, as
+  the JAX package's does (models/cccnn.py:479-497 there).
+
+The rest is what the locator needs: ``full_correlate`` and the lag
+pickers, among them the contribution-normalised legal-lag picker
+``cross_correlation_lag`` and its fixed-shape device twin
+``cross_correlation_lag_jax`` (named after the JAX function it mirrors).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
+
+#: the DFT heads' precisions (module docstring)
+PRECISIONS = ("highest", "default")
 
 
 def _fft_len(n: int) -> int:
@@ -80,22 +102,41 @@ def _dft_tensors(n: int, device: torch.device):
                  for m in (*_dft_matrices(n), _dft_inv_sin(n)))
 
 
-def batch_self_correlate_dft(a: torch.Tensor, sum_axis: int | None = None
-                             ) -> torch.Tensor:
+def dft_matmul(a: torch.Tensor, m: torch.Tensor, precision: str = "highest"
+               ) -> torch.Tensor:
+    """``a [..., n] @ m [n, k]`` → float32 ``[..., k]`` at ``precision``
+    (module docstring)."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got "
+                         f"{precision!r}")
+    if precision == "highest":
+        return torch.matmul(a.to(torch.float32), m)
+    if a.device.type == "cpu":
+        bf = torch.bfloat16
+        return torch.matmul(a.to(bf).to(torch.float32),
+                            m.to(bf).to(torch.float32))
+    out = torch.mm(a.reshape(-1, a.shape[-1]).to(torch.bfloat16),
+                   m.to(torch.bfloat16), out_dtype=torch.float32)
+    return out.reshape(*a.shape[:-1], m.shape[-1])
+
+
+def batch_self_correlate_dft(a: torch.Tensor, sum_axis: int | None = None,
+                             precision: str = "highest") -> torch.Tensor:
     """``batch_full_correlate(a, a)`` as two forward matrix products and one
     inverse.  ``sum_axis`` sums over that axis on the power spectrum,
     before the (linear) inverse — equal to summing the result, with
     K-fold less inverse work."""
     re_m, im_m, inv, _ = _dft_tensors(a.shape[-1], a.device)
-    re = torch.matmul(a, re_m)
-    im = torch.matmul(a, im_m)
+    re = dft_matmul(a, re_m, precision)
+    im = dft_matmul(a, im_m, precision)
     power = re * re + im * im
     if sum_axis is not None:
         power = power.sum(dim=sum_axis)
-    return torch.matmul(power, inv)
+    return dft_matmul(power, inv, precision)
 
 
-def self_and_pair_correlate_dft(feats: torch.Tensor, pi, pj
+def self_and_pair_correlate_dft(feats: torch.Tensor, pi, pj,
+                                precision: str = "highest"
                                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel self-CC plus channel-pair cross-CC, sharing one set of
     forward DFT products (xcorr.py:149-178 of the JAX package).
@@ -108,13 +149,130 @@ def self_and_pair_correlate_dft(feats: torch.Tensor, pi, pj
     """
     re_m, im_m, inv_cos, inv_sin = _dft_tensors(feats.shape[-1],
                                                 feats.device)
-    re = torch.matmul(feats, re_m)  # [B, C, K, F]
-    im = torch.matmul(feats, im_m)
-    self_cc = torch.matmul((re * re + im * im).sum(dim=2), inv_cos)
+    re = dft_matmul(feats, re_m, precision)  # [B, C, K, F]
+    im = dft_matmul(feats, im_m, precision)
+    self_cc = dft_matmul((re * re + im * im).sum(dim=2), inv_cos, precision)
     re_i, im_i = re[:, pi], im[:, pi]  # [B, P, K, F]
     re_j, im_j = re[:, pj], im[:, pj]
     cross_re = (re_i * re_j + im_i * im_j).sum(dim=2)  # [B, P, F]
     cross_im = (im_i * re_j - re_i * im_j).sum(dim=2)
-    pair_cc = (torch.matmul(cross_re, inv_cos)
-               + torch.matmul(cross_im, inv_sin))
+    pair_cc = (dft_matmul(cross_re, inv_cos, precision)
+               + dft_matmul(cross_im, inv_sin, precision))
     return self_cc, pair_cc
+
+
+def full_correlate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``np.correlate(a, b, mode='full')`` for equal-length inputs (the
+    rFFT form): index ``n-1`` is lag 0, index ``n-1+l`` is ``sum_m a[m+l]
+    b[m]``."""
+    return batch_full_correlate(a, b)
+
+
+def find_lag(a, b) -> int:
+    """The argmax lag between two signals (multilateration.py:878-887 of
+    the reference)."""
+    cc = full_correlate(torch.as_tensor(a, dtype=torch.float32),
+                        torch.as_tensor(b, dtype=torch.float32))
+    return int(torch.argmax(cc)) - (len(a) - 1)
+
+
+def find_lag_jax(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`find_lag` on the device, batched over leading axes, without a
+    host read: int32 lags."""
+    cc = batch_full_correlate(a, b)
+    return (torch.argmax(cc, dim=-1) - (a.shape[-1] - 1)).to(torch.int32)
+
+
+def find_lag_multi(a, b, top_n: int = 3):
+    """The ``top_n`` CC peak lags and their squared heights
+    (multilateration.py:890-899 of the reference)."""
+    from scipy.signal import find_peaks
+
+    cc = full_correlate(torch.as_tensor(a, dtype=torch.float32),
+                        torch.as_tensor(b, dtype=torch.float32)).cpu().numpy()
+    peaks, _ = find_peaks(cc)
+    peaks = peaks[np.argsort(-cc[peaks])][:top_n]
+    return peaks - len(a) + 1, cc[peaks] ** 2
+
+
+def _contribution_normalizer(n: int, cutoff: int) -> np.ndarray:
+    norm = np.arange(n) + 1.0
+    norm[:cutoff] = cutoff
+    return norm
+
+
+def cross_correlation_lag(
+    x: np.ndarray,
+    y: np.ndarray,
+    onsets: Optional[tuple[int, int]] = None,
+    legal_lags: Optional[tuple[int, int]] = None,
+    d: int = 0,
+    normalization_cutoff: int = 10,
+    onset_tolerance: int = 50,
+    take_abs: bool = False,
+) -> Optional[int]:
+    """Host (numpy, float64) refined-lag picker (detection.py:195-268 of
+    the reference): each CC lag is divided by its number of contributing
+    samples, the lags are restricted to ``onsets`` ± ``onset_tolerance``
+    or to ``legal_lags``, and the re-centred argmax lag comes back, or None
+    when the window is empty."""
+    x = np.diff(np.asarray(x, dtype=np.float64), d)
+    y = np.diff(np.asarray(y, dtype=np.float64), d)
+    if take_abs:
+        x, y = np.abs(x), np.abs(y)
+    n = len(x)
+    cc = np.correlate(x, y, "full")
+    norm = _contribution_normalizer(n, normalization_cutoff)
+    cc[:n] /= norm
+    cc[n:] /= norm[n - 2:: -1]
+    if legal_lags is not None:
+        cc = cc[n - legal_lags[1]: n - legal_lags[0]]
+        max_adjust = legal_lags[1]
+    elif onsets is not None:
+        current_lag = onsets[1] - onsets[0]
+        center = n - current_lag
+        cc = cc[center - onset_tolerance: center + onset_tolerance]
+        max_adjust = current_lag + onset_tolerance
+    else:
+        max_adjust = n - 1
+    if len(cc) == 0:
+        return None
+    return -(int(np.argmax(cc)) - max_adjust)
+
+
+def cross_correlation_lag_jax(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    onsets: torch.Tensor,
+    d: int = 0,
+    normalization_cutoff: int = 10,
+    onset_tolerance: int = 50,
+    take_abs: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-shape device twin of :func:`cross_correlation_lag` (no host
+    read): ``onsets`` is an int ``[2]`` tensor; returns ``(lag int32,
+    valid)``, ``valid`` False where the tolerance window leaves the CC's
+    support (the host version's None)."""
+    if d > 0:
+        x = torch.diff(x, d)
+        y = torch.diff(y, d)
+    if take_abs:
+        x, y = x.abs(), y.abs()
+    n = x.shape[-1]
+    cc = batch_full_correlate(x, y)
+    norm = _contribution_normalizer(n, normalization_cutoff)
+    full_norm = torch.as_tensor(
+        np.concatenate([norm, norm[n - 2:: -1]]).astype(np.float32),
+        device=cc.device)
+    cc = cc / full_norm
+    current_lag = onsets[1] - onsets[0]
+    center = n - current_lag
+    idx = torch.arange(2 * n - 1, device=cc.device)
+    window = (idx >= center - onset_tolerance) & (
+        idx < center + onset_tolerance)
+    valid = (center - onset_tolerance >= 0) & (
+        center + onset_tolerance <= 2 * n - 1)
+    masked = torch.where(window, cc, -torch.inf)
+    arg = torch.argmax(masked)
+    lag = -(arg - (center - onset_tolerance) - (current_lag + onset_tolerance))
+    return lag.to(torch.int32), valid

@@ -16,8 +16,13 @@ sample-anchored), ``gather_roll_raw_NW8`` (kernel K4),
 materialised), ``model_apply`` (the flagship CCCNN in bfloat16),
 ``model_apply_pairs`` (the same with ``cc_pairs='all'``,
 ``cc_pair_lags=112``), ``model_conv_stack`` (K3 alone),
-``model_conv_stack_cudnn`` (the same stack as an ``F.conv1d`` chain) and
-``model_dft_cc`` (the DFT self-correlation alone).
+``model_conv_stack_cudnn`` (the same stack as an ``F.conv1d`` chain),
+``model_dft_cc`` (the DFT self-correlation alone, at the bf16 model's
+precision: one bf16 pass accumulating in f32), ``model_dft_cc_f32`` (the
+same head in full f32, as the bf16 model ran it before it took the JAX
+package's precision) and ``model_dft_cc_contiguous`` (the bf16 head on a
+contiguous copy of the features instead of the conv stack's transposed
+view; the copy itself is not timed).
 
 The example's TPU-only rows are left out: the gather's MXU precision
 variants, its DMA ring-depth sweep (``gather_nbuf*``), its grouped-step
@@ -74,6 +79,7 @@ ROWS = (
     "top_hit_blocks", "compact_hit_list", "gather", "gather_roll_raw_NW8",
     "gather_roll_+transpose", "model_apply", "model_apply_pairs",
     "model_conv_stack", "model_conv_stack_cudnn", "model_dft_cc",
+    "model_dft_cc_f32", "model_dft_cc_contiguous",
 )
 
 
@@ -115,7 +121,8 @@ def main(device=None, n_streams: int = 8192, chunk: int = 32000,
          outputs: dict | None = None) -> dict[str, float]:
     """Per-chunk ms of each row (see the module docstring), median over
     ``iters``.  ``outputs``, when given, receives the last iteration's
-    ``preds`` and ``preds_pairs`` (``[capacity, 2]``)."""
+    ``preds`` and ``preds_pairs`` (``[capacity, 2]``), the head's input
+    ``feats`` (``[capacity, C, K, V]``) and its bf16 output ``cc``."""
     dev = resolve_device(device)
     t = chunk
     model = _model(FLAGSHIP, dev)
@@ -167,13 +174,20 @@ def main(device=None, n_streams: int = 8192, chunk: int = 32000,
             # the head's input as the model builds it: [G, C, K, V]
             feats = feats.reshape(capacity, CPS, *feats.shape[1:]).transpose(
                 2, 3)
-            run("model_dft_cc", lambda: batch_self_correlate_dft(
+            cc = run("model_dft_cc", lambda: batch_self_correlate_dft(
+                feats, sum_axis=2, precision="default"))
+            run("model_dft_cc_f32", lambda: batch_self_correlate_dft(
                 feats, sum_axis=2))
+            contiguous = feats.contiguous()
+            run("model_dft_cc_contiguous", lambda: batch_self_correlate_dft(
+                contiguous, sum_axis=2, precision="default"))
+            del contiguous
         if it:
             for name in ROWS:
                 times[name].append(row[name])
     if outputs is not None:
-        outputs.update(preds=preds, preds_pairs=preds_pairs)
+        outputs.update(preds=preds, preds_pairs=preds_pairs, feats=feats,
+                       cc=cc)
     return {name: float(np.median(v)) for name, v in times.items()}
 
 

@@ -447,3 +447,218 @@ def test_roll_routes_match_plain(cps, n, kind, routes):
     assert (route.kernel.launches, _cuda.GATHER_ROLL.plain_calls) == (
         before[0] + int(rs.shape[0] > 0), before[1])
     assert torch.equal(got, plain)
+
+
+# -- slice B: the realtime engine's kernels and the bf16 DFT head -----------
+
+def _engine_stream(seconds=0.6, seed=3):
+    from onset_fingerprinting_torch.tools import realtime_sim as sim
+
+    audio, _, hits = sim.synth_stream(seconds, seed=seed)
+    return sim, audio, hits
+
+
+def test_coupled_detector_at_the_engines_shape_matches_plain():
+    """K1 as the engine launches it: coupled off-gate, no high-pass, one
+    [128, 3] block per launch with the state carried, bit-identical to the
+    plain detector block by block (and the warmup)."""
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.detect.amplitude import (
+        detect_offline,
+        warmup_minmax,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_detect_offline,
+        fused_warmup_minmax,
+        kernel_for,
+        make_fused_detector,
+    )
+
+    sim, audio, _ = _engine_stream()
+    cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
+                         sr=sim.SR)
+    fst, params, st, _ = make_fused_detector(cfg, emit_rel=False)
+    assert kernel_for(fst.plain) is _cuda.DETECTOR
+    x = torch.as_tensor(audio, device="cuda")
+    warm = sim.WARMUP // 128 * 128
+    sk = fused_warmup_minmax(fst, params, st, x[:warm])
+    sp = warmup_minmax(fst.plain, params, st, x[:warm])
+    for name, a, b in zip(sk._fields, sk, sp):
+        assert torch.equal(a, b), ("warmup", name)
+    fired = 0
+    for i in range(0, len(audio) - 127, 128):
+        blk = x[i: i + 128]
+        sk, (on_k, d_k, _) = fused_detect_offline(fst, params, sk, blk, False)
+        sp, (on_p, d_p, _) = detect_offline(fst.plain, params, sp, blk)
+        assert torch.equal(on_k, on_p) and torch.equal(d_k, d_p), i
+        fired += int(on_p.sum())
+    for name, a, b in zip(sk._fields, sk, sp):
+        assert torch.equal(a, b), name
+    assert fired >= 6, fired
+
+
+def _features(seed, shape):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g).to(torch.bfloat16).to(
+        torch.float32)
+
+
+@pytest.mark.parametrize("pairs", [False, True])
+def test_bf16_dft_head_matches_its_emulation(pairs):
+    """The card's bf16 x bf16 -> f32 GEMMs against the CPU emulation of the
+    same rounding points: within 1e-3 of the output's scale (f32 sums in
+    another order can flip a bf16 rounding of the spectrum, which moves an
+    output by about one bf16 ulp of one term of 137)."""
+    from onset_fingerprinting_torch.ops import xcorr as tx
+
+    a = _features(0, (64, 4, 5, 133))
+    pi, pj = torch.tensor([0, 0, 1, 2]), torch.tensor([1, 3, 2, 3])
+    if pairs:
+        want = tx.self_and_pair_correlate_dft(a, pi, pj, precision="default")
+        got = tx.self_and_pair_correlate_dft(a.cuda(), pi.cuda(), pj.cuda(),
+                                             precision="default")
+    else:
+        want = (tx.batch_self_correlate_dft(a, 2, precision="default"),)
+        got = (tx.batch_self_correlate_dft(a.cuda(), 2, precision="default"),)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        scale = float(w.abs().max())
+        assert float((g.cpu() - w).abs().max()) <= 1e-3 * scale
+
+
+def test_bf16_cccnn_card_matches_cpu():
+    """The classifier as the engine runs it (the flagship bf16 CCCNN, 3
+    channels, 512-sample windows) on the card against its plain version on
+    the CPU: K3 on the tensor cores and the bf16 head, within 2e-2."""
+    from onset_fingerprinting_torch.ops import _cuda
+
+    sim, audio, _ = _engine_stream()
+    model = sim.classifier(seed=1)
+    x = torch.as_tensor(np.stack([audio[s: s + 512].T for s in
+                                  range(20000, 20000 + 16 * 700, 700)]))
+    with torch.inference_mode():
+        want = model(x)
+        before = _cuda.CONV_STACK_MMA.launches
+        got = model.cuda()(x.cuda()).cpu()
+    assert _cuda.CONV_STACK_MMA.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 2e-2
+
+
+def _block_events(seed, n_strikes=40):
+    """Per-block (on, deltas) of random strikes with garbage onsets and
+    out-of-order channels, as the detector would hand them to the
+    locator: ``[(sample_count, on [3], deltas [3])]``."""
+    sim, _, _ = _engine_stream(0.01)
+    _, _, xyz, c = sim._geometry()
+    rng = np.random.default_rng(seed)
+    events = []
+    t = 20000
+    for _ in range(n_strikes):
+        r = np.sqrt(rng.uniform(0.01, 0.64)) * sim.DIAM / 2
+        ang = rng.uniform(0, 2 * np.pi)
+        x, y = r * np.cos(ang), r * np.sin(ang)
+        for ch, (sx, sy, _) in enumerate(xyz):
+            events.append((t + int(round(np.hypot(x - sx, y - sy) / c
+                                         * sim.SR)), ch))
+        if rng.random() < 0.4:
+            events.append((t - int(rng.integers(20, 150)),
+                           int(rng.integers(3))))
+        t += 1500 + int(rng.integers(0, 500))
+    blocks = {}
+    for onset, ch in sorted(events):
+        b = onset // 128
+        on, d = blocks.setdefault(b, ([False] * 3, [0] * 3))
+        if not on[ch]:
+            on[ch], d[ch] = True, onset - b * 128
+    return [(b * 128, on, d) for b, (on, d) in sorted(blocks.items())]
+
+
+def test_locate_block_kernel_matches_plain():
+    """csrc/locate_block.cu against its plain version on the same blocks:
+    the locator state, the queue and the emits exactly, points within
+    1e-3 cm."""
+    from onset_fingerprinting_torch.locate.multilaterate import (
+        locator_init,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.locate_block import (
+        EventQueue,
+        LocateBlock,
+        locate_block,
+        locate_block_reference,
+    )
+
+    sim, _, _ = _engine_stream(0.01)
+    eng = sim.build_engine("cpu", ring_seconds=0.01)
+    lb = LocateBlock(eng.locator, 3, 128, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def queue():
+        return EventQueue(torch.zeros((16, 2), device="cuda"),
+                          torch.zeros(16, **i32), torch.zeros(16, **i32),
+                          torch.zeros((), **i32))
+
+    sk, qk = locator_init(8, "cuda"), queue()
+    sp, qp = locator_init(8, "cuda"), queue()
+    before = _cuda.LOCATE_BLOCK.launches
+    n_emit = 0
+    blocks = _block_events(5)
+    for count, on, d in blocks:
+        args = (torch.tensor(on, device="cuda"), torch.tensor(d, **i32),
+                torch.tensor(count, **i32))
+        sk, qk, hk = locate_block(lb, sk, qk, *args)
+        sp, qp, hp = locate_block_reference(lb, sp, qp, *args)
+        for a, b in zip(sk, sp):
+            assert torch.equal(a, b), count
+        assert torch.equal(hk.emits, hp.emits) and torch.equal(hk.onsets,
+                                                               hp.onsets)
+        assert float((hk.points - hp.points).abs().max()) <= 1e-3
+        for name in ("onsets", "emits", "count"):
+            assert torch.equal(getattr(qk, name), getattr(qp, name))
+        n_emit += int(hk.emits.sum())
+    assert _cuda.LOCATE_BLOCK.launches == before + len(blocks)
+    assert n_emit >= 30
+
+
+def test_engine_graph_replay_equals_eager_and_cpu():
+    """The engine's step replayed from its CUDA graph against the same
+    step run eagerly on the card (identical state) and the plain engine on
+    the CPU (identical onsets and emit stamps, points within 1e-3 cm);
+    every replay counts one launch of K1 and of the locate kernel, and no
+    plain version runs."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.realtime.engine import (
+        EngineState,
+        _clone,
+        _leaves,
+    )
+
+    sim, audio, hits = _engine_stream()
+    blocks = sim.blocks_of(audio)
+    eager = sim.build_engine("cuda", ring_seconds=1.0, event_queue=64)
+    eager.warmup(audio[: sim.WARMUP])
+    st = EngineState(*_clone(eager.state))
+    for blk in blocks:
+        st, _ = eager._step(st, torch.as_tensor(blk, device="cuda"),
+                            eager.params)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        eng = sim.build_engine(device, ring_seconds=1.0, event_queue=64)
+        assert (eng._graph is not None) == (device == "cuda")
+        _cuda.reset_counts()
+        events, _, _ = sim.run(eng, audio, classify=False)
+        runs[device] = (eng, events, {k.name: (k.launches, k.plain_calls)
+                                      for k in _cuda.KERNELS})
+    g, c = runs["cuda"], runs["cpu"]
+    assert g[2]["detector"] == (len(blocks) + 1, 0)  # + the warmup
+    assert g[2]["locate_block"] == (len(blocks), 0)
+    for u, v in zip(_leaves(g[0].state), _leaves(st)):
+        assert torch.equal(u, v)
+    assert [o for o, _ in g[1]] == [o for o, _ in c[1]]
+    assert torch.equal(g[0].state.ev_emits.cpu(), c[0].state.ev_emits)
+    for (_, a), (_, b) in zip(g[1], c[1]):
+        assert abs(a.x - b.x) <= 1e-3 and abs(a.y - b.y) <= 1e-3
+    matched, med, ok = sim.locate_gates(hits, g[1])
+    assert ok and matched == len(hits)

@@ -16,8 +16,15 @@ def test_port_and_chip_smoke_import_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import onset_fingerprinting_torch as pkg\n"
+        "names = set()\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
+        "    names.add(m.name[len(pkg.__name__) + 1:])\n"
+        "new = {'core.coords', 'core.ring_buffer', 'locate.geometry',\n"
+        "       'locate.trilateration', 'locate.multilaterate',\n"
+        "       'detect.refine', 'ops.locate_block', 'realtime.actions',\n"
+        "       'realtime.engine', 'tools.realtime_sim'}\n"
+        "assert new <= names, new - names\n"
         "import onset_fingerprinting_torch.tools.fingerprint_anatomy\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
