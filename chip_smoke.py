@@ -10,15 +10,16 @@ non-zero exit code, printing no result, on any error or without CUDA.
 
 Phase 0  prints the card's name and power limit, starts the plain
          realtime engine on the CPU in a child process (phase 4's
-         reference), and builds the nine kernel libraries from
+         reference), and builds the ten kernel libraries from
          ``onset_fingerprinting_torch/csrc`` with nvcc, all started
          together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
          (TF32 off for cuDNN and matmuls): K1 the fused detector bit for
-         bit (warmup state, on, deltas, rel, state) on both of its kernels
+         bit (warmup state, on, deltas, rel, state) on each of its kernels
          — the pipe at the fleet width on two seeds and at a ragged width,
-         the one-thread-per-channel kernel in coupled_off + backtrack and
-         at the realtime engine's config (C = 3, no high-pass) — and, at
+         the warp-per-channel kernel in coupled_off + backtrack, at the
+         realtime engine's config (C = 3, no high-pass) and at C = 32, the
+         one-thread-per-channel kernel at C = 1000 — and, at
          the fleet shape as the main path runs it (events only), the pipe
          against the plain detector and against the other kernel bit for
          bit, and the two kernels timed; K2 the window gather
@@ -58,28 +59,34 @@ Phase 4  drives the realtime engine (``tools.realtime_sim``: 3 sensors at
          96 kHz, 128-sample blocks, the step replayed from a CUDA graph)
          over a 20 s stream of 80 strikes, harvesting every 64 blocks and
          classifying each hit with the bf16 flagship CCCNN (3 x 512) from
-         the device ring; gates the locate rate and median error, shows
-         that K1 (coupled, one launch per block) and the locate kernel ran
-         on every step and K3 for the classifier, with no plain version;
-         holds the events of the first 5 s to the plain engine on the CPU
-         and the classifier to its plain version on the same windows;
-         times the step (graph replays and eager, CUDA events), K1 at
-         [128, 3] per launch beside an empty kernel, and the locate kernel
-         beside its plain version, which it is held to on the stream's
-         first blocks.
+         the device ring; shows that the captured step is two kernel nodes
+         and nothing else (no copy); gates the locate rate and median
+         error, shows that K1 (coupled, one warp per channel, one launch
+         per block) and the locate kernel ran on every step and K3 for the
+         classifier, with no plain version; holds the events of the first
+         5 s to the plain engine on the CPU and the classifier to its plain
+         version on the same windows; holds K1 over those 5 s to the plain
+         detector (events and state) and the locate kernel, in place, to
+         its plain version on their fired and quiet blocks; times the step
+         (graph replays, a graph of 256 steps, eager), K1 at [128, 3] per
+         launch in a graph of launches beside detector.cu and an empty
+         kernel, the locate kernel on quiet and fired blocks, and K3 at the
+         classifier's shape (``tools/step_bench``).
 
-Prints one ``{"kernels": [...]}`` line (K1 as two rows: ``detector``, the
-pipe, the fleet path's; ``detector_coupled``, the one-thread-per-channel
-kernel in the coupled mode, the realtime engine's, timed at [128, 3]; K2
-and K4 as two rows each, timed on the random hits: ``gather_vec`` and
-``gather_roll_vec``, the paths' kernels, and ``gather`` and
-``gather_roll``, the old kernels, which the paths never launch; K3 as two
-rows: ``conv_stack_mma`` in bfloat16, the fleet path's and the realtime
-classifier's; ``conv_stack_f32`` in float32, golden mode, which no path
-launches; ``locate_block``, the realtime engine's locate step, which
-replaces no TPU kernel).  Launch counts are the sums over the paths that
-phases 2-4 drive, each from counts set to 0 just before it.  Last comes
-``{"ok": true, "device": {...}}``.
+Prints one ``{"kernels": [...]}`` line (K1 as three rows: ``detector``,
+the pipe, the fleet path's; ``detector_warp``, the warp-per-channel kernel
+of the coupled mode, the realtime engine's, timed at [128, 3];
+``detector_coupled``, the one-thread-per-channel kernel, timed at [128, 3],
+which no path launches; K2 and K4 as two rows each, timed on the random
+hits: ``gather_vec`` and ``gather_roll_vec``, the paths' kernels, and
+``gather`` and ``gather_roll``, the old kernels, which the paths never
+launch; K3 as three rows: ``conv_stack_mma`` in bfloat16, the fleet path's,
+``conv_stack_mma_classifier``, the same kernel at the realtime classifier's
+shape and with its launches; ``conv_stack_f32`` in float32, golden mode,
+which no path launches; ``locate_block``, the realtime engine's locate
+step, which replaces no TPU kernel, timed on fired blocks).  Launch counts
+are the sums over the paths that phases 2-4 drive, each from counts set to
+0 just before it.  Last comes ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -213,6 +220,9 @@ def phase_detector(report):
             n_channels=3, backtrack=True, backtrack_buffer_size=256), 3, 1),
         ("C=3 coupled_off, no high-pass (the realtime engine's)",
          DetectorConfig(n_channels=3, hipass_freq=0.0), 3, 5),
+        ("C=32 coupled_off high-pass backtrack", DetectorConfig(
+            n_channels=32, backtrack=True, backtrack_buffer_size=256,
+            hipass_freq=2000.0), 32, 2),
         ("C=1000 coupled_off backtrack (scratch stage)", DetectorConfig(
             n_channels=1000, backtrack=True, backtrack_buffer_size=256),
          1000, 1),
@@ -220,7 +230,8 @@ def phase_detector(report):
     for name, cfg, n_ch, seed in cases:
         x = make_audio(64 * 128, n_ch, seed=seed)
         kernel = check_detector(name, cfg, x)
-        want = _cuda.DETECTOR if cfg.coupled_off_gate else _cuda.DETECTOR_PIPE
+        want = (_cuda.DETECTOR_PIPE if not cfg.coupled_off_gate
+                else _cuda.DETECTOR_WARP if n_ch <= 32 else _cuda.DETECTOR)
         check(kernel is want, f"K1 {name} routed to {kernel.name}")
         del x
 
@@ -723,10 +734,9 @@ def check_bf16_head(feats, cc):
 #: phase 4: the realtime stream's length and the CPU reference's prefix
 RT_SECONDS = 20.0
 RT_CPU_SECONDS = 5.0
-#: graph replays, eager steps and bare K1 / empty launches timed
+#: graph replays and eager steps timed
 RT_REPLAYS = 1000
 RT_EAGER = 300
-RT_LAUNCHES = 2000
 
 
 def realtime_cpu_reference(seconds, prefix, seed, out):
@@ -769,25 +779,6 @@ def wait_cpu_reference(proc, q):
     return ref
 
 
-def per_launch_ms(fn, n, backlog_cycles):
-    """Median and p99 device time of ``fn`` over ``n`` calls, each between
-    its own CUDA events, with the stream held back first (a spin kernel of
-    ``backlog_cycles``, 1e9 ~ 0.5 s at ~2 GHz: longer than the host takes
-    to enqueue the calls) so that they run back to back (host enqueue time
-    excluded)."""
-    st = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    en = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(backlog_cycles))
-    for i in range(n):
-        st[i].record()
-        fn(i)
-        en[i].record()
-    torch.cuda.synchronize()
-    d = np.array([a.elapsed_time(b) for a, b in zip(st, en)])
-    return float(np.median(d)), float(np.percentile(d, 99))
-
-
 def phase_realtime(report, cpu_ref):
     """Slice B: the realtime engine on the card at the demo's configuration
     (tools/realtime_sim): a 20 s three-sensor stream, the step replayed
@@ -795,17 +786,16 @@ def phase_realtime(report, cpu_ref):
     every harvested hit classified by the bf16 flagship CCCNN from the
     device ring."""
     from onset_fingerprinting_torch.core.config import DetectorConfig
-    from onset_fingerprinting_torch.detect.amplitude import detect_offline
-    from onset_fingerprinting_torch.locate.multilaterate import locator_init
+    from onset_fingerprinting_torch.detect.amplitude import (
+        detect_offline,
+        warmup_minmax,
+    )
     from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.ops.conv_stack import kernel_for
     from onset_fingerprinting_torch.ops.fused_detector import (
-        fused_warmup_minmax,
-        launch_args,
         make_fused_detector,
     )
     from onset_fingerprinting_torch.ops.locate_block import (
-        EventQueue,
         LocateBlock,
         locate_block,
         locate_block_reference,
@@ -817,10 +807,23 @@ def phase_realtime(report, cpu_ref):
         make_classify_fn,
     )
     from onset_fingerprinting_torch.tools import realtime_sim as sim
+    from onset_fingerprinting_torch.tools.step_bench import (
+        graph_nodes,
+        k1_times,
+        locate_calls,
+        locate_times,
+        per_launch_ms,
+        step_graph,
+    )
 
     audio, _, hits = sim.synth_stream(RT_SECONDS, 0)
     eng = sim.build_engine(None)
     check(eng._graph is not None, "the engine did not capture its step")
+    types, names = graph_nodes(eng._graph.graph)
+    log(f"the captured step: {sum(types.values())} graph nodes {types}: "
+        f"{names}")
+    check(types == {"kernel": 2}, "the captured step holds other nodes than "
+          "its two kernels")
     model = sim.classifier(0)
     eng.attach_classifier(model, window=sim.CLS_WINDOW, pre=sim.CLS_PRE,
                           capacity=sim.CLS_CAPACITY)
@@ -833,23 +836,24 @@ def phase_realtime(report, cpu_ref):
         f"launches/plain calls: {counts}")
     for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran on the realtime path")
-    check(_cuda.DETECTOR.launches == n_blocks + 1,
-          f"coupled K1 launched {_cuda.DETECTOR.launches} times, want "
+    check(_cuda.DETECTOR_WARP.launches == n_blocks + 1,
+          f"coupled K1 launched {_cuda.DETECTOR_WARP.launches} times, want "
           f"{n_blocks} steps + the warmup")
     check(_cuda.LOCATE_BLOCK.launches == n_blocks,
           f"the locate kernel launched {_cuda.LOCATE_BLOCK.launches} times")
     k3 = kernel_for(sim.CLS_WINDOW, [m.weight for m in model.convs], 1,
                     torch.bfloat16)
     check(k3.launches > 0 and all(k.launches == 0 for k in _cuda.KERNELS
-                                  if k not in (_cuda.DETECTOR,
+                                  if k not in (_cuda.DETECTOR_WARP,
                                                _cuda.LOCATE_BLOCK, k3)),
           f"the classifier's K3 ({k3.name}) did not launch, or another "
           "kernel did")
     log(f"classifier: K3 route for B = {3 * sim.CLS_CAPACITY} signals of "
         f"L = {sim.CLS_WINDOW}: {k3.name} ({k3.launches} launches)")
-    for name in ("detector", "locate_block", k3.name):
+    for name in ("detector_warp", "locate_block"):
         report["_launches"][name] = (report["_launches"].get(name, 0)
-                                     + dict(counts)[name][0])
+                                     + counts[name][0])
+    report["_launches"]["classifier"] = counts[k3.name][0]
     matched, med, ok = sim.locate_gates(hits, events)
     log(f"locate gates: {len(events)} hits located, {matched}/{len(hits)} "
         f"strikes matched ({matched / len(hits):.3f}, gate "
@@ -886,6 +890,35 @@ def phase_realtime(report, cpu_ref):
         f"{len(last)} hits, card vs plain CPU on the same ring windows "
         f"max err {cerr:.3g} (bound 2e-2)")
 
+    blocks = torch.as_tensor(np.stack(sim.blocks_of(audio)), device="cuda")
+    # K1 as the engine runs it (detector_warp.cu, one launch per block)
+    # against the plain detector over the first RT_CPU_SECONDS, events and
+    # state, from the same warmed state (while the CPU reference runs on);
+    # the locate kernel's inputs there
+    l0, q0, quiet, fired, (on_k, d_k, det_k, warm) = locate_calls(
+        audio, blocks, RT_CPU_SECONDS)
+    cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
+                         sr=sim.SR)
+    fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
+    warm_p = warmup_minmax(fst.plain, params, st0, torch.as_tensor(
+        audio[: sim.WARMUP // 128 * 128], device="cuda"))
+    check(states_equal(warm, warm_p), "K1 warmup state differs at [128, 3]")
+    t0 = time.perf_counter()
+    det_p, (on_p, d_p, _) = detect_offline(
+        fst.plain, params, warm_p,
+        blocks[: on_k.shape[0]].reshape(-1, 3).contiguous())
+    torch.cuda.synchronize()
+    k1_plain = 1e3 * (time.perf_counter() - t0) / on_k.shape[0]
+    check(torch.equal(on_k, on_p) and torch.equal(d_k, d_p),
+          "K1 (detector_warp) events differ from plain on the stream")
+    for field, u, v in zip(det_k._fields, det_k, det_p):
+        check(torch.equal(u, v), f"K1 (detector_warp) state {field} differs "
+              "from plain on the stream")
+    log(f"K1 (detector_warp.cu) one launch per block over the first "
+        f"{RT_CPU_SECONDS:g} s ({on_k.shape[0]} blocks, {int(on_k.sum())} "
+        "onsets): warmup state, on, deltas and final state bit-identical to "
+        "the plain detector")
+
     # the first RT_CPU_SECONDS against the plain engine on the CPU: the
     # card's events emitted in the blocks the CPU ran
     t_wait = time.perf_counter()
@@ -908,15 +941,16 @@ def phase_realtime(report, cpu_ref):
         f"stamps identical to the plain engine on the CPU, points max err "
         f"{perr:.3g} cm (bound 1e-3)")
 
-    # the step's device time: graph replays on the stream's own blocks
+    # the step's device time: graph replays on the stream's own blocks,
+    # and one graph of 256 consecutive steps
     g = eng._graph
-    blocks = torch.as_tensor(np.stack(sim.blocks_of(audio)), device="cuda")
 
     def replay(i):
         g.block.copy_(blocks[i % len(blocks)])
         g.graph.replay()
 
-    rep = per_launch_ms(replay, RT_REPLAYS, backlog_cycles=1e9)
+    rep = per_launch_ms(replay, RT_REPLAYS)
+    steps = step_graph(eng, blocks[sim.WARMUP // 128:])
     # the same step run eagerly, from the warmed initial state: equal to
     # the replays on the stream's first 2 s, then timed
     a, b = sim.build_engine(None), sim.build_engine(None)
@@ -936,7 +970,8 @@ def phase_realtime(report, cpu_ref):
         nonlocal st
         st, _ = b._step(st, blocks[i % len(blocks)], b.params)
 
-    eag = per_launch_ms(eager_step, RT_EAGER, backlog_cycles=2e9)
+    eag = per_launch_ms(eager_step, RT_EAGER, backlog_cycles=2e9,
+                        chunk=RT_EAGER)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(RT_EAGER):
@@ -946,71 +981,45 @@ def phase_realtime(report, cpu_ref):
     budget = eng.budget_ms
     log(f"engine step, per block (budget {budget:.4f} ms): graph replay "
         f"{rep[0]:.4f} ms median, {rep[1]:.4f} ms p99 over {RT_REPLAYS} "
-        f"replays (CUDA events); eager step {eag[0]:.4f} / {eag[1]:.4f} ms "
+        f"replays (CUDA events); {steps['step_ms']:.5f} ms per step in one "
+        f"graph of 256 steps; eager step {eag[0]:.4f} / {eag[1]:.4f} ms "
         f"on the card, {eager_host:.4f} ms host wall per step")
     check(rep[0] < budget, f"graph-replayed step {rep[0]} ms over budget")
 
-    # K1 at the engine's shape, per bare launch, beside an empty kernel
-    cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
-                         sr=sim.SR)
-    fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
-    xb = blocks[len(blocks) // 2].contiguous()
-    kern, entry, args, _, keep = launch_args(fst, params, st0, xb, False,
-                                             False)
-    entry_fn = getattr(kern._lib, entry)
-    k1 = per_launch_ms(lambda i: entry_fn(*args), RT_LAUNCHES,
-                       backlog_cycles=1e9)
-    stream = _cuda.stream()
-    empty = per_launch_ms(lambda i: _cuda.DETECTOR._lib.ofpt_empty(stream),
-                          RT_LAUNCHES, backlog_cycles=1e9)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    detect_offline(fst.plain, params, st0, xb)
-    torch.cuda.synchronize()
-    k1_plain = 1e3 * (time.perf_counter() - t0)
-    report["detector_coupled"] = dict(max_abs_err=0.0, ms=k1[0],
-                                      plain_ms=k1_plain, library_ms=None,
-                                      **detector_work(xb.shape))
-    log(f"K1 coupled at [128, 3] (detector.cu), per bare launch over "
-        f"{RT_LAUNCHES}: {k1[0]:.5f} ms median, {k1[1]:.5f} ms p99; an empty "
-        f"kernel launched the same way {empty[0]:.5f} / {empty[1]:.5f} ms; "
-        f"plain {k1_plain:.3f} ms (one call)")
-    del keep
-
-    # the locate kernel at the engine's shape against its plain version on
-    # the first RT_CPU_SECONDS of the stream: K1 runs every block, the two
-    # locate versions every block where a channel fired (a quiet block
-    # leaves the locator and the queue as they are, in both)
+    # the locate kernel in place against its plain version on the same
+    # blocks: the fired ones in stream order, then the quiet ones (which
+    # must leave the locator and the queue as they are)
     lb = LocateBlock(eng.locator, 3, 128, device="cuda")
-    i32 = dict(dtype=torch.int32, device="cuda")
-    fst_k, p_k, s_k, run_k = make_fused_detector(cfg, emit_rel=False)
-    det = fused_warmup_minmax(fst_k, p_k, s_k, torch.as_tensor(
-        audio[: sim.WARMUP // 128 * 128], device="cuda"))
-    calls = []
-    for i in range(int(RT_CPU_SECONDS * sim.SR) // 128):
-        det, (on, d, _) = run_k(det, blocks[i])
-        if bool(on.any()):
-            calls.append((on[0], d[0], torch.tensor(128 * i, **i32)))
-    lk = lp = locator_init(8, "cuda")
-    qk = qp = EventQueue(torch.zeros((64, 2), device="cuda"),
-                         torch.zeros(64, **i32), torch.zeros(64, **i32),
-                         torch.zeros((), **i32))
+    lk, qk = type(l0)(*_clone(l0)), type(q0)(*_clone(q0))
+    lp, qp = l0, q0
     lerr, n_hit = 0.0, 0
-    for i, args_i in enumerate(calls):
-        lk, qk, hk = locate_block(lb, lk, qk, *args_i)
-        lp, qp, hp = locate_block_reference(lb, lp, qp, *args_i)
+    for i, (on, d, count) in enumerate(fired + quiet):
+        ck = count.clone()
+        was = [v.clone() for v in (*lk, *qk)]
+        _, _, hk, _ = locate_block(lb, lk, qk, on, d, ck, out=(lk, qk, ck))
+        lp, qp, hp, cp = locate_block_reference(lb, lp, qp, on, d, count)
         check(all(torch.equal(u, v) for u, v in zip(lk, lp))
-              and torch.equal(hk.emits, hp.emits)
+              and torch.equal(hk.emits, hp.emits) and torch.equal(ck, cp)
               and all(torch.equal(u, v) for u, v in zip(qk[1:], qp[1:])),
-              f"locate kernel differs from plain at fired block {i}")
-        lerr = max(lerr, max_err(hk.points, hp.points))
+              f"locate kernel differs from plain at block {i}")
+        if i >= len(fired):
+            check(all(torch.equal(u, v) for u, v in zip(was, (*lk, *qk))),
+                  f"the locate kernel changed the state on quiet block {i}")
+        lerr = max(lerr, max_err(hk.points, hp.points),
+                   max_err(qk.points, qp.points))
         n_hit += int(hk.emits.sum())
     check(n_hit >= 2 and lerr <= 1e-3,
           f"locate kernel: {n_hit} hits, points max err {lerr}")
-    lt = per_launch_ms(lambda i: locate_block(lb, lk, qk,
-                                              *calls[i % len(calls)]),
-                       RT_REPLAYS, backlog_cycles=2e9)
-    on, d, count = calls[-1]
+    log(f"locate kernel (locate_block.cu) in place at the engine's shape: "
+        f"{n_hit} hits in the {len(fired)} fired blocks of the first "
+        f"{RT_CPU_SECONDS:g} s, then {len(quiet)} quiet blocks: state, queue "
+        f"and counter identical to plain, points max err {lerr:.3g}")
+
+    # times: K1 per launch in a graph of launches beside detector.cu and an
+    # empty kernel; the locate kernel on quiet and on fired blocks
+    k1 = k1_times(blocks[len(blocks) // 2].contiguous())
+    loc = locate_times(lb, l0, q0, quiet, fired)
+    on, d, count = fired[-1]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -1019,20 +1028,95 @@ def phase_realtime(report, cpu_ref):
     plain_graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(plain_graph):
         locate_block_reference(lb, lp, qp, on, d, count)
-    lplain = per_launch_ms(lambda i: plain_graph.replay(), 100,
-                           backlog_cycles=1e9)
+    lplain = per_launch_ms(lambda i: plain_graph.replay(), 100)
+    log(f"K1 at [128, 3] per launch in a graph of 128 launches: "
+        f"detector_warp.cu {k1['detector_warp']:.5f} ms, detector.cu "
+        f"{k1['detector']:.5f} ms, an empty kernel {k1['empty']:.5f} ms; "
+        f"plain {k1_plain:.3f} ms per block (one call over the blocks)")
+    log(f"locate kernel per launch in a graph of launches: quiet blocks "
+        f"{loc['quiet']:.5f} ms ({loc['quiet_blocks']}), fired blocks "
+        f"{loc['fired']:.5f} ms ({loc['fired_blocks']}, in stream order); "
+        f"the plain version replayed from a CUDA graph {lplain[0]:.4f} ms")
+    xb = blocks[0]
+    report["detector_warp"] = dict(max_abs_err=0.0, ms=k1["detector_warp"],
+                                   plain_ms=k1_plain, library_ms=None,
+                                   **detector_work(xb.shape))
+    report["detector_coupled"] = dict(max_abs_err=0.0, ms=k1["detector"],
+                                      plain_ms=k1_plain, library_ms=None,
+                                      **detector_work(xb.shape))
     state_bytes = sum(v.numel() * v.element_size()
                       for v in (*lk, *qk)) + 3 * (1 + 4 + 4 + 8 + 1)
-    report["locate_block"] = dict(max_abs_err=lerr, ms=lt[0],
+    report["locate_block"] = dict(max_abs_err=lerr, ms=loc["fired"],
                                   plain_ms=lplain[0], library_ms=None,
                                   bytes=2 * state_bytes, ops=0,
                                   peak=F32_FLOPS)
-    log(f"locate kernel (locate_block.cu) at the engine's shape: {n_hit} "
-        f"hits in the {len(calls)} blocks of the first {RT_CPU_SECONDS:g} s "
-        "where a channel fired, state and events identical to plain, points "
-        f"max err {lerr:.3g}; {lt[0]:.5f} ms median, {lt[1]:.5f} ms p99 per "
-        f"launch; the plain version replayed from a CUDA graph "
-        f"{lplain[0]:.4f} ms")
+    report["_realtime"] = dict(step_nodes=types, replay_ms=rep,
+                               step_ms=steps["step_ms"], k1=k1, locate=loc)
+    classifier_k3(report, model)
+
+
+def classifier_k3(report, model):
+    """K3 bf16 at the realtime classifier's shape: B = 48 signals (3
+    channels x 16 hits) of L = 512 through the classifier's own stack (as
+    ``CCCNN.fused_features`` calls it), against its plain version and
+    cuDNN's bf16 chain, per call in a graph of calls."""
+    import torch.nn.functional as F
+
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        _ACTIVATIONS,
+        conv_stack,
+        conv_stack_reference,
+    )
+    from onset_fingerprinting_torch.tools import realtime_sim as sim
+    from onset_fingerprinting_torch.tools.step_bench import graph_ms
+
+    ws = [m.weight for m in model.convs]
+    bs = [m.bias for m in model.convs]
+    pad, act, dt = model.padding, model.activation, model.dtype
+    x = torch.randn((3 * sim.CLS_CAPACITY, sim.CLS_WINDOW), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(48))
+    with torch.inference_mode():
+        k = conv_stack(x, ws, bs, padding=pad, activation=act,
+                       compute_dtype=dt)
+        t0 = time.perf_counter()
+        p = conv_stack_reference(x, ws, bs, pad, act, dt)
+        torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    err = max_err(k, p)
+    bad = int(((k.float() - p.float()).abs()
+               > 3e-2 + 2e-2 * p.float().abs()).sum())
+    check(bad == 0, f"K3 at the classifier's shape: {bad} values outside "
+          f"atol 3e-2 rtol 2e-2 (max err {err})")
+    wl = [w.detach().to(dt) for w in ws]
+    bl = [b.detach().to(dt) for b in bs]
+    xl = x.to(dt)[:, None, :]
+    fn = _ACTIVATIONS[act]
+
+    def library():
+        y = xl
+        for w, b in zip(wl, bl):
+            y = fn(F.conv1d(y, w, b, padding=pad))
+        return y
+
+    with torch.inference_mode():
+        ms = graph_ms([lambda: conv_stack(x, ws, bs, padding=pad,
+                                          activation=act, compute_dtype=dt)]
+                      * 16)
+        lib_ms = graph_ms([library] * 16)
+    b_n, t = x.shape
+    flops = 0
+    for w in ws:
+        o, i, kk = w.shape
+        t = t + 2 * pad - kk + 1
+        flops += 2 * o * i * kk * t * b_n
+    report["conv_stack_mma_classifier"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bytes=b_n * sim.CLS_WINDOW * 4 + b_n * t * ws[-1].shape[0] * 4,
+        ops=flops, peak=BF16_FLOPS)
+    log(f"K3 bf16 at the classifier's shape B = {b_n}, L = {sim.CLS_WINDOW}"
+        f": {ms:.5f} ms per call in a graph of calls, cuDNN bf16 chain "
+        f"{lib_ms:.5f} ms, plain {plain_ms:.3f} ms (one call); max err "
+        f"{err:.3g} vs plain; {flops / 1e6:.1f} MFLOP useful")
 
 
 def main() -> int:
@@ -1093,6 +1177,9 @@ def main() -> int:
         "detector_coupled": ("onset_fingerprinting_torch/csrc/detector.cu",
                              "onset_fingerprinting_tpu/ops/pallas_detector.py"
                              ":85", "detector"),
+        "detector_warp": ("onset_fingerprinting_torch/csrc/detector_warp.cu",
+                          "onset_fingerprinting_tpu/ops/pallas_detector.py"
+                          ":85", "detector_warp"),
         "gather": ("onset_fingerprinting_torch/csrc/gather.cu",
                    "onset_fingerprinting_tpu/ops/windows.py:136", "gather"),
         "gather_vec": ("onset_fingerprinting_torch/csrc/gather_vec.cu",
@@ -1101,6 +1188,9 @@ def main() -> int:
         "conv_stack_mma": ("onset_fingerprinting_torch/csrc/conv_stack_mma.cu",
                            "onset_fingerprinting_tpu/ops/pallas_conv.py:187",
                            "conv_stack_mma"),
+        "conv_stack_mma_classifier": (
+            "onset_fingerprinting_torch/csrc/conv_stack_mma.cu",
+            "onset_fingerprinting_tpu/ops/pallas_conv.py:187", "classifier"),
         "conv_stack_f32": ("onset_fingerprinting_torch/csrc/conv_stack.cu",
                            "onset_fingerprinting_tpu/ops/pallas_conv.py:187",
                            "conv_stack"),

@@ -1,6 +1,7 @@
 // The realtime engine's per-block locate step for Hopper, sm_90a: every
 // channel that fired in a 128-sample block goes through the fixed-capacity
-// locator in onset order, then the completed hits go to the event queue.
+// locator in onset order, then the completed hits go to the event queue,
+// and the engine's sample counter advances by the block.
 //
 // Replaces the locate half of the JAX engine's per-block program,
 // onset_fingerprinting_tpu/realtime/engine.py:249-304 (the unrolled
@@ -12,31 +13,50 @@
 // ops/locate_block.py::locate_block_reference, is the JAX step's masks
 // ported literally.
 //
-// What bounds it: nothing the card is short of.  It reads the locator
-// state (a few hundred bytes), and for a completing group two lag maps
-// (2 x 35 x 35 floats); the work is a short dependent chain on one thread.
-// The launch itself is the floor.
+// What bounds it: nothing the card is short of.  It reads a few hundred
+// bytes of state and, for a completing group, two lag maps (2 x 35 x 35
+// floats); the rest is short dependent chains.  So the time is latency:
+// the launch, a few trips to memory and whatever runs on one thread.
 //
-// The design: one CTA.  Thread 0 runs the sequential part exactly as the
-// plain version orders it (seed swap, join, completion, eviction, age
-// rebase, twenty Newton iterations); the CTA's threads scan the lag-map
-// cells of a completing group in parallel for the first feasible cell of
-// each tier (the plain version's argmax over the column-major flat index
-// is the least legal index, found here by atomicMin).  A channel that did
-// not fire is skipped, which is what the plain version's masked select
-// amounts to.  Numerics: compiled with -fmad=false, each multiply and add
-// rounds on its own in the plain version's order; sqrt and division are
-// IEEE.  The two can differ only where the plain version's sum of three
-// squares runs in another order.
+// The design, in place (the state and the queue are updated where they
+// lie, so the engine's captured step needs no copies around it):
+// - Every thread reads `on`, `deltas` and the counter once, into shared
+//   memory; one __syncthreads_or tells every thread whether a channel
+//   fired.  A quiet block (nearly every block) writes its hit outputs and
+//   the counter and leaves: the locator and the queue stay untouched.
+// - On a fired block warp 0 holds the locator: lane g owns slot g (G <=
+//   32) in registers.  Each update's per-slot tests run across the lanes,
+//   and its selections -- the seed-swap target, the oldest feasible
+//   completer, the eviction slot -- are warp argmins (__reduce_min_sync,
+//   then the lowest lane by ballot: torch.argmin's first minimum).  The
+//   fired channels' onset order is a rank per lane (stable, as
+//   jnp.argsort).
+// - Only a completing group needs the CTA: its lag-map cells are scanned
+//   by all threads for the least legal column-major index per tier
+//   (atomicMin; the plain version's argmax over the flat mask).  One
+//   barrier per update tells the CTA whether to scan, a second ends it.
+// - The Newton solve (20 masked iterations) runs on lane 0 with the
+//   triangle in registers and stops at the first iteration whose mask
+//   freezes the iterate: the later ones change nothing.
+// - Lane g writes its slot back only where it changed, lane 0 the queue
+//   entries of the block's hits, the queue counter, next_age and the
+//   sample counter.
+//
+// Numerics: compiled with -fmad=false, each multiply and add rounds on its
+// own in the plain version's order; sqrt and division are IEEE (an
+// approximate reciprocal could flip `converged` at the margin and change
+// an event).  The two can differ only where the plain version's sum of
+// three squares runs in another order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <math.h>
 
 #define MAX_CH 32
-#define MAX_SLOTS 64
+#define MAX_SLOTS 32
 #define MAX_TIERS 4
 #define THREADS 256
+#define FULL 0xffffffffu
 
 // must match ops/locate_block.py::_LocDesc
 struct LocDesc {
@@ -57,11 +77,20 @@ __device__ __forceinline__ float amax2(float a, float b) {
     return a > b ? a : b;
 }
 
+// the lowest lane holding the least key (torch.argmin's first minimum)
+__device__ __forceinline__ int argmin_lane(int key) {
+    const int m = __reduce_min_sync(FULL, key);
+    return __ffs(__ballot_sync(FULL, key == m)) - 1;
+}
+
 // residuals f and Jacobian j of the TDOA system at p (locate/
 // trilateration.py::_residual_jac_3d); rows of s: origin, a, b
-__device__ void resid_jac(float px, float py, const float s[3][3], float d0,
-                          float d1, float f[2], float j[2][2]) {
+__device__ __forceinline__ void resid_jac(float px, float py,
+                                          const float (&s)[3][3], float d0,
+                                          float d1, float f[2],
+                                          float j[2][2]) {
     float dist[3], gx[3], gy[3];
+#pragma unroll
     for (int r = 0; r < 3; ++r) {
         float dx = px - s[r][0];
         float dy = py - s[r][1];
@@ -79,14 +108,16 @@ __device__ void resid_jac(float px, float py, const float s[3][3], float d0,
 }
 
 // damped Newton, 20 masked iterations (trilateration.py::solve_tdoa,
-// unroll=True); returns success
-__device__ bool solve_tdoa(const float s[3][3], float d0, float d1,
-                           float* px, float* py) {
+// unroll=True); returns success.  Once `done`, an iteration changes
+// nothing, so the loop ends there.
+__device__ __forceinline__ bool solve_tdoa(const float (&s)[3][3],
+                                           float d0, float d1, float* px,
+                                           float* py) {
     const float xtol = 0.01f;
     bool done = false, ok = true;
     float x = *px, y = *py;
     float f[2], j[2][2];
-    for (int it = 0; it < 20; ++it) {
+    for (int it = 0; it < 20 && !done; ++it) {
         resid_jac(x, y, s, d0, d1, f, j);
         float det = j[0][0] * j[1][1] - j[0][1] * j[1][0];
         float safe = fabsf(det) < 1e-12f ? 1.0f : det;
@@ -94,12 +125,10 @@ __device__ bool solve_tdoa(const float s[3][3], float d0, float d1,
         float s0 = (j[1][1] * f[0] - j[0][1] * f[1]) / safe;
         float s1 = ((-j[1][0]) * f[0] + j[0][0] * f[1]) / safe;
         bool converged = amax2(s0, s1) < xtol;
-        if (!done) {
-            x = x - s0;
-            y = y - s1;
-            ok = ok && solvable;
-            done = converged || !solvable;
-        }
+        x = x - s0;
+        y = y - s1;
+        ok = ok && solvable;
+        done = converged || !solvable;
     }
     resid_jac(x, y, s, d0, d1, f, j);
     *px = x;
@@ -110,260 +139,265 @@ __device__ bool solve_tdoa(const float s[3][3], float d0, float d1,
 
 __global__ void __launch_bounds__(THREADS) locate_block_kernel(
     LocDesc d, const uint8_t* __restrict__ on, const int32_t* __restrict__ deltas,
-    const int32_t* __restrict__ sample_count,
-    const int32_t* sens_in, const int32_t* ons_in, const int32_t* cnt_in,
-    const int32_t* age_in, const int32_t* next_in,
-    int32_t* sens_out, int32_t* ons_out, int32_t* cnt_out, int32_t* age_out,
-    int32_t* next_out,
-    const float* __restrict__ maps, const float* __restrict__ min_l,
-    const float* __restrict__ max_l, const float* __restrict__ mml,
-    const float* __restrict__ xyz,
-    const float* qp_in, const int32_t* qo_in, const int32_t* qe_in,
-    const int32_t* qc_in, float* qp_out, int32_t* qo_out, int32_t* qe_out,
-    int32_t* qc_out, int32_t* hit_onsets, float* hit_points,
-    uint8_t* hit_emits) {
-    __shared__ int sens[MAX_SLOTS][3], ons[MAX_SLOTS][3], cnt[MAX_SLOTS],
-        age[MAX_SLOTS];
-    __shared__ int next_age, sample;
-    __shared__ int order[MAX_CH], onset_abs[MAX_CH], emitted[MAX_CH];
-    __shared__ float pts[MAX_CH][2];
-    // per update: the (possibly swapped) incoming event and each slot's
-    // tests
-    __shared__ int u_sensor, u_onset;
-    __shared__ int alive[MAX_SLOTS], joinable[MAX_SLOTS], completes[MAX_SLOTS];
-    __shared__ int best[MAX_SLOTS][MAX_TIERS];
-    const int tid = threadIdx.x;
+    int32_t* sample_count, int32_t* sens_g, int32_t* ons_g, int32_t* cnt_g,
+    int32_t* age_g, int32_t* next_g, const float* __restrict__ maps,
+    const float* __restrict__ min_l, const float* __restrict__ max_l,
+    const float* __restrict__ mml, const float* __restrict__ xyz, float* qp,
+    int32_t* qo, int32_t* qe, int32_t* qc, int32_t* hit_onsets,
+    float* hit_points, uint8_t* hit_emits) {
+    __shared__ int s_on[MAX_CH], s_delta[MAX_CH], s_order[MAX_CH];
+    __shared__ int s_emit[MAX_CH];
+    __shared__ float s_pts[MAX_CH][2];
+    // per update: the completing groups to scan (two buffers: the next
+    // update's count may be written while a warp still reads this one's)
+    __shared__ int s_nscan[2];
+    __shared__ int s_lm1[MAX_SLOTS], s_lm2[MAX_SLOTS];
+    __shared__ float s_lag1[MAX_SLOTS], s_lag2[MAX_SLOTS];
+    __shared__ int s_best[MAX_SLOTS][MAX_TIERS];
+    const int tid = threadIdx.x, lane = tid & 31;
     const int C = d.C, G = d.G, S = d.S, H = d.H, W = d.W, E = d.E, T = d.T;
 
-    for (int g = tid; g < G; g += THREADS) {
-        for (int k = 0; k < 3; ++k) {
-            sens[g][k] = sens_in[g * 3 + k];
-            ons[g][k] = ons_in[g * 3 + k];
+    // read once, by every thread, before the first barrier: the counter is
+    // written after it
+    int fired = 0;
+    if (tid < C) {
+        fired = on[tid];
+        s_on[tid] = fired;
+        s_delta[tid] = deltas[tid];
+    }
+    const int sample = sample_count[0];
+    if (!__syncthreads_or(fired)) {
+        // a quiet block: the block's hits and the counter, nothing else
+        if (tid < C) {
+            hit_onsets[tid] = sample + s_delta[tid];
+            hit_points[2 * tid] = 0.0f;
+            hit_points[2 * tid + 1] = 0.0f;
+            hit_emits[tid] = 0;
         }
-        cnt[g] = cnt_in[g];
-        age[g] = age_in[g];
+        if (tid == 0) sample_count[0] = sample + d.B;
+        return;
     }
-    for (int e = tid; e < E; e += THREADS) {
-        qp_out[2 * e] = qp_in[2 * e];
-        qp_out[2 * e + 1] = qp_in[2 * e + 1];
-        qo_out[e] = qo_in[e];
-        qe_out[e] = qe_in[e];
-    }
-    if (tid == 0) {
-        next_age = next_in[0];
-        sample = sample_count[0];
-        for (int c = 0; c < C; ++c) {
-            onset_abs[c] = sample + deltas[c];
-            hit_onsets[c] = onset_abs[c];
-            pts[c][0] = pts[c][1] = 0.0f;
-            emitted[c] = 0;
-            // stable insertion sort of where(on, deltas, BIG)
-            int key = on[c] ? deltas[c] : BIG;
-            int i = c;
-            while (i > 0) {
-                int o = order[i - 1];
-                int ko = on[o] ? deltas[o] : BIG;
-                if (ko <= key) break;
-                order[i] = o;
-                --i;
-            }
-            order[i] = c;
-        }
-    }
-    __syncthreads();
+    // the number of fired channels, in every warp (the loop below is
+    // uniform across the CTA: its barriers need every thread)
+    const int n_fired =
+        __popc(__ballot_sync(FULL, lane < C && s_on[lane] != 0));
 
-    for (int i = 0; i < C; ++i) {
-        const int ch = order[i];
-        if (!on[ch]) continue;  // uniform: every thread reads the same flag
-        if (tid == 0) {
-            int sensor = ch, onset = onset_abs[ch];
+    // warp 0: lane g holds slot g
+    const bool act = lane < G;
+    int s0 = -1, s1 = -1, s2 = -1, o0 = 0, o1 = 0, o2 = 0, cnt = 0, age = 0;
+    int next_age = 0, q0 = 0;
+    if (tid < 32) {
+        if (act) {
+            s0 = sens_g[lane * 3];
+            s1 = sens_g[lane * 3 + 1];
+            s2 = sens_g[lane * 3 + 2];
+            o0 = ons_g[lane * 3];
+            o1 = ons_g[lane * 3 + 1];
+            o2 = ons_g[lane * 3 + 2];
+            cnt = cnt_g[lane];
+            age = age_g[lane];
+        }
+        next_age = next_g[0];
+        q0 = qc[0];
+        // stable rank of where(on, deltas, BIG): the onset order
+        if (lane < C) {
+            const int key = s_on[lane] ? s_delta[lane] : BIG;
+            int rank = 0;
+            for (int c = 0; c < C; ++c) {
+                const int kc = s_on[c] ? s_delta[c] : BIG;
+                rank += kc < key || (kc == key && c < lane);
+            }
+            s_order[rank] = lane;
+            s_emit[lane] = 0;
+            s_pts[lane][0] = s_pts[lane][1] = 0.0f;
+        }
+        __syncwarp();
+    }
+    const int os0 = s0, os1 = s1, os2 = s2, oo0 = o0, oo1 = o1, oo2 = o2,
+              ocnt = cnt, oage = age;
+
+    for (int i = 0; i < n_fired; ++i) {
+        const int buf = i & 1;
+        int sensor = 0, onset = 0, cslot = 0;
+        bool al = false, jn = false, comp = false;
+        if (tid < 32) {
+            const int ch = s_order[i];
+            sensor = ch;
+            onset = sample + s_delta[ch];
             // negative-lag seed swap against the oldest group whose seed
             // came after this onset
-            int gswap = 0, kbest = AGE_INF;
-            bool any_swap = false;
-            for (int g = 0; g < G; ++g) {
-                bool sw = cnt[g] > 0 && onset - ons[g][0] < 0;
-                any_swap = any_swap || sw;
-                int key = sw ? age[g] : AGE_INF;
-                if (g == 0 || key < kbest) {
-                    kbest = key;
-                    gswap = g;
-                }
-            }
-            int old_s = sens[gswap][0], old_o = ons[gswap][0];
+            const bool sw = act && cnt > 0 && onset - o0 < 0;
+            const int gswap = argmin_lane(sw ? age : AGE_INF);
+            const bool any_swap = __any_sync(FULL, sw);
+            const int old_s = __shfl_sync(FULL, s0, gswap);
+            const int old_o = __shfl_sync(FULL, o0, gswap);
             if (any_swap) {
-                sens[gswap][0] = sensor;
-                ons[gswap][0] = onset;
+                if (lane == gswap) {
+                    s0 = sensor;
+                    o0 = onset;
+                }
                 sensor = old_s;
                 onset = old_o;
             }
-            u_sensor = sensor;
-            u_onset = onset;
-            for (int g = 0; g < G; ++g) {
-                float lag = (float)(onset - ons[g][0]);
-                int seed = max(sens[g][0], 0);
-                bool al = cnt[g] > 0 && lag <= mml[seed];
-                bool member = false;
-                for (int k = 0; k < 3; ++k)
-                    member = member || (sens[g][k] == sensor && k < cnt[g]);
-                bool legal = min_l[seed * S + sensor] < lag &&
-                             lag < max_l[seed * S + sensor];
-                bool jn = al && !member && legal && cnt[g] < 3;
-                alive[g] = al;
-                joinable[g] = jn;
-                completes[g] = jn && cnt[g] == 2;
+            const float lag = (float)(onset - o0);
+            const int seed = max(s0, 0);
+            al = act && cnt > 0 && lag <= mml[seed];
+            const bool member = (s0 == sensor && 0 < cnt) ||
+                                (s1 == sensor && 1 < cnt) ||
+                                (s2 == sensor && 2 < cnt);
+            const bool legal = min_l[seed * S + sensor] < lag &&
+                               lag < max_l[seed * S + sensor];
+            jn = al && !member && legal && cnt < 3;
+            comp = jn && cnt == 2;
+            const unsigned cmask = __ballot_sync(FULL, comp);
+            cslot = __popc(cmask & ((1u << lane) - 1u));
+            if (comp) {
+                s_lm1[cslot] = seed * S + max(s1, 0);
+                s_lm2[cslot] = seed * S + sensor;
+                s_lag1[cslot] = (float)(o1 - o0);
+                s_lag2[cslot] = lag;
+                for (int t = 0; t < MAX_TIERS; ++t)
+                    s_best[cslot][t] = AGE_INF;
             }
-        }
-        for (int k = tid; k < G * MAX_TIERS; k += THREADS)
-            best[k / MAX_TIERS][k % MAX_TIERS] = AGE_INF;
-        __syncthreads();
-
-        // the least column-major cell index where both lags fit, per
-        // completing group and tier
-        for (int g = 0; g < G; ++g) {
-            if (!completes[g]) continue;
-            const int seed = max(sens[g][0], 0);
-            const int s1 = max(sens[g][1], 0);
-            const float lag1 = (float)(ons[g][1] - ons[g][0]);
-            const float lag2 = (float)(u_onset - ons[g][0]);
-            const float* lm1 = maps + (size_t)(seed * S + s1) * H * W;
-            const float* lm2 = maps + (size_t)(seed * S + u_sensor) * H * W;
-            for (int f = tid; f < H * W; f += THREADS) {
-                const int col = f / H, row = f % H;
-                const float a = lm1[row * W + col], b = lm2[row * W + col];
-                for (int t = 0; t < T; ++t) {
-                    const float tol = d.tols[t];
-                    if (a < lag1 + tol && a > lag1 - tol && b < lag2 + tol &&
-                        b > lag2 - tol)
-                        atomicMin(&best[g][t], f);
-                }
-            }
+            if (lane == 0) s_nscan[buf] = __popc(cmask);
         }
         __syncthreads();
-
-        if (tid == 0) {
-            const int sensor = u_sensor, onset = u_onset;
-            // the oldest feasible completer; a tier is feasible where its
-            // least legal index is a cell other than (0, 0)
-            bool returned = false;
-            int gidx = 0, kbest = AGE_INF;
-            float cx = 0.0f, cy = 0.0f;
-            for (int g = 0; g < G; ++g) {
-                int tier = -1;
-                for (int t = 0; t < T && tier < 0; ++t)
-                    if (best[g][t] != AGE_INF && best[g][t] != 0) tier = t;
-                bool feasible = completes[g] && tier >= 0;
-                returned = returned || feasible;
-                int key = feasible ? age[g] : AGE_INF;
-                if (g == 0 || key < kbest) {
-                    kbest = key;
-                    gidx = g;
-                    if (feasible) {
-                        cx = (float)(best[g][tier] / H);
-                        cy = (float)(best[g][tier] % H);
+        const int nscan = s_nscan[buf];
+        if (nscan > 0) {
+            // the least column-major cell index where both lags fit, per
+            // completing group and tier
+            for (int k = 0; k < nscan; ++k) {
+                const float* lm1 = maps + (size_t)s_lm1[k] * H * W;
+                const float* lm2 = maps + (size_t)s_lm2[k] * H * W;
+                const float lag1 = s_lag1[k], lag2 = s_lag2[k];
+                for (int f = tid; f < H * W; f += THREADS) {
+                    const int col = f / H, row = f % H;
+                    const float a = lm1[row * W + col], b = lm2[row * W + col];
+                    for (int t = 0; t < T; ++t) {
+                        const float tol = d.tols[t];
+                        if (a < lag1 + tol && a > lag1 - tol &&
+                            b < lag2 + tol && b > lag2 - tol)
+                            atomicMin(&s_best[k][t], f);
                     }
                 }
             }
-            bool emit = false;
-            float px = 0.0f, py = 0.0f;
-            if (returned) {
-                int s0 = max(sens[gidx][0], 0), s1 = max(sens[gidx][1], 0);
-                float lag1 = (float)(ons[gidx][1] - ons[gidx][0]);
-                float lag2 = (float)(onset - ons[gidx][0]);
-                float tri[3][3];
-                for (int k = 0; k < 3; ++k) {
-                    tri[0][k] = xyz[s0 * 3 + k];
-                    tri[1][k] = xyz[s1 * 3 + k];
-                    tri[2][k] = xyz[sensor * 3 + k];
-                }
-                px = cx - d.radius;
-                py = cy - d.radius;
-                emit = solve_tdoa(tri, lag1 * d.c_over_sr, lag2 * d.c_over_sr,
-                                  &px, &py);
-            }
-            // joins (an infeasible completer keeps its third member), then
-            // the drops of the completion path
-            const int seed_s = sens[gidx][0], seed_o = ons[gidx][0];
-            const int age_g = age[gidx];
-            int newcnt[MAX_SLOTS];
-            for (int g = 0; g < G; ++g) {
-                bool same_seed = sens[g][0] == seed_s && ons[g][0] == seed_o;
-                bool later_or_self = age[g] >= age_g;
-                int n = cnt[g];
-                if (joinable[g]) {
-                    int pos = min(max(cnt[g], 0), 2);
-                    sens[g][pos] = sensor;
-                    ons[g][pos] = onset;
-                    n += 1;
-                }
-                bool keep = alive[g] && !(returned && later_or_self) &&
-                            !(emit && same_seed);
-                newcnt[g] = keep ? n : 0;
-            }
-            if (!returned) {
-                // the fresh group: a free slot, else the oldest one
-                int ins = 0, kmin = 0;
-                for (int g = 0; g < G; ++g) {
-                    int key = newcnt[g] == 0 ? age[g] - AGE_REBASE : age[g];
-                    if (g == 0 || key < kmin) {
-                        kmin = key;
-                        ins = g;
-                    }
-                }
-                sens[ins][0] = sensor;
-                sens[ins][1] = -1;
-                sens[ins][2] = -1;
-                ons[ins][0] = onset;
-                newcnt[ins] = 1;
-                age[ins] = next_age;
-            }
-            int new_next = next_age + 1;
-            int base = new_next;
-            bool first = true;
-            for (int g = 0; g < G; ++g) {
-                int v = newcnt[g] > 0 ? age[g] : new_next;
-                if (first || v < base) base = v;
-                first = false;
-            }
-            int shift = new_next > AGE_REBASE ? base : 0;
-            for (int g = 0; g < G; ++g) {
-                age[g] = newcnt[g] > 0 ? age[g] - shift
-                                       : (shift > 0 ? 0 : age[g]);
-                cnt[g] = newcnt[g];
-            }
-            next_age = new_next - shift;
-            pts[ch][0] = emit ? px : 0.0f;
-            pts[ch][1] = emit ? py : 0.0f;
-            emitted[ch] = emit;
+            __syncthreads();
         }
-        __syncthreads();
+        if (tid >= 32) continue;
+
+        // the oldest feasible completer; a tier is feasible where its least
+        // legal index is a cell other than (0, 0)
+        int tier = -1;
+        if (comp)
+            for (int t = 0; t < T && tier < 0; ++t)
+                if (s_best[cslot][t] != AGE_INF && s_best[cslot][t] != 0)
+                    tier = t;
+        const bool feas = comp && tier >= 0;
+        const int gidx = argmin_lane(feas ? age : AGE_INF);
+        const bool returned = __any_sync(FULL, feas);
+        const int cell =
+            __shfl_sync(FULL, feas ? s_best[cslot][tier] : 0, gidx);
+        const int seed_s = __shfl_sync(FULL, s0, gidx);
+        const int seed_o = __shfl_sync(FULL, o0, gidx);
+        const int g_s1 = __shfl_sync(FULL, s1, gidx);
+        const int g_o1 = __shfl_sync(FULL, o1, gidx);
+        const int age_g = __shfl_sync(FULL, age, gidx);
+        bool emit = false;
+        float px = 0.0f, py = 0.0f;
+        if (returned && lane == 0) {
+            const int a0 = max(seed_s, 0), a1 = max(g_s1, 0);
+            const float lag1 = (float)(g_o1 - seed_o);
+            const float lag2 = (float)(onset - seed_o);
+            float tri[3][3];
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {
+                tri[0][k] = xyz[a0 * 3 + k];
+                tri[1][k] = xyz[a1 * 3 + k];
+                tri[2][k] = xyz[sensor * 3 + k];
+            }
+            px = (float)(cell / H) - d.radius;
+            py = (float)(cell % H) - d.radius;
+            emit = solve_tdoa(tri, lag1 * d.c_over_sr, lag2 * d.c_over_sr,
+                              &px, &py);
+        }
+        emit = __shfl_sync(FULL, emit, 0);
+        // joins (an infeasible completer keeps its third member), then the
+        // drops of the completion path
+        const bool same_seed = s0 == seed_s && o0 == seed_o;
+        const bool later_or_self = age >= age_g;
+        int n = cnt;
+        if (jn) {
+            const int pos = min(max(cnt, 0), 2);
+            if (pos == 0) { s0 = sensor; o0 = onset; }
+            if (pos == 1) { s1 = sensor; o1 = onset; }
+            if (pos == 2) { s2 = sensor; o2 = onset; }
+            n += 1;
+        }
+        const bool keep =
+            al && !(returned && later_or_self) && !(emit && same_seed);
+        int newcnt = keep ? n : 0;
+        if (!returned) {
+            // the fresh group: a free slot, else the oldest one
+            const int ins = argmin_lane(
+                act ? (newcnt == 0 ? age - AGE_REBASE : age) : AGE_INF);
+            if (lane == ins) {
+                s0 = sensor;
+                s1 = -1;
+                s2 = -1;
+                o0 = onset;
+                newcnt = 1;
+                age = next_age;
+            }
+        }
+        const int new_next = next_age + 1;
+        const int base = __reduce_min_sync(
+            FULL, act ? (newcnt > 0 ? age : new_next) : AGE_INF);
+        const int shift = new_next > AGE_REBASE ? base : 0;
+        age = newcnt > 0 ? age - shift : (shift > 0 ? 0 : age);
+        cnt = newcnt;
+        next_age = new_next - shift;
+        if (lane == 0) {
+            const int ch = s_order[i];
+            s_pts[ch][0] = emit ? px : 0.0f;
+            s_pts[ch][1] = emit ? py : 0.0f;
+            s_emit[ch] = emit;
+        }
     }
+    if (tid >= 32) return;
+    __syncwarp();
 
-    if (tid == 0) {
+    // the slots that changed
+    if (act) {
+        if (s0 != os0) sens_g[lane * 3] = s0;
+        if (s1 != os1) sens_g[lane * 3 + 1] = s1;
+        if (s2 != os2) sens_g[lane * 3 + 2] = s2;
+        if (o0 != oo0) ons_g[lane * 3] = o0;
+        if (o1 != oo1) ons_g[lane * 3 + 1] = o1;
+        if (o2 != oo2) ons_g[lane * 3 + 2] = o2;
+        if (cnt != ocnt) cnt_g[lane] = cnt;
+        if (age != oage) age_g[lane] = age;
+    }
+    if (lane < C) {
+        hit_onsets[lane] = sample + s_delta[lane];
+        hit_points[2 * lane] = s_pts[lane][0];
+        hit_points[2 * lane + 1] = s_pts[lane][1];
+        hit_emits[lane] = s_emit[lane] ? 1 : 0;
+    }
+    if (lane == 0) {
         // completed hits to the event queue, in channel order
-        int qc = qc_in[0];
+        int q = q0;
         for (int c = 0; c < C; ++c) {
-            hit_points[2 * c] = pts[c][0];
-            hit_points[2 * c + 1] = pts[c][1];
-            hit_emits[c] = emitted[c] ? 1 : 0;
-            if (!emitted[c]) continue;
-            int slot = ((qc % E) + E) % E;
-            qp_out[2 * slot] = pts[c][0];
-            qp_out[2 * slot + 1] = pts[c][1];
-            qo_out[slot] = onset_abs[c];
-            qe_out[slot] = sample;
-            qc += 1;
+            if (!s_emit[c]) continue;
+            const int slot = ((q % E) + E) % E;
+            qp[2 * slot] = s_pts[c][0];
+            qp[2 * slot + 1] = s_pts[c][1];
+            qo[slot] = sample + s_delta[c];
+            qe[slot] = sample;
+            q += 1;
         }
-        qc_out[0] = qc;
-        next_out[0] = next_age;
-    }
-    for (int g = tid; g < G; g += THREADS) {
-        for (int k = 0; k < 3; ++k) {
-            sens_out[g * 3 + k] = sens[g][k];
-            ons_out[g * 3 + k] = ons[g][k];
-        }
-        cnt_out[g] = cnt[g];
-        age_out[g] = age[g];
+        if (q != q0) qc[0] = q;
+        next_g[0] = next_age;
+        sample_count[0] = sample + d.B;
     }
 }
 
@@ -371,27 +405,22 @@ extern "C" const char* ofpt_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-// One launch per block; every output is a fresh buffer (the wrapper
-// allocates them), the inputs are only read.
+// One launch per block.  The locator state, the event queue and the sample
+// counter are updated in place; the block's hits go to fresh outputs.
 extern "C" int ofpt_locate_block(
     const LocDesc* hd, const uint8_t* on, const int32_t* deltas,
-    const int32_t* sample_count, const int32_t* sens_in,
-    const int32_t* ons_in, const int32_t* cnt_in, const int32_t* age_in,
-    const int32_t* next_in, int32_t* sens_out, int32_t* ons_out,
-    int32_t* cnt_out, int32_t* age_out, int32_t* next_out, const float* maps,
-    const float* min_l, const float* max_l, const float* mml,
-    const float* xyz, const float* qp_in, const int32_t* qo_in,
-    const int32_t* qe_in, const int32_t* qc_in, float* qp_out,
-    int32_t* qo_out, int32_t* qe_out, int32_t* qc_out, int32_t* hit_onsets,
+    int32_t* sample_count, int32_t* sens, int32_t* ons, int32_t* cnt,
+    int32_t* age, int32_t* next, const float* maps, const float* min_l,
+    const float* max_l, const float* mml, const float* xyz, float* qp,
+    int32_t* qo, int32_t* qe, int32_t* qc, int32_t* hit_onsets,
     float* hit_points, uint8_t* hit_emits, void* stream) {
     cudaGetLastError();  // clear an error left by earlier, unrelated work
     const LocDesc d = *hd;
-    if (d.C > MAX_CH || d.G > MAX_SLOTS || d.T > MAX_TIERS || d.E < 1)
+    if (d.C > MAX_CH || d.G < 1 || d.G > MAX_SLOTS || d.T > MAX_TIERS ||
+        d.E < 1)
         return (int)cudaErrorInvalidValue;
     locate_block_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
-        d, on, deltas, sample_count, sens_in, ons_in, cnt_in, age_in, next_in,
-        sens_out, ons_out, cnt_out, age_out, next_out, maps, min_l, max_l, mml,
-        xyz, qp_in, qo_in, qe_in, qc_in, qp_out, qo_out, qe_out, qc_out,
-        hit_onsets, hit_points, hit_emits);
+        d, on, deltas, sample_count, sens, ons, cnt, age, next, maps, min_l,
+        max_l, mml, xyz, qp, qo, qe, qc, hit_onsets, hit_points, hit_emits);
     return (int)cudaGetLastError();
 }

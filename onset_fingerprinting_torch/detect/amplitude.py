@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from onset_fingerprinting_torch.core.config import DetectorConfig
+from onset_fingerprinting_torch.core.tree import write_into
 from onset_fingerprinting_torch.device import resolve_device
 from onset_fingerprinting_torch.ops.filters import butterworth
 
@@ -345,10 +346,12 @@ def warmup_minmax(static: _Static, params: DetectorParams,
 
 
 def detect_offline(static: _Static, params: DetectorParams,
-                   state: DetectorState, x: torch.Tensor):
+                   state: DetectorState, x: torch.Tensor, out=None):
     """Run the block detector over a whole recording ``[T, C]`` (T a
     multiple of the block size) → ``(state, (on [nb, C] bool, deltas
-    [nb, C] int32, rel [T, C]))`` (detection.py:73-82)."""
+    [nb, C] int32, rel [T, C]))`` (detection.py:73-82).  ``out``: a state
+    (it may be the input one) that the new state is copied into and
+    returned as."""
     bsz = static.block_size
     c = x.shape[-1]
     ons, ds, rels = [], [], []
@@ -357,6 +360,8 @@ def detect_offline(static: _Static, params: DetectorParams,
         ons.append(on)
         ds.append(d)
         rels.append(rel)
+    if out is not None:
+        state = write_into(out, state)
     if not ons:
         dev = x.device
         return state, (torch.zeros((0, c), dtype=torch.bool, device=dev),

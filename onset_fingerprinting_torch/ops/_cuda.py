@@ -148,6 +148,14 @@ DETECTOR = Kernel(
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )
+# K1 in the coupled mode at C <= 32, one warp per channel, with the
+# realtime engine's ring write folded in
+DETECTOR_WARP = Kernel(
+    "detector_warp", "detector_warp.cu",
+    {"ofpt_detect_warp": [_P] * 20 + [_I, _P]},
+    # the same rounding as detector.cu and the plain version
+    extra_flags=("-fmad=false",),
+)
 DETECTOR_PIPE = Kernel(
     "detector_pipe", "detector_pipe.cu",
     {"ofpt_detect_pipe": [_P] * 19},
@@ -181,12 +189,13 @@ GATHER_ROLL_VEC = Kernel(
     {"ofpt_gather_roll_vec": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
 )
 # the realtime engine's locate step (no TPU kernel: the JAX engine's XLA
-# program); the plain version counts its calls here too
+# program), in place; the plain version counts its calls here too
 LOCATE_BLOCK = Kernel(
     "locate_block", "locate_block.cu",
-    {"ofpt_locate_block": [_P] * 31},
+    {"ofpt_locate_block": [_P] * 22},
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )
-KERNELS = (DETECTOR, DETECTOR_PIPE, GATHER, CONV_STACK, CONV_STACK_MMA,
-           GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC, LOCATE_BLOCK)
+KERNELS = (DETECTOR, DETECTOR_WARP, DETECTOR_PIPE, GATHER, CONV_STACK,
+           CONV_STACK_MMA, GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC,
+           LOCATE_BLOCK)

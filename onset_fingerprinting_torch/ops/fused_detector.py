@@ -2,8 +2,9 @@
 
 Port of ``onset_fingerprinting_tpu.ops.pallas_detector``.  One launch runs
 a whole chunk ``x [T, C]`` with all state carried; the plain version is
-``detect.amplitude.detect_offline`` / ``warmup_minmax``.  Two kernels, and
-:func:`kernel_for` (a static test of the config, no fallback) says which:
+``detect.amplitude.detect_offline`` / ``warmup_minmax``.  Three kernels,
+and :func:`kernel_for` (a static test of the config, no fallback) says
+which:
 
 - ``coupled_off=False`` (the fleet path) with a block a multiple of
   ``PIPE_SUB_ROWS``: ``csrc/detector_pipe.cu`` (counter
@@ -11,18 +12,26 @@ a whole chunk ``x [T, C]`` with all state carried; the plain version is
   channels, one per lane, and runs three warps over them, one chain of the
   per-sample scan each, handing sub-blocks of 16 rows through rings in
   shared memory (:func:`pipe_plan`);
-- ``coupled_off=True`` (at most 1024 channels, a barrier across all of
-  them per block): ``csrc/detector.cu`` (counter ``_cuda.DETECTOR``), one
-  thread per channel.  So does a block size the pipe has no plan for (not
-  a multiple of 16, or above 1712 samples).  That route exists only to
-  keep such block sizes working: every config in this package and in the
-  JAX one uses 128, 64 or 32.
+- ``coupled_off=True`` (a barrier across all channels per block) at most
+  ``WARP_MAX_CHANNELS`` channels (the realtime engine's): ``csrc/
+  detector_warp.cu`` (counter ``_cuda.DETECTOR_WARP``), one CTA, one warp
+  per channel, the element-wise passes spread over the lanes.  It can also
+  write each block to the engine's audio ring (``ring=``);
+- ``coupled_off=True`` with more channels (at most 1024):
+  ``csrc/detector.cu`` (counter ``_cuda.DETECTOR``), one thread per
+  channel.  So does a block size the pipe has no plan for (not a multiple
+  of 16, or above 1712 samples).  That route exists only to keep such
+  block sizes working: every config in this package and in the JAX one
+  uses 128, 64 or 32.
 
 Dispatch is by device: a CPU tensor runs the plain version (counted in
 the ``plain_calls`` of the kernel ``kernel_for`` names), a CUDA tensor
 launches that kernel (or raises on what it does not take; a failed build
-or launch raises too).  State is functional: the kernel updates fresh
-copies of the state tensors, and the caller's state is left as it was.
+or launch raises too).  The kernels update the state buffers they are
+given in place.  Without ``out=`` the wrappers hand them fresh copies and
+the caller's state is left as it was; with ``out=`` (which may be the
+input state itself) the new state is written there, on the CPU by
+``copy_``.
 """
 
 from __future__ import annotations
@@ -33,6 +42,8 @@ from typing import NamedTuple
 import torch
 
 from onset_fingerprinting_torch.core.config import DetectorConfig
+from onset_fingerprinting_torch.core.ring_buffer import RingBuffer, ring_write
+from onset_fingerprinting_torch.core.tree import write_into
 from onset_fingerprinting_torch.detect.amplitude import (
     DetectorParams,
     DetectorState,
@@ -52,6 +63,8 @@ THREADS = 64
 _MAX_SMEM = 200 * 1024
 #: coupled_off runs every channel in one CTA (pallas_detector.py:551-555)
 MAX_COUPLED_CHANNELS = 1024
+#: detector_warp.cu: one warp per channel in one CTA
+WARP_MAX_CHANNELS = 32
 
 # detector_pipe.cu's launch constants (its G, SB, NX, ND, THREADS, MIN_CTAS)
 #: channels per CTA, one per lane
@@ -129,15 +142,27 @@ def pipe_plan(n_channels: int, block_size: int) -> PipePlan | None:
                     -(-ctas // (SMS * per_sm)))
 
 
+def warp_smem_bytes(n_channels: int, block_size: int) -> int:
+    """``csrc/detector_warp.cu``'s dynamic shared memory: two stages of a
+    block, one padded column of ``block_size + 1`` floats per channel."""
+    return 2 * n_channels * (block_size + 1) * 4
+
+
 def kernel_for(static: _Static) -> _cuda.Kernel:
     """The kernel a CUDA chunk of this detector runs on: the pipelined
-    kernel unless the off-gate couples channels or the block size has no
-    pipe plan (a size no config uses; kept working on ``detector.cu``).  A
-    static test; no launch ever swaps kernels."""
-    if static.coupled_off or pipe_plan(static.n_channels,
-                                       static.block_size) is None:
+    kernel for per-channel gating, the warp-per-channel kernel for the
+    coupled off-gate at up to ``WARP_MAX_CHANNELS`` channels, else
+    ``detector.cu`` (more coupled channels, or a block size with no pipe
+    plan: a size no config uses).  A static test; no launch ever swaps
+    kernels."""
+    c, bsz = static.n_channels, static.block_size
+    if pipe_plan(c, bsz) is None:
         return _cuda.DETECTOR
-    return _cuda.DETECTOR_PIPE
+    if not static.coupled_off:
+        return _cuda.DETECTOR_PIPE
+    if c <= WARP_MAX_CHANNELS and warp_smem_bytes(c, bsz) <= CTA_SMEM_MAX:
+        return _cuda.DETECTOR_WARP
+    return _cuda.DETECTOR
 
 
 def detector_static(static: _Static, params: DetectorParams
@@ -155,7 +180,8 @@ def detector_static(static: _Static, params: DetectorParams
 
 
 def _check(fstatic: FusedDetectorStatic, params: DetectorParams,
-           state: DetectorState, x: torch.Tensor) -> None:
+           state: DetectorState, x: torch.Tensor, out=None,
+           ring: RingBuffer | None = None) -> None:
     s = fstatic.plain
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 [T, C] tensor")
@@ -185,38 +211,62 @@ def _check(fstatic: FusedDetectorStatic, params: DetectorParams,
         raise ValueError(f"zi must be {want_zi}, got {tuple(state.zi.shape)}")
     if tuple(state.bt_buffer.shape) != (s.bt_size, c):
         raise ValueError("bt_buffer must be [bt_size, C]")
+    if out is not None and any(
+            o.shape != v.shape or o.dtype != v.dtype or o.device != v.device
+            or not o.is_contiguous() for o, v in zip(out, state, strict=True)):
+        raise ValueError("out must be a contiguous state like the input's")
+    if ring is not None and (
+            ring.data.dtype != torch.float32 or ring.data.dim() != 2
+            or ring.data.shape[1] != c or not ring.data.is_contiguous()
+            or ring.counter.dtype != torch.int32 or ring.counter.dim() != 0
+            or ring.data.device != x.device
+            or ring.counter.device != x.device):
+        raise ValueError(f"the ring must be float32 [N, {c}] with a 0-d "
+                         "int32 counter, on x's device")
 
 
 def _launch(fstatic: FusedDetectorStatic, params: DetectorParams,
             state: DetectorState, x: torch.Tensor, emit_rel: bool,
-            warmup: bool, kernel: _cuda.Kernel | None = None):
+            warmup: bool, kernel: _cuda.Kernel | None = None, out=None,
+            ring: RingBuffer | None = None):
     """Launch ``kernel`` (default: :func:`kernel_for`'s) over the chunk.
-    Only a measurement names another kernel, to time the one-thread-per-
-    channel kernel on the fleet shape beside the pipe."""
-    kernel, entry, args, out, _keep = launch_args(fstatic, params, state, x,
-                                                  emit_rel, warmup, kernel)
+    Only a measurement names another kernel, to time one kernel on a shape
+    another one takes."""
+    kernel, entry, args, res, _keep = launch_args(
+        fstatic, params, state, x, emit_rel, warmup, kernel, out, ring)
     kernel.launch(entry, *args)
-    return out
+    return res
 
 
 def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
                 state: DetectorState, x: torch.Tensor, emit_rel: bool,
-                warmup: bool, kernel: _cuda.Kernel | None = None):
+                warmup: bool, kernel: _cuda.Kernel | None = None, out=None,
+                ring: RingBuffer | None = None):
     """``(kernel, C entry, its arguments, (new_state, (on, deltas, rel)),
-    keep)`` of one launch: the outputs allocated, nothing launched.  Hold
-    ``keep`` (the parameter block and scratch the arguments point to) until
-    the launch.  The kernel updates the new state in place, so calling the
-    entry again carries it on (a measurement times the bare entry so)."""
-    _check(fstatic, params, state, x)
+    keep)`` of one launch: the outputs allocated (the new state is ``out``,
+    or fresh copies of ``state``), nothing launched.  Hold ``keep`` (the
+    parameter block and scratch the arguments point to) until the launch.
+    The kernel updates the new state in place, so calling the entry again
+    carries it on (a measurement times the bare entry so)."""
+    _check(fstatic, params, state, x, out, ring)
     s = fstatic.plain
     if kernel is None:
         kernel = kernel_for(s)
     pipe = "ofpt_detect_pipe" in kernel.entries
+    warp = "ofpt_detect_warp" in kernel.entries
     if pipe and pipe_plan(s.n_channels, s.block_size) is None:
         raise ValueError(f"the pipelined detector takes no block size "
                          f"{s.block_size}")
     if pipe and s.coupled_off:
         raise ValueError("the pipelined detector does not couple channels")
+    if warp and (s.n_channels > WARP_MAX_CHANNELS or warp_smem_bytes(
+            s.n_channels, s.block_size) > CTA_SMEM_MAX):
+        raise ValueError(f"the warp-per-channel detector takes at most "
+                         f"{WARP_MAX_CHANNELS} channels and a block that "
+                         "fits its shared memory")
+    if ring is not None and not warp:
+        raise ValueError(f"the ring write is folded into detector_warp.cu "
+                         f"only; this detector runs on {kernel.name}")
     t, c = x.shape
     bsz = s.block_size
     nb = t // bsz
@@ -234,8 +284,15 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
         a2=fstatic.iir_a[2], a3=fstatic.iir_a[3], a4=fstatic.iir_a[4],
         bt_alpha=k["bt_alpha"], bt_omba=k["bt_omba"], bt_tol=k["bt_tol"],
     )
-    # the kernel updates these copies in place; the caller's state stays
-    new = DetectorState(*(v.clone() for v in state))
+    # the kernel updates these buffers in place
+    if out is None:
+        new = DetectorState(*(v.clone() for v in state))
+    else:
+        new = write_into(out, state)
+    bt_in = state.bt_pos
+    if s.backtrack and not warp and bt_in.data_ptr() == new.bt_pos.data_ptr():
+        # many CTAs read it while the first one writes it
+        bt_in = bt_in.clone()
     dev = x.device
     on = deltas = rel = None
     if not warmup:
@@ -247,7 +304,7 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
     def ptr(v):
         return None if v is None else v.data_ptr()
 
-    bt = s.backtrack
+    bt = s.backtrack or warp  # the warp kernel always carries bt_pos
     args = (
         ctypes.addressof(p), x.data_ptr(),
         params.on_threshold.contiguous().data_ptr(),
@@ -255,13 +312,19 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
         ptr(new.zi) if s.use_hipass else None, new.fast.data_ptr(),
         new.slow.data_ptr(), new.min_val.data_ptr(), new.max_val.data_ptr(),
         new.gate.data_ptr(), new.prev_rel.data_ptr(), new.debounce.data_ptr(),
-        ptr(new.bt_buffer) if bt else None,
-        ptr(state.bt_pos) if bt else None, ptr(new.bt_pos) if bt else None,
+        ptr(new.bt_buffer) if s.backtrack else None,
+        ptr(bt_in) if bt else None, ptr(new.bt_pos) if bt else None,
         ptr(on), ptr(deltas), ptr(rel),
     )
-    out = (new, (on, deltas, rel))
+    res = (new, (on, deltas, rel))
     if pipe:
-        return kernel, "ofpt_detect_pipe", (*args, _cuda.stream()), out, p
+        return (kernel, "ofpt_detect_pipe", (*args, _cuda.stream()), res,
+                (p, bt_in))
+    if warp:
+        ring_args = (None, None, 0) if ring is None else (
+            ring.data.data_ptr(), ring.counter.data_ptr(), ring.capacity)
+        return (kernel, "ofpt_detect_warp", (*args, *ring_args,
+                                             _cuda.stream()), res, (p, bt_in))
     if s.coupled_off:
         threads = -(-c // 32) * 32
         blocks = 1
@@ -273,32 +336,43 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
         scratch = torch.empty((bsz, blocks * threads), dtype=torch.float32,
                               device=dev)
     return (kernel, "ofpt_detect", (*args, ptr(scratch), threads,
-                                    _cuda.stream()), out, (p, scratch))
+                                    _cuda.stream()), res, (p, bt_in, scratch))
 
 
 def fused_detect_offline(fstatic: FusedDetectorStatic, params: DetectorParams,
                          state: DetectorState, x: torch.Tensor,
-                         emit_rel: bool = True):
+                         emit_rel: bool = True, out=None,
+                         ring: RingBuffer | None = None):
     """Detector over ``x [T, C]`` (T a multiple of the block size) →
     ``(new_state, (on [nb, C] bool, deltas [nb, C] int32, rel [T, C] or
     None))``, the contract of ``detect_offline``.  ``emit_rel=False``
-    writes no relative envelope."""
+    writes no relative envelope.  ``out``: a state to write the new state
+    into (it may be ``state``); the new state is then ``out``.  ``ring``:
+    a ring that ``x`` is written to in place, data and counter
+    (``ring_write``); on the card only where :func:`kernel_for` is the
+    warp-per-channel kernel, which writes it."""
     if x.device.type == "cpu":
         kernel_for(fstatic.plain).plain_calls += 1
-        st, (on, d, rel) = detect_offline(fstatic.plain, params, state, x)
+        st, (on, d, rel) = detect_offline(fstatic.plain, params, state, x,
+                                          out=out)
+        if ring is not None:
+            write_into(ring, ring_write(ring, x))
         return st, (on, d, rel if emit_rel else None)
-    return _launch(fstatic, params, state, x, emit_rel, warmup=False)
+    return _launch(fstatic, params, state, x, emit_rel, warmup=False,
+                   out=out, ring=ring)
 
 
 def fused_warmup_minmax(fstatic: FusedDetectorStatic, params: DetectorParams,
-                        state: DetectorState, x: torch.Tensor
+                        state: DetectorState, x: torch.Tensor, out=None
                         ) -> DetectorState:
     """``warmup_minmax`` through the kernel's warmup mode: advances the
-    filter, envelopes and min/max tracker only, writes no events."""
+    filter, envelopes and min/max tracker only, writes no events.
+    ``out`` as for :func:`fused_detect_offline`."""
     if x.device.type == "cpu":
         kernel_for(fstatic.plain).plain_calls += 1
-        return warmup_minmax(fstatic.plain, params, state, x)
-    new, _ = _launch(fstatic, params, state, x, False, warmup=True)
+        new = warmup_minmax(fstatic.plain, params, state, x)
+        return new if out is None else write_into(out, new)
+    new, _ = _launch(fstatic, params, state, x, False, warmup=True, out=out)
     return new
 
 

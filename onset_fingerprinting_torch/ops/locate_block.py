@@ -1,6 +1,7 @@
 """The realtime engine's per-block locate step: every channel that fired in
-a block goes through the fixed-capacity locator in onset order, and the
-completed hits go to the device event queue.
+a block goes through the fixed-capacity locator in onset order, the
+completed hits go to the device event queue, and the sample counter
+advances by the block.
 
 This is the locate half of the JAX engine's step (``realtime/engine.py:
 232-320`` of the JAX package), which XLA fuses into the block's program.
@@ -18,6 +19,12 @@ plain version (counted in ``plain_calls``), a CUDA tensor launches the
 kernel or raises.  The kernel takes the Newton locator without CC
 refinement (the engine's configuration); ``cc_refine=True`` runs only on
 the CPU.
+
+The kernel updates the locator state, the queue and the counter in place.
+Without ``out=`` the wrapper hands it fresh copies and the inputs stay as
+they were; with ``out=`` (which may be the inputs themselves: the engine's
+step passes its own state) the new state is written there, on the CPU by
+``copy_``.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from onset_fingerprinting_torch.core.tree import write_into
 from onset_fingerprinting_torch.locate.multilaterate import (
     LocatorState,
     Multilaterate3D,
@@ -37,9 +45,10 @@ from onset_fingerprinting_torch.ops import _cuda
 
 #: _BIG sorts the channels that did not fire after every real onset
 _BIG = 10 ** 9
-#: the kernel's static limits (csrc/locate_block.cu)
+#: the kernel's static limits (csrc/locate_block.cu): a channel per thread
+#: of its first warp when it reads the block, a slot per lane
 MAX_CHANNELS = 32
-MAX_SLOTS = 64
+MAX_SLOTS = 32
 MAX_TIERS = 4
 
 
@@ -104,11 +113,13 @@ class LocateBlock:
 def locate_block_reference(lb: LocateBlock, lstate: LocatorState,
                            queue: EventQueue, on: torch.Tensor,
                            deltas: torch.Tensor, sample_count: torch.Tensor,
-                           window=None, win_start=None):
+                           window=None, win_start=None, out=None):
     """Plain version: the JAX engine's locate loop and queue push
     (engine.py:249-304 there), every slot's state selected by the
     channel's validity, never branched on.  Returns ``(locator state,
-    event queue, BlockHits)``."""
+    event queue, BlockHits, sample_count + block size)``.  ``out``: a
+    ``(locator state, event queue, counter)`` to copy the new ones into
+    and return (it may be the inputs)."""
     _cuda.LOCATE_BLOCK.plain_calls += 1
     dev = on.device
     c = lb.n_channels
@@ -141,19 +152,23 @@ def locate_block_reference(lb: LocateBlock, lstate: LocatorState,
         qo = torch.where(put, onsets_abs[i], qo)
         qe = torch.where(put, sample_count, qe)
         qc = qc + emits[i].to(torch.int32)
-    return lstate, EventQueue(qp, qo, qe, qc), BlockHits(onsets_abs, points,
-                                                         emits)
+    new = (lstate, EventQueue(qp, qo, qe, qc), sample_count + lb.block_size)
+    if out is not None:
+        new = write_into(out, new)
+    return new[0], new[1], BlockHits(onsets_abs, points, emits), new[2]
 
 
 def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
                  on: torch.Tensor, deltas: torch.Tensor,
-                 sample_count: torch.Tensor, window=None, win_start=None):
+                 sample_count: torch.Tensor, window=None, win_start=None,
+                 out=None):
     """The block's locate step: :func:`locate_block_reference` for CPU
-    tensors, ``csrc/locate_block.cu`` for CUDA tensors.  Functional: new
-    tensors out, the inputs left as they were."""
+    tensors, ``csrc/locate_block.cu`` for CUDA tensors.  Returns
+    ``(locator state, event queue, BlockHits, sample_count + block
+    size)``; ``out`` as for the plain version."""
     if on.device.type == "cpu":
         return locate_block_reference(lb, lstate, queue, on, deltas,
-                                      sample_count, window, win_start)
+                                      sample_count, window, win_start, out)
     lb.check_kernel_shape()
     c, g = lb.n_channels, lb.capacity
     e = queue.points.shape[0]
@@ -161,6 +176,7 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
     if on.shape != (c,) or deltas.shape != (c,) or on.dtype != torch.bool \
             or deltas.dtype != torch.int32:
         raise ValueError(f"on must be bool [{c}] and deltas int32 [{c}]")
+    state = (lstate, queue, sample_count)
     i32 = [lstate.sensors, lstate.onsets, lstate.count, lstate.age,
            lstate.next_age, queue.onsets, queue.emits, queue.count,
            sample_count]
@@ -173,20 +189,34 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
     if any(v.device != on.device for v in tensors):
         raise ValueError("state, queue, tables and events must be on one "
                          "device")
+    if out is None:
+        out = (LocatorState(*(v.clone() for v in lstate)),
+               EventQueue(*(v.clone() for v in queue)), sample_count.clone())
+    else:
+        if any(o.shape != v.shape or o.dtype != v.dtype
+               or o.device != v.device or not o.is_contiguous()
+               for o, v in zip(_flat(out), _flat(state), strict=True)):
+            raise ValueError("out must be a contiguous (locator state, "
+                             "queue, counter) like the inputs")
+        write_into(out, state)
     d = _LocDesc(C=c, G=g, S=maps.shape[0], H=maps.shape[2],
                  W=maps.shape[3], E=e, T=len(lb.tols), B=lb.block_size,
                  radius=lb.radius, c_over_sr=lb.c_over_sr)
     for i, t in enumerate(lb.tols):
         d.tols[i] = t
-    new_l = LocatorState(*(torch.empty_like(v) for v in lstate))
-    new_q = EventQueue(*(torch.empty_like(v) for v in queue))
+    new_l, new_q, count = out
     hits = BlockHits(torch.empty_like(deltas),
                      torch.empty((c, 2), dtype=torch.float32,
                                  device=on.device),
                      torch.empty_like(on))
     ptrs = [v.data_ptr() for v in (
-        on, deltas, sample_count, *lstate, *new_l, *lb.tables,
-        *queue, *new_q, *hits)]
+        on, deltas, count, *new_l, *lb.tables, *new_q, *hits)]
     _cuda.LOCATE_BLOCK.launch("ofpt_locate_block", ctypes.addressof(d),
                               *ptrs, _cuda.stream())
-    return new_l, new_q, hits
+    return new_l, new_q, hits, count
+
+
+def _flat(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for sub in tree for leaf in _flat(sub)]

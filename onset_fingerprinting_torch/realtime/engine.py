@@ -11,9 +11,12 @@ with static shapes, no host read and no Python branch on a device value,
 so that it can be captured once in a ``torch.cuda.CUDAGraph`` and replayed
 per block: the replay is the counterpart of the single program.  Two
 kernels carry it on the card: the detector K1 (``ops/fused_detector``; the
-engine's config couples the channels' off-gate, so ``csrc/detector.cu``)
+engine's config couples the channels' off-gate at 3 channels, so
+``csrc/detector_warp.cu``, which also writes the block to the audio ring)
 and the locate step (``ops/locate_block``, ``csrc/locate_block.cu``: the
-locator's masked slot table and the event-queue push in one launch).
+locator's masked slot table, the event-queue push and the sample counter
+in one launch).  On the card the step runs in place (``out=`` the state it
+was given), so the captured graph is those two kernels and no copies.
 
 :class:`RealtimeEngine` is the host shim: the per-block call, the device
 event queue drained by :meth:`~RealtimeEngine.harvest` with one packed
@@ -46,6 +49,7 @@ from onset_fingerprinting_torch.core.ring_buffer import (
     ring_read_last,
     ring_write,
 )
+from onset_fingerprinting_torch.core.tree import write_into
 from onset_fingerprinting_torch.detect.amplitude import (
     DetectorParams,
     DetectorState,
@@ -62,6 +66,7 @@ from onset_fingerprinting_torch.ops.fused_detector import (
     detector_static,
     fused_detect_offline,
     fused_warmup_minmax,
+    kernel_for,
 )
 from onset_fingerprinting_torch.ops.locate_block import (
     EventQueue,
@@ -160,14 +165,24 @@ def make_classify_fn(model: torch.nn.Module, window: int = 256,
 def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
                      ring_seconds: float = 2.0, capacity: int = 8,
                      event_queue: int = 64, cc_refine: bool = False,
-                     model=None, model_input: str = "arrival", device=None):
+                     model=None, model_input: str = "arrival", device=None,
+                     in_place: Optional[bool] = None):
     """``(initial EngineState, params, step)`` on ``device`` (None = the
     card).  The locator's lag maps and geometry are tensors there.
     ``model`` (the learned locator) raises until the FCNN is ported;
-    ``cc_refine=True`` runs on the CPU only (``ops/locate_block``)."""
+    ``cc_refine=True`` runs on the CPU only (``ops/locate_block``).
+    ``in_place`` (default: on the card) makes ``step`` write the new state
+    into the one it is given and return it; otherwise ``step`` is
+    functional, except for the audio ring, which every step writes in
+    place (data and counter)."""
     dev = resolve_device(device)
+    if in_place is None:
+        in_place = dev.type == "cuda"
     static, params, dstate = detector_init(cfg, dev)
     fstatic = detector_static(static, params)
+    # K1's warp-per-channel kernel writes the ring; another K1 leaves it to
+    # ring_write
+    ring_in_k1 = kernel_for(static) is _cuda.DETECTOR_WARP
     lb = LocateBlock(locator, cfg.n_channels, cfg.block_size,
                      capacity=capacity, cc_refine=cc_refine, model=model,
                      model_input=model_input, device=dev)
@@ -189,24 +204,30 @@ def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
 
     def step(state: EngineState, block: torch.Tensor,
              params_: DetectorParams) -> tuple[EngineState, BlockEvents]:
+        queue = EventQueue(state.ev_points, state.ev_onsets, state.ev_emits,
+                           state.ev_count)
         dstate, (on, deltas, _) = fused_detect_offline(
-            fstatic, params_, state.detector, block, emit_rel=False)
+            fstatic, params_, state.detector, block, emit_rel=False,
+            out=state.detector if in_place else None,
+            ring=state.ring if ring_in_k1 else None)
         on, deltas = on[0], deltas[0]
-        ring = ring_write(state.ring, block)
+        ring = state.ring
+        if not ring_in_k1:
+            ring = ring_write(ring, block)
+            if in_place:
+                ring = write_into(state.ring, ring)
         extra = ()
         if cc_refine:
             # a fixed-length window of live audio ending now, for onset-lag
             # refinement in the locator (multilateration.py:457-501)
             extra = (ring_read_last(ring, lb.window_len),
                      state.sample_count + block.shape[0] - lb.window_len)
-        lstate, queue, hits = locate_block(
-            lb, state.locator,
-            EventQueue(state.ev_points, state.ev_onsets, state.ev_emits,
-                       state.ev_count),
-            on, deltas, state.sample_count, *extra)
+        lstate, queue, hits, count = locate_block(
+            lb, state.locator, queue, on, deltas, state.sample_count, *extra,
+            out=(state.locator, queue, state.sample_count) if in_place
+            else None)
         new_state = EngineState(
-            detector=dstate, locator=lstate, ring=ring,
-            sample_count=state.sample_count + block.shape[0],
+            detector=dstate, locator=lstate, ring=ring, sample_count=count,
             ev_points=queue.points, ev_onsets=queue.onsets,
             ev_emits=queue.emits, ev_count=queue.count)
         return new_state, BlockEvents(on, hits.onsets, hits.points,
@@ -217,9 +238,11 @@ def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
 
 class _GraphedStep:
     """The engine step captured once in a CUDA graph over static state
-    tensors: each replay runs the step and copies the new state into the
-    static one.  Launches of the kernels the capture recorded are added
-    to their counters on every replay (capturing launches nothing)."""
+    tensors: each replay runs the step and copies each new state tensor
+    that is not the static one into it (none, for the in-place step).
+    Launches of the kernels the capture recorded are added to their
+    counters on every replay (capturing launches nothing).  The graph is
+    kept (``keep_graph``) so that :meth:`nodes` can read it."""
 
     def __init__(self, step, state: EngineState, params: DetectorParams,
                  block_shape):
@@ -239,12 +262,11 @@ class _GraphedStep:
         before = {k: k.launches for k in _cuda.KERNELS}
         variants = {k: collections.Counter(k.variants) for k in _cuda.KERNELS}
         plain = {k: k.plain_calls for k in _cuda.KERNELS}
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
         with torch.cuda.graph(self.graph):
             new, self.events = step(state, self.block, params)
-            for dst, src in zip(_leaves(state), _leaves(new)):
-                if src is not dst:
-                    dst.copy_(src)
+            write_into(state, new)
+        self.graph.instantiate()
         self.launches = {k: k.launches - before[k] for k in _cuda.KERNELS
                          if k.launches != before[k]}
         self.variants = {k: k.variants - variants[k] for k in _cuda.KERNELS}
@@ -344,9 +366,7 @@ class RealtimeEngine:
         if self._graph is None:
             self._state = new
             return
-        for dst, src in zip(_leaves(self._state), _leaves(new)):
-            if src is not dst:
-                dst.copy_(src)
+        write_into(self._state, new)
 
     def attach_classifier(self, model: torch.nn.Module, window: int = 256,
                           pre: int = 64, capacity: int = 16) -> None:

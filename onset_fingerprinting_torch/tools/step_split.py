@@ -1,19 +1,19 @@
-"""Where the realtime engine's per-block step spends its time on the card.
+"""Where the realtime engine's per-block step spends its time on the card,
+split inside its two kernels.
 
-Three measurements at the engine's configuration (``tools/realtime_sim``:
-3 sensors, 128-sample blocks, coupled K1, the locate kernel):
+At the engine's configuration (``tools/realtime_sim``: 3 sensors, 128-sample
+blocks, coupled K1, the locate kernel), with the timing and graph reading of
+``tools/step_bench``:
 
-- the captured step's graph: its nodes by type (kernel, memcpy, memset,
-  ...) and the kernels' names, read through the driver API from a graph
-  captured as ``realtime/engine._GraphedStep`` captures it;
-- K1 coupled at ``[128, 3]``, per bare launch, as cumulative variants of
-  its source: the block's load alone, then each pass of the block added in
-  turn (dB, envelopes, linear, min/max), then pass 2 without and with the
-  cross-channel off-check, beside an empty kernel;
-- the locate kernel per launch on the stream's quiet blocks (no channel
-  fired) and on its fired blocks, each fired block from the locator state
-  and queue that the stream gave it, as cumulative variants: staging
-  alone, then the onset sort, then the slot logic without the lag-map scan
+- the captured step's graph: its nodes by type and its kernels;
+- K1 at ``[128, 3]`` (``csrc/detector_warp.cu``) per launch in a graph of
+  launches, as cumulative variants of its source: the block's load alone,
+  then each pass of the block added in turn (dB, envelopes, linear,
+  min/max), then pass 2 without and with the cross-channel off-check,
+  beside an empty kernel;
+- the locate kernel (``csrc/locate_block.cu``) per launch on the stream's
+  quiet blocks and on its fired blocks in stream order, as cumulative
+  variants: staging alone, then the slot logic without the lag-map scan
   and Newton, then with the scan, then whole.
 
 The variants are patched copies of the kernels' sources written to the
@@ -28,8 +28,6 @@ It prints one JSON line last.
 from __future__ import annotations
 
 import argparse
-import collections
-import ctypes
 import json
 import sys
 
@@ -37,30 +35,38 @@ import numpy as np
 import torch
 
 from onset_fingerprinting_torch.ops import _cuda
+from onset_fingerprinting_torch.tools.step_bench import (
+    graph_ms,
+    locate_calls,
+    locate_times,
+    step_graph,
+)
 
-_YF = "yf += buf[(bsz - 1) * bs];\n        continue;\n"
+_CUT = "yf += col[bsz - 1];\n        continue;\n"
 #: K1 variants, cumulative: (name, anchor, replacement)
 K1_STEPS = (
-    ("load", "for (int t = 0; t < bsz; ++t) buf[t * bs] = xb[(size_t)t * C];",
-     "for (int t = 0; t < bsz; ++t) buf[t * bs] = xb[(size_t)t * C];\n"
-     "        " + _YF),
-    ("db", "// loop B: fast and slow envelopes", _YF + "        // loop B"),
-    ("env", "// dB difference -> clipped linear", _YF + "        // dB diff"),
-    ("lin", "// loop C: EMA min/max tracker", _YF + "        // loop C"),
+    ("load", "        if (ring) {\n", "        " + _CUT + "        if (ring) {\n"),
+    ("db", "        // fast and slow envelopes,",
+     "        " + _CUT + "        // fast and slow envelopes,"),
+    ("env", "        // dB difference -> clipped linear",
+     "        " + _CUT + "        // dB difference -> clipped linear"),
+    ("lin", "        // EMA min/max tracker",
+     "        " + _CUT + "        // EMA min/max tracker"),
     ("minmax", "if (p.warmup) continue;", "continue;"),
-    ("uncoupled", "if (p.coupled) {", "if (false) {"),
+    ("uncoupled", "        if (p.coupled) {\n            // reference quirk",
+     "        if (false) {\n            // reference quirk"),
 )
 #: locate variants, cumulative
 LOCATE_STEPS = (
-    ("stage", "    if (tid == 0) {\n        next_age = next_in[0];",
-     "    return;\n    if (tid == 0) {\n        next_age = next_in[0];"),
-    ("sort", "    for (int i = 0; i < C; ++i) {\n        const int ch = order[i];",
-     "    if (tid == 0) hit_emits[0] = (uint8_t)order[C - 1];\n    return;\n"
-     "    for (int i = 0; i < C; ++i) {\n        const int ch = order[i];"),
-    ("slots", "        for (int g = 0; g < G; ++g) {\n            if (!completes[g])",
-     "        for (int g = 0; g < 0; ++g) {\n            if (!completes[g])"),
-    ("scan", "emit = solve_tdoa(tri, lag1 * d.c_over_sr, lag2 * d.c_over_sr,\n"
-     "                                  &px, &py);", "emit = false;"),
+    ("stage", "    const int os0 = s0, os1 = s1,",
+     "    if (tid == 0) hit_emits[0] = (uint8_t)(s_order[C - 1] + s0 + o0 +"
+     " cnt + age + next_age + q0);\n    return;\n"
+     "    const int os0 = s0, os1 = s1,"),
+    ("slots", "        const int nscan = s_nscan[buf];",
+     "        const int nscan = 0;"),
+    ("scan", "            emit = solve_tdoa(tri, lag1 * d.c_over_sr, "
+     "lag2 * d.c_over_sr,\n                              &px, &py);",
+     "            emit = false;"),
 )
 
 
@@ -83,115 +89,13 @@ def variants(base: _cuda.Kernel, steps) -> dict[str, _cuda.Kernel]:
     return out
 
 
-def graph_ms(calls, reps=20):
-    """Device time per call of ``calls`` captured in order in one CUDA
-    graph: the graph replayed ``reps`` times between two CUDA events, so
-    that no host time enters (each call launches on the current stream)."""
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for fn in calls:
-            fn()
-    g.replay()
-    torch.cuda.synchronize()
-    s = torch.cuda.Event(enable_timing=True)
-    e = torch.cuda.Event(enable_timing=True)
-    s.record()
-    for _ in range(reps):
-        g.replay()
-    e.record()
-    e.synchronize()
-    return s.elapsed_time(e) / (reps * len(calls))
-
-
-_NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
-               "wait_event", "event_record", "sem_signal", "sem_wait",
-               "mem_alloc", "mem_free", "batch_mem_op", "conditional")
-
-
-class _KernelParams(ctypes.Structure):
-    _fields_ = [("func", ctypes.c_void_p)] + [
-        (n, ctypes.c_uint) for n in ("gx", "gy", "gz", "bx", "by", "bz",
-                                     "smem")] + [
-        ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
-        ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
-
-
-def graph_nodes(graph: torch.cuda.CUDAGraph) -> tuple[dict, list]:
-    """``({type: count}, [kernel names])`` of a graph captured with
-    ``keep_graph=True``, through the driver API."""
-    cu = ctypes.CDLL("libcuda.so.1")
-    h = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(h, None, ctypes.byref(n)):
-        raise RuntimeError("cuGraphGetNodes failed")
-    nodes = (ctypes.c_void_p * n.value)()
-    cu.cuGraphGetNodes(h, nodes, ctypes.byref(n))
-    types, names = collections.Counter(), []
-    for node in nodes:
-        t = ctypes.c_int(-1)
-        cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t))
-        kind = _NODE_TYPES[t.value] if 0 <= t.value < len(_NODE_TYPES) \
-            else str(t.value)
-        types[kind] += 1
-        if kind == "kernel":
-            p = _KernelParams()
-            name = ctypes.c_char_p()
-            rc = cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
-                                                  ctypes.byref(p))
-            if rc == 0 and p.func:
-                rc = cu.cuFuncGetName(ctypes.byref(name),
-                                      ctypes.c_void_p(p.func))
-            elif rc == 0 and p.kern:
-                rc = cu.cuKernelGetName(ctypes.byref(name),
-                                        ctypes.c_void_p(p.kern))
-            names.append(name.value.decode() if rc == 0 and name.value
-                         else "?")
-    return dict(types), names
-
-
-def step_graph(eng, blocks, steps=256):
-    """The engine's step captured as ``_GraphedStep`` captures it (the
-    step, then each new state leaf that is not the static one copied into
-    it) on a copy of the engine's state: its nodes by type and kernel
-    name, and its device time per step from one graph of ``steps``
-    consecutive steps over the stream's blocks."""
-    from onset_fingerprinting_torch.realtime.engine import (
-        EngineState,
-        _clone,
-        _leaves,
-    )
-
-    state = EngineState(*_clone(eng.state))
-
-    def one(block):
-        new, _ = eng._step(state, block, eng.params)
-        for dst, src in zip(_leaves(state), _leaves(new)):
-            if src is not dst:
-                dst.copy_(src)
-
-    g = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(g):
-        one(blocks[0])
-    types, names = graph_nodes(g)
-    ms = graph_ms([lambda b=b: one(b) for b in blocks[:steps]], reps=5)
-    return dict(types=types, nodes=sum(types.values()),
-                kernels=dict(collections.Counter(names)), step_ms=ms)
-
-
 def main(argv=None) -> int:
     from onset_fingerprinting_torch.core.config import DetectorConfig
-    from onset_fingerprinting_torch.locate.multilaterate import LocatorState
     from onset_fingerprinting_torch.ops.fused_detector import (
-        fused_warmup_minmax,
         launch_args,
         make_fused_detector,
     )
-    from onset_fingerprinting_torch.ops.locate_block import (
-        EventQueue,
-        LocateBlock,
-        locate_block,
-    )
-    from onset_fingerprinting_torch.realtime.engine import _clone
+    from onset_fingerprinting_torch.ops.locate_block import LocateBlock
     from onset_fingerprinting_torch.tools import realtime_sim as sim
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -201,14 +105,10 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("step_split: CUDA is not available", file=sys.stderr)
         return 2
-    k1v = variants(_cuda.DETECTOR, K1_STEPS)
+    k1v = variants(_cuda.DETECTOR_WARP, K1_STEPS)
     lov = variants(_cuda.LOCATE_BLOCK, LOCATE_STEPS)
-    logs = _cuda.build([_cuda.DETECTOR, _cuda.LOCATE_BLOCK, *k1v.values(),
-                        *lov.values()])
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    _cuda.build([_cuda.DETECTOR, _cuda.DETECTOR_WARP, _cuda.LOCATE_BLOCK,
+                 *k1v.values(), *lov.values()])
     res = {"device": torch.cuda.get_device_name(0)}
 
     audio, _, _ = sim.synth_stream(20.0, 0)
@@ -221,10 +121,10 @@ def main(argv=None) -> int:
     # K1 at [128, 3]: the whole kernel, its variants, an empty launch
     cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
                          sr=sim.SR)
-    fst, params, st0, run = make_fused_detector(cfg, emit_rel=False)
+    fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
     xb = blocks[len(blocks) // 2].contiguous()
     k1 = {}
-    for name, kern in [("whole", None), *k1v.items()]:
+    for name, kern in [("whole", _cuda.DETECTOR_WARP), *k1v.items()]:
         kk, entry, a, _, keep = launch_args(fst, params, st0, xb, False,
                                             False, kern)
         fn = getattr(kk._lib, entry)
@@ -236,41 +136,22 @@ def main(argv=None) -> int:
     res["k1"] = k1
     print("k1:", json.dumps(k1), flush=True)
 
-    # the locate kernel on the stream's blocks, each from its own state
+    # the locate kernel on quiet blocks and on the fired ones in order
     lb = LocateBlock(eng.locator, 3, 128, device="cuda")
-    i32 = dict(dtype=torch.int32, device="cuda")
-    det = fused_warmup_minmax(fst, params, st0, torch.as_tensor(
-        audio[: sim.WARMUP // 128 * 128], device="cuda"))
-    lstate = LocatorState(*_clone(eng.state.locator))
-    queue = EventQueue(*(torch.zeros_like(v) for v in (
-        eng.state.ev_points, eng.state.ev_onsets, eng.state.ev_emits,
-        eng.state.ev_count)))
-    fired, quiet, completing = [], [], []
-    for i in range(int(args.seconds * sim.SR) // 128):
-        det, (on, d, _) = run(det, blocks[i])
-        call = (lstate, queue, on[0], d[0], torch.tensor(128 * i, **i32))
-        lstate, queue, hits = locate_block(lb, *call)[:3]
-        if bool(on.any()):
-            fired.append(call)
-            if bool(hits.emits.any()):
-                completing.append(call)
-        elif len(quiet) < 64:
-            quiet.append(call)
+    l0, q0, quiet, fired, _ = locate_calls(audio, blocks, args.seconds)
     lo = {}
+    saved = _cuda.LOCATE_BLOCK._lib
     for name, kern in [("whole", None), *lov.items()]:
-        saved = _cuda.LOCATE_BLOCK._lib
         if kern is not None:
             _cuda.LOCATE_BLOCK._lib = kern._lib
         try:
-            for label, calls in (("fired", fired), ("completing", completing),
-                                 ("quiet", quiet)):
-                lo[f"{label}_{name}"] = graph_ms(
-                    [lambda c=c: locate_block(lb, *c) for c in calls])
+            t = locate_times(lb, l0, q0, quiet, fired)
         finally:
             _cuda.LOCATE_BLOCK._lib = saved
+        lo[f"quiet_{name}"] = t["quiet"]
+        lo[f"fired_{name}"] = t["fired"]
     res["locate"] = lo
-    res["locate_blocks"] = dict(fired=len(fired), completing=len(completing),
-                                quiet=len(quiet))
+    res["locate_blocks"] = dict(fired=len(fired), quiet=len(quiet))
     print("locate:", json.dumps(lo), flush=True)
     print(json.dumps(res), flush=True)
     return 0

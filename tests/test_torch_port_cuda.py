@@ -479,7 +479,7 @@ def test_coupled_detector_at_the_engines_shape_matches_plain():
     cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
                          sr=sim.SR)
     fst, params, st, _ = make_fused_detector(cfg, emit_rel=False)
-    assert kernel_for(fst.plain) is _cuda.DETECTOR
+    assert kernel_for(fst.plain) is _cuda.DETECTOR_WARP
     x = torch.as_tensor(audio, device="cuda")
     warm = sim.WARMUP // 128 * 128
     sk = fused_warmup_minmax(fst, params, st, x[:warm])
@@ -608,8 +608,9 @@ def test_locate_block_kernel_matches_plain():
     for count, on, d in blocks:
         args = (torch.tensor(on, device="cuda"), torch.tensor(d, **i32),
                 torch.tensor(count, **i32))
-        sk, qk, hk = locate_block(lb, sk, qk, *args)
-        sp, qp, hp = locate_block_reference(lb, sp, qp, *args)
+        sk, qk, hk, ck = locate_block(lb, sk, qk, *args)
+        sp, qp, hp, cp = locate_block_reference(lb, sp, qp, *args)
+        assert torch.equal(ck, cp) and int(ck) == count + 128
         for a, b in zip(sk, sp):
             assert torch.equal(a, b), count
         assert torch.equal(hk.emits, hp.emits) and torch.equal(hk.onsets,
@@ -652,7 +653,8 @@ def test_engine_graph_replay_equals_eager_and_cpu():
         runs[device] = (eng, events, {k.name: (k.launches, k.plain_calls)
                                       for k in _cuda.KERNELS})
     g, c = runs["cuda"], runs["cpu"]
-    assert g[2]["detector"] == (len(blocks) + 1, 0)  # + the warmup
+    assert g[2]["detector_warp"] == (len(blocks) + 1, 0)  # + the warmup
+    assert g[2]["detector"] == (0, 0)
     assert g[2]["locate_block"] == (len(blocks), 0)
     for u, v in zip(_leaves(g[0].state), _leaves(st)):
         assert torch.equal(u, v)
@@ -662,3 +664,161 @@ def test_engine_graph_replay_equals_eager_and_cpu():
         assert abs(a.x - b.x) <= 1e-3 and abs(a.y - b.y) <= 1e-3
     matched, med, ok = sim.locate_gates(hits, g[1])
     assert ok and matched == len(hits)
+
+
+# -- the realtime step in place: K1 one warp per channel, the locate
+# kernel, the captured graph ---------------------------------------------
+
+def _bursts(t, c, seed):
+    """Noise with decaying 5 kHz bursts on every channel every ~1100
+    samples, at per-channel offsets: ``[t, c]`` float32 on the card."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1e-4, (t, c)).astype(np.float32)
+    n = np.arange(600)
+    burst = (np.sin(2 * np.pi * 5000 / 96000 * n) * np.exp(-n / 120) * 0.5
+             ).astype(np.float32)
+    for base in range(300, t - 700, 1100):
+        for ch in range(c):
+            off = base + int(rng.integers(0, 90))
+            x[off: off + 600, ch] += burst
+    return torch.as_tensor(x, device="cuda")
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 8, 32])
+@pytest.mark.parametrize("backtrack,hipass", [(False, 0.0), (True, 2000.0),
+                                              (False, 2000.0)])
+def test_detector_warp_matches_plain(c, backtrack, hipass):
+    """csrc/detector_warp.cu against the plain detector bit for bit: the
+    multi-block warmup (prefetched blocks), then detection over 40 blocks
+    functionally and again in place (``out`` = the input state), and the
+    ring it writes against ring_write."""
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.core.ring_buffer import (
+        ring_init,
+        ring_write,
+    )
+    from onset_fingerprinting_torch.detect.amplitude import (
+        DetectorState,
+        detect_offline,
+        warmup_minmax,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_detect_offline,
+        fused_warmup_minmax,
+        kernel_for,
+        make_fused_detector,
+    )
+
+    cfg = DetectorConfig(n_channels=c, backtrack=backtrack,
+                         backtrack_buffer_size=256, hipass_freq=hipass)
+    fst, params, st, _ = make_fused_detector(cfg)
+    assert kernel_for(fst.plain) is _cuda.DETECTOR_WARP
+    x = _bursts(128 * 78, c, seed=c)
+    warp = _cuda.DETECTOR_WARP
+    before = (warp.launches, warp.plain_calls, _cuda.DETECTOR.launches)
+    wk = fused_warmup_minmax(fst, params, st, x[: 128 * 38])
+    wp = warmup_minmax(fst.plain, params, st, x[: 128 * 38])
+    for name, a, b in zip(wk._fields, wk, wp):
+        assert torch.equal(a, b), ("warmup", name)
+    x = x[128 * 38:]
+    sp, (on_p, d_p, r_p) = detect_offline(fst.plain, params, wp, x)
+    assert int(on_p.sum()) >= c
+    sk, (on_k, d_k, r_k) = fused_detect_offline(fst, params, wk, x)
+    assert torch.equal(on_k, on_p) and torch.equal(d_k, d_p)
+    assert torch.equal(r_k, r_p)
+    for name, a, b in zip(sk._fields, sk, sp):
+        assert torch.equal(a, b), name
+    # in place, with the ring: the same events, the state in wk's tensors;
+    # the ring's head starts near its end, so the block wraps around
+    ring = ring_init(6000, (c,), device="cuda")
+    ring.counter.fill_(4000)
+    ring_p = ring_init(6000, (c,), device="cuda")
+    ring_p.counter.fill_(4000)
+    ring_p = ring_write(ring_p, x)
+    ptrs = [v.data_ptr() for v in wk]
+    si, (on_i, d_i, r_i) = fused_detect_offline(fst, params, wk, x, False,
+                                                out=wk, ring=ring)
+    assert si is wk and [v.data_ptr() for v in si] == ptrs and r_i is None
+    assert torch.equal(on_i, on_p) and torch.equal(d_i, d_p)
+    for name, a, b in zip(DetectorState._fields, si, sp):
+        assert torch.equal(a, b), ("in place", name)
+    assert torch.equal(ring.data, ring_p.data)
+    assert torch.equal(ring.counter, ring_p.counter)
+    assert (warp.launches, warp.plain_calls, _cuda.DETECTOR.launches) == (
+        before[0] + 3, before[1], before[2])
+
+
+def test_locate_block_in_place_matches_plain():
+    """The locate kernel updating the locator, the queue and the counter in
+    place (``out`` = the inputs) against its plain version, on a fuzz of
+    fired blocks with quiet blocks between them: state, queue and counter
+    exactly, points within 1e-3 cm; a quiet block leaves the locator and
+    the queue bit for bit as they were."""
+    from onset_fingerprinting_torch.locate.multilaterate import (
+        locator_init,
+    )
+    from onset_fingerprinting_torch.ops.locate_block import (
+        EventQueue,
+        LocateBlock,
+        locate_block,
+        locate_block_reference,
+    )
+
+    sim, _, _ = _engine_stream(0.01)
+    eng = sim.build_engine("cpu", ring_seconds=0.01)
+    lb = LocateBlock(eng.locator, 3, 128, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def queue():
+        return EventQueue(torch.zeros((16, 2), device="cuda"),
+                          torch.zeros(16, **i32), torch.zeros(16, **i32),
+                          torch.zeros((), **i32))
+
+    sk, qk, ck = locator_init(8, "cuda"), queue(), torch.zeros((), **i32)
+    sp, qp = locator_init(8, "cuda"), queue()
+    ptrs = [v.data_ptr() for v in (*sk, *qk, ck)]
+    n_emit = n_quiet = 0
+    for count, on, d in _block_events(6):
+        for quiet in (True, False):
+            if quiet:  # a block just before the fired one, nothing fired
+                args = (torch.zeros(3, dtype=torch.bool, device="cuda"),
+                        torch.zeros(3, **i32))
+                blk = count - 128
+            else:
+                args = (torch.tensor(on, device="cuda"),
+                        torch.tensor(d, **i32))
+                blk = count
+            ck.fill_(blk)
+            was = [v.clone() for v in (*sk, *qk)]
+            rk = locate_block(lb, sk, qk, *args, ck, out=(sk, qk, ck))
+            sp, qp, hp, cp = locate_block_reference(
+                lb, sp, qp, *args, torch.tensor(blk, **i32))
+            assert rk[0] is sk and rk[1] is qk and rk[3] is ck
+            assert [v.data_ptr() for v in (*sk, *qk, ck)] == ptrs
+            for a, b in zip((*sk, *qk[1:], ck), (*sp, *qp[1:], cp)):
+                assert torch.equal(a, b), (blk, quiet)
+            assert float((qk.points - qp.points).abs().max()) <= 1e-3
+            hk = rk[2]
+            assert torch.equal(hk.emits, hp.emits)
+            assert torch.equal(hk.onsets, hp.onsets)
+            assert float((hk.points - hp.points).abs().max()) <= 1e-3
+            if quiet:
+                n_quiet += 1
+                for a, b in zip(was, (*sk, *qk)):
+                    assert torch.equal(a, b)
+            n_emit += int(hk.emits.sum())
+    assert n_emit >= 30 and n_quiet >= 40
+
+
+def test_engine_step_graph_has_no_copy_nodes():
+    """The engine's captured step in place: the two kernels (K1 with the
+    ring write, the locate kernel with the counter) and nothing else."""
+    from onset_fingerprinting_torch.tools.step_bench import graph_nodes
+
+    sim, _, _ = _engine_stream(0.01)
+    eng = sim.build_engine("cuda", ring_seconds=1.0, event_queue=64)
+    types, names = graph_nodes(eng._graph.graph)
+    assert types == {"kernel": 2}, (types, names)
+    assert any("detector_warp" in n for n in names)
+    assert any("locate_block" in n for n in names)

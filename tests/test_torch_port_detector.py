@@ -96,7 +96,7 @@ def test_plain_detector_matches_jax_scan(opts):
     # the wrapper runs the plain version on the CPU and counts it on the
     # kernel a CUDA chunk would take
     kernel = kernel_for(ts)
-    assert kernel is (_cuda.DETECTOR if opts["coupled_off_gate"]
+    assert kernel is (_cuda.DETECTOR_WARP if opts["coupled_off_gate"]
                       else _cuda.DETECTOR_PIPE)
     before = kernel.plain_calls
     tst2, (on_t, d_t, rel_t) = fused_detect_offline(

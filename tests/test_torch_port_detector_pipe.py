@@ -89,13 +89,19 @@ def test_plan_block_sizes(bsz, ok):
         assert plan.rel_slots * plan.sub_rows == bsz
 
 
-@pytest.mark.parametrize("coupled,bsz,want", [
-    (False, 128, "detector_pipe"), (True, 128, "detector"),
-    (False, 100, "detector"), (True, 100, "detector")])
-def test_kernel_for_routes_by_config(coupled, bsz, want):
+@pytest.mark.parametrize("coupled,bsz,c,want", [
+    (False, 128, 8, "detector_pipe"), (True, 128, 8, "detector_warp"),
+    (False, 100, 8, "detector"), (True, 100, 8, "detector"),
+    (True, 128, 1, "detector_warp"), (True, 128, 32, "detector_warp"),
+    (True, 128, 33, "detector"), (True, 1024, 32, "detector"),
+    (False, 128, 33, "detector_pipe")])
+def test_kernel_for_routes_by_config(coupled, bsz, c, want):
+    """Per-channel gating: the pipe; coupled at up to 32 channels: one warp
+    per channel, while two stages of the block fit shared memory; else
+    (and at block sizes with no pipe plan) detector.cu."""
     static, _, _ = tamp.detector_init(
-        DetectorConfig(n_channels=8, block_size=bsz, coupled_off_gate=coupled),
-        device="cpu")
+        DetectorConfig(n_channels=c, block_size=bsz,
+                       coupled_off_gate=coupled), device="cpu")
     assert kernel_for(static).name == want
 
 
@@ -121,10 +127,12 @@ def test_plain_version_counts_on_the_routed_kernel():
 
 
 def test_coupled_plain_version_counts_on_the_old_kernel():
-    # the wrappers count; the plain functions called directly do not
-    cfg = DetectorConfig(n_channels=5, coupled_off_gate=True)
+    # the wrappers count; the plain functions called directly do not.  At
+    # 40 channels the coupled detector runs on detector.cu (above 32, the
+    # warp-per-channel kernel's limit)
+    cfg = DetectorConfig(n_channels=40, coupled_off_gate=True)
     static, params, state = tamp.detector_init(cfg, device="cpu")
-    x = synth(128 * 4, 5, 0)
+    x = synth(128 * 4, 40, 0)
     pipe, old = _cuda.DETECTOR_PIPE, _cuda.DETECTOR
     before = (pipe.plain_calls, old.plain_calls, pipe.launches, old.launches)
     fst = detector_static(static, params)

@@ -262,9 +262,11 @@ def test_engine_counts_plain_calls_on_the_cpu(stream):
     _cuda.reset_counts()
     for i in range(4):
         t.process_nosync(audio[i * 128:(i + 1) * 128])
-    assert _cuda.DETECTOR.plain_calls == 4
+    # the engine's K1 (coupled, 3 channels) is the warp-per-channel kernel
+    assert _cuda.DETECTOR_WARP.plain_calls == 4
     assert _cuda.LOCATE_BLOCK.plain_calls == 4
-    assert _cuda.DETECTOR.launches == _cuda.LOCATE_BLOCK.launches == 0
+    assert _cuda.DETECTOR.plain_calls == 0
+    assert _cuda.DETECTOR_WARP.launches == _cuda.LOCATE_BLOCK.launches == 0
 
 
 def test_entry_points_default_to_the_card():
