@@ -800,10 +800,10 @@ def phase_realtime(report, cpu_ref):
         locate_block,
         locate_block_reference,
     )
+    from onset_fingerprinting_torch.core.tree import leaves
     from onset_fingerprinting_torch.realtime.engine import (
         EngineState,
         _clone,
-        _leaves,
         make_classify_fn,
     )
     from onset_fingerprinting_torch.tools import realtime_sim as sim
@@ -960,8 +960,8 @@ def phase_realtime(report, cpu_ref):
     st = EngineState(*_clone(b.state))
     for blk in blocks[: len(sim.blocks_of(short))]:
         st, _ = b._step(st, blk, b.params)
-    check(all(torch.equal(u, v) for u, v in zip(_leaves(a.state),
-                                                  _leaves(st))),
+    check(all(torch.equal(u, v) for u, v in zip(leaves(a.state),
+                                                  leaves(st))),
           "graph replay and eager step differ")
     log(f"graph replay == eager step on 2 s: state identical, "
         f"{int(st.ev_count)} events")

@@ -5,6 +5,13 @@ from __future__ import annotations
 import torch
 
 
+def leaves(tree) -> list:
+    """The tensors of a tree, depth first."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for sub in tree for leaf in leaves(sub)]
+
+
 def write_into(out, new):
     """Copy each tensor of the tree ``new`` into the same place of ``out``
     (a tree of the same structure) and return ``out``.  A leaf that is the

@@ -255,7 +255,8 @@ extern "C" const char* ofpt_error_string(int code) {
 }
 
 // One launch over a whole chunk.  The state buffers are updated in place
-// (the wrapper hands in fresh copies).  `gscratch` (nullable) is a
+// (fresh copies, or the caller's `out`; bt_pos_in is never bt_pos_out,
+// since other CTAs may still read it).  `gscratch` (nullable) is a
 // [bsz, grid * threads] device buffer that replaces the shared-memory
 // block stage when that would not fit.
 extern "C" int ofpt_detect(const DetParams* hp, const float* x,

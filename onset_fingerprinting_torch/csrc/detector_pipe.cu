@@ -423,7 +423,8 @@ static cudaError_t launch(const DetParams& p, size_t smem, cudaStream_t st,
 
 // One launch over a whole chunk; the contract of detector.cu's ofpt_detect
 // without its coupled mode and scratch: the state buffers are updated in
-// place (the wrapper hands in fresh copies).
+// place (fresh copies, or the caller's `out`; bt_pos_in is never
+// bt_pos_out).
 extern "C" int ofpt_detect_pipe(const DetParams* hp, const float* x,
                                 const float* on_p, const float* off_p,
                                 float* zi, float* fast, float* slow, float* mn,

@@ -147,6 +147,7 @@ __global__ void __launch_bounds__(32 * MAX_CH) detector_warp_kernel(
         // DF2T high-pass: a chain, on lane 0
         if (p.use_iir) {
             if (lane == 0) {
+#pragma unroll 8
                 for (int t = 0; t < bsz; ++t) {
                     const float xt = col[t];
                     const float y = p.b0 * xt + z0;
@@ -166,7 +167,9 @@ __global__ void __launch_bounds__(32 * MAX_CH) detector_warp_kernel(
         }
         __syncwarp();
         // fast and slow envelopes, their dB difference: a chain, on lane 0
+        // (unrolled, so that the column's loads run ahead of the chain)
         if (lane == 0) {
+#pragma unroll 8
             for (int t = 0; t < bsz; ++t) {
                 const float xdb = col[t];
                 const float df = xdb - yf + p.eps;
@@ -188,6 +191,7 @@ __global__ void __launch_bounds__(32 * MAX_CH) detector_warp_kernel(
         // EMA min/max tracker: a chain, on lane 0, then to every lane
         if (!p.manual) {
             if (lane == 0) {
+#pragma unroll 8
                 for (int t = 0; t < bsz; ++t) {
                     const float r = col[t];
                     mn = r < p.minmin ? p.minmin

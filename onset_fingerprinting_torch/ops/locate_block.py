@@ -34,7 +34,7 @@ from typing import NamedTuple
 
 import torch
 
-from onset_fingerprinting_torch.core.tree import write_into
+from onset_fingerprinting_torch.core.tree import leaves, write_into
 from onset_fingerprinting_torch.locate.multilaterate import (
     LocatorState,
     Multilaterate3D,
@@ -195,7 +195,7 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
     else:
         if any(o.shape != v.shape or o.dtype != v.dtype
                or o.device != v.device or not o.is_contiguous()
-               for o, v in zip(_flat(out), _flat(state), strict=True)):
+               for o, v in zip(leaves(out), leaves(state), strict=True)):
             raise ValueError("out must be a contiguous (locator state, "
                              "queue, counter) like the inputs")
         write_into(out, state)
@@ -214,9 +214,3 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
     _cuda.LOCATE_BLOCK.launch("ofpt_locate_block", ctypes.addressof(d),
                               *ptrs, _cuda.stream())
     return new_l, new_q, hits, count
-
-
-def _flat(tree) -> list:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [leaf for sub in tree for leaf in _flat(sub)]

@@ -15,8 +15,8 @@ engine's config couples the channels' off-gate at 3 channels, so
 ``csrc/detector_warp.cu``, which also writes the block to the audio ring)
 and the locate step (``ops/locate_block``, ``csrc/locate_block.cu``: the
 locator's masked slot table, the event-queue push and the sample counter
-in one launch).  On the card the step runs in place (``out=`` the state it
-was given), so the captured graph is those two kernels and no copies.
+in one launch).  The step runs in place (``out=`` the state it was
+given), so the captured graph is those two kernels and no copies.
 
 :class:`RealtimeEngine` is the host shim: the per-block call, the device
 event queue drained by :meth:`~RealtimeEngine.harvest` with one packed
@@ -114,12 +114,6 @@ class BlockEvents(NamedTuple):
     emits: torch.Tensor   # [C] bool: a hit completed at this event
 
 
-def _leaves(tree) -> list:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [leaf for sub in tree for leaf in _leaves(sub)]
-
-
 def make_classify_fn(model: torch.nn.Module, window: int = 256,
                      pre: int = 64, capacity: int = 16, device=None):
     """The on-device hit classifier over the engine's audio ring: for up
@@ -165,19 +159,14 @@ def make_classify_fn(model: torch.nn.Module, window: int = 256,
 def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
                      ring_seconds: float = 2.0, capacity: int = 8,
                      event_queue: int = 64, cc_refine: bool = False,
-                     model=None, model_input: str = "arrival", device=None,
-                     in_place: Optional[bool] = None):
+                     model=None, model_input: str = "arrival", device=None):
     """``(initial EngineState, params, step)`` on ``device`` (None = the
     card).  The locator's lag maps and geometry are tensors there.
     ``model`` (the learned locator) raises until the FCNN is ported;
     ``cc_refine=True`` runs on the CPU only (``ops/locate_block``).
-    ``in_place`` (default: on the card) makes ``step`` write the new state
-    into the one it is given and return it; otherwise ``step`` is
-    functional, except for the audio ring, which every step writes in
-    place (data and counter)."""
+    ``step`` works in place: it writes the new state into the one it is
+    given and returns that state's tensors."""
     dev = resolve_device(device)
-    if in_place is None:
-        in_place = dev.type == "cuda"
     static, params, dstate = detector_init(cfg, dev)
     fstatic = detector_static(static, params)
     # K1's warp-per-channel kernel writes the ring; another K1 leaves it to
@@ -208,14 +197,11 @@ def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
                            state.ev_count)
         dstate, (on, deltas, _) = fused_detect_offline(
             fstatic, params_, state.detector, block, emit_rel=False,
-            out=state.detector if in_place else None,
-            ring=state.ring if ring_in_k1 else None)
+            out=state.detector, ring=state.ring if ring_in_k1 else None)
         on, deltas = on[0], deltas[0]
         ring = state.ring
         if not ring_in_k1:
-            ring = ring_write(ring, block)
-            if in_place:
-                ring = write_into(state.ring, ring)
+            ring = write_into(state.ring, ring_write(ring, block))
         extra = ()
         if cc_refine:
             # a fixed-length window of live audio ending now, for onset-lag
@@ -224,8 +210,7 @@ def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
                      state.sample_count + block.shape[0] - lb.window_len)
         lstate, queue, hits, count = locate_block(
             lb, state.locator, queue, on, deltas, state.sample_count, *extra,
-            out=(state.locator, queue, state.sample_count) if in_place
-            else None)
+            out=(state.locator, queue, state.sample_count))
         new_state = EngineState(
             detector=dstate, locator=lstate, ring=ring, sample_count=count,
             ev_points=queue.points, ev_onsets=queue.onsets,
@@ -242,7 +227,8 @@ class _GraphedStep:
     that is not the static one into it (none, for the in-place step).
     Launches of the kernels the capture recorded are added to their
     counters on every replay (capturing launches nothing).  The graph is
-    kept (``keep_graph``) so that :meth:`nodes` can read it."""
+    kept (``keep_graph``) so that a measurement can read its nodes
+    (``tools/step_bench.graph_nodes``)."""
 
     def __init__(self, step, state: EngineState, params: DetectorParams,
                  block_shape):
@@ -423,12 +409,12 @@ class RealtimeEngine:
         t = (len(audio) // self.cfg.block_size) * self.cfg.block_size
         if t:
             static, _, _ = detector_init(self.cfg, self.device)
-            det = fused_warmup_minmax(
-                detector_static(static, self.params), self.params,
-                self.state.detector,
+            det = self.state.detector
+            fused_warmup_minmax(
+                detector_static(static, self.params), self.params, det,
                 torch.as_tensor(np.ascontiguousarray(audio[:t]),
-                                dtype=torch.float32, device=self.device))
-            self.state = self.state._replace(detector=det)
+                                dtype=torch.float32, device=self.device),
+                out=det)
 
     def _run(self, block: np.ndarray) -> None:
         x = torch.from_numpy(np.ascontiguousarray(block, dtype=np.float32))

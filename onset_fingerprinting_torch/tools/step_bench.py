@@ -136,13 +136,17 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> tuple[dict, list]:
     return dict(types), names
 
 
+def _flat(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for sub in tree for leaf in _flat(sub)]
+
+
 def _capture_step(eng, state, block):
     """One step as ``_GraphedStep`` captures it: the step, then every new
     state tensor that is not the given one copied into it."""
-    from onset_fingerprinting_torch.realtime.engine import _leaves
-
     new, _ = eng._step(state, block, eng.params)
-    for dst, src in zip(_leaves(state), _leaves(new)):
+    for dst, src in zip(_flat(state), _flat(new)):
         if src is not dst:
             dst.copy_(src)
 

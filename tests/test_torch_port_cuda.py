@@ -629,11 +629,11 @@ def test_engine_graph_replay_equals_eager_and_cpu():
     the CPU (identical onsets and emit stamps, points within 1e-3 cm);
     every replay counts one launch of K1 and of the locate kernel, and no
     plain version runs."""
+    from onset_fingerprinting_torch.core.tree import leaves
     from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.realtime.engine import (
         EngineState,
         _clone,
-        _leaves,
     )
 
     sim, audio, hits = _engine_stream()
@@ -656,7 +656,7 @@ def test_engine_graph_replay_equals_eager_and_cpu():
     assert g[2]["detector_warp"] == (len(blocks) + 1, 0)  # + the warmup
     assert g[2]["detector"] == (0, 0)
     assert g[2]["locate_block"] == (len(blocks), 0)
-    for u, v in zip(_leaves(g[0].state), _leaves(st)):
+    for u, v in zip(leaves(g[0].state), leaves(st)):
         assert torch.equal(u, v)
     assert [o for o, _ in g[1]] == [o for o, _ in c[1]]
     assert torch.equal(g[0].state.ev_emits.cpu(), c[0].state.ev_emits)

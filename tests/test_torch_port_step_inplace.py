@@ -15,7 +15,7 @@ import torch
 
 from onset_fingerprinting_torch.core.config import DetectorConfig
 from onset_fingerprinting_torch.core.ring_buffer import ring_init, ring_write
-from onset_fingerprinting_torch.core.tree import write_into
+from onset_fingerprinting_torch.core.tree import leaves, write_into
 from onset_fingerprinting_torch.detect import amplitude as tamp
 from onset_fingerprinting_torch.locate.multilaterate import (
     Multilaterate3D,
@@ -233,15 +233,15 @@ def stream():
 
 
 def test_in_place_engine_step_matches_jax(stream):
-    """The step as the card runs it (``in_place=True``: every state tensor
-    written where it lies) on the CPU, block by block against the JAX
-    engine's step: the same events, the same final state, and the state's
-    tensors never replaced; no host read inside the step."""
+    """The step in place (every state tensor written where it lies, as the
+    card's captured graph needs) on the CPU, block by block against the
+    JAX engine's step: the same events, the same final state, and the
+    state's tensors never replaced; no host read inside the step."""
     audio, hits = stream
     _, polar, _, _ = sim._geometry()
     state, params, step = te.make_engine_step(
         DetectorConfig(**KW), Multilaterate3D(polar, **LOC),
-        ring_seconds=0.5, device="cpu", in_place=True)
+        ring_seconds=0.5, device="cpu")
     _, j = engines()
     warm = sim.SR // 4
     static, _, _ = tamp.detector_init(DetectorConfig(**KW), device="cpu")
@@ -250,13 +250,13 @@ def test_in_place_engine_step_matches_jax(stream):
                         torch.as_tensor(audio[: warm // 128 * 128]),
                         out=state.detector)
     j.warmup(audio[:warm])
-    ids = [id(v) for v in te._leaves(state)]
+    ids = [id(v) for v in leaves(state)]
     n_emit = 0
     for i in range(warm // 128, len(audio) // 128):
         blk = torch.as_tensor(audio[i * 128:(i + 1) * 128])
         with NoHostRead():
             new, tev = step(state, blk, params)
-        assert [id(v) for v in te._leaves(new)] == ids
+        assert [id(v) for v in leaves(new)] == ids
         j.state, jev = j._step(j.state, jnp.asarray(blk.numpy()), j.params)
         for name in ("on", "onsets", "emits"):
             np.testing.assert_array_equal(
