@@ -5,8 +5,8 @@ blocks, coupled K1, the locate kernel) over the first seconds of the
 synthetic stream:
 
 - the captured step's graph: its nodes by type (kernel, memcpy, ...) and
-  its kernels, read through the driver API (:func:`graph_nodes`) from the
-  step captured as ``realtime/engine._GraphedStep`` captures it;
+  its kernels, read through libcuda's graph calls (:func:`graph_nodes`)
+  from the step captured as ``realtime/engine._GraphedStep`` captures it;
 - the step's device time, per replay of the engine's own graph (each
   between CUDA events, the stream held back first, median and p99) and per
   step in one graph of 256 consecutive steps (:func:`graph_ms`);
@@ -93,7 +93,7 @@ _NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
 
 
 class _KernelParams(ctypes.Structure):
-    # CUDA_KERNEL_NODE_PARAMS (v2) of the driver API
+    # CUDA_KERNEL_NODE_PARAMS (v2) of libcuda
     _fields_ = [("func", ctypes.c_void_p)] + [
         (n, ctypes.c_uint) for n in ("gx", "gy", "gz", "bx", "by", "bz",
                                      "smem")] + [
@@ -103,7 +103,7 @@ class _KernelParams(ctypes.Structure):
 
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> tuple[dict, list]:
     """``({node type: count}, [kernel names])`` of a graph captured with
-    ``keep_graph=True``, through the driver API."""
+    ``keep_graph=True``, through libcuda's graph calls."""
     cu = ctypes.CDLL("libcuda.so.1")
     h = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
