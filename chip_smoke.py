@@ -10,7 +10,7 @@ non-zero exit code, printing no result, on any error or without CUDA.
 
 Phase 0  prints the card's name and power limit, starts the plain
          realtime engine on the CPU in a child process (phase 4's
-         reference), and builds the ten kernel libraries from
+         reference), and builds the eleven kernel libraries from
          ``onset_fingerprinting_torch/csrc`` with nvcc, all started
          together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
@@ -59,19 +59,24 @@ Phase 4  drives the realtime engine (``tools.realtime_sim``: 3 sensors at
          96 kHz, 128-sample blocks, the step replayed from a CUDA graph)
          over a 20 s stream of 80 strikes, harvesting every 64 blocks and
          classifying each hit with the bf16 flagship CCCNN (3 x 512) from
-         the device ring; shows that the captured step is two kernel nodes
-         and nothing else (no copy); gates the locate rate and median
+         the device ring; shows that the captured step is three kernel
+         nodes and nothing else (no copy); gates the locate rate and median
          error, shows that K1 (coupled, one warp per channel, one launch
-         per block) and the locate kernel ran on every step and K3 for the
-         classifier, with no plain version; holds the events of the first
-         5 s to the plain engine on the CPU and the classifier to its plain
-         version on the same windows; holds K1 over those 5 s to the plain
-         detector (events and state) and the locate kernel, in place, to
-         its plain version on their fired and quiet blocks; times the step
-         (graph replays, a graph of 256 steps, eager), K1 at [128, 3] per
-         launch in a graph of launches beside detector.cu and an empty
-         kernel, the locate kernel on quiet and fired blocks, and K3 at the
-         classifier's shape (``tools/step_bench``).
+         per block), the ring write and the locate kernel ran on every step
+         and K3 for the classifier, with no plain version; holds the
+         device ring after the run to the stream's last 16 s bit for bit,
+         counter included; holds the events of the first 5 s to the plain
+         engine on the CPU and the classifier to its plain version on the
+         same windows; holds K1, in place as the step calls it, over those
+         5 s to the plain detector (events and state), the locate kernel,
+         in place, to its plain version on their fired and quiet blocks,
+         and the ring write to its plain version on the engine's ring with
+         the head wrapping; times the step (graph replays, a graph of 256
+         steps, eager), K1 at [128, 3] per launch in a graph of launches
+         beside detector.cu and an empty kernel, the ring write, the
+         locate kernel on quiet and fired blocks, and K3 at the
+         classifier's shape, held there to the witness gate too
+         (``tools/step_bench``).
 
 Prints one ``{"kernels": [...]}`` line (K1 as three rows: ``detector``,
 the pipe, the fleet path's; ``detector_warp``, the warp-per-channel kernel
@@ -84,7 +89,8 @@ launch; K3 as three rows: ``conv_stack_mma`` in bfloat16, the fleet path's,
 ``conv_stack_mma_classifier``, the same kernel at the realtime classifier's
 shape and with its launches; ``conv_stack_f32`` in float32, golden mode,
 which no path launches; ``locate_block``, the realtime engine's locate
-step, which replaces no TPU kernel, timed on fired blocks).  Launch counts
+step, which replaces no TPU kernel, timed on fired blocks; ``ring_write``,
+the engine's audio-ring write, which replaces no TPU kernel either).  Launch counts
 are the sums over the paths that phases 2-4 drive, each from counts set to
 0 just before it.  Last comes ``{"ok": true, "device": {...}}``.
 """
@@ -332,7 +338,7 @@ def phase_gather(report, x):
     return ow.gather_hit_windows(x, starts, sids, 4, WINDOW, PRE, True)
 
 
-def gate_far(k, p, x, ws, bs, tag):
+def gate_far(k, p, x, ws, bs, tag, padding=1, activation="silu"):
     """K3 bf16 against plain (``tools/conv_stack_gate.gate``): few signals
     more than about one bf16 ulp apart, each but a few explained by one
     bf16 rounding flipped at a near-tie.  Every far signal is saved for
@@ -346,10 +352,11 @@ def gate_far(k, p, x, ws, bs, tag):
         unexplained_limit,
     )
 
-    far, bad = gate(k, p, x, ws, bs)
+    far, bad = gate(k, p, x, ws, bs, padding, activation)
     where = ""
     if len(far):
-        path = save_far(FAR_DIR / f"chip_smoke_{tag}.pt", far, x, ws, bs, k, p)
+        path = save_far(FAR_DIR / f"chip_smoke_{tag}.pt", far, x, ws, bs, k, p,
+                        padding, activation)
         where = f", saved to {path}"
     check(passes(far, bad, len(x)),
           f"K3 {tag}: {len(far)} signals more than one bf16 ulp from plain "
@@ -822,8 +829,8 @@ def phase_realtime(report, cpu_ref):
     types, names = graph_nodes(eng._graph.graph)
     log(f"the captured step: {sum(types.values())} graph nodes {types}: "
         f"{names}")
-    check(types == {"kernel": 2}, "the captured step holds other nodes than "
-          "its two kernels")
+    check(types == {"kernel": 3}, "the captured step holds other nodes than "
+          "its three kernels")
     model = sim.classifier(0)
     eng.attach_classifier(model, window=sim.CLS_WINDOW, pre=sim.CLS_PRE,
                           capacity=sim.CLS_CAPACITY)
@@ -841,16 +848,19 @@ def phase_realtime(report, cpu_ref):
           f"{n_blocks} steps + the warmup")
     check(_cuda.LOCATE_BLOCK.launches == n_blocks,
           f"the locate kernel launched {_cuda.LOCATE_BLOCK.launches} times")
+    check(_cuda.RING_WRITE.launches == n_blocks,
+          f"the ring write launched {_cuda.RING_WRITE.launches} times")
     k3 = kernel_for(sim.CLS_WINDOW, [m.weight for m in model.convs], 1,
                     torch.bfloat16)
     check(k3.launches > 0 and all(k.launches == 0 for k in _cuda.KERNELS
                                   if k not in (_cuda.DETECTOR_WARP,
+                                               _cuda.RING_WRITE,
                                                _cuda.LOCATE_BLOCK, k3)),
           f"the classifier's K3 ({k3.name}) did not launch, or another "
           "kernel did")
     log(f"classifier: K3 route for B = {3 * sim.CLS_CAPACITY} signals of "
         f"L = {sim.CLS_WINDOW}: {k3.name} ({k3.launches} launches)")
-    for name in ("detector_warp", "locate_block"):
+    for name in ("detector_warp", "ring_write", "locate_block"):
         report["_launches"][name] = (report["_launches"].get(name, 0)
                                      + counts[name][0])
     report["_launches"]["classifier"] = counts[k3.name][0]
@@ -867,6 +877,20 @@ def phase_realtime(report, cpu_ref):
           and bool(np.isfinite(preds).all()),
           f"classifier predictions {None if preds is None else preds.shape}")
     check(eng.classify_stale == 0, "stale classifications")
+
+    # the device ring the steps wrote: the stream's last `cap` samples at
+    # their slots (frame s at s mod cap), and the counter at every sample
+    ring = eng.state.ring
+    cap, n_fed = ring.capacity, 128 * n_blocks
+    lo = max(0, n_fed - cap)
+    want = np.zeros((cap, 3), np.float32)
+    want[np.arange(lo, n_fed) % cap] = audio[lo:n_fed]
+    check(int(ring.counter) == n_fed and np.array_equal(
+        ring.data.cpu().numpy(), want),
+          "the device ring differs from the stream's last samples")
+    log(f"device ring after the run: counter {int(ring.counter)} = "
+        f"{n_blocks} x 128, its {cap} frames bit-identical to the stream's "
+        f"last {n_fed - lo} samples")
 
     # the classifier on the card against its plain version on the CPU, on
     # the same ring windows: the last 48 hits, B = 48 signals per call
@@ -1052,7 +1076,45 @@ def phase_realtime(report, cpu_ref):
                                   peak=F32_FLOPS)
     report["_realtime"] = dict(step_nodes=types, replay_ms=rep,
                                step_ms=steps["step_ms"], k1=k1, locate=loc)
+    ring_check(report, eng.state.ring, blocks)
     classifier_k3(report, model)
+
+
+def ring_check(report, engine_ring, blocks):
+    """The ring write (``csrc/ring_write.cu``) against its plain version
+    (``core/ring_buffer.ring_write``) on a copy of the engine's ring, the
+    head 50 frames before the ring's end so the blocks wrap: data and
+    counter bit for bit after each of 8 blocks; then both timed per call
+    in a graph of calls."""
+    from onset_fingerprinting_torch.core.ring_buffer import (
+        RingBuffer,
+        ring_write,
+    )
+    from onset_fingerprinting_torch.ops.ring_write import write_block
+    from onset_fingerprinting_torch.tools.step_bench import graph_ms
+
+    cap = engine_ring.capacity
+    rk = RingBuffer(engine_ring.data.clone(), engine_ring.counter.clone())
+    rk.counter.fill_(cap - 50)
+    rp = RingBuffer(rk.data.clone(), rk.counter.clone())
+    for i in range(8):
+        blk = blocks[1000 + i]
+        write_block(rk, blk)
+        rp = ring_write(rp, blk)
+        check(torch.equal(rk.data, rp.data)
+              and torch.equal(rk.counter, rp.counter),
+              f"ring write differs from plain at block {i}")
+    xb = blocks[1000]
+    ms = graph_ms([lambda: write_block(rk, xb)] * 128)
+    plain_ms = graph_ms([lambda: ring_write(rp, xb)] * 16)
+    b_n, c = xb.shape
+    report["ring_write"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                library_ms=None, bytes=2 * b_n * c * 4 + 8,
+                                ops=0, peak=F32_FLOPS)
+    log(f"ring write (ring_write.cu) at [{b_n}, {c}] into [{cap}, {c}], the "
+        f"head wrapping: data and counter bit-identical to plain over 8 "
+        f"blocks; {ms:.5f} ms per launch in a graph of 128 launches, plain "
+        f"(6 kernels) {plain_ms:.5f} ms per call in a graph of calls")
 
 
 def classifier_k3(report, model):
@@ -1087,6 +1149,8 @@ def classifier_k3(report, model):
                > 3e-2 + 2e-2 * p.float().abs()).sum())
     check(bad == 0, f"K3 at the classifier's shape: {bad} values outside "
           f"atol 3e-2 rtol 2e-2 (max err {err})")
+    far = gate_far(k, p, x, [w.detach() for w in ws],
+                   [b.detach() for b in bs], "classifier", pad, act)
     wl = [w.detach().to(dt) for w in ws]
     bl = [b.detach().to(dt) for b in bs]
     xl = x.to(dt)[:, None, :]
@@ -1116,7 +1180,7 @@ def classifier_k3(report, model):
     log(f"K3 bf16 at the classifier's shape B = {b_n}, L = {sim.CLS_WINDOW}"
         f": {ms:.5f} ms per call in a graph of calls, cuDNN bf16 chain "
         f"{lib_ms:.5f} ms, plain {plain_ms:.3f} ms (one call); max err "
-        f"{err:.3g} vs plain; {flops / 1e6:.1f} MFLOP useful")
+        f"{err:.3g} vs plain{far}; {flops / 1e6:.1f} MFLOP useful")
 
 
 def main() -> int:
@@ -1205,6 +1269,10 @@ def main() -> int:
         "locate_block": ("onset_fingerprinting_torch/csrc/locate_block.cu",
                          "onset_fingerprinting_tpu/realtime/engine.py:249",
                          "locate_block"),
+        # no TPU kernel either: the JAX engine's ring scatter
+        "ring_write": ("onset_fingerprinting_torch/csrc/ring_write.cu",
+                       "onset_fingerprinting_tpu/core/ring_buffer.py:68",
+                       "ring_write"),
     }
     kernels = []
     for name, (src, replaces, counter) in sources.items():

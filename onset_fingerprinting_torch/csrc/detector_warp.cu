@@ -33,15 +33,10 @@
 // - The coupled off-check's row is the block's largest first-onset row
 //   across all channels (pallas_detector.py:307-309): one slot per warp in
 //   shared memory, one barrier, one __reduce_max_sync.
-// - The realtime engine's ring write is folded in: given the ring, the CTA
-//   writes each staged block into it (core/ring_buffer.ring_write) and
-//   advances its counter, so the engine's step needs no kernels of its own
-//   for it.
-//
 // State is updated in place: each warp reads its channel's state before the
 // first barrier and lane 0 writes it back after the last, and every thread
-// reads bt_pos and the ring counter before the first barrier, so the
-// wrapper may pass the same buffers as input and output.
+// reads bt_pos before the first barrier, so the wrapper may pass the same
+// buffers as input and output.
 //
 // Numerics: compiled with -fmad=false, so every multiply and add rounds on
 // its own as the element-wise plain PyTorch version does, and log2f/exp2f
@@ -86,13 +81,6 @@ __device__ __forceinline__ void stage(float* cols, const float* x, int blk,
     asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// ring slot of stream frame counter + k, as torch.remainder of the int32 sum
-__device__ __forceinline__ int ring_slot(int counter, int k, int cap) {
-    const int s = (int)((unsigned)counter + (unsigned)k);
-    const int r = s % cap;
-    return r < 0 ? r + cap : r;
-}
-
 __device__ __forceinline__ float bt_row(const float* bt, int pos, int r,
                                         int nbt, int C, int c) {
     return bt[(size_t)((pos + r) % nbt) * C + c];
@@ -103,8 +91,7 @@ __global__ void __launch_bounds__(32 * MAX_CH) detector_warp_kernel(
     const float* __restrict__ off_p, float* zi, float* fast, float* slow,
     float* mn_s, float* mx_s, uint8_t* gate_s, float* prev_s, int32_t* deb_s,
     float* bt, const int32_t* bt_pos_in, int32_t* bt_pos_out,
-    uint8_t* on_out, int32_t* delta_out, float* rel_out, float* ring,
-    int32_t* ring_count, int ring_cap) {
+    uint8_t* on_out, int32_t* delta_out, float* rel_out) {
     extern __shared__ float smem[];  // two stages of [C][bsz + 1]
     __shared__ int blk_on[MAX_CH];
     const int C = p.C, bsz = p.bsz, ld = bsz + 1;
@@ -114,7 +101,6 @@ __global__ void __launch_bounds__(32 * MAX_CH) detector_warp_kernel(
     // everything read here precedes the first barrier: the writes after the
     // last one may go to the same buffers
     int pos = bt_pos_in[0];
-    const int counter = ring ? ring_count[0] : 0;
     float z0 = 0.f, z1 = 0.f, z2 = 0.f, z3 = 0.f;
     if (p.use_iir) {
         z0 = zi[c];
@@ -138,12 +124,6 @@ __global__ void __launch_bounds__(32 * MAX_CH) detector_warp_kernel(
         __syncthreads();
         if (blk + 1 < nb)
             stage(smem + ((blk + 1) & 1) * C * ld, x, blk + 1, bsz, C, ld);
-        if (ring) {
-            for (int t = lane; t < bsz; t += 32)
-                ring[(size_t)ring_slot(counter, blk * bsz + t, ring_cap) * C +
-                     c] = col[t];
-            __syncwarp();
-        }
         // DF2T high-pass: a chain, on lane 0
         if (p.use_iir) {
             if (lane == 0) {
@@ -307,10 +287,7 @@ __global__ void __launch_bounds__(32 * MAX_CH) detector_warp_kernel(
         prev_s[c] = prev;
         deb_s[c] = (int32_t)deb;
     }
-    if (threadIdx.x == 0) {
-        bt_pos_out[0] = pos;
-        if (ring) ring_count[0] = (int)((unsigned)counter + (unsigned)p.T);
-    }
+    if (threadIdx.x == 0) bt_pos_out[0] = pos;
 }
 
 extern "C" const char* ofpt_error_string(int code) {
@@ -319,8 +296,7 @@ extern "C" const char* ofpt_error_string(int code) {
 
 // One launch over a whole chunk x [T, C], C <= 32, on one CTA of 32 * C
 // threads.  The state buffers are updated in place (bt_pos_in may be
-// bt_pos_out).  `ring` (nullable) is a [ring_cap, C] float ring that each
-// block is written to at ring_count, which advances by T.
+// bt_pos_out).
 extern "C" int ofpt_detect_warp(const DetParams* hp, const float* x,
                                 const float* on_p, const float* off_p,
                                 float* zi, float* fast, float* slow, float* mn,
@@ -328,12 +304,10 @@ extern "C" int ofpt_detect_warp(const DetParams* hp, const float* x,
                                 int32_t* deb, float* bt,
                                 const int32_t* bt_pos_in, int32_t* bt_pos_out,
                                 uint8_t* on_out, int32_t* delta_out,
-                                float* rel_out, float* ring,
-                                int32_t* ring_count, int ring_cap,
-                                void* stream) {
+                                float* rel_out, void* stream) {
     cudaGetLastError();  // clear an error left by earlier, unrelated work
     const DetParams p = *hp;
-    if (p.C < 1 || p.C > MAX_CH || p.bsz < 1 || (ring && ring_cap < 1))
+    if (p.C < 1 || p.C > MAX_CH || p.bsz < 1)
         return (int)cudaErrorInvalidValue;
     const size_t smem = (size_t)2 * p.C * (p.bsz + 1) * sizeof(float);
     if (smem > 48 * 1024) {
@@ -344,7 +318,6 @@ extern "C" int ofpt_detect_warp(const DetParams* hp, const float* x,
     }
     detector_warp_kernel<<<1, 32 * p.C, smem, (cudaStream_t)stream>>>(
         p, x, on_p, off_p, zi, fast, slow, mn, mx, gate, prev, deb, bt,
-        bt_pos_in, bt_pos_out, on_out, delta_out, rel_out, ring, ring_count,
-        ring_cap);
+        bt_pos_in, bt_pos_out, on_out, delta_out, rel_out);
     return (int)cudaGetLastError();
 }

@@ -148,11 +148,10 @@ DETECTOR = Kernel(
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )
-# K1 in the coupled mode at C <= 32, one warp per channel, with the
-# realtime engine's ring write folded in
+# K1 in the coupled mode at C <= 32, one warp per channel
 DETECTOR_WARP = Kernel(
     "detector_warp", "detector_warp.cu",
-    {"ofpt_detect_warp": [_P] * 20 + [_I, _P]},
+    {"ofpt_detect_warp": [_P] * 19},
     # the same rounding as detector.cu and the plain version
     extra_flags=("-fmad=false",),
 )
@@ -196,6 +195,12 @@ LOCATE_BLOCK = Kernel(
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )
+# the realtime engine's audio-ring write (no TPU kernel: a scatter in the
+# JAX engine's XLA program), in place
+RING_WRITE = Kernel(
+    "ring_write", "ring_write.cu",
+    {"ofpt_ring_write": [_P, _P, _P, _I, _I, _I, _P]},
+)
 KERNELS = (DETECTOR, DETECTOR_WARP, DETECTOR_PIPE, GATHER, CONV_STACK,
            CONV_STACK_MMA, GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC,
-           LOCATE_BLOCK)
+           LOCATE_BLOCK, RING_WRITE)

@@ -15,8 +15,7 @@ which:
 - ``coupled_off=True`` (a barrier across all channels per block) at most
   ``WARP_MAX_CHANNELS`` channels (the realtime engine's): ``csrc/
   detector_warp.cu`` (counter ``_cuda.DETECTOR_WARP``), one CTA, one warp
-  per channel, the element-wise passes spread over the lanes.  It can also
-  write each block to the engine's audio ring (``ring=``);
+  per channel, the element-wise passes spread over the lanes;
 - ``coupled_off=True`` with more channels (at most 1024):
   ``csrc/detector.cu`` (counter ``_cuda.DETECTOR``), one thread per
   channel.  So does a block size the pipe has no plan for (not a multiple
@@ -42,7 +41,6 @@ from typing import NamedTuple
 import torch
 
 from onset_fingerprinting_torch.core.config import DetectorConfig
-from onset_fingerprinting_torch.core.ring_buffer import RingBuffer, ring_write
 from onset_fingerprinting_torch.core.tree import write_into
 from onset_fingerprinting_torch.detect.amplitude import (
     DetectorParams,
@@ -180,8 +178,7 @@ def detector_static(static: _Static, params: DetectorParams
 
 
 def _check(fstatic: FusedDetectorStatic, params: DetectorParams,
-           state: DetectorState, x: torch.Tensor, out=None,
-           ring: RingBuffer | None = None) -> None:
+           state: DetectorState, x: torch.Tensor, out=None) -> None:
     s = fstatic.plain
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 [T, C] tensor")
@@ -215,40 +212,30 @@ def _check(fstatic: FusedDetectorStatic, params: DetectorParams,
             o.shape != v.shape or o.dtype != v.dtype or o.device != v.device
             or not o.is_contiguous() for o, v in zip(out, state, strict=True)):
         raise ValueError("out must be a contiguous state like the input's")
-    if ring is not None and (
-            ring.data.dtype != torch.float32 or ring.data.dim() != 2
-            or ring.data.shape[1] != c or not ring.data.is_contiguous()
-            or ring.counter.dtype != torch.int32 or ring.counter.dim() != 0
-            or ring.data.device != x.device
-            or ring.counter.device != x.device):
-        raise ValueError(f"the ring must be float32 [N, {c}] with a 0-d "
-                         "int32 counter, on x's device")
 
 
 def _launch(fstatic: FusedDetectorStatic, params: DetectorParams,
             state: DetectorState, x: torch.Tensor, emit_rel: bool,
-            warmup: bool, kernel: _cuda.Kernel | None = None, out=None,
-            ring: RingBuffer | None = None):
+            warmup: bool, kernel: _cuda.Kernel | None = None, out=None):
     """Launch ``kernel`` (default: :func:`kernel_for`'s) over the chunk.
     Only a measurement names another kernel, to time one kernel on a shape
     another one takes."""
     kernel, entry, args, res, _keep = launch_args(
-        fstatic, params, state, x, emit_rel, warmup, kernel, out, ring)
+        fstatic, params, state, x, emit_rel, warmup, kernel, out)
     kernel.launch(entry, *args)
     return res
 
 
 def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
                 state: DetectorState, x: torch.Tensor, emit_rel: bool,
-                warmup: bool, kernel: _cuda.Kernel | None = None, out=None,
-                ring: RingBuffer | None = None):
+                warmup: bool, kernel: _cuda.Kernel | None = None, out=None):
     """``(kernel, C entry, its arguments, (new_state, (on, deltas, rel)),
     keep)`` of one launch: the outputs allocated (the new state is ``out``,
     or fresh copies of ``state``), nothing launched.  Hold ``keep`` (the
     parameter block and scratch the arguments point to) until the launch.
     The kernel updates the new state in place, so calling the entry again
     carries it on (a measurement times the bare entry so)."""
-    _check(fstatic, params, state, x, out, ring)
+    _check(fstatic, params, state, x, out)
     s = fstatic.plain
     if kernel is None:
         kernel = kernel_for(s)
@@ -264,9 +251,6 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
         raise ValueError(f"the warp-per-channel detector takes at most "
                          f"{WARP_MAX_CHANNELS} channels and a block that "
                          "fits its shared memory")
-    if ring is not None and not warp:
-        raise ValueError(f"the ring write is folded into detector_warp.cu "
-                         f"only; this detector runs on {kernel.name}")
     t, c = x.shape
     bsz = s.block_size
     nb = t // bsz
@@ -321,10 +305,8 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
         return (kernel, "ofpt_detect_pipe", (*args, _cuda.stream()), res,
                 (p, bt_in))
     if warp:
-        ring_args = (None, None, 0) if ring is None else (
-            ring.data.data_ptr(), ring.counter.data_ptr(), ring.capacity)
-        return (kernel, "ofpt_detect_warp", (*args, *ring_args,
-                                             _cuda.stream()), res, (p, bt_in))
+        return (kernel, "ofpt_detect_warp", (*args, _cuda.stream()), res,
+                (p, bt_in))
     if s.coupled_off:
         threads = -(-c // 32) * 32
         blocks = 1
@@ -341,25 +323,19 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
 
 def fused_detect_offline(fstatic: FusedDetectorStatic, params: DetectorParams,
                          state: DetectorState, x: torch.Tensor,
-                         emit_rel: bool = True, out=None,
-                         ring: RingBuffer | None = None):
+                         emit_rel: bool = True, out=None):
     """Detector over ``x [T, C]`` (T a multiple of the block size) →
     ``(new_state, (on [nb, C] bool, deltas [nb, C] int32, rel [T, C] or
     None))``, the contract of ``detect_offline``.  ``emit_rel=False``
     writes no relative envelope.  ``out``: a state to write the new state
-    into (it may be ``state``); the new state is then ``out``.  ``ring``:
-    a ring that ``x`` is written to in place, data and counter
-    (``ring_write``); on the card only where :func:`kernel_for` is the
-    warp-per-channel kernel, which writes it."""
+    into (it may be ``state``); the new state is then ``out``."""
     if x.device.type == "cpu":
         kernel_for(fstatic.plain).plain_calls += 1
         st, (on, d, rel) = detect_offline(fstatic.plain, params, state, x,
                                           out=out)
-        if ring is not None:
-            write_into(ring, ring_write(ring, x))
         return st, (on, d, rel if emit_rel else None)
     return _launch(fstatic, params, state, x, emit_rel, warmup=False,
-                   out=out, ring=ring)
+                   out=out)
 
 
 def fused_warmup_minmax(fstatic: FusedDetectorStatic, params: DetectorParams,

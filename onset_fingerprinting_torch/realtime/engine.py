@@ -9,14 +9,15 @@ fixed-capacity, branch-free PyTorch function
 
 with static shapes, no host read and no Python branch on a device value,
 so that it can be captured once in a ``torch.cuda.CUDAGraph`` and replayed
-per block: the replay is the counterpart of the single program.  Two
+per block: the replay is the counterpart of the single program.  Three
 kernels carry it on the card: the detector K1 (``ops/fused_detector``; the
 engine's config couples the channels' off-gate at 3 channels, so
-``csrc/detector_warp.cu``, which also writes the block to the audio ring)
-and the locate step (``ops/locate_block``, ``csrc/locate_block.cu``: the
-locator's masked slot table, the event-queue push and the sample counter
-in one launch).  The step runs in place (``out=`` the state it was
-given), so the captured graph is those two kernels and no copies.
+``csrc/detector_warp.cu``), the audio ring's write (``ops/ring_write``,
+``csrc/ring_write.cu``) and the locate step (``ops/locate_block``,
+``csrc/locate_block.cu``: the locator's masked slot table, the event-queue
+push and the sample counter in one launch).  The step runs in place
+(``out=`` the state it was given), so the captured graph is those three
+kernels and no copies.
 
 :class:`RealtimeEngine` is the host shim: the per-block call, the device
 event queue drained by :meth:`~RealtimeEngine.harvest` with one packed
@@ -47,7 +48,6 @@ from onset_fingerprinting_torch.core.ring_buffer import (
     RingBuffer,
     ring_init,
     ring_read_last,
-    ring_write,
 )
 from onset_fingerprinting_torch.core.tree import write_into
 from onset_fingerprinting_torch.detect.amplitude import (
@@ -66,13 +66,13 @@ from onset_fingerprinting_torch.ops.fused_detector import (
     detector_static,
     fused_detect_offline,
     fused_warmup_minmax,
-    kernel_for,
 )
 from onset_fingerprinting_torch.ops.locate_block import (
     EventQueue,
     LocateBlock,
     locate_block,
 )
+from onset_fingerprinting_torch.ops.ring_write import write_block
 from onset_fingerprinting_torch.realtime.actions import Actions, Location
 
 
@@ -169,9 +169,6 @@ def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
     dev = resolve_device(device)
     static, params, dstate = detector_init(cfg, dev)
     fstatic = detector_static(static, params)
-    # K1's warp-per-channel kernel writes the ring; another K1 leaves it to
-    # ring_write
-    ring_in_k1 = kernel_for(static) is _cuda.DETECTOR_WARP
     lb = LocateBlock(locator, cfg.n_channels, cfg.block_size,
                      capacity=capacity, cc_refine=cc_refine, model=model,
                      model_input=model_input, device=dev)
@@ -197,11 +194,9 @@ def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
                            state.ev_count)
         dstate, (on, deltas, _) = fused_detect_offline(
             fstatic, params_, state.detector, block, emit_rel=False,
-            out=state.detector, ring=state.ring if ring_in_k1 else None)
+            out=state.detector)
         on, deltas = on[0], deltas[0]
-        ring = state.ring
-        if not ring_in_k1:
-            ring = write_into(state.ring, ring_write(ring, block))
+        ring = write_block(state.ring, block)
         extra = ()
         if cc_refine:
             # a fixed-length window of live audio ending now, for onset-lag

@@ -1,4 +1,5 @@
-"""The realtime engine's per-block step on the card, and its two kernels.
+"""The realtime engine's per-block step on the card, K1 and the locate
+kernel.
 
 At the engine's configuration (``tools/realtime_sim``: 3 sensors, 128-sample
 blocks, coupled K1, the locate kernel) over the first seconds of the
@@ -170,16 +171,19 @@ def step_graph(eng, blocks, steps=256):
 
 def locate_calls(audio, blocks, seconds):
     """The locate kernel's inputs on the stream's first ``seconds``, from
-    K1 (the routed kernel) one block per launch after the warmup: the
-    initial locator state and queue, ``(on, deltas, counter)`` of the quiet
-    blocks (the first 64) and of the fired ones in stream order, and K1's
-    ``(on [nb, 3], deltas [nb, 3], final state, warmed state)``."""
+    K1 (the routed kernel) one block per launch after the warmup, called as
+    the engine's step calls it (``out=`` the state itself, where the
+    checkout's K1 takes ``out``): the initial locator state and queue,
+    ``(on, deltas, counter)`` of the quiet blocks (the first 64) and of the
+    fired ones in stream order, and K1's ``(on [nb, 3], deltas [nb, 3],
+    final state, warmed state)``."""
     from onset_fingerprinting_torch.core.config import DetectorConfig
     from onset_fingerprinting_torch.locate.multilaterate import (
         LocatorState,
         locator_init,
     )
     from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_detect_offline,
         fused_warmup_minmax,
         make_fused_detector,
     )
@@ -188,12 +192,19 @@ def locate_calls(audio, blocks, seconds):
 
     cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
                          sr=sim.SR)
-    fst, params, st0, run = make_fused_detector(cfg, emit_rel=False)
+    fst, params, st0, functional = make_fused_detector(cfg, emit_rel=False)
     warm = fused_warmup_minmax(fst, params, st0, torch.as_tensor(
         audio[: sim.WARMUP // 128 * 128], device="cuda"))
+    in_place = "out" in inspect.signature(fused_detect_offline).parameters
+
+    def run(det, x):
+        if in_place:
+            return fused_detect_offline(fst, params, det, x, False, out=det)
+        return functional(det, x)
+
     i32 = dict(dtype=torch.int32, device="cuda")
     quiet, fired, ons, ds = [], [], [], []
-    det = warm
+    det = type(warm)(*(v.clone() for v in warm))
     for i in range(int(seconds * sim.SR) // 128):
         det, (on, d, _) = run(det, blocks[i])
         ons.append(on)

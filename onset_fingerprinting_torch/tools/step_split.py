@@ -1,5 +1,5 @@
 """Where the realtime engine's per-block step spends its time on the card,
-split inside its two kernels.
+split inside K1 and the locate kernel (the ring write is a bare copy).
 
 At the engine's configuration (``tools/realtime_sim``: 3 sensors, 128-sample
 blocks, coupled K1, the locate kernel), with the timing and graph reading of
@@ -45,7 +45,8 @@ from onset_fingerprinting_torch.tools.step_bench import (
 _CUT = "yf += col[bsz - 1];\n        continue;\n"
 #: K1 variants, cumulative: (name, anchor, replacement)
 K1_STEPS = (
-    ("load", "        if (ring) {\n", "        " + _CUT + "        if (ring) {\n"),
+    ("load", "        // DF2T high-pass: a chain",
+     "        " + _CUT + "        // DF2T high-pass: a chain"),
     ("db", "        // fast and slow envelopes,",
      "        " + _CUT + "        // fast and slow envelopes,"),
     ("env", "        // dB difference -> clipped linear",

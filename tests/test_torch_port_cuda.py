@@ -627,8 +627,8 @@ def test_engine_graph_replay_equals_eager_and_cpu():
     """The engine's step replayed from its CUDA graph against the same
     step run eagerly on the card (identical state) and the plain engine on
     the CPU (identical onsets and emit stamps, points within 1e-3 cm);
-    every replay counts one launch of K1 and of the locate kernel, and no
-    plain version runs."""
+    every replay counts one launch of K1, of the ring write and of the
+    locate kernel, and no plain version runs."""
     from onset_fingerprinting_torch.core.tree import leaves
     from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.realtime.engine import (
@@ -656,6 +656,7 @@ def test_engine_graph_replay_equals_eager_and_cpu():
     assert g[2]["detector_warp"] == (len(blocks) + 1, 0)  # + the warmup
     assert g[2]["detector"] == (0, 0)
     assert g[2]["locate_block"] == (len(blocks), 0)
+    assert g[2]["ring_write"] == (len(blocks), 0)
     for u, v in zip(leaves(g[0].state), leaves(st)):
         assert torch.equal(u, v)
     assert [o for o, _ in g[1]] == [o for o, _ in c[1]]
@@ -690,13 +691,8 @@ def _bursts(t, c, seed):
 def test_detector_warp_matches_plain(c, backtrack, hipass):
     """csrc/detector_warp.cu against the plain detector bit for bit: the
     multi-block warmup (prefetched blocks), then detection over 40 blocks
-    functionally and again in place (``out`` = the input state), and the
-    ring it writes against ring_write."""
+    functionally and again in place (``out`` = the input state)."""
     from onset_fingerprinting_torch.core.config import DetectorConfig
-    from onset_fingerprinting_torch.core.ring_buffer import (
-        ring_init,
-        ring_write,
-    )
     from onset_fingerprinting_torch.detect.amplitude import (
         DetectorState,
         detect_offline,
@@ -729,22 +725,14 @@ def test_detector_warp_matches_plain(c, backtrack, hipass):
     assert torch.equal(r_k, r_p)
     for name, a, b in zip(sk._fields, sk, sp):
         assert torch.equal(a, b), name
-    # in place, with the ring: the same events, the state in wk's tensors;
-    # the ring's head starts near its end, so the block wraps around
-    ring = ring_init(6000, (c,), device="cuda")
-    ring.counter.fill_(4000)
-    ring_p = ring_init(6000, (c,), device="cuda")
-    ring_p.counter.fill_(4000)
-    ring_p = ring_write(ring_p, x)
+    # in place: the same events, the state in wk's tensors
     ptrs = [v.data_ptr() for v in wk]
     si, (on_i, d_i, r_i) = fused_detect_offline(fst, params, wk, x, False,
-                                                out=wk, ring=ring)
+                                                out=wk)
     assert si is wk and [v.data_ptr() for v in si] == ptrs and r_i is None
     assert torch.equal(on_i, on_p) and torch.equal(d_i, d_p)
     for name, a, b in zip(DetectorState._fields, si, sp):
         assert torch.equal(a, b), ("in place", name)
-    assert torch.equal(ring.data, ring_p.data)
-    assert torch.equal(ring.counter, ring_p.counter)
     assert (warp.launches, warp.plain_calls, _cuda.DETECTOR.launches) == (
         before[0] + 3, before[1], before[2])
 
@@ -812,13 +800,49 @@ def test_locate_block_in_place_matches_plain():
 
 
 def test_engine_step_graph_has_no_copy_nodes():
-    """The engine's captured step in place: the two kernels (K1 with the
+    """The engine's captured step in place: its three kernels (K1, the
     ring write, the locate kernel with the counter) and nothing else."""
     from onset_fingerprinting_torch.tools.step_bench import graph_nodes
 
     sim, _, _ = _engine_stream(0.01)
     eng = sim.build_engine("cuda", ring_seconds=1.0, event_queue=64)
     types, names = graph_nodes(eng._graph.graph)
-    assert types == {"kernel": 2}, (types, names)
-    assert any("detector_warp" in n for n in names)
-    assert any("locate_block" in n for n in names)
+    assert types == {"kernel": 3}, (types, names)
+    for kernel in ("detector_warp", "ring_write", "locate_block"):
+        assert sum(kernel in n for n in names) == 1, (kernel, names)
+
+
+@pytest.mark.parametrize("cap,b,c,head", [
+    (6000, 128, 3, 0), (6000, 128, 3, 5950), (300, 300, 1, 299),
+    (257, 64, 5, 2 ** 31 - 100), (1536000, 128, 3, 1535900)])
+def test_ring_write_kernel_matches_plain(cap, b, c, head):
+    """csrc/ring_write.cu against core/ring_buffer.ring_write, bit for
+    bit, data and counter, over 7 blocks from a head ``head`` frames
+    along: the head wrapping past the ring's end and the int32 counter
+    past its largest value; in place, one launch per block, no plain
+    call."""
+    from onset_fingerprinting_torch.core.ring_buffer import (
+        ring_init,
+        ring_write,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.ring_write import write_block
+
+    g = torch.Generator("cuda").manual_seed(cap + b + c)
+    ring = ring_init(cap, (c,), device="cuda")
+    ring.data.copy_(torch.randn(ring.data.shape, generator=g,
+                                device="cuda"))
+    ring.counter.fill_(head)
+    ring_p = type(ring)(ring.data.clone(), ring.counter.clone())
+    ptrs = (ring.data.data_ptr(), ring.counter.data_ptr())
+    k = _cuda.RING_WRITE
+    before = (k.launches, k.plain_calls)
+    for i in range(7):
+        blk = torch.randn((b, c), generator=g, device="cuda")
+        got = write_block(ring, blk)
+        ring_p = ring_write(ring_p, blk)
+        assert got is ring
+        assert (ring.data.data_ptr(), ring.counter.data_ptr()) == ptrs
+        assert torch.equal(ring.data, ring_p.data), i
+        assert torch.equal(ring.counter, ring_p.counter), i
+    assert (k.launches, k.plain_calls) == (before[0] + 7, before[1])

@@ -265,8 +265,9 @@ def test_engine_counts_plain_calls_on_the_cpu(stream):
     # the engine's K1 (coupled, 3 channels) is the warp-per-channel kernel
     assert _cuda.DETECTOR_WARP.plain_calls == 4
     assert _cuda.LOCATE_BLOCK.plain_calls == 4
+    assert _cuda.RING_WRITE.plain_calls == 4
     assert _cuda.DETECTOR.plain_calls == 0
-    assert _cuda.DETECTOR_WARP.launches == _cuda.LOCATE_BLOCK.launches == 0
+    assert all(k.launches == 0 for k in _cuda.KERNELS)
 
 
 def test_entry_points_default_to_the_card():

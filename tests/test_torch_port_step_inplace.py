@@ -1,7 +1,8 @@
 """The realtime step's in-place contract on the CPU: the plain detector and
 the plain locate step given ``out=`` (the input state itself) against
-their functional results, the routing of the coupled detector, and the
-in-place engine step against the JAX engine's step.
+their functional results, the routing of the coupled detector, the ring
+write in place against the JAX package's, and the in-place engine step
+against the JAX engine's step.
 
 Inputs are made with numpy from a seed.  Tolerances: the in-place and
 functional runs of one plain version are equal bit for bit (the same
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from onset_fingerprinting_torch.core.config import DetectorConfig
-from onset_fingerprinting_torch.core.ring_buffer import ring_init, ring_write
+from onset_fingerprinting_torch.core.ring_buffer import ring_init
 from onset_fingerprinting_torch.core.tree import leaves, write_into
 from onset_fingerprinting_torch.detect import amplitude as tamp
 from onset_fingerprinting_torch.locate.multilaterate import (
@@ -39,6 +40,7 @@ from onset_fingerprinting_torch.ops.locate_block import (
     locate_block,
     locate_block_reference,
 )
+from onset_fingerprinting_torch.ops.ring_write import write_block
 from onset_fingerprinting_torch.realtime import engine as te
 from onset_fingerprinting_torch.tools import realtime_sim as sim
 
@@ -69,8 +71,7 @@ def _equal(a, b):
 def test_plain_detector_in_place_equals_functional(c, backtrack, hipass):
     """Block by block over a fuzzed stream: the detector written into its
     own input state (``out=state``) gives the functional run's events and
-    state, and its tensors stay the input's; with ``ring=`` the ring holds
-    what ``ring_write`` writes, data and counter."""
+    state, and its tensors stay the input's."""
     cfg = DetectorConfig(n_channels=c, backtrack=backtrack,
                          backtrack_buffer_size=256, hipass_freq=hipass)
     static, params, state0 = tamp.detector_init(cfg, device="cpu")
@@ -84,23 +85,18 @@ def test_plain_detector_in_place_equals_functional(c, backtrack, hipass):
     inplace = tamp.DetectorState(*(v.clone() for v in warm))
     ids = [id(v) for v in inplace]
     func = warm
-    ring = ring_init(1000, (c,))
-    ring_p = ring_init(1000, (c,))
     fired = quiet = 0
     for i in range(20, 80):
         blk = x[128 * i: 128 * (i + 1)]
         func, (on_f, d_f, r_f) = fused_detect_offline(fst, params, func, blk)
         got, (on_i, d_i, r_i) = fused_detect_offline(
-            fst, params, inplace, blk, False, out=inplace, ring=ring)
-        ring_p = ring_write(ring_p, blk)
+            fst, params, inplace, blk, False, out=inplace)
         assert got is inplace and [id(v) for v in got] == ids
         assert r_i is None
         assert torch.equal(on_i, on_f) and torch.equal(d_i, d_f)
         assert _equal(inplace, func), i
         fired += int(on_f.any())
         quiet += int(not on_f.any())
-        assert torch.equal(ring.data, ring_p.data)
-        assert torch.equal(ring.counter, ring_p.counter)
     assert fired >= 5 and quiet >= 5, (fired, quiet)
     # the plain function itself, into another state
     other = tamp.DetectorState(*(torch.empty_like(v) for v in warm))
@@ -199,22 +195,57 @@ def test_coupled_routing_by_channels_and_shared_memory(coupled, bsz, c,
 
 
 def test_launch_args_refuse_what_the_kernels_do_not_take():
-    """The ring goes only to the warp kernel, and ``out`` must be a state
-    shaped like the input: both refused before anything is launched."""
+    """``out`` must be a state shaped like the input, and the ring write
+    takes a block of the ring's channels that fits the ring once: each
+    refused before anything is launched."""
     cfg = DetectorConfig(n_channels=3)
     static, params, state = tamp.detector_init(cfg, device="cpu")
     fst = detector_static(static, params)
     x = torch.zeros((128, 3))
-    ring = ring_init(256, (3,))
-    with pytest.raises(ValueError, match="folded into detector_warp"):
-        launch_args(fst, params, state, x, False, False, _cuda.DETECTOR,
-                    ring=ring)
     bad = state._replace(fast=torch.zeros(4))
     with pytest.raises(ValueError, match="out must be"):
         launch_args(fst, params, state, x, False, False, out=bad)
-    with pytest.raises(ValueError, match="the ring must be"):
-        launch_args(fst, params, state, x, False, False,
-                    ring=ring_init(256, (4,)))
+    calls = _cuda.RING_WRITE.plain_calls
+    with pytest.raises(ValueError, match="does not fit"):
+        write_block(ring_init(100, (3,)), x)
+    with pytest.raises(ValueError, match="the block must be"):
+        write_block(ring_init(256, (4,)), x)
+    with pytest.raises(ValueError, match="counter must be"):
+        write_block(ring_init(256, (3,))._replace(
+            counter=torch.zeros((), dtype=torch.int64)), x)
+    assert _cuda.RING_WRITE.plain_calls == calls
+
+
+@pytest.mark.parametrize("cap,b,c,head", [
+    (1000, 128, 3, 0), (1000, 128, 3, 950), (300, 300, 1, 299),
+    (257, 64, 5, 5000)])
+def test_write_block_matches_jax_ring_write(cap, b, c, head):
+    """The ring write the engine's step runs (``write_block``, in place),
+    block by block from a head ``head`` frames along, against the JAX
+    package's ``ring_write``: the same data and counter, bit for bit, the
+    head wrapping past the ring's end; the ring's tensors stay its own."""
+    from onset_fingerprinting_tpu.core.ring_buffer import (
+        RingBuffer as JRing,
+        ring_write as jax_ring_write,
+    )
+
+    rng = np.random.default_rng(cap + b + c)
+    data0 = rng.normal(size=(cap, c)).astype(np.float32)
+    ring = ring_init(cap, (c,))
+    ring.data.copy_(torch.as_tensor(data0))
+    ring.counter.fill_(head)
+    ids = (id(ring.data), id(ring.counter))
+    jr = JRing(jnp.asarray(data0), jnp.asarray(head, dtype=jnp.int32))
+    calls = _cuda.RING_WRITE.plain_calls
+    for i in range(7):
+        blk = rng.normal(size=(b, c)).astype(np.float32)
+        got = write_block(ring, torch.as_tensor(blk))
+        jr = jax_ring_write(jr, jnp.asarray(blk))
+        assert got is ring and (id(got.data), id(got.counter)) == ids
+        np.testing.assert_array_equal(ring.data.numpy(),
+                                      np.asarray(jr.data), err_msg=str(i))
+        assert int(ring.counter) == int(jr.counter) == head + (i + 1) * b
+    assert _cuda.RING_WRITE.plain_calls == calls + 7
 
 
 def test_write_into_skips_shared_leaves():
