@@ -1,39 +1,55 @@
 // Fused stride-1 Conv1d stack (K3) on the CUDA cores, for Hopper, sm_90a.
-// It runs every float32 stack (golden mode) and the bfloat16 stacks that
-// the tensor-core kernel, conv_stack_mma.cu, cannot hold in shared memory
+// It runs every float32 stack and the bfloat16 stacks that the
+// tensor-core kernel, conv_stack_mma.cu, has no plan for
 // (ops/conv_stack.py::kernel_for); the flagship's bf16 stack takes that one.
 //
 // Replaces onset_fingerprinting_tpu/ops/pallas_conv.py:_stack_kernel_unrolled
-// (the serving body) and _stack_kernel (body='looped'), both reached through
-// conv_stack_fused: a chain of stride-1 Conv1d layers with the same zero
-// padding on every layer and bias + activation after every layer (the last
-// included), [B, L] -> [B, T_out, O_last].  The flagship CCCNN stack is
-// 1 -> 5 x 7 features with kernels (1, 33, 64, 15, 15, 15, 1).
+// (:187, the serving body) and _stack_kernel (:249, body='looped'), both
+// launched at :523 by conv_stack_fused, where a float32 stack takes the
+// three-pass Precision.HIGHEST band products (:500-508): a chain of stride-1
+// Conv1d layers with the same zero padding on every layer and bias +
+// activation after every layer (the last included), [B, L] ->
+// [B, T_out, O_last].  The flagship CCCNN stack is 1 -> 5 x 7 features
+// with kernels (1, 33, 64, 15, 15, 15, 1).
 //
 // What bounds it on the H100: operations.  The flagship stack is ~1.24
 // MFLOP per signal (163 GFLOP for the 131072 serving signals) against ~2.5
-// KB of HBM traffic per signal, so every intermediate must stay on chip.
-// In float32 its bound is the 67 TFLOP/s f32 FMA rate (2.4 ms): bf16 or
-// TF32 tensor cores would break the golden mode's 5e-4 / 1e-4 bound.
+// KB of HBM traffic per signal, so every intermediate stays on chip.  In
+// float32 its bound is the 67 TFLOP/s f32 FMA rate (2.4 ms).  One bf16 or
+// TF32 tensor-core pass would break float32's 5e-4 / 1e-4 bar; a
+// split-precision product (three TF32 passes, as the TPU's HIGHEST takes)
+// would not, but issues three products per band at half the bf16 rate on
+// a band 1.9x the useful work, which puts it behind the FMA units here.
 //
-// What the design does about it: a CTA holds NS signals and all layers'
-// activations live in shared memory in two ping-pong buffers laid out
-// [feature][time row][signal], with `pad` zero rows on both ends of every
-// feature so no tap needs a bounds check.  HBM sees one read of x and one
-// write of the output.  NS is the largest power of two up to 32 whose
-// buffers fit (the flagship: 16 in f32; wider stacks get fewer).  A warp
-// computes a chunk of output positions for all NS signals at once: its lanes are the signals times 32/NS interleaved
-// position phases, so every activation load is 32 consecutive
-// shared-memory elements (no bank conflict) and every weight load is a
-// broadcast.  Each lane keeps 8 positions x up to 8 output features of f32
-// accumulators in registers: one activation load feeds up to 8 FMAs.  The
-// current layer's weights are staged in shared memory, padded to groups of
-// 8 output features.
+// What the design does about it (ops/conv_stack.py::simt_plan is the
+// schedule, written in Python so the CPU tests check it):
+//
+// - One warp per signal, ns signals (warps) per CTA.  A warp keeps its
+//   signal's activations in two ping-pong buffers [feature][row] in shared
+//   memory, with `pad` zero rows at both ends of every feature, so no tap
+//   needs a bounds check, and never waits for another warp inside a layer:
+//   the layer's only barrier is the CTA's one __syncthreads that hands over
+//   the staged weights.  HBM sees one read of x and one write of the output.
+// - A lane task is TT consecutive output positions of one group of OW
+//   output features (TT in {5, 6, 8}, chosen per layer by the plan so the
+//   layer's tasks fill the warp's lanes; OW <= 8).  Along the taps the
+//   lane slides a register window: a block of TT taps needs 2 TT - 1 rows,
+//   of which TT are already in registers, so each (input feature, tap)
+//   costs one activation load from shared memory, one or two 16-byte
+//   broadcast weight loads and TT x OW FMAs into register accumulators.
+// - Lanes read rows TT apart.  Row r of a feature lies at r + r / 32 (one
+//   spare word per 32 rows), so the lanes of a warp meet at most two to a
+//   bank for any TT (without it an even TT sends up to eight lanes to one).
+// - Occupancy: at most 128 registers a thread (__launch_bounds__), and the
+//   plan's ns (the flagship: 8 signals, ~112 KB) lets two CTAs share an SM,
+//   16 resident warps.  A layer's packed weights are staged into one of two
+//   alternating buffers while the previous layer computes.
 //
 // Rounding points mirror the TPU kernel (pallas_conv.py:213-233, 475,
 // 500-508, 535): inputs and weights in the compute dtype, f32
 // accumulation, f32 bias + activation, activations stored in the compute
-// dtype between layers, f32 output.
+// dtype between layers, f32 output.  The activations use the fast exp and
+// division intrinsics (a few ulps, far inside the bar).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,15 +60,14 @@
 // Must match ops/conv_stack.py::_StackDesc field for field.
 struct StackDesc {
     int n_layers, B, L, pad, act, bf16;
-    int buf_len;   // rows per feature buffer: max activation length + 2 pad
+    int ns;        // signals (warps) per CTA
+    int pitch;     // elements of one feature's buffer (skewed rows)
     int max_feat;  // most features of any activation (the input's 1 incl.)
-    int max_w;     // floats of the largest packed layer weight block
-    int max_o8;    // most output features of a layer, rounded up to 8
+    int w_max;     // floats of the largest layer's packed block
     int K[MAX_LAYERS], I[MAX_LAYERS], O[MAX_LAYERS], T_out[MAX_LAYERS];
-    int w_off[MAX_LAYERS], b_off[MAX_LAYERS];
+    int TT[MAX_LAYERS], OW[MAX_LAYERS], n_og[MAX_LAYERS];
+    int w_off[MAX_LAYERS], w_len[MAX_LAYERS];
 };
-
-constexpr int TT = 8;  // output positions per lane per chunk
 
 template <typename S>
 __device__ __forceinline__ float to_f32(S v);
@@ -75,144 +90,201 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 __device__ __forceinline__ float activate(float x, int act) {
     switch (act) {
         case 1: return x > 0.f ? x : 0.f;
-        case 2: return x / (1.f + expf(-x));
+        case 2: return __fdividef(x, 1.f + __expf(-x));
         case 3: return x > 0.f ? x : 0.01f * x;
         case 4: return x > 0.f ? x : expm1f(x);
         case 5: return tanhf(x);
-        case 6: return 1.f / (1.f + expf(-x));
+        case 6: return __fdividef(1.f, 1.f + __expf(-x));
         default: return x;
     }
 }
 
-// One warp: output positions t0 + P*j + phase (j < TT, P = 32 / NS) of OW
-// output features (og*8 ...) for the lane's signal s.  NSC is NS when it is
-// known at compile time (the flagship's f32 count), else 0.
-template <typename S, int NSC, int OW>
-__device__ void conv_unit(const S* __restrict__ cur, S* __restrict__ nxt,
-                          const float* __restrict__ wsm,
-                          const float* __restrict__ bsm, int og, int K, int I,
-                          int T_out, int buf_len, int pad, int act, int t0,
-                          int ns, int phase, int s) {
-    const int NS = NSC ? NSC : ns;
-    const int P = 32 / NS;
-    float acc[TT][OW];
-#pragma unroll
-    for (int j = 0; j < TT; ++j)
-#pragma unroll
-        for (int o = 0; o < OW; ++o) acc[j][o] = 0.f;
-    int rows[TT];
-#pragma unroll
-    for (int j = 0; j < TT; ++j) {
-        const int t = t0 + P * j + phase;
-        rows[j] = (t < T_out ? t : T_out - 1) * NS + s;
+// Buffer row r of a feature (ops/conv_stack.py::skew).
+__device__ __forceinline__ int skew(int r) { return r + (r >> 5); }
+
+template <typename S>
+__device__ __forceinline__ float row(const S* col, int r) {
+    return to_f32<S>(col[skew(r)]);
+}
+
+// The OW weights of one tap (OWP = 4 or 8 floats, 16-byte aligned, the same
+// address for every lane of the group: a broadcast).
+template <int OW>
+__device__ __forceinline__ void tap_weights(const float* p, float (&w)[OW]) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    float v[8] = {a.x, a.y, a.z, a.w, 0.f, 0.f, 0.f, 0.f};
+    if (OW > 4) {
+        const float4 b = *reinterpret_cast<const float4*>(p + 4);
+        v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
     }
-    for (int i = 0; i < I; ++i) {
-        const S* col = cur + (size_t)i * buf_len * NS;
-        const float* wi = wsm + (size_t)(og * I + i) * K * 8;
-        for (int k = 0; k < K; ++k) {
-            float w[OW];
 #pragma unroll
-            for (int o = 0; o < OW; ++o) w[o] = wi[k * 8 + o];
-            const S* ck = col + k * NS;
+    for (int o = 0; o < OW; ++o) w[o] = v[o];
+}
+
+// One warp's share of a layer for its signal: lane tasks u = lane, lane +
+// 32, ... of n_chunks * n_og; task u is feature group g = u / n_chunks at
+// output positions t0 .. t0 + TT - 1, t0 = (u % n_chunks) * TT.  Output
+// position t reads input rows t .. t + K - 1 (a row is a position + pad).
+template <typename S, int TT, int OW>
+__device__ void layer_tasks(const S* __restrict__ cur, S* __restrict__ nxt,
+                            const float* __restrict__ wl, int I, int K, int O,
+                            int T_out, int n_og, int pitch, int pad, int act,
+                            int lane) {
+    constexpr int OWP = OW > 4 ? 8 : 4;
+    const int n_chunks = (T_out + TT - 1) / TT;
+    const float* bias = wl + n_og * I * K * OWP;
+    for (int u = lane; u < n_chunks * n_og; u += 32) {
+        const int g = u / n_chunks;
+        const int t0 = (u - g * n_chunks) * TT;
+        float acc[TT][OW];
 #pragma unroll
-            for (int j = 0; j < TT; ++j) {
-                const float v = to_f32<S>(ck[rows[j]]);
+        for (int j = 0; j < TT; ++j)
 #pragma unroll
-                for (int o = 0; o < OW; ++o) acc[j][o] = fmaf(w[o], v, acc[j][o]);
+            for (int o = 0; o < OW; ++o) acc[j][o] = 0.f;
+        for (int i = 0; i < I; ++i) {
+            const S* col = cur + (size_t)i * pitch;
+            const float* wi = wl + (size_t)(g * I + i) * K * OWP;
+            // a[m]: row t0 + k + m, the window of tap k
+            float a[TT];
+#pragma unroll
+            for (int m = 0; m < TT; ++m) a[m] = row(col, t0 + m);
+            int k = 0;
+            for (; k + TT <= K; k += TT) {
+                float b[TT];  // the next TT rows
+#pragma unroll
+                for (int m = 0; m < TT; ++m) b[m] = row(col, t0 + k + TT + m);
+#pragma unroll
+                for (int kk = 0; kk < TT; ++kk) {
+                    float w[OW];
+                    tap_weights<OW>(wi + (k + kk) * OWP, w);
+#pragma unroll
+                    for (int j = 0; j < TT; ++j) {
+                        const float v = j + kk < TT ? a[j + kk] : b[j + kk - TT];
+#pragma unroll
+                        for (int o = 0; o < OW; ++o)
+                            acc[j][o] = fmaf(w[o], v, acc[j][o]);
+                    }
+                }
+#pragma unroll
+                for (int m = 0; m < TT; ++m) a[m] = b[m];
+            }
+            for (; k < K; ++k) {  // the last K % TT taps, one at a time
+                float w[OW];
+                tap_weights<OW>(wi + k * OWP, w);
+#pragma unroll
+                for (int j = 0; j < TT; ++j)
+#pragma unroll
+                    for (int o = 0; o < OW; ++o)
+                        acc[j][o] = fmaf(w[o], a[j], acc[j][o]);
+#pragma unroll
+                for (int m = 0; m < TT - 1; ++m) a[m] = a[m + 1];
+                a[TT - 1] = row(col, t0 + k + TT);
             }
         }
-    }
+        float bo[OW];
 #pragma unroll
-    for (int j = 0; j < TT; ++j) {
-        const int t = t0 + P * j + phase;
-        if (t < T_out) {
+        for (int o = 0; o < OW; ++o) bo[o] = bias[g * OWP + o];
 #pragma unroll
-            for (int o = 0; o < OW; ++o) {
-                const int f = og * 8 + o;
-                const float y = activate(acc[j][o] + bsm[f], act);
-                nxt[((size_t)f * buf_len + pad + t) * NS + s] = from_f32<S>(y);
+        for (int j = 0; j < TT; ++j) {
+            const int t = t0 + j;
+            if (t < T_out) {
+#pragma unroll
+                for (int o = 0; o < OW; ++o) {
+                    const int f = g * OW + o;
+                    if (f < O)
+                        nxt[(size_t)f * pitch + skew(pad + t)] =
+                            from_f32<S>(activate(acc[j][o] + bo[o], act));
+                }
             }
         }
     }
 }
 
-template <typename S, int NSC>
-__global__ void conv_stack_kernel(StackDesc d, int ns,
-                                  const float* __restrict__ x,
-                                  const float* __restrict__ w,
-                                  const float* __restrict__ bias,
-                                  float* __restrict__ out) {
-    const int NS = NSC ? NSC : ns;
-    const int CH = (32 / NS) * TT;  // output positions per warp task
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const size_t buf_elems = (size_t)d.max_feat * d.buf_len * NS;
-    S* cur = reinterpret_cast<S*>(smem_raw);
-    S* nxt = cur + buf_elems;
-    float* wsm = reinterpret_cast<float*>(nxt + buf_elems);
-    float* bsm = wsm + d.max_w;
+template <typename S>
+__device__ __forceinline__ void run_layer(const StackDesc& d, int l,
+                                          const S* cur, S* nxt,
+                                          const float* wl, int lane) {
+    const int I = d.I[l], K = d.K[l], O = d.O[l], T = d.T_out[l];
+    const int n_og = d.n_og[l], pitch = d.pitch, pad = d.pad, act = d.act;
+#define OFPT_CASE(TT_, OW_)                                                 \
+    case TT_ * 16 + OW_:                                                    \
+        layer_tasks<S, TT_, OW_>(cur, nxt, wl, I, K, O, T, n_og, pitch, pad,\
+                                 act, lane);                                \
+        break;
+#define OFPT_TT(TT_)                                                        \
+    OFPT_CASE(TT_, 1) OFPT_CASE(TT_, 2) OFPT_CASE(TT_, 3) OFPT_CASE(TT_, 4) \
+    OFPT_CASE(TT_, 5) OFPT_CASE(TT_, 6) OFPT_CASE(TT_, 7) OFPT_CASE(TT_, 8)
+    switch (d.TT[l] * 16 + d.OW[l]) {
+        OFPT_TT(5) OFPT_TT(6) OFPT_TT(8)
+    }
+#undef OFPT_TT
+#undef OFPT_CASE
+}
 
-    const int tid = threadIdx.x;
-    const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
-    const int s = lane % NS, phase = lane / NS;
-    const int b0 = blockIdx.x * NS;
+// Copy layer l's packed block (weights, then biases) into shared memory,
+// 16 bytes a thread (blocks start and end on multiples of 4 floats).
+__device__ __forceinline__ void stage(const StackDesc& d, int l,
+                                      const float* __restrict__ w,
+                                      float* dst) {
+    const float4* src = reinterpret_cast<const float4*>(w + d.w_off[l]);
+    float4* out = reinterpret_cast<float4*>(dst);
+    for (int e = threadIdx.x; e < d.w_len[l] / 4; e += blockDim.x)
+        out[e] = src[e];
+}
+
+template <typename S>
+__global__ void __launch_bounds__(512, 1)
+    conv_stack_kernel(StackDesc d, const float* __restrict__ x,
+                      const float* __restrict__ w, float* __restrict__ out) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    float* wbuf = reinterpret_cast<float*>(smem_raw);  // [2][w_max]
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const size_t feat_elems = (size_t)d.max_feat * d.pitch;
+    S* cur = reinterpret_cast<S*>(wbuf + 2 * d.w_max) + warp * 2 * feat_elems;
+    S* nxt = cur + feat_elems;
+    const int b = blockIdx.x * d.ns + warp;
+    const bool live = b < d.B;
     const int pad = d.pad;
 
-    for (size_t e = tid; e < 2 * buf_elems; e += blockDim.x)
+    for (size_t e = lane; e < 2 * feat_elems; e += 32)
         cur[e] = from_f32<S>(0.f);
+    __syncwarp();
+    if (live)
+        for (int t = lane; t < d.L; t += 32)
+            cur[skew(pad + t)] = from_f32<S>(x[(size_t)b * d.L + t]);
+    stage(d, 0, w, wbuf);
     __syncthreads();
-    for (int e = tid; e < NS * d.L; e += blockDim.x) {
-        const int sl = e / d.L, t = e - sl * d.L;
-        const int b = b0 + sl;
-        const float v = b < d.B ? x[(size_t)b * d.L + t] : 0.f;
-        cur[(size_t)(pad + t) * NS + sl] = from_f32<S>(v);
-    }
 
     for (int l = 0; l < d.n_layers; ++l) {
-        const int K = d.K[l], I = d.I[l], O = d.O[l], T_out = d.T_out[l];
-        const int n_og = (O + 7) / 8;
-        __syncthreads();  // previous layer done with wsm, cur complete
-        const int nw = n_og * I * K * 8;
-        for (int e = tid; e < nw; e += blockDim.x) wsm[e] = w[d.w_off[l] + e];
-        for (int e = tid; e < O; e += blockDim.x) bsm[e] = bias[d.b_off[l] + e];
-        __syncthreads();
-        const int n_chunks = (T_out + CH - 1) / CH;
-        for (int u = warp; u < n_chunks * n_og; u += n_warps) {
-            const int og = u % n_og, t0 = (u / n_og) * CH;
-            const int ow = min(8, O - og * 8);
-#define OFPT_UNIT(N)                                                        \
-    case N:                                                                 \
-        conv_unit<S, NSC, N>(cur, nxt, wsm, bsm, og, K, I, T_out, d.buf_len,\
-                             pad, d.act, t0, NS, phase, s);                 \
-        break;
-            switch (ow) {
-                OFPT_UNIT(1) OFPT_UNIT(2) OFPT_UNIT(3) OFPT_UNIT(4)
-                OFPT_UNIT(5) OFPT_UNIT(6) OFPT_UNIT(7) OFPT_UNIT(8)
+        const float* wl = wbuf + (l & 1) * d.w_max;
+        // the other buffer was last read by layer l - 1, which every warp
+        // finished before the barrier that ended it
+        if (l + 1 < d.n_layers) stage(d, l + 1, w, wbuf + ((l + 1) & 1) * d.w_max);
+        if (live) {
+            __syncwarp();
+            run_layer<S>(d, l, cur, nxt, wl, lane);
+            __syncwarp();
+            // rows past this layer's output may hold an earlier, longer
+            // layer's activations: zero the tail pad the next layer reads
+            const int O = d.O[l], T = d.T_out[l];
+            for (int e = lane; e < O * pad; e += 32) {
+                const int f = e / pad, r = e - f * pad;
+                nxt[(size_t)f * d.pitch + skew(pad + T + r)] = from_f32<S>(0.f);
             }
-#undef OFPT_UNIT
-        }
-        __syncthreads();
-        // rows past this layer's output may hold an earlier, longer layer's
-        // activations: zero the tail pad the next layer reads
-        for (int e = tid; e < O * pad * NS; e += blockDim.x) {
-            const int f = e / (pad * NS), r = (e / NS) % pad, sl = e % NS;
-            nxt[((size_t)f * d.buf_len + pad + T_out + r) * NS + sl] =
-                from_f32<S>(0.f);
         }
         S* tmp = cur;
         cur = nxt;
         nxt = tmp;
+        __syncthreads();
     }
-    __syncthreads();
+    if (!live) return;
     const int last = d.n_layers - 1;
-    const int O = d.O[last], T_out = d.T_out[last];
-    const int per = T_out * O;
-    for (int e = tid; e < NS * per; e += blockDim.x) {
-        const int sl = e / per, rem = e - sl * per;
-        const int b = b0 + sl;
-        if (b >= d.B) continue;
-        const int t = rem / O, o = rem - t * O;
-        out[(size_t)b * per + rem] =
-            to_f32<S>(cur[((size_t)o * d.buf_len + pad + t) * NS + sl]);
+    const int O = d.O[last], T = d.T_out[last];
+    const int per = T * O;
+    for (int e = lane; e < per; e += 32) {
+        const int t = e / O, o = e - t * O;
+        out[(size_t)b * per + e] =
+            to_f32<S>(cur[(size_t)o * d.pitch + skew(pad + t)]);
     }
 }
 
@@ -220,46 +292,30 @@ extern "C" const char* ofpt_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
-template <typename S, int NSC>
-static int launch_ns(const StackDesc& d, int ns, size_t smem, const float* x,
-                     const float* w, const float* b, float* out,
-                     cudaStream_t stream) {
+template <typename S>
+static int launch(const StackDesc& d, const float* x, const float* w,
+                  float* out, cudaStream_t stream) {
+    const size_t smem = 2 * (size_t)d.w_max * sizeof(float) +
+                        (size_t)d.ns * 2 * d.max_feat * d.pitch * sizeof(S);
+    if (smem > 232448 || d.ns < 1 || d.ns > 16)
+        return (int)cudaErrorInvalidValue;
     cudaError_t e = cudaFuncSetAttribute(
-        conv_stack_kernel<S, NSC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        conv_stack_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
-    const int blocks = (d.B + ns - 1) / ns;
-    conv_stack_kernel<S, NSC><<<blocks, 256, smem, stream>>>(d, ns, x, w, b,
-                                                             out);
+    const int blocks = (d.B + d.ns - 1) / d.ns;
+    conv_stack_kernel<S><<<blocks, 32 * d.ns, smem, stream>>>(d, x, w, out);
     return (int)cudaGetLastError();
 }
 
-// FAST_NS: the signals per CTA that the flagship stack gets in this storage
-// type, compiled with NS constant (runtime NS costs ~8% in bf16); 0 for
-// none.
-template <typename S, int FAST_NS>
-static int launch(const StackDesc& d, const float* x, const float* w,
-                  const float* b, float* out, cudaStream_t stream) {
-    const size_t fixed = ((size_t)d.max_w + d.max_o8) * sizeof(float);
-    const size_t per_signal = 2 * (size_t)d.max_feat * d.buf_len * sizeof(S);
-    int ns = 32;  // signals per CTA: the most whose buffers fit
-    while (ns > 1 && fixed + per_signal * ns > 232448) ns /= 2;
-    const size_t smem = fixed + per_signal * ns;
-    if (smem > 232448) return (int)cudaErrorInvalidValue;
-    if (ns == FAST_NS)
-        return launch_ns<S, FAST_NS>(d, ns, smem, x, w, b, out, stream);
-    return launch_ns<S, 0>(d, ns, smem, x, w, b, out, stream);
-}
-
 extern "C" int ofpt_conv_stack(const StackDesc* hd, const float* x,
-                               const float* w, const float* b, float* out,
-                               void* stream) {
+                               const float* w, float* out, void* stream) {
     cudaGetLastError();  // clear an error left by earlier, unrelated work
     const StackDesc d = *hd;
     if (d.n_layers < 1 || d.n_layers > MAX_LAYERS)
         return (int)cudaErrorInvalidValue;
     if (d.B == 0) return 0;
     if (d.bf16)
-        return launch<__nv_bfloat16, 0>(d, x, w, b, out, (cudaStream_t)stream);
-    return launch<float, 16>(d, x, w, b, out, (cudaStream_t)stream);
+        return launch<__nv_bfloat16>(d, x, w, out, (cudaStream_t)stream);
+    return launch<float>(d, x, w, out, (cudaStream_t)stream);
 }

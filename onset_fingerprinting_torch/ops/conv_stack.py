@@ -61,13 +61,23 @@ MMA_SIGNALS = 16
 _ROW_BYTES = 2 * MMA_SIGNALS
 
 
+#: CUDA-core kernel: output positions per lane task that a layer may take
+#: (the kernel instantiates these), the most warps an SM keeps resident at
+#: its 128 registers a thread, an SM's shared memory and what the card
+#: reserves of it per CTA (bytes)
+SIMT_TT = (5, 6, 8)
+SIMT_MAX_WARPS = 16
+SM_SMEM = 233472
+CTA_RESERVED = 1024
+
+
 class _StackDesc(ctypes.Structure):
     # must match csrc/conv_stack.cu::StackDesc field for field
     _fields_ = [(n, ctypes.c_int) for n in (
-        "n_layers", "B", "L", "pad", "act", "bf16", "buf_len", "max_feat",
-        "max_w", "max_o8",
+        "n_layers", "B", "L", "pad", "act", "bf16", "ns", "pitch",
+        "max_feat", "w_max",
     )] + [(n, ctypes.c_int * MAX_LAYERS) for n in (
-        "K", "I", "O", "T_out", "w_off", "b_off",
+        "K", "I", "O", "T_out", "TT", "OW", "n_og", "w_off", "w_len",
     )]
 
 
@@ -178,6 +188,147 @@ def issued_flops(plan: MmaPlan, batch: int) -> int:
                        for lp in plan.layers)
 
 
+@dataclass(frozen=True)
+class SimtLayer:
+    """One layer of the CUDA-core kernel's schedule.  A lane task is
+    ``tt`` consecutive output positions of one group of ``ow`` output
+    features; the layer's ``n_chunks * n_og`` tasks go round the 32 lanes
+    of the signal's warp (:func:`simt_tasks`)."""
+
+    in_feat: int
+    out_feat: int
+    k: int
+    t_out: int
+    tt: int
+    #: features per group (``out_feat`` split into ``n_og`` equal groups;
+    #: the last may hold padded features, whose weights are zeros)
+    ow: int
+    n_og: int
+    #: floats per packed weight row: 4 or 8, so a tap's weights are one or
+    #: two 16-byte broadcast loads
+    owp: int
+    #: offset and length (floats) of the layer's packed block: weights
+    #: ``[n_og, I, K, owp]`` then biases ``[n_og, owp]``
+    w_off: int
+    w_len: int
+
+    @property
+    def n_chunks(self) -> int:
+        return -(-self.t_out // self.tt)
+
+    @property
+    def rows_read(self) -> int:
+        """Buffer rows the layer's tasks read: the last chunk's window
+        runs one row past its last tap (the kernel loads a tap block's
+        ``tt`` rows ahead)."""
+        return self.n_chunks * self.tt + self.k
+
+
+@dataclass(frozen=True)
+class SimtPlan:
+    """Static schedule of the CUDA-core kernel: one warp per signal, ``ns``
+    signals (warps) per CTA, every layer's activations in two per-signal
+    buffers of ``max_feat`` features of ``pitch`` elements (row ``r`` of a
+    feature at :func:`skew` ``(r)``), the layers' packed weights staged into
+    two alternating buffers of ``w_max`` floats."""
+
+    layers: tuple
+    ns: int
+    buf_rows: int
+    pitch: int
+    max_feat: int
+    w_max: int
+    #: shared memory of one CTA (bytes)
+    smem: int
+    ctas_per_sm: int
+
+    @property
+    def threads(self) -> int:
+        return 32 * self.ns
+
+    @property
+    def resident_warps(self) -> int:
+        return self.ctas_per_sm * self.ns
+
+
+def skew(r: int) -> int:
+    """Where buffer row ``r`` lies: one spare word after every 32 rows, so
+    the lanes of a warp, ``tt`` rows apart, meet at most two to a bank."""
+    return r + (r >> 5)
+
+
+def _task_cost(i: int, k: int, ow: int, tt: int, tasks: int) -> int:
+    """Issue slots of one lane for a layer (the plan's model): per input
+    feature and tap ``tt * ow`` FMAs, one activation load and the weight
+    loads, a register move per tap and ``tt - 1`` more per tail tap; ten
+    per output for bias, activation and store; rounds of 32 tasks."""
+    per = (i * (k * (tt * ow + 2 + -(-ow // 4)) + (k % tt) * (tt - 1))
+           + 10 * tt * ow)
+    return -(-tasks // 32) * per
+
+
+def simt_plan(length: int, shapes, padding: int,
+              elem_bytes: int = 4) -> SimtPlan:
+    """The CUDA-core kernel's schedule for ``shapes`` ``[(O, I, K), ...]``
+    with activations of ``elem_bytes`` (4 float32, 2 bfloat16).  Raises
+    ValueError when one signal's buffers and the weight buffers do not fit
+    a CTA's shared memory.
+
+    Each layer takes the ``tt`` of :data:`SIMT_TT` that costs its lanes
+    the fewest issue slots (:func:`_task_cost`).  ``ns`` is the number of
+    signals per CTA, among 8, 4, 16, 2, 1 (in that order of preference),
+    that keeps the most warps resident per SM: CTAs per SM are bounded by
+    the SM's shared memory and by :data:`SIMT_MAX_WARPS`."""
+    if len(shapes) > MAX_LAYERS:
+        raise ValueError(f"at most {MAX_LAYERS} layers")
+    layers, off = [], 0
+    rows = length + 2 * padding
+    t_in = length
+    for o, i, k in shapes:
+        t_out = t_in + 2 * padding - k + 1
+        n_og = -(-o // 8)
+        ow = -(-o // n_og)
+        owp = 4 if ow <= 4 else 8
+        tt = min(SIMT_TT, key=lambda tt: _task_cost(
+            i, k, ow, tt, -(-t_out // tt) * n_og))
+        w_len = n_og * (i * k + 1) * owp
+        lp = SimtLayer(i, o, k, t_out, tt, ow, n_og, owp, off, w_len)
+        layers.append(lp)
+        off += w_len
+        rows = max(rows, t_out + 2 * padding, lp.rows_read)
+        t_in = t_out
+    pitch = -(-(skew(rows - 1) + 1) // 8) * 8
+    max_feat = max([1] + [o for o, _, _ in shapes])
+    w_max = max(lp.w_len for lp in layers)
+    fixed = 2 * w_max * 4
+    per_signal = 2 * max_feat * pitch * elem_bytes
+    best = None
+    for ns in (8, 4, 16, 2, 1):
+        smem = fixed + ns * per_signal
+        if smem > SMEM_LIMIT:
+            continue
+        ctas = min(SM_SMEM // (smem + CTA_RESERVED), SIMT_MAX_WARPS // ns)
+        if ctas and (best is None or ctas * ns > best[2] * best[0]):
+            best = (ns, smem, ctas)
+    if best is None:
+        raise ValueError(
+            f"conv stack too large for the CUDA-core kernel: one signal "
+            f"needs {fixed + per_signal} bytes of shared memory "
+            f"(limit {SMEM_LIMIT})")
+    ns, smem, ctas = best
+    return SimtPlan(tuple(layers), ns, rows, pitch, max_feat, w_max, smem,
+                    ctas)
+
+
+def simt_tasks(lp: SimtLayer) -> list[list[tuple[int, int]]]:
+    """Each lane's tasks in a layer, as the kernel walks them: lane ``l``
+    takes tasks ``l, l + 32, ...``; task ``u`` is feature group
+    ``u // n_chunks`` at positions from ``(u % n_chunks) * tt``."""
+    n = lp.n_chunks * lp.n_og
+    return [[(u // lp.n_chunks, u % lp.n_chunks * lp.tt)
+             for u in range(lane, n, 32)] for lane in range(32)]
+
+
 def kernel_for(length: int, weights, padding: int,
                compute_dtype: torch.dtype) -> _cuda.Kernel:
     """The kernel that runs this stack on the card: the tensor-core kernel
@@ -221,20 +372,22 @@ def far_signals(out: torch.Tensor, plain: torch.Tensor) -> torch.Tensor:
     return far_values(out, plain).flatten(1).any(1).nonzero().flatten()
 
 
-def _pack(weights, biases, compute_dtype):
-    """CUDA-core kernel: weights rounded to ``compute_dtype``, packed per
-    layer as ``[O/8, I, K, 8]`` float32 (output features padded to groups
-    of 8), and the biases as float32, both flat."""
-    ws, bs = [], []
-    for w, b in zip(weights, biases):
+def _pack(weights, biases, compute_dtype, plan: SimtPlan):
+    """CUDA-core kernel: each layer's weights rounded to ``compute_dtype``
+    as ``[n_og, I, K, owp]`` float32 (output features padded to ``n_og *
+    ow`` and each group to ``owp`` with zeros), then its biases as
+    ``[n_og, owp]`` float32, all layers flat."""
+    parts = []
+    for w, b, lp in zip(weights, biases, plan.layers):
         o, i, k = w.shape
-        o8 = -(-o // 8) * 8
         wr = w.detach().to(compute_dtype).to(torch.float32)
-        wr = F.pad(wr, (0, 0, 0, 0, 0, o8 - o))  # [o8, I, K]
-        ws.append(wr.reshape(o8 // 8, 8, i, k).permute(0, 2, 3, 1).reshape(-1))
-        bs.append(b.detach().to(torch.float32).reshape(-1))
-    return (torch.cat(ws).contiguous(), torch.cat(bs).contiguous(),
-            _offsets(ws), _offsets(bs))
+        wr = F.pad(wr, (0, 0, 0, 0, 0, lp.n_og * lp.ow - o))
+        wr = wr.reshape(lp.n_og, lp.ow, i, k).permute(0, 2, 3, 1)
+        wr = F.pad(wr, (0, lp.owp - lp.ow))
+        br = F.pad(b.detach().to(torch.float32), (0, lp.n_og * lp.ow - o))
+        br = F.pad(br.reshape(lp.n_og, lp.ow), (0, lp.owp - lp.ow))
+        parts += [wr.reshape(-1), br.reshape(-1)]
+    return torch.cat(parts).contiguous()
 
 
 def pack_taps(w: torch.Tensor, s: int) -> torch.Tensor:
@@ -329,26 +482,25 @@ def conv_stack(x: torch.Tensor, weights, biases, padding: int = 1,
     if kernel is _cuda.CONV_STACK_MMA:
         return _launch_mma(kernel, x, weights, biases, padding, activation,
                            out)
-    w_flat, b_flat, w_off, b_off = packed_weights(
-        kernel, weights, biases, compute_dtype,
-        lambda: _pack(weights, biases, compute_dtype))
+    plan = simt_plan(length, [tuple(w.shape) for w in weights], padding,
+                     compute_dtype.itemsize)
+    w_flat = packed_weights(kernel, weights, biases, compute_dtype,
+                            lambda: _pack(weights, biases, compute_dtype,
+                                          plan))
     d = _StackDesc(
         n_layers=len(weights), B=bsz, L=length, pad=padding,
         act=_ACT_CODES[activation], bf16=int(compute_dtype == torch.bfloat16),
-        buf_len=max([length] + t_outs) + 2 * padding,
-        max_feat=max([1] + [w.shape[0] for w in weights]),
-        max_w=max(-(-w.shape[0] // 8) * 8 * w.shape[1] * w.shape[2]
-                  for w in weights),
-        max_o8=max(-(-w.shape[0] // 8) * 8 for w in weights),
+        ns=plan.ns, pitch=plan.pitch, max_feat=plan.max_feat,
+        w_max=plan.w_max,
     )
-    for li, (w, t) in enumerate(zip(weights, t_outs)):
-        d.O[li], d.I[li], d.K[li] = w.shape
-        d.T_out[li] = t
-        d.w_off[li] = w_off[li]
-        d.b_off[li] = b_off[li]
+    for li, lp in enumerate(plan.layers):
+        d.O[li], d.I[li], d.K[li] = lp.out_feat, lp.in_feat, lp.k
+        d.T_out[li], d.TT[li], d.OW[li], d.n_og[li] = (lp.t_out, lp.tt,
+                                                      lp.ow, lp.n_og)
+        d.w_off[li], d.w_len[li] = lp.w_off, lp.w_len
     kernel.launch(
         "ofpt_conv_stack", ctypes.addressof(d), x.data_ptr(),
-        w_flat.data_ptr(), b_flat.data_ptr(), out.data_ptr(), _cuda.stream(),
+        w_flat.data_ptr(), out.data_ptr(), _cuda.stream(),
     )
     return out
 

@@ -9,11 +9,11 @@ through the package's own wrapper and timed by CUDA events over
 ``--launches`` launches:
 
 - ``whole``: the kernel as it is;
-- ``fma_only``: every activation load from shared memory replaced by a
-  value kept in registers (the FMAs and the weight loads stay);
-- ``loads_only``: the FMAs replaced by one add per activation load and
-  one per weight load, so the loads stay live;
-- ``ns8``: 8 signals per CTA where the plan gives more;
+- ``fma_only``: every activation load from shared memory (and its
+  skewed address) replaced by a value made in registers (the FMAs and the
+  weight loads stay);
+- ``loads_only``: each tap's ``TT x OW`` FMAs replaced by ``TT`` pairs of
+  adds that keep its activation and weight loads live;
 - ``layer_N``: only layer N computes (the others are skipped), and
   ``no_layers``: none does (x loaded, the output written), so each
   layer's time is ``layer_N - no_layers``, set against its FLOPs.
@@ -48,33 +48,24 @@ LENGTH = 256
 #: f32 FMA-unit peak of the H100 SXM (NVIDIA data sheet, 700 W), FLOP/s
 F32_FLOPS = 67e12
 
-_INNER = ("#pragma unroll\n                for (int o = 0; o < OW; ++o) "
-          "acc[j][o] = fmaf(w[o], v, acc[j][o]);\n            }\n")
 #: (name, [(anchor, replacement), ...], extra nvcc flags)
 VARIANTS = (
     ("fma_only", [
-        ("    for (int i = 0; i < I; ++i) {\n        const S* col",
-         "    float xr[TT];\n#pragma unroll\n    for (int j = 0; j < TT; ++j)"
-         " xr[j] = to_f32<S>(cur[rows[j]]);\n"
-         "    for (int i = 0; i < I; ++i) {\n        const S* col"),
-        ("const float v = to_f32<S>(ck[rows[j]]);",
-         "const float v = xr[j];"),
+        ("    return to_f32<S>(col[skew(r)]);", "    return __int_as_float(r);"),
     ], ()),
     ("loads_only", [
-        (_INNER, "                acc[j][0] += v;\n            }\n"
-         "#pragma unroll\n            for (int o = 0; o < OW; ++o) "
-         "acc[0][o] += w[o];\n"),
-    ], ()),
-    ("ns8", [
-        ("int ns = 32;  // signals per CTA", "int ns = 8;  // signals per CTA"),
-        ("launch<float, 16>", "launch<float, 8>"),
+        ("#pragma unroll\n                        for (int o = 0; o < OW; ++o)\n"
+         "                            acc[j][o] = fmaf(w[o], v, acc[j][o]);",
+         "                        acc[j][j % OW] += v + w[j % OW];"),
+        ("#pragma unroll\n                    for (int o = 0; o < OW; ++o)\n"
+         "                        acc[j][o] = fmaf(w[o], a[j], acc[j][o]);",
+         "                    acc[j][j % OW] += a[j] + w[j % OW];"),
     ], ()),
 )
 #: the per-layer variants: one source, the layer chosen at compile time
 _LAYER_PATCH = (
-    "        const int K = d.K[l], I = d.I[l], O = d.O[l], T_out = d.T_out[l];",
-    "        if (l != OFPT_ONLY) continue;\n"
-    "        const int K = d.K[l], I = d.I[l], O = d.O[l], T_out = d.T_out[l];",
+    "            run_layer<S>(d, l, cur, nxt, wl, lane);",
+    "            if (l == OFPT_ONLY) run_layer<S>(d, l, cur, nxt, wl, lane);",
 )
 
 

@@ -169,15 +169,27 @@ FLAGSHIP_KS = (1, 33, 64, 15, 15, 15, 1)
 
 @pytest.mark.parametrize("dtype,atol,rtol", [
     (torch.float32, 5e-4, 1e-4), (torch.bfloat16, 3e-2, 2e-2)])
-@pytest.mark.parametrize("ks,widths,pad,length,batch", [
-    (FLAGSHIP_KS, (5,) * 7, 1, 256, 1000), ((3, 3), (8, 16), 1, 256, 1000),
-    ((7, 4), (3, 5), 0, 256, 1000),
+@pytest.mark.parametrize("ks,widths,pad,length,batch,act", [
+    (FLAGSHIP_KS, (5,) * 7, 1, 256, 1000, "silu"),
+    ((3, 3), (8, 16), 1, 256, 1000, "silu"),
+    ((7, 4), (3, 5), 0, 256, 1000, "silu"),
     # 16 features fit the tensor-core kernel's buffers at L = 64
-    ((3, 3), (8, 16), 1, 64, 1000),
+    ((3, 3), (8, 16), 1, 64, 1000, "silu"),
     # a batch that is a multiple of neither kernel's signals per CTA
-    (FLAGSHIP_KS, (5,) * 7, 1, 256, 37)])
+    (FLAGSHIP_KS, (5,) * 7, 1, 256, 37, "silu"),
+    # the CUDA-core kernel's edges: O = 1, 5 and 9 (ragged feature
+    # groups), K = 1 and 64, output lengths that are no multiple of any
+    # lane tile, every activation
+    ((5, 3), (4, 1), 1, 256, 300, "relu"),
+    ((3, 7), (9, 9), 2, 200, 300, "tanh"),
+    ((64, 1), (5, 5), 1, 256, 300, "elu"),
+    ((33,), (5,), 3, 100, 100, "sigmoid"),
+    ((15, 15), (5, 9), 0, 97, 50, "leakyrelu"),
+    ((1, 64), (9, 1), 3, 300, 40, "linear"),
+    # 16 features at every layer: no tensor-core plan in bf16
+    (FLAGSHIP_KS, (16,) * 7, 1, 256, 200, "silu")])
 def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad,
-                                         length, batch):
+                                         length, batch, act):
     """Each stack runs on the kernel ``kernel_for`` names (bf16: the
     tensor-core kernel wherever it has a plan) and equals the plain
     version."""
@@ -187,6 +199,7 @@ def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad,
         conv_stack_reference,
         far_signals,
         kernel_for,
+        mma_plan,
     )
     from onset_fingerprinting_torch.tools.conv_stack_gate import gate, passes
 
@@ -194,13 +207,15 @@ def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad,
     g = torch.Generator().manual_seed(1)
     x = torch.randn(batch, length, generator=g).cuda()
     kernel = kernel_for(length, ws, pad, dtype)
-    too_wide = widths[-1] == 16 and length == 256
+    has_plan = mma_plan(length, [tuple(w.shape) for w in ws],
+                        pad) is not None
+    assert has_plan == (widths[-1] != 16 or length != 256)
     assert kernel is (_cuda.CONV_STACK_MMA if dtype == torch.bfloat16
-                      and not too_wide else _cuda.CONV_STACK)
+                      and has_plan else _cuda.CONV_STACK)
     before = kernel.launches
-    k = conv_stack(x, ws, bs, pad, "silu", dtype)
+    k = conv_stack(x, ws, bs, pad, act, dtype)
     assert kernel.launches == before + 1
-    p = conv_stack_reference(x, ws, bs, pad, "silu", dtype)
+    p = conv_stack_reference(x, ws, bs, pad, act, dtype)
     torch.cuda.synchronize()
     torch.testing.assert_close(k, p, atol=atol, rtol=rtol)
     if dtype == torch.float32:
@@ -208,10 +223,10 @@ def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad,
     else:
         # the same rounding points: the few signals more than about one
         # bf16 ulp apart are a rounding flipped at a near-tie
-        far, unexplained = gate(k, p, x, ws, bs, pad, "silu")
+        far, unexplained = gate(k, p, x, ws, bs, pad, act)
         assert passes(far, unexplained, batch), (far, unexplained)
     with pytest.raises(RuntimeError, match="forward only"):
-        conv_stack(x.requires_grad_(), ws, bs, pad, "silu", dtype)
+        conv_stack(x.requires_grad_(), ws, bs, pad, act, dtype)
 
 
 def test_flagship_bf16_runs_the_tensor_core_kernel_only():

@@ -2,8 +2,9 @@
 against the same composition of JAX functions as bench.py: warmup →
 Pallas detector (interpret) → top_hit_blocks → compact_hit_list → anchored
 gather (Pallas interpret, HIGHEST) → flagship CCCNN (fused conv stack,
-interpret) in bfloat16.  Events, starts, stream ids and validity exact;
-predictions close; recall and precision 1.0."""
+interpret) in bfloat16 and in float32, the model's default dtype.  Events,
+starts, stream ids and validity exact; predictions close; recall and
+precision 1.0."""
 
 import jax
 import jax.numpy as jnp
@@ -39,23 +40,40 @@ def audio():
     return x + wl.hit_profile(T, "cpu").numpy()[:, None]
 
 
-@pytest.fixture(scope="module")
-def flax_model():
-    jm = JCCCNN(dtype=jnp.bfloat16, conv_impl="pallas", **wl.FLAGSHIP)
+#: the model's dtype in both frameworks, and the predictions' bar: bf16
+#: conv stacks round at the same points in both, but summation order
+#: differs, so a rare activation rounds one bf16 ulp apart; in float32
+#: (JAX: HIGHEST band products, a "highest" DFT head) only the order of
+#: f32 sums differs
+DTYPES = {
+    "bfloat16": (jnp.bfloat16, torch.bfloat16, dict(atol=1e-2, rtol=1e-2)),
+    "float32": (jnp.float32, torch.float32, dict(atol=1e-4, rtol=1e-4)),
+}
+
+
+def jax_model(dtype="bfloat16"):
+    jm = JCCCNN(dtype=DTYPES[dtype][0], conv_impl="pallas", **wl.FLAGSHIP)
     variables = jax.tree_util.tree_map(
         np.asarray, wl.flagship_flax_params(seed=3))
     return jm, variables
 
 
-def port_model(variables):
-    m = CCCNN(input_size=wl.WINDOW, dtype=torch.bfloat16, **wl.FLAGSHIP)
+@pytest.fixture(scope="module")
+def flax_model():
+    return jax_model()
+
+
+def port_model(variables, dtype=torch.bfloat16):
+    m = CCCNN(input_size=wl.WINDOW, dtype=dtype, **wl.FLAGSHIP)
     m.load_state_dict(cccnn_state_dict_from_flax(variables))
     return m
 
 
-def test_slice_matches_jax_composition(audio, flax_model):
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_slice_matches_jax_composition(audio, dtype):
     max_hits, cap = wl.chunk_capacities(S, T)
-    jm, variables = flax_model
+    jm, variables = jax_model(dtype)
+    _, torch_dtype, tol = DTYPES[dtype]
     # JAX: the bench.py composition (bench.py:282-302, 346-352, 402-405)
     cfg = dict(n_channels=S * 4, block_size=128, hipass_freq=2000.0,
                sr=96000, coupled_off_gate=False)
@@ -75,8 +93,8 @@ def test_slice_matches_jax_composition(audio, flax_model):
 
     # the port, through the user's entry point
     pipe = make_detect_fingerprint(fleet_detector_config(S),
-                                   port_model(variables), S, T, cap,
-                                   device="cpu")
+                                   port_model(variables, torch_dtype), S, T,
+                                   cap, device="cpu")
     assert pipe.max_hits == max_hits
     x = torch.as_tensor(audio)
     state = pipe.warmup(pipe.init_state(), x[:WARM])
@@ -94,13 +112,14 @@ def test_slice_matches_jax_composition(audio, flax_model):
     assert preds.shape == (cap, 2)
     assert int(n_hits) == S * wl.n_injected(T) == int(valid_j.sum())
     assert int(n_dropped) == 0
-    # bf16 conv stacks round at the same points in both; summation order
-    # differs, so a rare activation rounds one bf16 ulp apart
-    np.testing.assert_allclose(preds.numpy(), preds_j, atol=1e-2, rtol=1e-2)
+    np.testing.assert_allclose(preds.numpy(), preds_j, **tol)
     # on the CPU every kernel wrapper of the path ran its plain version
     # (the fleet detector stands in for the pipelined kernel, the bf16
-    # flagship stack for the tensor-core kernel)
-    path = (_cuda.DETECTOR_PIPE, _cuda.GATHER, _cuda.CONV_STACK_MMA)
+    # flagship stack for the tensor-core kernel, the f32 one for the
+    # CUDA-core kernel)
+    k3 = (_cuda.CONV_STACK_MMA if torch_dtype == torch.bfloat16
+          else _cuda.CONV_STACK)
+    path = (_cuda.DETECTOR_PIPE, _cuda.GATHER, k3)
     assert all(k.launches == 0 for k in _cuda.KERNELS)
     assert all(k.plain_calls > 0 for k in path)
 
