@@ -33,8 +33,12 @@ Phase 1  holds each kernel against its plain PyTorch version on the card
          bit-exact once more at a ragged C and N; K3 the fused conv stack
          (flagship, 131072 signals): bfloat16 on the tensor-core kernel
          (four draws of weights, biases and input; a far signal is saved
-         under ``build/conv_stack_far/``), float32 on the CUDA-core kernel,
-         each timed beside its cuDNN conv1d chain.
+         under ``build/conv_stack_far/``), float32 on the CUDA-core kernel
+         (two draws: the path's windows, then unit-normal input with the
+         flagship's second weight seed; its plan's CTAs per SM held to the
+         card's occupancy query), and a bfloat16 stack with no tensor-core
+         plan (16 features at every layer, 8192 windows) on the CUDA-core
+         kernel, each dtype timed beside its cuDNN conv1d chain.
 Phase 2  drives the fleet path at full width — 8192 four-channel 96 kHz
          streams, three carried chunks of 32000 samples after a 38-block
          warmup, the flagship CCCNN in bfloat16 with random weights carried
@@ -46,6 +50,16 @@ Phase 2  drives the fleet path at full width — 8192 four-channel 96 kHz
          the CUDA-core one, the pipelined K1 (4 launches) and never the
          one-thread-per-channel one, and K2's routed kernel and
          instantiation (3 launches) and no other K2.
+Phase 2b drives the same fleet path with the flagship CCCNN in float32, the
+         model's default dtype (JAX: ``CCCNN(dtype=float32,
+         conv_impl="pallas")``, whose conv stack takes HIGHEST band products
+         and whose DFT head runs at "highest"): the same gates, K3 on the
+         CUDA-core kernel once per chunk and never on the tensor-core one,
+         each stage timed with CUDA events over 2 iterations (not 5: the
+         script's time limit) and no profiler pass; at 32 streams K3 on the
+         path's windows within atol 5e-4 / rtol 1e-4 of the plain version
+         on the CPU and the predictions within 1e-4 + 1e-4 |CPU| (float32,
+         TF32 off).
 Phase 3  drives the fingerprint-stage anatomy
          (``tools.fingerprint_anatomy.main``) at full width — 8192 streams,
          G = 32768, W = 256 — shows that K3 and the routed K2 and K4
@@ -87,11 +101,11 @@ hits: ``gather_vec`` and ``gather_roll_vec``, the paths' kernels, and
 ``gather`` and ``gather_roll``, the old kernels, which the paths never
 launch; K3 as three rows: ``conv_stack_mma`` in bfloat16, the fleet path's,
 ``conv_stack_mma_classifier``, the same kernel at the realtime classifier's
-shape and with its launches; ``conv_stack_f32`` in float32, golden mode,
-which no path launches; ``locate_block``, the realtime engine's locate
+shape and with its launches; ``conv_stack_f32`` in float32, the CUDA-core
+kernel, phase 2b's; ``locate_block``, the realtime engine's locate
 step, which replaces no TPU kernel, timed on fired blocks; ``ring_write``,
 the engine's audio-ring write, which replaces no TPU kernel either).  Launch counts
-are the sums over the paths that phases 2-4 drive, each from counts set to
+are the sums over the paths that phases 2, 2b, 3 and 4 drive, each from counts set to
 0 just before it.  Last comes ``{"ok": true, "device": {...}}``.
 """
 
@@ -366,6 +380,22 @@ def gate_far(k, p, x, ws, bs, tag, padding=1, activation="silu"):
         f"{len(bad)} explained by one rounding flip{where}"
 
 
+def wide_stack(seed):
+    """The flagship's kernels with 16 features at every layer (no
+    tensor-core plan in bf16): LeCun-scaled normal weights, biases
+    ``0.1 * N(0, 1)``."""
+    from onset_fingerprinting_torch.workload import FLAGSHIP
+
+    g = torch.Generator().manual_seed(seed)
+    ws, bs, cin = [], [], 1
+    for k in FLAGSHIP["kernel_sizes"]:
+        ws.append((torch.randn(16, cin, k, generator=g) / (k * cin) ** 0.5
+                   ).cuda())
+        bs.append((0.1 * torch.randn(16, generator=g)).cuda())
+        cin = 16
+    return ws, bs
+
+
 def phase_conv(report, windows):
     import torch.nn.functional as F
 
@@ -376,6 +406,8 @@ def phase_conv(report, windows):
         issued_flops,
         kernel_for,
         mma_plan,
+        simt_occupancy,
+        simt_plan,
     )
     from onset_fingerprinting_torch.tools.conv_stack_gate import (
         flagship_stack,
@@ -388,29 +420,51 @@ def phase_conv(report, windows):
           "the flagship bf16 stack does not take the tensor-core kernel")
     check(kernel_for(length, ws, 1, torch.float32) is _cuda.CONV_STACK,
           "the flagship f32 stack does not take the CUDA-core kernel")
+    shapes = [tuple(w.shape) for w in ws]
+    plan = simt_plan(length, shapes, 1, 4)
+    ctas = simt_occupancy(length, shapes, 1, torch.float32)
+    check(ctas == plan.ctas_per_sm, f"K3 f32: the card keeps {ctas} CTAs "
+          f"per SM, the plan {plan.ctas_per_sm}")
+    log(f"K3 f32 plan: {plan.ns} signals (warps) per CTA, {plan.smem} bytes "
+        f"of shared memory, TT {[lp.tt for lp in plan.layers]}; the card "
+        f"keeps {ctas} CTAs ({ctas * plan.ns} warps) per SM")
     errs = {}
     # the path's windows, then unit-normal input, each with its own draw of
-    # the flagship's random weights and biases
-    cases = [("f32", torch.float32, x, ws, bs)] + [
-        (f"bf16_seed{s}", torch.bfloat16, x if s == 0 else torch.randn(
-            x.shape, generator=torch.Generator("cuda").manual_seed(s),
-            device="cuda"), *flagship_stack(seed=s))
-        for s in range(K3_SEEDS)]
+    # the flagship's random weights and biases: f32 on two draws, bf16 on
+    # K3_SEEDS; then a bf16 stack with no tensor-core plan (16 features at
+    # every layer) on the path's first 8192 windows
+    normal = [torch.randn(x.shape, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(s)) for s in range(1, K3_SEEDS)]
+    wide = x[:8192]
+    cases = [("f32", torch.float32, x, ws, bs),
+             ("f32_seed1", torch.float32, normal[0], *flagship_stack(seed=1))]
+    cases += [(f"bf16_seed{s}", torch.bfloat16, x if s == 0 else normal[s - 1],
+               *flagship_stack(seed=s)) for s in range(K3_SEEDS)]
+    cases += [("bf16_16x7", torch.bfloat16, wide, *wide_stack(seed=5))]
     for tag, dt, xs, wl, bl in cases:
         atol, rtol = (5e-4, 1e-4) if dt == torch.float32 else (3e-2, 2e-2)
+        kern = kernel_for(length, wl, 1, dt)
+        check(kern is (_cuda.CONV_STACK_MMA if tag.startswith("bf16_seed")
+                       else _cuda.CONV_STACK),
+              f"K3 {tag} routed to {kern.name}")
+        before = kern.launches
         k = conv_stack(xs, wl, bl, 1, "silu", dt)
         p = conv_stack_reference(xs, wl, bl, 1, "silu", dt)
         torch.cuda.synchronize()
+        check(kern.launches == before + 1, f"K3 {tag} did not launch")
         check(k.shape == p.shape, f"K3 shape {k.shape} != {p.shape}")
         err = max_err(k, p)
         bad = ((k - p).abs() > atol + rtol * p.abs()).sum()
         check(int(bad) == 0, f"K3 {tag}: {int(bad)} values outside atol "
               f"{atol} rtol {rtol} (max err {err})")
-        far = gate_far(k, p, xs, wl, bl, tag) if dt == torch.bfloat16 else ""
-        errs[dt] = max(errs.get(dt, 0.0), err)
-        log(f"K3 {tag} ({kernel_for(length, wl, 1, dt).name}) B={b_n}: max "
-            f"err {err:.3g} vs plain (atol {atol}, rtol {rtol}){far}")
+        far = (gate_far(k, p, xs, wl, bl, tag)
+               if kern is _cuda.CONV_STACK_MMA else "")
+        key = (kern.name, dt)
+        errs[key] = max(errs.get(key, 0.0), err)
+        log(f"K3 {tag} ({kern.name}) B={len(xs)}: max err {err:.3g} vs "
+            f"plain (atol {atol}, rtol {rtol}){far}")
         del k, p
+    del normal, wide
     times = {}
     for dt in (torch.bfloat16, torch.float32):
         wl = [w.to(dt) for w in ws]
@@ -440,8 +494,9 @@ def phase_conv(report, windows):
     bytes_ = b_n * length * 4 + b_n * t * ws[-1].shape[0] * 4
     for name, dt, peak in (("conv_stack_mma", torch.bfloat16, BF16_FLOPS),
                            ("conv_stack_f32", torch.float32, F32_FLOPS)):
-        report[name] = dict(max_abs_err=errs[dt], bytes=bytes_, ops=flops,
-                            peak=peak, **times[dt])
+        report[name] = dict(max_abs_err=errs[(kernel_for(
+            length, ws, 1, dt).name, dt)], bytes=bytes_, ops=flops,
+            peak=peak, **times[dt])
     tb, tf = times[torch.bfloat16], times[torch.float32]
     log(f"K3 bf16 (tensor cores): kernel {tb['ms']:.3f} ms, plain "
         f"{tb['plain_ms']:.3f} ms, cuDNN bf16 conv1d chain "
@@ -481,7 +536,17 @@ def profile_path(run, state, audio):
         log(f"  {ms:9.3f} ms  x{n:<4d} {name[:90]}")
 
 
-def phase_main_path(report):
+#: phase 2b (the float32 flagship through the fleet pipeline): timed
+#: iterations, fewer than phase 2's to stay inside the script's limit
+ITERS_F32 = 2
+
+
+def phase_main_path(report, dtype=torch.bfloat16, iters=ITERS,
+                    profile=True):
+    """The fleet pipeline at full width with the flagship CCCNN in
+    ``dtype``: phase 2 in bfloat16, phase 2b in float32 (the model's
+    default), where K3 runs on the CUDA-core kernel and the DFT head in
+    full f32."""
     import numpy as np
 
     from onset_fingerprinting_torch.models.cccnn import CCCNN
@@ -508,7 +573,7 @@ def phase_main_path(report):
     )
 
     def build(n_streams, t, device):
-        model = CCCNN(input_size=WINDOW, dtype=torch.bfloat16, **FLAGSHIP)
+        model = CCCNN(input_size=WINDOW, dtype=dtype, **FLAGSHIP)
         model.load_state_dict(
             cccnn_state_dict_from_flax(flagship_flax_params(seed=0)))
         max_hits, cap = chunk_capacities(n_streams, t)
@@ -521,8 +586,8 @@ def phase_main_path(report):
     audio = [make_audio(CHUNK, N_STREAMS * 4, seed=10 + j)
              for j in range(CHUNKS)]
     n_exp = N_STREAMS * n_injected(CHUNK)
-    log(f"main path: {N_STREAMS} streams x {CHUNKS} chunks of {CHUNK} "
-        f"samples, G={cap}, {n_exp} injected hits per chunk")
+    log(f"main path ({dtype}): {N_STREAMS} streams x {CHUNKS} chunks of "
+        f"{CHUNK} samples, G={cap}, {n_exp} injected hits per chunk")
 
     _cuda.reset_counts()
     state = run.warmup(run.init_state(), audio[0][: WARMUP_BLOCKS * 128])
@@ -542,11 +607,18 @@ def phase_main_path(report):
     counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
     log(f"launches/plain calls on the main path (warmup + {CHUNKS} "
         f"chunks): {counts}")
-    for k in (_cuda.DETECTOR_PIPE, _cuda.CONV_STACK_MMA):
-        check(k.launches > 0, f"kernel {k.name} never launched")
+    # K3 on the route of the model's dtype, one launch per chunk, never on
+    # the other kernel
+    k3, other = ((_cuda.CONV_STACK_MMA, _cuda.CONV_STACK)
+                 if dtype == torch.bfloat16
+                 else (_cuda.CONV_STACK, _cuda.CONV_STACK_MMA))
+    check(k3.launches == CHUNKS, f"K3 {k3.name} launched {k3.launches} "
+          f"times, want one per chunk ({CHUNKS})")
+    check(other.launches == 0, f"K3 ran on {other.name} on the {dtype} path")
     for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran on the main path")
-        report["_launches"][k.name] = k.launches
+        report["_launches"][k.name] = (report["_launches"].get(k.name, 0)
+                                       + k.launches)
     # K2: one launch per chunk, all on the routed kernel and instantiation
     gather = gather_kernel_for(4, WINDOW)
     check(gather.kernel.variants[gather.variant] == CHUNKS
@@ -561,16 +633,13 @@ def phase_main_path(report):
           f"{_cuda.DETECTOR_PIPE.launches} pipe launches, want {1 + CHUNKS}")
     check(_cuda.DETECTOR.launches == 0,
           "the one-thread-per-channel detector ran on the fleet path")
-    # the bf16 path never takes the f32 CUDA-core kernel
-    check(_cuda.CONV_STACK.launches == 0,
-          "the CUDA-core conv stack ran on the bf16 main path")
 
     # timed iterations: each is one second of audio (3 carried chunks),
     # chunk order rotated so every iteration sees other input
     stages = ("detect", "hit_list", "gather", "model")
     per = {s: [] for s in stages}
     totals = []
-    for it in range(ITERS):
+    for it in range(iters):
         ev = {s: [] for s in stages}
         for j in range(CHUNKS):
             x = audio[(it + j) % CHUNKS]
@@ -602,15 +671,18 @@ def phase_main_path(report):
     host_total = float(np.median(totals))
     log("per second of audio (median of %d, CUDA events): %s; sum %.3f ms "
         "-> %.0fx realtime" % (
-            ITERS, ", ".join(f"{s} {med[s]:.3f} ms" for s in stages),
+            iters, ", ".join(f"{s} {med[s]:.3f} ms" for s in stages),
             dev_total, N_STREAMS / (dev_total / 1e3)))
     log(f"run() wall clock per second of audio (median, one read per "
         f"chunk): {host_total:.3f} ms -> "
         f"{N_STREAMS / (host_total / 1e3):.0f}x realtime "
         f"(min {min(totals):.3f}, max {max(totals):.3f})")
-    profile_path(run, state, audio)
+    report["_fleet"][str(dtype)] = dict(med, sum=dev_total, run=host_total)
+    if profile:
+        profile_path(run, state, audio)
 
-    # the same path at 32 streams on the card and, plain, on the CPU
+    # the same path at 32 streams on the card and, plain, on the CPU; in
+    # float32 also K3 on the path's windows
     small_s, small_t = 32, 20480
     xs = make_audio(small_t, small_s * 4, seed=20, device="cpu")
     outs = []
@@ -620,15 +692,38 @@ def phase_main_path(report):
         xd = xs.to(device)
         st, on, deltas = r.detect(st, xd)
         preds, n_hits, _ = r.fingerprint(xd, on, deltas)
-        outs.append((on.cpu(), deltas.cpu(), preds.cpu(), int(n_hits)))
-    (on_g, d_g, p_g, n_g), (on_c, d_c, p_c, n_c) = outs
+        feats = None
+        if dtype == torch.float32:
+            starts, sids, _, _ = r.hit_list(on, deltas)
+            with torch.inference_mode():
+                feats = r.model.fused_features(
+                    r.windows(xd, starts, sids)).cpu()
+        outs.append((on.cpu(), deltas.cpu(), preds.cpu(), int(n_hits),
+                     feats))
+    (on_g, d_g, p_g, n_g, f_g), (on_c, d_c, p_c, n_c, f_c) = outs
     check(torch.equal(on_g, on_c) and torch.equal(d_g, d_c),
           "card and CPU events differ at 32 streams")
     perr = max_err(p_g, p_c)
-    check(n_g == n_c and perr <= 2e-2,
-          f"card vs CPU predictions differ by {perr}")
-    log(f"32-stream path, card vs plain CPU: events exact, {n_g} hits, "
-        f"predictions max err {perr:.3g} (bound 2e-2)")
+    if dtype == torch.bfloat16:
+        check(n_g == n_c and perr <= 2e-2,
+              f"card vs CPU predictions differ by {perr}")
+        log(f"32-stream path, card vs plain CPU: events exact, {n_g} hits, "
+            f"predictions max err {perr:.3g} (bound 2e-2)")
+        return
+    # float32: K3 within the JAX suite's f32 bar, the predictions within
+    # 1e-4 + 1e-4 |CPU| (tests/test_torch_port_cccnn.py)
+    ferr = max_err(f_g, f_c)
+    fbad = int(((f_g - f_c).abs() > 5e-4 + 1e-4 * f_c.abs()).sum())
+    pbad = int(((p_g - p_c).abs() > 1e-4 + 1e-4 * p_c.abs()).sum())
+    check(n_g == n_c and fbad == 0 and pbad == 0
+          and bool(torch.isfinite(p_g).all()),
+          f"f32 card vs CPU at 32 streams: {fbad} K3 values outside atol "
+          f"5e-4 rtol 1e-4 (max err {ferr}), {pbad} predictions outside "
+          f"1e-4 + 1e-4 |CPU| (max err {perr})")
+    log(f"32-stream path in float32, card vs plain CPU: events exact, {n_g} "
+        f"hits, K3 features max err {ferr:.3g} (atol 5e-4, rtol 1e-4), "
+        f"predictions max err {perr:.3g} (scale "
+        f"{float(p_c.abs().max()):.3g}; bound 1e-4 + 1e-4 |CPU|)")
 
 
 def phase_anatomy(report):
@@ -1214,7 +1309,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    report = {"_launches": {}}
+    report = {"_launches": {}, "_fleet": {}}
     phase("phase 1: kernels against their plain versions")
     phase_detector(report)
     x = make_audio(CHUNK, N_STREAMS * 4, seed=4)
@@ -1225,6 +1320,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("phase 2: the fleet path")
     phase_main_path(report)
+    torch.cuda.empty_cache()
+    phase("phase 2b: the fleet path with the float32 flagship")
+    phase_main_path(report, torch.float32, ITERS_F32, profile=False)
     torch.cuda.empty_cache()
     phase("phase 3: the fingerprint-stage anatomy")
     phase_anatomy(report)

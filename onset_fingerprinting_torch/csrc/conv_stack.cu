@@ -86,16 +86,42 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
     return __float2bfloat16_rn(v);
 }
 
-// 0 linear, 1 relu, 2 silu, 3 leaky relu (0.01), 4 elu, 5 tanh, 6 sigmoid
-__device__ __forceinline__ float activate(float x, int act) {
+// 0 linear, 1 relu, 2 silu, 3 leaky relu (0.01), 4 elu, 5 tanh, 6 sigmoid;
+// exp and division by the fast intrinsics (absolute error ~1e-7 at the
+// activations' scale)
+template <int ACT>
+__device__ __forceinline__ float activate(float x) {
+    if (ACT == 1) return x > 0.f ? x : 0.f;
+    if (ACT == 2) return __fdividef(x, 1.f + __expf(-x));
+    if (ACT == 3) return x > 0.f ? x : 0.01f * x;
+    if (ACT == 4) return x > 0.f ? x : __expf(x) - 1.f;
+    if (ACT == 5) return 1.f - __fdividef(2.f, __expf(2.f * x) + 1.f);
+    if (ACT == 6) return __fdividef(1.f, 1.f + __expf(-x));
+    return x;
+}
+
+// acc = act(acc + bias) for a whole task: one branch on the activation per
+// task, not one per value.
+template <int TT, int OW, int ACT>
+__device__ __forceinline__ void activate_all(float (&acc)[TT][OW],
+                                             const float (&bo)[OW]) {
+#pragma unroll
+    for (int j = 0; j < TT; ++j)
+#pragma unroll
+        for (int o = 0; o < OW; ++o) acc[j][o] = activate<ACT>(acc[j][o] + bo[o]);
+}
+
+template <int TT, int OW>
+__device__ __forceinline__ void activate_all(float (&acc)[TT][OW],
+                                             const float (&bo)[OW], int act) {
     switch (act) {
-        case 1: return x > 0.f ? x : 0.f;
-        case 2: return __fdividef(x, 1.f + __expf(-x));
-        case 3: return x > 0.f ? x : 0.01f * x;
-        case 4: return x > 0.f ? x : expm1f(x);
-        case 5: return tanhf(x);
-        case 6: return __fdividef(1.f, 1.f + __expf(-x));
-        default: return x;
+        case 1: activate_all<TT, OW, 1>(acc, bo); break;
+        case 2: activate_all<TT, OW, 2>(acc, bo); break;
+        case 3: activate_all<TT, OW, 3>(acc, bo); break;
+        case 4: activate_all<TT, OW, 4>(acc, bo); break;
+        case 5: activate_all<TT, OW, 5>(acc, bo); break;
+        case 6: activate_all<TT, OW, 6>(acc, bo); break;
+        default: activate_all<TT, OW, 0>(acc, bo);
     }
 }
 
@@ -126,7 +152,7 @@ __device__ __forceinline__ void tap_weights(const float* p, float (&w)[OW]) {
 // output positions t0 .. t0 + TT - 1, t0 = (u % n_chunks) * TT.  Output
 // position t reads input rows t .. t + K - 1 (a row is a position + pad).
 template <typename S, int TT, int OW>
-__device__ void layer_tasks(const S* __restrict__ cur, S* __restrict__ nxt,
+__device__ __forceinline__ void layer_tasks(const S* __restrict__ cur, S* __restrict__ nxt,
                             const float* __restrict__ wl, int I, int K, int O,
                             int T_out, int n_og, int pitch, int pad, int act,
                             int lane) {
@@ -144,10 +170,13 @@ __device__ void layer_tasks(const S* __restrict__ cur, S* __restrict__ nxt,
         for (int i = 0; i < I; ++i) {
             const S* col = cur + (size_t)i * pitch;
             const float* wi = wl + (size_t)(g * I + i) * K * OWP;
-            // a[m]: row t0 + k + m, the window of tap k
-            float a[TT];
+            // a[m]: row t0 + k + m, the window of tap k; w: tap k's
+            // weights, the next tap's loaded one tap ahead (past the last
+            // tap lie the next feature's or the biases: in the block)
+            float a[TT], w[OW];
 #pragma unroll
             for (int m = 0; m < TT; ++m) a[m] = row(col, t0 + m);
+            tap_weights<OW>(wi, w);
             int k = 0;
             for (; k + TT <= K; k += TT) {
                 float b[TT];  // the next TT rows
@@ -155,8 +184,8 @@ __device__ void layer_tasks(const S* __restrict__ cur, S* __restrict__ nxt,
                 for (int m = 0; m < TT; ++m) b[m] = row(col, t0 + k + TT + m);
 #pragma unroll
                 for (int kk = 0; kk < TT; ++kk) {
-                    float w[OW];
-                    tap_weights<OW>(wi + (k + kk) * OWP, w);
+                    float wn[OW];
+                    tap_weights<OW>(wi + (k + kk + 1) * OWP, wn);
 #pragma unroll
                     for (int j = 0; j < TT; ++j) {
                         const float v = j + kk < TT ? a[j + kk] : b[j + kk - TT];
@@ -164,13 +193,16 @@ __device__ void layer_tasks(const S* __restrict__ cur, S* __restrict__ nxt,
                         for (int o = 0; o < OW; ++o)
                             acc[j][o] = fmaf(w[o], v, acc[j][o]);
                     }
+#pragma unroll
+                    for (int o = 0; o < OW; ++o) w[o] = wn[o];
                 }
 #pragma unroll
                 for (int m = 0; m < TT; ++m) a[m] = b[m];
             }
             for (; k < K; ++k) {  // the last K % TT taps, one at a time
-                float w[OW];
-                tap_weights<OW>(wi + k * OWP, w);
+                float wn[OW];
+                tap_weights<OW>(wi + (k + 1) * OWP, wn);
+                const float an = row(col, t0 + k + TT);
 #pragma unroll
                 for (int j = 0; j < TT; ++j)
 #pragma unroll
@@ -178,23 +210,32 @@ __device__ void layer_tasks(const S* __restrict__ cur, S* __restrict__ nxt,
                         acc[j][o] = fmaf(w[o], a[j], acc[j][o]);
 #pragma unroll
                 for (int m = 0; m < TT - 1; ++m) a[m] = a[m + 1];
-                a[TT - 1] = row(col, t0 + k + TT);
+                a[TT - 1] = an;
+#pragma unroll
+                for (int o = 0; o < OW; ++o) w[o] = wn[o];
             }
         }
         float bo[OW];
 #pragma unroll
         for (int o = 0; o < OW; ++o) bo[o] = bias[g * OWP + o];
+        activate_all<TT, OW>(acc, bo, act);
+        S* dst = nxt + (size_t)g * OW * pitch;
+        if (t0 + TT <= T_out && (g + 1) * OW <= O) {  // a whole task
 #pragma unroll
-        for (int j = 0; j < TT; ++j) {
-            const int t = t0 + j;
-            if (t < T_out) {
+            for (int j = 0; j < TT; ++j) {
+                const int r = skew(pad + t0 + j);
 #pragma unroll
-                for (int o = 0; o < OW; ++o) {
-                    const int f = g * OW + o;
-                    if (f < O)
-                        nxt[(size_t)f * pitch + skew(pad + t)] =
-                            from_f32<S>(activate(acc[j][o] + bo[o], act));
-                }
+                for (int o = 0; o < OW; ++o)
+                    dst[(size_t)o * pitch + r] = from_f32<S>(acc[j][o]);
+            }
+        } else {
+#pragma unroll
+            for (int j = 0; j < TT; ++j) {
+                const int r = skew(pad + t0 + j);
+#pragma unroll
+                for (int o = 0; o < OW; ++o)
+                    if (t0 + j < T_out && g * OW + o < O)
+                        dst[(size_t)o * pitch + r] = from_f32<S>(acc[j][o]);
             }
         }
     }
@@ -294,7 +335,7 @@ extern "C" const char* ofpt_error_string(int code) {
 
 template <typename S>
 static int launch(const StackDesc& d, const float* x, const float* w,
-                  float* out, cudaStream_t stream) {
+                  float* out, cudaStream_t stream, int* ctas_per_sm) {
     const size_t smem = 2 * (size_t)d.w_max * sizeof(float) +
                         (size_t)d.ns * 2 * d.max_feat * d.pitch * sizeof(S);
     if (smem > 232448 || d.ns < 1 || d.ns > 16)
@@ -303,6 +344,15 @@ static int launch(const StackDesc& d, const float* x, const float* w,
         conv_stack_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
+    // the largest shared-memory carveout, so the plan's CTAs fit an SM
+    e = cudaFuncSetAttribute(conv_stack_kernel<S>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             100);
+    if (e != cudaSuccess) return (int)e;
+    if (ctas_per_sm) {  // asked for the residency, not a launch
+        return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            ctas_per_sm, conv_stack_kernel<S>, 32 * d.ns, smem);
+    }
     const int blocks = (d.B + d.ns - 1) / d.ns;
     conv_stack_kernel<S><<<blocks, 32 * d.ns, smem, stream>>>(d, x, w, out);
     return (int)cudaGetLastError();
@@ -316,6 +366,16 @@ extern "C" int ofpt_conv_stack(const StackDesc* hd, const float* x,
         return (int)cudaErrorInvalidValue;
     if (d.B == 0) return 0;
     if (d.bf16)
-        return launch<__nv_bfloat16>(d, x, w, out, (cudaStream_t)stream);
-    return launch<float>(d, x, w, out, (cudaStream_t)stream);
+        return launch<__nv_bfloat16>(d, x, w, out, (cudaStream_t)stream,
+                                     nullptr);
+    return launch<float>(d, x, w, out, (cudaStream_t)stream, nullptr);
+}
+
+// CTAs of the plan in *hd that the card keeps resident per SM (no launch).
+extern "C" int ofpt_conv_stack_occupancy(const StackDesc* hd, int* ctas) {
+    cudaGetLastError();
+    const StackDesc d = *hd;
+    if (d.bf16)
+        return launch<__nv_bfloat16>(d, nullptr, nullptr, nullptr, 0, ctas);
+    return launch<float>(d, nullptr, nullptr, nullptr, 0, ctas);
 }

@@ -167,7 +167,7 @@ GATHER = Kernel(
 )
 CONV_STACK = Kernel(
     "conv_stack", "conv_stack.cu",
-    {"ofpt_conv_stack": [_P] * 5},
+    {"ofpt_conv_stack": [_P] * 5, "ofpt_conv_stack_occupancy": [_P, _P]},
 )
 CONV_STACK_MMA = Kernel(
     "conv_stack_mma", "conv_stack_mma.cu",

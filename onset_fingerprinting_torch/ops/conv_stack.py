@@ -487,8 +487,18 @@ def conv_stack(x: torch.Tensor, weights, biases, padding: int = 1,
     w_flat = packed_weights(kernel, weights, biases, compute_dtype,
                             lambda: _pack(weights, biases, compute_dtype,
                                           plan))
+    d = _simt_desc(plan, bsz, length, padding, activation, compute_dtype)
+    kernel.launch(
+        "ofpt_conv_stack", ctypes.addressof(d), x.data_ptr(),
+        w_flat.data_ptr(), out.data_ptr(), _cuda.stream(),
+    )
+    return out
+
+
+def _simt_desc(plan: SimtPlan, bsz: int, length: int, padding: int,
+               activation: str, compute_dtype: torch.dtype) -> _StackDesc:
     d = _StackDesc(
-        n_layers=len(weights), B=bsz, L=length, pad=padding,
+        n_layers=len(plan.layers), B=bsz, L=length, pad=padding,
         act=_ACT_CODES[activation], bf16=int(compute_dtype == torch.bfloat16),
         ns=plan.ns, pitch=plan.pitch, max_feat=plan.max_feat,
         w_max=plan.w_max,
@@ -498,11 +508,25 @@ def conv_stack(x: torch.Tensor, weights, biases, padding: int = 1,
         d.T_out[li], d.TT[li], d.OW[li], d.n_og[li] = (lp.t_out, lp.tt,
                                                       lp.ow, lp.n_og)
         d.w_off[li], d.w_len[li] = lp.w_off, lp.w_len
-    kernel.launch(
-        "ofpt_conv_stack", ctypes.addressof(d), x.data_ptr(),
-        w_flat.data_ptr(), out.data_ptr(), _cuda.stream(),
-    )
-    return out
+    return d
+
+
+def simt_occupancy(length: int, shapes, padding: int,
+                   compute_dtype: torch.dtype) -> int:
+    """CTAs of :func:`simt_plan`'s schedule that the card keeps resident
+    per SM (the CUDA occupancy query; no launch), to hold the plan's
+    ``ctas_per_sm`` to."""
+    plan = simt_plan(length, shapes, padding, compute_dtype.itemsize)
+    d = _simt_desc(plan, 1, length, padding, "silu", compute_dtype)
+    kernel = _cuda.CONV_STACK
+    if kernel._lib is None:
+        _cuda.build([kernel])
+    ctas = ctypes.c_int(0)
+    rc = kernel._lib.ofpt_conv_stack_occupancy(ctypes.addressof(d),
+                                               ctypes.addressof(ctas))
+    if rc != 0:
+        raise RuntimeError(f"conv_stack occupancy query: CUDA error {rc}")
+    return ctas.value
 
 
 def _launch_mma(kernel, x, weights, biases, padding, activation, out):

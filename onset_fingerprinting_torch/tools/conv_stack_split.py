@@ -12,6 +12,8 @@ through the package's own wrapper and timed by CUDA events over
 - ``fma_only``: every activation load from shared memory (and its
   skewed address) replaced by a value made in registers (the FMAs and the
   weight loads stay);
+- ``no_weight_loads``: the weights' shared-memory loads replaced by
+  values made in registers; ``no_loads``: both kinds of load replaced;
 - ``loads_only``: each tap's ``TT x OW`` FMAs replaced by ``TT`` pairs of
   adds that keep its activation and weight loads live;
 - ``layer_N``: only layer N computes (the others are skipped), and
@@ -52,6 +54,21 @@ F32_FLOPS = 67e12
 VARIANTS = (
     ("fma_only", [
         ("    return to_f32<S>(col[skew(r)]);", "    return __int_as_float(r);"),
+    ], ()),
+    ("no_weight_loads", [
+        ("    const float4 a = *reinterpret_cast<const float4*>(p);",
+         "    const float4 a = make_float4(__int_as_float((int)(size_t)p), "
+         "1.f, 2.f, 3.f);"),
+        ("        const float4 b = *reinterpret_cast<const float4*>(p + 4);",
+         "        const float4 b = make_float4(4.f, 5.f, 6.f, 7.f);"),
+    ], ()),
+    ("no_loads", [
+        ("    return to_f32<S>(col[skew(r)]);", "    return __int_as_float(r);"),
+        ("    const float4 a = *reinterpret_cast<const float4*>(p);",
+         "    const float4 a = make_float4(__int_as_float((int)(size_t)p), "
+         "1.f, 2.f, 3.f);"),
+        ("        const float4 b = *reinterpret_cast<const float4*>(p + 4);",
+         "        const float4 b = make_float4(4.f, 5.f, 6.f, 7.f);"),
     ], ()),
     ("loads_only", [
         ("#pragma unroll\n                        for (int o = 0; o < OW; ++o)\n"
@@ -118,6 +135,30 @@ def events_ms(fn, n: int) -> float:
     return s.elapsed_time(e) / n
 
 
+def clocks_under(fn, n: int) -> dict:
+    """The SM clock (MHz) and board power (W) that ``nvidia-smi`` samples
+    every 50 ms while ``fn`` runs ``n`` times back to back."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        out, _ = smi.communicate(timeout=10)
+    rows = [[float(v) for v in line.split(",")]
+            for line in out.strip().splitlines() if line.strip()]
+    busy = rows[1:-1] or rows
+    return dict(samples=len(rows),
+                sm_mhz=sorted(r[0] for r in busy)[len(busy) // 2],
+                power_w=sorted(r[1] for r in busy)[len(busy) // 2])
+
+
 def with_library(lib, fn):
     """``fn`` run with ``_cuda.CONV_STACK`` launching ``lib``."""
     def run():
@@ -148,7 +189,11 @@ def parent_runner(tree: Path):
 
 
 def main(argv=None) -> int:
-    from onset_fingerprinting_torch.ops.conv_stack import conv_stack
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        conv_stack,
+        simt_occupancy,
+        simt_plan,
+    )
     from onset_fingerprinting_torch.tools.conv_stack_gate import (
         flagship_stack,
     )
@@ -185,11 +230,20 @@ def main(argv=None) -> int:
     res = {"device": torch.cuda.get_device_name(0), "power": smi,
            "batch": BATCH, "length": LENGTH, "gflop": sum(flops) / 1e9,
            "bound_ms": 1e3 * sum(flops) / F32_FLOPS}
+    shapes = [tuple(w.shape) for w in ws]
+    plan = simt_plan(LENGTH, shapes, 1, 4)
+    res["plan"] = dict(ns=plan.ns, smem=plan.smem, tt=[
+        lp.tt for lp in plan.layers], ctas_per_sm=plan.ctas_per_sm,
+        card_ctas_per_sm=simt_occupancy(LENGTH, shapes, 1, torch.float32))
+    print("plan:", json.dumps(res["plan"]), flush=True)
 
     def run():
         return conv_stack(x, ws, bs, 1, "silu", torch.float32)
 
     ms = {"whole": events_ms(run, args.launches)}
+    res["clocks"] = clocks_under(run, 100)
+    print("SM clock and power while the kernel runs:", res["clocks"],
+          flush=True)
     for name, kern in var.items():
         ms[name] = events_ms(with_library(kern._lib, run), args.launches)
         print(f"{name}: {ms[name]:.3f} ms", flush=True)
