@@ -287,8 +287,16 @@ __global__ void __launch_bounds__(512, 1)
     const bool live = b < d.B;
     const int pad = d.pad;
 
-    for (size_t e = lane; e < 2 * feat_elems; e += 32)
-        cur[e] = from_f32<S>(0.f);
+    // zeros where a kept output reads them: every feature's leading pad
+    // rows in both buffers and the input's tail pad (each layer zeroes its
+    // output's); other rows are written before they are read, or feed only
+    // positions past a layer's T_out, which are never stored
+    for (int e = lane; e < 2 * d.max_feat * pad; e += 32) {
+        const int f = e / pad, r = e - f * pad;
+        cur[(size_t)f * d.pitch + skew(r)] = from_f32<S>(0.f);
+    }
+    for (int r = lane; r < pad; r += 32)
+        cur[skew(pad + d.L + r)] = from_f32<S>(0.f);
     __syncwarp();
     if (live)
         for (int t = lane; t < d.L; t += 32)

@@ -14,6 +14,10 @@ through the package's own wrapper and timed by CUDA events over
   weight loads stay);
 - ``no_weight_loads``: the weights' shared-memory loads replaced by
   values made in registers; ``no_loads``: both kinds of load replaced;
+- ``wps2``: two warps (64 lanes) per signal, so 32 warps per SM at 64
+  registers a thread, lane tiles of 5, 4 and 3 positions for the
+  flagship's layers (a design tried and not taken);
+- ``unroll_i2``: the input-feature loop unrolled by two;
 - ``loads_only``: each tap's ``TT x OW`` FMAs replaced by ``TT`` pairs of
   adds that keep its activation and weight loads live;
 - ``layer_N``: only layer N computes (the others are skipped), and
@@ -69,6 +73,39 @@ VARIANTS = (
          "1.f, 2.f, 3.f);"),
         ("        const float4 b = *reinterpret_cast<const float4*>(p + 4);",
          "        const float4 b = make_float4(4.f, 5.f, 6.f, 7.f);"),
+    ], ()),
+    # two warps (64 lanes) per signal, 32 warps per SM at 64 registers a
+    # thread, smaller lane tiles for the flagship's layers
+    ("wps2", [
+        ("u < n_chunks * n_og; u += 32)", "u < n_chunks * n_og; u += 64)"),
+        ("        OFPT_TT(5) OFPT_TT(6) OFPT_TT(8)",
+         "        OFPT_TT(3) OFPT_TT(4) OFPT_TT(5)"),
+        ("    switch (d.TT[l] * 16 + d.OW[l]) {",
+         "    switch ((l == 0 ? 5 : l == 1 ? 4 : 3) * 16 + d.OW[l]) {"),
+        ("__launch_bounds__(512, 1)", "__launch_bounds__(512, 2)"),
+        ("threadIdx.x & 31, warp = threadIdx.x >> 5;",
+         "threadIdx.x & 63, warp = threadIdx.x >> 6;"),
+        ("    for (size_t e = lane; e < 2 * feat_elems; e += 32)",
+         "    for (size_t e = lane; e < 2 * feat_elems; e += 64)"),
+        ("        cur[e] = from_f32<S>(0.f);\n    __syncwarp();",
+         "        cur[e] = from_f32<S>(0.f);\n    __syncthreads();"),
+        ("for (int t = lane; t < d.L; t += 32)",
+         "for (int t = lane; t < d.L; t += 64)"),
+        ("            __syncwarp();\n            run_layer<S>(d, l, cur, nxt, wl, "
+         "lane);\n            __syncwarp();",
+         "            run_layer<S>(d, l, cur, nxt, wl, lane);"),
+        ("for (int e = lane; e < O * pad; e += 32) {",
+         "for (int e = lane; e < O * pad; e += 64) {"),
+        ("for (int e = lane; e < per; e += 32) {",
+         "for (int e = lane; e < per; e += 64) {"),
+        ("conv_stack_kernel<S><<<blocks, 32 * d.ns,",
+         "conv_stack_kernel<S><<<blocks, 64 * d.ns,"),
+    ], ()),
+    # the input-feature loop unrolled by two
+    ("unroll_i2", [
+        ("        for (int i = 0; i < I; ++i) {\n            const S* col",
+         "#pragma unroll 2\n        for (int i = 0; i < I; ++i) {\n"
+         "            const S* col"),
     ], ()),
     ("loads_only", [
         ("#pragma unroll\n                        for (int o = 0; o < OW; ++o)\n"

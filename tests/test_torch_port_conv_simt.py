@@ -165,8 +165,8 @@ def test_route_rule():
 
 
 def emulate(x, ws, bs, padding, activation, dtype):
-    """The kernel's arithmetic on the CPU, lane task by lane task: skewed
-    buffer rows, the register window loaded one row per tap (a tap block
+    """The kernel's arithmetic on the CPU, lane task by lane task: buffers
+    whose pad rows alone start as zeros, skewed rows, the register window loaded one row per tap (a tap block
     of ``tt`` rows ahead, then the tail taps one at a time), f32 FMAs
     into ``[tt, ow]`` accumulators over the padded feature groups."""
     plan = simt_plan(x.shape[1], [tuple(w.shape) for w in ws], padding,
@@ -176,7 +176,12 @@ def emulate(x, ws, bs, padding, activation, dtype):
     store = lambda v: torch.as_tensor(v).to(dtype).float().numpy()  # noqa
     outs = []
     for sig in x:
-        bufs = np.zeros((2, plan.max_feat, plan.pitch), np.float32)
+        # what the kernel leaves unwritten holds anything: NaN here, so a
+        # stale row that reached a kept output would show
+        bufs = np.full((2, plan.max_feat, plan.pitch), np.nan, np.float32)
+        for r in range(padding):
+            bufs[:, :, skew(r)] = 0.0
+            bufs[0, 0, skew(padding + x.shape[1] + r)] = 0.0
         rows = padding + np.arange(x.shape[1])
         bufs[0, 0, [skew(r) for r in rows]] = store(sig.numpy())
         cur, nxt = 0, 1
