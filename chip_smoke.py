@@ -677,7 +677,6 @@ def phase_main_path(report, dtype=torch.bfloat16, iters=ITERS,
         f"chunk): {host_total:.3f} ms -> "
         f"{N_STREAMS / (host_total / 1e3):.0f}x realtime "
         f"(min {min(totals):.3f}, max {max(totals):.3f})")
-    report["_fleet"][str(dtype)] = dict(med, sum=dev_total, run=host_total)
     if profile:
         profile_path(run, state, audio)
 
@@ -1309,7 +1308,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    report = {"_launches": {}, "_fleet": {}}
+    report = {"_launches": {}}
     phase("phase 1: kernels against their plain versions")
     phase_detector(report)
     x = make_audio(CHUNK, N_STREAMS * 4, seed=4)

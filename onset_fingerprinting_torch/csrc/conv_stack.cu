@@ -41,7 +41,7 @@
 //   spare word per 32 rows), so the lanes of a warp meet at most two to a
 //   bank for any TT (without it an even TT sends up to eight lanes to one).
 // - Occupancy: at most 128 registers a thread (__launch_bounds__), and the
-//   plan's ns (the flagship: 8 signals, ~112 KB) lets two CTAs share an SM,
+//   plan's ns (the flagship: 8 signals, 110144 bytes) lets two CTAs share an SM,
 //   16 resident warps.  A layer's packed weights are staged into one of two
 //   alternating buffers while the previous layer computes.
 //

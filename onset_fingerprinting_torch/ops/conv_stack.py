@@ -16,12 +16,13 @@ Which kernel runs (:func:`kernel_for`, a shape test, no fallback):
   (:func:`mma_plan`) whose shared memory fits one CTA of 16 signals
   (232448 bytes): ``csrc/conv_stack_mma.cu``, the tensor-core kernel
   (counter ``_cuda.CONV_STACK_MMA``).  The flagship stack takes it.
-- every other stack, and every ``float32`` stack (golden mode: bf16 or
-  TF32 tensor cores would break its 5e-4/1e-4 bound):
-  ``csrc/conv_stack.cu``, the CUDA-core kernel (``_cuda.CONV_STACK``).
-  A stack whose two activation buffers do not fit shared memory even for
-  one signal per CTA (about 220 KB: e.g. 128 features at L=256 in
-  float32) raises.
+- every other stack, and every ``float32`` stack (one bf16 or TF32
+  tensor-core pass would break its 5e-4/1e-4 bound):
+  ``csrc/conv_stack.cu``, the CUDA-core kernel (``_cuda.CONV_STACK``),
+  one warp per signal on the schedule :func:`simt_plan` gives.  A stack
+  whose two weight buffers and one signal's two activation buffers do
+  not fit a CTA's shared memory (e.g. 64 features at L=4096 in float32)
+  raises.
 
 The plain version counts its calls on the kernel it stands in for;
 :func:`far_signals` lists where a bf16 run parts from it by more than about
