@@ -91,6 +91,23 @@ Phase 4  drives the realtime engine (``tools.realtime_sim``: 3 sensors at
          locate kernel on quiet and fired blocks, and K3 at the
          classifier's shape, held there to the witness gate too
          (``tools/step_bench``).
+Phase 5  trains on the card.  5a holds K3 under autograd at the training
+         shape (B = 9216, L = 256, both routes) to autograd of the plain
+         chain on the card: the forward at phase 1's tolerances, the grads
+         of x, weights and biases within 1e-5 of their scale (f32) or
+         3e-2 / 2e-2 (bf16), with TF32 on in the process flags around the
+         backward (the recompute turns it off); one launch per forward, one
+         recompute per backward, no plain call.  5c runs
+         ``tools.fingerprint_capability.run`` at the JAX demo's fixture
+         (768 hits; epochs cut 2000 -> 200 for every model; the CCCNNs
+         from seeds 0-4), gates the demo's bars and the float32 fleet
+         flagship's on the medians, shows that K3 f32 launched once per
+         forward of that model (and recomputed once per step), the
+         tensor-core K3 and every other kernel never, no plain version,
+         and times each model's step and the flagship's split.  5b trains
+         the float32 flagship from one init for 10 full-batch adam steps
+         on 256 of the fixture's windows on the card and on the CPU in
+         this process: the losses within 1e-4 relative at every step.
 
 Prints one ``{"kernels": [...]}`` line (K1 as three rows: ``detector``,
 the pipe, the fleet path's; ``detector_warp``, the warp-per-channel kernel
@@ -105,8 +122,8 @@ shape and with its launches; ``conv_stack_f32`` in float32, the CUDA-core
 kernel, phase 2b's; ``locate_block``, the realtime engine's locate
 step, which replaces no TPU kernel, timed on fired blocks; ``ring_write``,
 the engine's audio-ring write, which replaces no TPU kernel either).  Launch counts
-are the sums over the paths that phases 2, 2b, 3 and 4 drive, each from counts set to
-0 just before it.  Last comes ``{"ok": true, "device": {...}}``.
+are the sums over the paths that phases 2, 2b, 3, 4 and 5c drive, each from counts
+set to 0 just before it.  Last comes ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1277,6 +1294,209 @@ def classifier_k3(report, model):
         f"{err:.3g} vs plain{far}; {flops / 1e6:.1f} MFLOP useful")
 
 
+#: phase 5: the capability fixture's size (JAX demo: 768 hits); its
+#: training set is 576 hits x 4 extractions = 2304 windows of 4 channels,
+#: so K3 runs at B = 9216 signals.  Epochs cut from the demo's 2000 by 10
+#: for every model, to keep the phase near 150 s with the CCCNNs trained
+#: from five seeds: their rate is 0 after 100 updates anyway
+#: (tools/fingerprint_capability.py)
+CAP_HITS = 768
+CAP_EPOCHS = 200
+TRAIN_SIGNALS = 9216
+#: phase 5b: windows and full-batch steps of the card-against-CPU run
+PARITY_WINDOWS = 256
+PARITY_STEPS = 10
+
+
+def phase_train_k3(report):
+    """5a: K3 under autograd at the training shape, both routes: the
+    Function's forward (the routed kernel, one launch, no plain call)
+    against the plain chain at phase 1's tolerances; the grads of x,
+    weights and biases for a fixed cotangent against autograd of the plain
+    chain on the card (f32 within 1e-5 of each grad's scale, bf16 within
+    atol 3e-2 / rtol 2e-2), with TF32 on in the process flags and off in
+    the recompute; one recompute per backward."""
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        conv_stack,
+        conv_stack_reference,
+        kernel_for,
+    )
+    from onset_fingerprinting_torch.tools.conv_stack_gate import (
+        flagship_stack,
+    )
+
+    x = torch.randn((TRAIN_SIGNALS, 256), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(91))
+    for dt in (torch.float32, torch.bfloat16):
+        ws, bs = flagship_stack(seed=0)
+        leaves = [x.clone().requires_grad_(),
+                  *(t.clone().requires_grad_() for t in (*ws, *bs))]
+        xl, wl, bl = leaves[0], leaves[1:8], leaves[8:]
+        kern = kernel_for(256, wl, 1, dt)
+        before = (kern.launches, kern.plain_calls, kern.backward_recomputes)
+        out = conv_stack(xl, wl, bl, 1, "silu", dt)
+        ct = torch.randn(out.shape, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(92))
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            got = torch.autograd.grad(out, leaves, ct)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.synchronize()
+        after = (kern.launches, kern.plain_calls, kern.backward_recomputes)
+        check(after == (before[0] + 1, before[1], before[2] + 1),
+              f"K3 {dt} under autograd: (launches, plain calls, recomputes) "
+              f"went {before} -> {after}, want one launch and one "
+              "recompute")
+        ref = conv_stack_reference(xl, wl, bl, 1, "silu", dt)
+        want = torch.autograd.grad(ref, leaves, ct)
+        atol, rtol = (5e-4, 1e-4) if dt == torch.float32 else (3e-2, 2e-2)
+        out, ref = out.detach(), ref.detach()
+        fwd_err = max_err(out, ref)
+        check(int(((out - ref).abs() > atol + rtol * ref.abs()).sum()) == 0,
+              f"K3 {dt} forward under autograd: max err {fwd_err}")
+        worst = 0.0
+        for name, g, w in zip(["x"] + [f"w{i}" for i in range(7)]
+                              + [f"b{i}" for i in range(7)], got, want):
+            scale = float(w.abs().max())
+            err = max_err(g, w)
+            worst = max(worst, err / scale)
+            if dt == torch.float32:
+                check(err <= 1e-5 * scale, f"K3 f32 grad {name}: max err "
+                      f"{err} over scale {scale}")
+            else:
+                check(int(((g - w).abs() > 3e-2 + 2e-2 * w.abs()).sum())
+                      == 0, f"K3 bf16 grad {name}: max err {err}")
+        log(f"5a K3 {dt} ({kern.name}) B={TRAIN_SIGNALS}: forward max err "
+            f"{fwd_err:.3g}, grads max err / scale {worst:.3g} against "
+            f"autograd of the plain chain (TF32 on outside the recompute)")
+        del out, ref, got, want, leaves
+
+
+def phase_train_parity(fix):
+    """5b: the float32 flagship from one init, PARITY_STEPS full-batch adam
+    steps on PARITY_WINDOWS windows of the fixture, on the card and on the
+    CPU in this process: the losses within 1e-4 relative at every step."""
+    from onset_fingerprinting_torch.core.config import TrainConfig
+    from onset_fingerprinting_torch.models.train import (
+        Trainer,
+        make_optimizer,
+    )
+    from onset_fingerprinting_torch.tools.fingerprint_capability import (
+        flagship_f32,
+    )
+
+    x = fix.x_train[:PARITY_WINDOWS].cpu()
+    y = fix.y_train[:PARITY_WINDOWS].cpu()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = Trainer(flagship_f32(), TrainConfig(loss="l1", seed=0),
+                     optimizer=make_optimizer("adam", 3e-3, "cosine", 100),
+                     device=dev)
+        st = tr.init_state()
+        xd, yd = x.to(dev), y.to(dev)
+        losses = [float(tr.step(st, xd, yd)) for _ in range(PARITY_STEPS)]
+        runs[dev] = (losses, st.module.state_dict())
+    lc, lh = (np.array(runs[d][0]) for d in ("cuda", "cpu"))
+    rel = np.abs(lc - lh) / np.abs(lh)
+    pdiff = max(max_err(runs["cuda"][1][k].cpu(), v)
+                for k, v in runs["cpu"][1].items())
+    log(f"5b flagship f32, {PARITY_STEPS} adam steps on {PARITY_WINDOWS} "
+        f"windows: card losses {lc.tolist()}, CPU {lh.tolist()}, largest "
+        f"relative difference {rel.max():.3g}; largest parameter "
+        f"difference {pdiff:.3g}")
+    check(bool((rel <= 1e-4).all()), f"5b: card and CPU losses part by "
+          f"{rel.max()} relative")
+
+
+def phase_capability(report):
+    """5c: the capability tool's ``run()`` at the demo's size on the card:
+    the bars; K3 f32 launched once per forward of the fleet flagship and
+    the tensor-core K3 never; no plain version; each model's ms per
+    training step and the flagship's step split."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        conv_stack,
+        conv_stack_reference,
+    )
+    from onset_fingerprinting_torch.tools import (
+        fingerprint_capability as cap,
+    )
+
+    _cuda.reset_counts()
+    res = cap.run(hits=CAP_HITS, epochs=CAP_EPOCHS, log=log)
+    counts = {k.name: (k.launches, k.plain_calls, k.backward_recomputes)
+              for k in _cuda.KERNELS}
+    log(f"5c launches/plain calls/recomputes: {counts}")
+    fwd = res["forwards"]["flagship_f32"]
+    steps = res["steps"]
+    check(_cuda.CONV_STACK.launches == fwd, f"K3 f32 launched "
+          f"{_cuda.CONV_STACK.launches} times, want one per forward of the "
+          f"fleet flagship ({fwd})")
+    check(_cuda.CONV_STACK.backward_recomputes == steps["flagship_f32"],
+          f"{_cuda.CONV_STACK.backward_recomputes} K3 recomputes for "
+          f"{steps['flagship_f32']} steps")
+    check(_cuda.CONV_STACK_MMA.launches == 0,
+          "the tensor-core K3 ran on the float32 training path")
+    for k in _cuda.KERNELS:
+        check(k.plain_calls == 0, f"plain {k.name} ran on the training path")
+        if k is not _cuda.CONV_STACK:
+            check(k.launches == 0, f"{k.name} ran on the training path")
+    report["_launches"]["conv_stack"] = (
+        report["_launches"].get("conv_stack", 0) + _cuda.CONV_STACK.launches)
+    for name in ("mean", *cap.MODELS):
+        check(bool(np.isfinite(res[name])), f"5c {name}: {res[name]}")
+    log(f"5c capability ({CAP_HITS} hits, {CAP_EPOCHS} epochs, CCCNN seeds "
+        f"{cap.SEEDS}), test L1 (cm; CCCNNs: median, then per seed): "
+        + "; ".join(f"{n} {res[n]:.4f}" + (" (" + ", ".join(
+            f"{v:.4f}" for v in res["runs"][n]) + ")" if n in res["runs"]
+            else "") for n in ("mean", *cap.MODELS)))
+    fix = res["fixture"]
+    x, y = fix.x_train, fix.y_train
+    log(f"5c ms per training step (CUDA events, {len(x)} windows): fcnn "
+        f"{1e3 * res['seconds']['fcnn'] / CAP_EPOCHS:.3f} (host clock over "
+        f"its run, lags included)")
+    for name, (tr, st) in res["trainers"].items():
+        ms = time_ms(lambda tr=tr, st=st: tr.step(st, x, y), n=10)
+        log(f"  {name}: {ms:.3f} ms per step; {steps[name]} steps over "
+            f"the seeds, {res['seconds'][name]:.1f} s of training and "
+            "evaluation")
+    tr, st = res["trainers"]["flagship_f32"]
+    m = st.module.train()
+    xf = x.reshape(-1, x.shape[-1]).contiguous()
+    ws = [c.weight for c in m.convs]
+    bs = [c.bias for c in m.convs]
+    with torch.no_grad():
+        k3_ms = time_ms(lambda: conv_stack(xf, ws, bs, 1, "silu",
+                                           torch.float32), n=20)
+        fwd_ms = time_ms(lambda: m(x), n=10)
+
+    def fwd_bwd():
+        tr.loss_fn(m(x), y).backward()
+
+    fb_ms = time_ms(fwd_bwd, n=10)
+    rec_ms = time_ms(lambda: conv_stack_reference(xf, ws, bs, 1, "silu",
+                                                  torch.float32), n=10)
+    opt_ms = time_ms(st.optimizer.step, n=10)
+    step_ms = time_ms(lambda: tr.step(st, x, y), n=10)
+    flops, t = 0, xf.shape[1]
+    for w in ws:
+        o, i, kk = w.shape
+        t = t + 2 - kk + 1
+        flops += 2 * o * i * kk * t * xf.shape[0]
+    log(f"5c flagship f32 step split at B = {len(xf)} signals: step "
+        f"{step_ms:.3f} ms; K3 forward {k3_ms:.3f} ms (bound "
+        f"{1e3 * flops / F32_FLOPS:.3f} ms, {flops / 1e9:.2f} GFLOP); head "
+        f"and loss {fwd_ms - k3_ms:.3f} ms; backward with its recompute "
+        f"{fb_ms - fwd_ms:.3f} ms (the recompute's forward alone "
+        f"{rec_ms:.3f} ms); optimizer {opt_ms:.3f} ms")
+    met = cap.bars(res)
+    for what, ok in met:
+        log(f"5c bar {'met' if ok else 'MISSED'}: {what}")
+    check(all(ok for _, ok in met), "5c: a capability bar was missed")
+    return fix
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1328,6 +1548,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("phase 4: the realtime engine")
     phase_realtime(report, cpu_ref)
+    torch.cuda.empty_cache()
+    phase("phase 5a: K3 under autograd at the training shape")
+    phase_train_k3(report)
+    torch.cuda.empty_cache()
+    phase("phase 5c: the fingerprint-capability run")
+    fix = phase_capability(report)
+    phase("phase 5b: the float32 flagship on the card against the CPU")
+    phase_train_parity(fix)
     phase("done")
 
     # row: (source, TPU kernel, launch counter)

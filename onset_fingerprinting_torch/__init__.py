@@ -5,7 +5,9 @@ The layout mirrors the JAX package so that each module's counterpart is
 found under the same path:
 
 - ``core``     — the configuration tree (a jax-free copy), coordinates,
-                 ring buffers.
+                 ring buffers, WAV and POSD I/O (copies).
+- ``data``     — the modal-drum synthesiser (a copy), onset-window
+                 extraction and the MCPOSD location dataset.
 - ``ops``      — IIR and median filters, hit lists and window gathers,
                  DFT correlations and lag pickers, and the hand-written
                  Hopper kernels (``ops/_cuda.py`` builds ``csrc/*.cu``
@@ -16,10 +18,14 @@ found under the same path:
 - ``detect``   — the amplitude onset detector in plain PyTorch (the
                  reference the detector kernel is held against) and CC
                  onset refinement.
-- ``locate``   — lag maps, TDOA trilateration, the online locators.
+- ``locate``   — lag maps, TDOA trilateration, the online locators, the
+                 lag-FCNN's training (``calibration.train_location_model``).
 - ``realtime`` — the per-block realtime engine (its step captured in a
                  CUDA graph), its classifier, location-triggered actions.
-- ``models``   — the CCCNN fingerprint model and the flax-params importer.
+- ``models``   — the CCCNN, FCNN and CNN models, the flax-params
+                 importer, the trainer with optax's optimizers, the
+                 hyperparameter search (a copy) and the location-model
+                 experiment.
 - ``workload`` — the injected-hit fleet workload and its recall/precision
                  gate.
 - ``pipeline`` — the offline detect → fingerprint fleet path.
@@ -27,7 +33,8 @@ found under the same path:
                  fingerprint stage on the card; ``conv_stack_gate``: the
                  bf16 conv stack's parity gate and its calibration;
                  ``realtime_sim``: the realtime demo's stream through the
-                 engine.
+                 engine; ``fingerprint_capability``: the location models
+                 trained on the card against predict-the-mean.
 
 Every entry point takes ``device=None``, which means ``"cuda"``; without a
 card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run

@@ -16,6 +16,11 @@ The conv stack takes one of two routes, on the card and on the CPU alike:
   dilation ≠ 1) is an ``F.conv1d`` chain, as the JAX package runs such
   stacks through XLA's conv and never through its Pallas kernel.
 
+Both routes train: K3 is differentiable (its backward differentiates the
+plain chain, as the JAX package's custom VJP does).  ``model.train()`` /
+``model.eval()`` stand for flax's ``train=``; dropout draws its masks from
+the generator ``forward`` is given.
+
 ``conv_impl`` ('conv', 'mxu', 'pallas') and ``conv_u_block`` are accepted
 and validated as the JAX package does, so that a JAX configuration carries
 over unchanged; they do not change the route.  ``Conv1dMXU`` (the TPU's
@@ -30,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from onset_fingerprinting_torch.models.fcnn import dropout
 from onset_fingerprinting_torch.ops.conv_stack import _ACTIVATIONS, conv_stack
 from onset_fingerprinting_torch.ops.xcorr import (
     batch_full_correlate,
@@ -173,7 +179,7 @@ class CCCNN(nn.Module):
             self.register_buffer(
                 "pair_j", torch.tensor([j for _, j in self.pairs]),
                 persistent=False)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout_rate = dropout_rate
         self.fc = nn.Linear(dense_in, output_size)
 
     def fused_features(self, x: torch.Tensor) -> torch.Tensor:
@@ -211,7 +217,10 @@ class CCCNN(nn.Module):
         # grouped: [B, C*K, V] channel-major; shared: [B*C, K, V]
         return y.reshape(b, c, -1, y.shape[-1])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """``model.train()`` as flax's ``train=True``: dropout on the
+        head's input, its masks drawn from ``generator``."""
         b = x.shape[0]
         feats = (self.fused_features(x) if self.fused
                  else self.chain_features(x))  # [B, C, K, V]
@@ -257,4 +266,5 @@ class CCCNN(nn.Module):
             lag0c = cc[..., v - 1] + 1e-6  # [B, C]
             norm = torch.sqrt(lag0c[:, pi] * lag0c[:, pj])[..., None]
             probs = torch.cat([probs, (pcc / norm).reshape(b, -1)], dim=-1)
-        return self.fc(self.dropout(probs))
+        return self.fc(dropout(probs, self.dropout_rate, self.training,
+                               generator))

@@ -9,9 +9,10 @@ source rebuilds and an unchanged one is reused.  Libraries go to
 
 Every kernel has a :class:`Kernel` record here with two plain integer
 counters: ``launches`` (its wrapper adds one each time it launches the
-kernel, and nowhere else) and ``plain_calls`` (its plain PyTorch version
-adds one per call), and ``variants``, the launches by instantiation where
-a wrapper names one.  ``chip_smoke.py`` reads them to show which path ran.
+kernel, and nowhere else), ``plain_calls`` (its plain PyTorch version
+adds one per call) and ``backward_recomputes`` (K3's backward adds one
+each time it recomputes the plain chain to differentiate it), and
+``variants``, the launches by instantiation where a wrapper names one.  ``chip_smoke.py`` reads them to show which path ran.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; a
 non-zero code raises here, since a refused launch never runs and a later
@@ -53,6 +54,7 @@ class Kernel:
         self.flags = NVCC_FLAGS + tuple(extra_flags)
         self.launches = 0
         self.plain_calls = 0
+        self.backward_recomputes = 0
         self.variants = collections.Counter()
         self._lib = None
 
@@ -139,6 +141,7 @@ def reset_counts() -> None:
     for k in KERNELS:
         k.launches = 0
         k.plain_calls = 0
+        k.backward_recomputes = 0
         k.variants.clear()
 
 

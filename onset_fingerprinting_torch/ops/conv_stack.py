@@ -31,7 +31,14 @@ packed weights are cached per weight and bias tensor (``data_ptr`` and
 ``_version``), so an in-place update repacks.
 
 Weights are PyTorch ``Conv1d`` layout ``[O, I, K]``, biases ``[O]``.
-Forward only: the gradient comes with the training slice.
+
+Under autograd (grad enabled and an input that requires it) the stack is
+an ``autograd.Function``, as ``conv_stack_fused`` is a ``jax.custom_vjp``
+(pallas_conv.py:457-555 there): the forward is the routed kernel (its
+plain version on the CPU) and the backward differentiates the plain chain,
+recomputed from the saved inputs.  The recompute counts on the kernel's
+``backward_recomputes``, not its ``plain_calls``, and runs its cuDNN
+convolutions without TF32 whatever the process flags say.
 """
 
 from __future__ import annotations
@@ -346,6 +353,11 @@ def conv_stack_reference(x, weights, biases, padding=1, activation="silu",
     """Plain version of K3: an ``F.conv1d`` + activation chain with the
     kernel's rounding points.  ``[B, L] → [B, T_out, O_last]`` float32."""
     kernel_for(x.shape[1], weights, padding, compute_dtype).plain_calls += 1
+    return _chain(x, weights, biases, padding, activation, compute_dtype)
+
+
+def _chain(x, weights, biases, padding, activation, compute_dtype):
+    """:func:`conv_stack_reference` without its count."""
     act = _ACTIVATIONS[activation]
     y = x.to(compute_dtype).to(torch.float32)[:, None, :]
     for w, b in zip(weights, biases):
@@ -451,7 +463,8 @@ def conv_stack(x: torch.Tensor, weights, biases, padding: int = 1,
                compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Run the whole stride-1 conv stack ``x [B, L] → [B, T_out, O_last]``
     float32: the kernel :func:`kernel_for` names for a CUDA tensor,
-    :func:`conv_stack_reference` for a CPU tensor."""
+    :func:`conv_stack_reference` for a CPU tensor.  Differentiable
+    (module docstring)."""
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unknown activation {activation!r}")
     if compute_dtype not in (torch.float32, torch.bfloat16):
@@ -459,25 +472,69 @@ def conv_stack(x: torch.Tensor, weights, biases, padding: int = 1,
     if x.dim() != 2:
         raise ValueError("x must be [B, L]")
     t_outs = stack_lengths(x.shape[1], weights, padding)
-    if x.device.type == "cpu":
-        return conv_stack_reference(x, weights, biases, padding, activation,
-                                    compute_dtype)
+    if x.device.type != "cpu":
+        if len(weights) > MAX_LAYERS:
+            raise ValueError(f"at most {MAX_LAYERS} layers")
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError("x must be a contiguous float32 [B, L] tensor")
+        if any(v.device != x.device for v in (*weights, *biases)):
+            raise ValueError("weights, biases and x must be on one device")
     if torch.is_grad_enabled() and any(
         v.requires_grad for v in (x, *weights, *biases)
     ):
-        raise RuntimeError(
-            "conv_stack is forward only on the card: run it under "
-            "torch.no_grad()/inference_mode (the backward comes with the "
-            "training slice)"
-        )
-    if x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError("x must be a contiguous float32 [B, L] tensor")
-    if any(v.device != x.device for v in (*weights, *biases)):
-        raise ValueError("weights, biases and x must be on one device")
-    if len(weights) > MAX_LAYERS:
-        raise ValueError(f"at most {MAX_LAYERS} layers")
+        return _ConvStack.apply(x, padding, activation, compute_dtype,
+                                len(weights), *weights, *biases)
+    return _forward(x, weights, biases, padding, activation, compute_dtype,
+                    t_outs[-1])
+
+
+class _ConvStack(torch.autograd.Function):
+    """K3 forward, backward by autograd of the plain chain (pallas_conv.py
+    ``_fused_fwd``/``_fused_bwd`` in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, x, padding, activation, compute_dtype, n, *params):
+        weights, biases = params[:n], params[n:]
+        ctx.save_for_backward(x, *params)
+        ctx.config = (padding, activation, compute_dtype, n)
+        t_out = stack_lengths(x.shape[1], weights, padding)[-1]
+        return _forward(x, weights, biases, padding, activation,
+                        compute_dtype, t_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        padding, activation, compute_dtype, n = ctx.config
+        saved = ctx.saved_tensors
+        need = (ctx.needs_input_grad[0], *ctx.needs_input_grad[5:])
+        inputs = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
+        x, params = inputs[0], inputs[1:]
+        kernel_for(x.shape[1], params[:n], padding,
+                   compute_dtype).backward_recomputes += 1
+        with torch.enable_grad(), exact_f32():
+            out = _chain(x, params[:n], params[n:], padding, activation,
+                         compute_dtype)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, g))
+        got = [next(grads) if t.requires_grad else None for t in inputs]
+        return (got[0], None, None, None, None, *got[1:])
+
+
+def exact_f32():
+    """cuDNN without TF32 for the block it guards, the other cuDNN flags as
+    they are (a context manager)."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def _forward(x, weights, biases, padding, activation, compute_dtype, t_out):
+    """The stack's forward with no autograd: the plain version on the CPU,
+    else the routed kernel."""
+    if x.device.type == "cpu":
+        return conv_stack_reference(x, weights, biases, padding, activation,
+                                    compute_dtype)
     bsz, length = x.shape
-    out = torch.empty((bsz, t_outs[-1], weights[-1].shape[0]),
+    out = torch.empty((bsz, t_out, weights[-1].shape[0]),
                       dtype=torch.float32, device=x.device)
     kernel = kernel_for(length, weights, padding, compute_dtype)
     if kernel is _cuda.CONV_STACK_MMA:

@@ -97,27 +97,54 @@ def _dft_inv_sin(n: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=8)
 def _dft_tensors(n: int, device: torch.device):
-    """``(dft_re, dft_im, inv_cos, inv_sin)`` on ``device``."""
-    return tuple(torch.as_tensor(m, device=device)
-                 for m in (*_dft_matrices(n), _dft_inv_sin(n)))
+    """``(dft_re, dft_im, inv_cos, inv_sin)`` on ``device``: normal tensors
+    even when first asked for under ``inference_mode`` (an inference tensor
+    in the cache could not be saved for a later backward)."""
+    with torch.inference_mode(False):
+        return tuple(torch.as_tensor(m, device=device)
+                     for m in (*_dft_matrices(n), _dft_inv_sin(n)))
 
 
 def dft_matmul(a: torch.Tensor, m: torch.Tensor, precision: str = "highest"
                ) -> torch.Tensor:
     """``a [..., n] @ m [n, k]`` → float32 ``[..., k]`` at ``precision``
-    (module docstring)."""
+    (module docstring).  Differentiable: at ``"default"`` the backward is
+    the two transposed products at the same one-pass bf16 precision, as
+    JAX's vjp of a DEFAULT-precision dot is."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {PRECISIONS}, got "
                          f"{precision!r}")
     if precision == "highest":
         return torch.matmul(a.to(torch.float32), m)
-    if a.device.type == "cpu":
-        bf = torch.bfloat16
-        return torch.matmul(a.to(bf).to(torch.float32),
-                            m.to(bf).to(torch.float32))
-    out = torch.mm(a.reshape(-1, a.shape[-1]).to(torch.bfloat16),
-                   m.to(torch.bfloat16), out_dtype=torch.float32)
+    out = _Bf16Matmul.apply(a.reshape(-1, a.shape[-1]), m)
     return out.reshape(*a.shape[:-1], m.shape[-1])
+
+
+def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [n, k] @ b [k, m]`` with both operands rounded to bfloat16,
+    summed in float32: one bf16 GEMM on the card, its emulation on the
+    CPU."""
+    bf = torch.bfloat16
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(bf).to(torch.float32),
+                            b.to(bf).to(torch.float32))
+    return torch.mm(a.to(bf), b.to(bf), out_dtype=torch.float32)
+
+
+class _Bf16Matmul(torch.autograd.Function):
+    """:func:`_mm_bf16` with its vjp at the same precision."""
+
+    @staticmethod
+    def forward(ctx, a, m):
+        ctx.save_for_backward(a, m)
+        return _mm_bf16(a, m)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, m = ctx.saved_tensors
+        ga = _mm_bf16(g, m.t()) if ctx.needs_input_grad[0] else None
+        gm = _mm_bf16(a.t(), g) if ctx.needs_input_grad[1] else None
+        return ga, gm
 
 
 def batch_self_correlate_dft(a: torch.Tensor, sum_axis: int | None = None,

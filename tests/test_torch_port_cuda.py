@@ -225,8 +225,114 @@ def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad,
         # bf16 ulp apart are a rounding flipped at a near-tie
         far, unexplained = gate(k, p, x, ws, bs, pad, act)
         assert passes(far, unexplained, batch), (far, unexplained)
-    with pytest.raises(RuntimeError, match="forward only"):
-        conv_stack(x.requires_grad_(), ws, bs, pad, act, dtype)
+    # under autograd the same kernel runs, as the forward of K3's Function
+    before = kernel.launches
+    kg = conv_stack(x.requires_grad_(), ws, bs, pad, act, dtype)
+    assert kernel.launches == before + 1
+    assert type(kg.grad_fn).__name__ == "_ConvStackBackward"
+    assert torch.equal(kg.detach(), k)
+
+
+@pytest.mark.parametrize("dtype,batch", [(torch.float32, 1001),
+                                         (torch.bfloat16, 1001),
+                                         (torch.float32, 37),
+                                         (torch.bfloat16, 37)])
+def test_conv_stack_grads_match_the_plain_chain(dtype, batch):
+    """K3's Function on the card (the routed kernel forward, autograd of
+    the plain chain backward) against autograd of the plain chain on the
+    card: the forward at phase 1's tolerance, the grads of x, weights and
+    biases within 1e-5 of their scale (f32; bf16 at its 3e-2 / 2e-2), TF32
+    on in the process flags and off in the recompute.  One launch per
+    forward, one recompute per backward, no plain call."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        conv_stack,
+        conv_stack_reference,
+        kernel_for,
+    )
+
+    ws, bs = _stack(FLAGSHIP_KS, (5,) * 7)
+    for t in (*ws, *bs):
+        t.requires_grad_()
+    x = torch.randn(batch, 256, device="cuda", requires_grad=True,
+                    generator=torch.Generator("cuda").manual_seed(2))
+    kernel = kernel_for(256, ws, 1, dtype)
+    assert kernel is (_cuda.CONV_STACK_MMA if dtype == torch.bfloat16
+                      else _cuda.CONV_STACK)
+    leaves = [x, *ws, *bs]
+    out = conv_stack(x, ws, bs, 1, "silu", dtype)
+    ct = torch.randn(out.shape, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(3))
+    counts = (kernel.launches, kernel.plain_calls,
+              kernel.backward_recomputes)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = torch.autograd.grad(out, leaves, ct)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert (kernel.launches, kernel.plain_calls,
+            kernel.backward_recomputes) == (*counts[:2], counts[2] + 1)
+    ref = conv_stack_reference(x, ws, bs, 1, "silu", dtype)
+    want = torch.autograd.grad(ref, leaves, ct)
+    atol, rtol = (5e-4, 1e-4) if dtype == torch.float32 else (3e-2, 2e-2)
+    torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        assert float((g - w).abs().max()) <= tol * scale
+
+
+def test_bf16_dft_head_grads_match_their_emulation():
+    """The bf16 head's backward (two transposed bf16 GEMMs) on the card
+    against the same products emulated on the CPU, within 1e-3 of each
+    gradient's scale."""
+    from onset_fingerprinting_torch.ops import xcorr as tx
+
+    a = _features(1, (16, 4, 5, 133))
+    ct = _features(2, (16, 4, 265))
+    grads = []
+    for dev in ("cpu", "cuda"):
+        x = a.detach().to(dev).requires_grad_()
+        out = tx.batch_self_correlate_dft(x, 2, precision="default")
+        out.backward(ct.to(dev))
+        grads.append(x.grad.cpu())
+    scale = float(grads[0].abs().max())
+    assert scale > 0
+    assert float((grads[1] - grads[0]).abs().max()) <= 1e-3 * scale
+
+
+def test_trainer_step_on_the_card_matches_the_cpu():
+    """Three full-batch adam steps of the float32 flagship CCCNN from one
+    init on the card (K3 forward, recompute backward) and on the CPU: the
+    losses within 1e-5 relative, the trained models' predictions within
+    1e-4 (a weight whose gradient is rounding residue may take its own
+    adam step on each device, on a feature of the same size)."""
+    from onset_fingerprinting_torch.core.config import TrainConfig
+    from onset_fingerprinting_torch.models.train import (
+        Trainer,
+        make_optimizer,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.tools.fingerprint_capability import (
+        flagship_f32,
+    )
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(48, 4, 256, generator=g)
+    y = torch.randn(48, 2, generator=g)
+    runs = []
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(flagship_f32(), TrainConfig(loss="l1", seed=0),
+                     optimizer=make_optimizer("adam", 3e-3, "cosine", 100),
+                     device=dev)
+        st = tr.init_state()
+        before = _cuda.CONV_STACK.launches
+        losses = [float(tr.step(st, x.to(dev), y.to(dev))) for _ in range(3)]
+        if dev == "cuda":
+            assert _cuda.CONV_STACK.launches == before + 3
+        runs.append((losses, tr.predict(st, x)))
+    np.testing.assert_allclose(runs[1][0], runs[0][0], rtol=1e-5)
+    np.testing.assert_allclose(runs[1][1], runs[0][1], atol=1e-4)
 
 
 def test_flagship_bf16_runs_the_tensor_core_kernel_only():

@@ -6,6 +6,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -23,7 +24,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "new = {'core.coords', 'core.ring_buffer', 'locate.geometry',\n"
         "       'locate.trilateration', 'locate.multilaterate',\n"
         "       'detect.refine', 'ops.locate_block', 'realtime.actions',\n"
-        "       'realtime.engine', 'tools.realtime_sim'}\n"
+        "       'realtime.engine', 'tools.realtime_sim',\n"
+        "       'models.train', 'models.fcnn', 'models.cnn',\n"
+        "       'models.experiment', 'models.hpo', 'core.audio_io',\n"
+        "       'core.posd', 'data.synth', 'data.frames', 'data.datasets',\n"
+        "       'locate.calibration', 'tools.fingerprint_capability'}\n"
         "assert new <= names, new - names\n"
         "import onset_fingerprinting_torch.tools.fingerprint_anatomy\n"
         "import chip_smoke\n"
@@ -73,3 +78,21 @@ def test_entry_points_default_to_the_card():
         make_audio(128, 8)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fingerprint_anatomy.main(n_streams=32, chunk=20480, capacity=128)
+    from onset_fingerprinting_torch.core.config import TrainConfig
+    from onset_fingerprinting_torch.data.datasets import MCPOSD
+    from onset_fingerprinting_torch.locate.calibration import (
+        train_location_model,
+    )
+    from onset_fingerprinting_torch.models.train import Trainer
+    from onset_fingerprinting_torch.tools import fingerprint_capability
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(model, TrainConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MCPOSD(np.zeros((400, 4), np.float32), np.array([[100] * 4]),
+               np.zeros((1, 2), np.float32), frame_length=64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_location_model(np.zeros((4, 6), np.float32),
+                             np.zeros((4, 2), np.float32), num_epochs=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fingerprint_capability.run(hits=8, epochs=1)
