@@ -10,7 +10,8 @@ non-zero exit code, printing no result, on any error or without CUDA.
 
 Phase 0  prints the card's name and power limit, starts the plain
          realtime engine on the CPU in a child process (phase 4's
-         reference), and builds the eleven kernel libraries from
+         reference) and the plain detector over 6b's recording in another
+         (phase 6b's), and builds the eleven kernel libraries from
          ``onset_fingerprinting_torch/csrc`` with nvcc, all started
          together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
@@ -108,6 +109,30 @@ Phase 5  trains on the card.  5a holds K3 under autograd at the training
          the float32 flagship from one init for 10 full-batch adam steps
          on 256 of the fixture's windows on the card and on the CPU in
          this process: the losses within 1e-4 relative at every step.
+Phase 6  the player's setup loop at the JAX journey's size (3 sensors at
+         96 kHz, 128-sample blocks, FCNN [10, 10, 10] with BatchNorm).  6a
+         holds the locate kernel with an FCNN (random weights from a seed,
+         both ``model_input`` modes), in place, to its plain version on the
+         realtime stream's fired and quiet blocks (state and events
+         exactly, points within 1e-3 cm) and times it per launch in a graph
+         of launches beside the Newton kernel.  6b runs
+         tests/test_journey.py's arrival journey on the card: 48 hits (seed
+         3) mined by ``mine_file(fix=True)`` with K1 (``detector_warp.cu``,
+         one launch for the 0.5 s warmup and one for the whole recording)
+         and no plain call, K1's events over the recording equal to the
+         plain detector's on the CPU (a child process started in phase 0;
+         rel within 2e-2 + 1e-3 |rel|) and bit-identical to the plain
+         detector on the card over the first 0.2 s, both launches timed;
+         the FCNN trained (1500 epochs), ``save_setup`` → ``build_engine``
+         → 8 fresh hits through ``process`` with the journey's bars; the
+         captured step three kernel nodes, the locate kernel taking the
+         model on every step, no plain version; the events equal to the
+         plain engine on the CPU with the same weights.  6c the full-head
+         journey (``by_channel``, 96 hits, 2500 epochs) served through
+         ``run_wav`` (the native executor, the pipelined dispatcher).  6d
+         ``examples/calibration_demo.py``'s stages 1-2 on the card and on
+         the CPU: the TDOA residual under 2 samples, the refined C, the
+         positions within 1e-4 m of the CPU's, both timed.
 
 Prints one ``{"kernels": [...]}`` line (K1 as three rows: ``detector``,
 the pipe, the fleet path's; ``detector_warp``, the warp-per-channel kernel
@@ -121,9 +146,14 @@ launch; K3 as three rows: ``conv_stack_mma`` in bfloat16, the fleet path's,
 shape and with its launches; ``conv_stack_f32`` in float32, the CUDA-core
 kernel, phase 2b's; ``locate_block``, the realtime engine's locate
 step, which replaces no TPU kernel, timed on fired blocks; ``ring_write``,
-the engine's audio-ring write, which replaces no TPU kernel either).  Launch counts
-are the sums over the paths that phases 2, 2b, 3, 4 and 5c drive, each from counts
-set to 0 just before it.  Last comes ``{"ok": true, "device": {...}}``.
+the engine's audio-ring write, which replaces no TPU kernel either;
+``detector_warp_mining``, K1's warp kernel as mining launches it, timed
+over 6b's warmup and recording; ``locate_block_fcnn``, the locate kernel
+with the learned locator, timed on fired blocks).  Launch counts are the
+sums over the paths that phases 2, 2b, 3, 4, 5c and 6 drive, each from
+counts set to 0 just before it (``detector_warp`` counts the engines' and
+mining's launches, ``locate_block`` the Newton engine's, the FCNN rows
+phase 6's).  Last comes ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -132,6 +162,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1497,7 +1528,542 @@ def phase_capability(report):
     return fix
 
 
-def main() -> int:
+# -- phase 6: the player's setup loop ---------------------------------------
+
+#: the JAX journey's fixture (tests/test_journey.py): 3 sensors at 96 kHz
+J_SR = 96000
+J_SENSORS = [(0.9, 0.0), (0.9, 120.0), (0.9, 240.0)]
+#: the constant-arrival-order patch of the arrival journey
+J_PATCH = dict(r_range=(0.35, 0.6), phi_range=(12.0, 48.0))
+J_MARGS = {"output_size": 2, "hidden_layers": [10, 10, 10],
+           "batch_norm": True}
+#: phase 6's working directory, inside the checkout (git-ignored)
+J_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_journey"
+#: 6a: seconds of the realtime stream whose blocks the locate kernel takes
+LOC_SECONDS = 2.0
+
+
+def journey_session(name, n_hits, seed, patch=True):
+    """A labeled session of the journey's fixture under ``J_DIR``:
+    ``(wav path, onsets, locations cm)``."""
+    from onset_fingerprinting_torch.data.synth import synth_location_session
+
+    on, loc = synth_location_session(
+        J_DIR / name, name, n_hits=n_hits, sr=J_SR, seed=seed,
+        sensors=J_SENSORS, spacing=6000, **(J_PATCH if patch else {}))
+    return J_DIR / name / f"{name}.wav", on, loc
+
+
+def mine_cpu_reference(wav, out):
+    """The plain detector on the CPU over the 6b recording (run in a child
+    process beside the card phases): ``detect_onsets_amplitude``'s
+    channels, onsets and rel, and its seconds."""
+    from onset_fingerprinting_torch.core.audio_io import read_wav
+    from onset_fingerprinting_torch.detect.amplitude import (
+        detect_onsets_amplitude,
+    )
+
+    torch.set_num_threads(1)
+    audio, sr = read_wav(wav)
+    t0 = time.perf_counter()
+    ch, on, rel = detect_onsets_amplitude(audio, sr=sr, device="cpu")
+    out.put(dict(channels=np.asarray(ch), onsets=np.asarray(on), rel=rel,
+                 seconds=time.perf_counter() - t0))
+
+
+def start_mine_reference():
+    """Write 6b's training recording and start its plain detection on the
+    CPU in a child process."""
+    import multiprocessing as mp
+    import shutil
+
+    shutil.rmtree(J_DIR, ignore_errors=True)
+    wav, _, _ = journey_session("train_patch", 48, 3)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=mine_cpu_reference, args=(str(wav), q),
+                    daemon=True)
+    p.start()
+    return p, q
+
+
+def locate_fcnn(seed, device="cuda"):
+    """A locate-kernel test FCNN ``[10, 10, 10]`` with BatchNorm: flax's
+    init from ``seed``, its norms' statistics and affine moved off their
+    init, the first Dense scaled by 1/50 and the last by 1/20 (sample lags
+    of tens to points of a few cm, as a trained locator's)."""
+    from onset_fingerprinting_torch.models.fcnn import (
+        FCNN,
+        FCNNBundle,
+        init_module,
+    )
+
+    net = init_module(FCNN(2, hidden_layers=(10, 10, 10)), seed, "cpu")
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for bn in net.norms:
+            w = bn.weight.shape
+            bn.running_mean.copy_(0.3 * torch.randn(w, generator=g))
+            bn.running_var.copy_(0.5 + torch.rand(w, generator=g))
+            bn.weight.copy_(0.8 + 0.4 * torch.rand(w, generator=g))
+            bn.bias.copy_(0.1 * torch.randn(w, generator=g))
+        net.layers[0].weight /= 50
+        net.out.weight /= 20
+    return FCNNBundle(net.to(device))
+
+
+def phase_locate_fcnn(report):
+    """6a: the locate kernel with an FCNN, in place, against its plain
+    version on the realtime stream's fired and quiet blocks, in both
+    model_input modes; then timed per launch in a graph of launches beside
+    the Newton kernel."""
+    from onset_fingerprinting_torch.ops.locate_block import (
+        LocateBlock,
+        locate_block,
+        locate_block_reference,
+    )
+    from onset_fingerprinting_torch.realtime.engine import _clone
+    from onset_fingerprinting_torch.tools import realtime_sim as sim
+    from onset_fingerprinting_torch.tools.step_bench import (
+        locate_calls,
+        locate_times,
+    )
+
+    audio, _, _ = sim.synth_stream(LOC_SECONDS + 0.5, 1)
+    blocks = torch.as_tensor(np.stack(sim.blocks_of(audio)), device="cuda")
+    l0, q0, quiet, fired, _ = locate_calls(audio, blocks, LOC_SECONDS)
+    from onset_fingerprinting_torch.locate.multilaterate import (
+        Multilaterate3D,
+    )
+
+    _, polar, _, _ = sim._geometry()
+    locator = Multilaterate3D(polar, drum_diameter=sim.DIAM,
+                              medium="drumhead", sr=sim.SR,
+                              feasibility_tols=sim.FEASIBILITY_TOLS)
+    model = locate_fcnn(6)
+    rows = {}
+    for mode in ("arrival", "by_channel"):
+        lb = LocateBlock(locator, 3, 128, model=model, model_input=mode,
+                         device="cuda")
+        lk, qk = type(l0)(*_clone(l0)), type(q0)(*_clone(q0))
+        lp, qp = l0, q0
+        lerr, n_hit = 0.0, 0
+        for i, (on, d, count) in enumerate(fired + quiet):
+            ck = count.clone()
+            was = [v.clone() for v in (*lk, *qk)]
+            _, _, hk, _ = locate_block(lb, lk, qk, on, d, ck,
+                                       out=(lk, qk, ck))
+            lp, qp, hp, cp = locate_block_reference(lb, lp, qp, on, d, count)
+            check(all(torch.equal(u, v) for u, v in zip(lk, lp))
+                  and torch.equal(hk.emits, hp.emits)
+                  and torch.equal(hk.onsets, hp.onsets)
+                  and torch.equal(ck, cp)
+                  and all(torch.equal(u, v) for u, v in zip(qk[1:], qp[1:])),
+                  f"locate kernel with an FCNN ({mode}) differs from plain "
+                  f"at block {i}")
+            if i >= len(fired):
+                check(all(torch.equal(u, v)
+                          for u, v in zip(was, (*lk, *qk))),
+                      f"the FCNN locate kernel changed the state on quiet "
+                      f"block {i}")
+            lerr = max(lerr, max_err(hk.points, hp.points),
+                       max_err(qk.points, qp.points))
+            n_hit += int(hk.emits.sum())
+        check(n_hit >= 2 and lerr <= 1e-3,
+              f"FCNN locate kernel ({mode}): {n_hit} hits, points max err "
+              f"{lerr}")
+        t = locate_times(lb, l0, q0, quiet, fired)
+        on, d, count = fired[-1]
+        plain = time_ms(lambda: locate_block_reference(lb, lp, qp, on, d,
+                                                       count), n=5)
+        rows[mode] = dict(err=lerr, hits=n_hit, times=t, plain=plain)
+        log(f"6a locate kernel with an FCNN [10, 10, 10] ({mode}), in place "
+            f"at the engine's shape: {n_hit} hits in {len(fired)} fired "
+            f"blocks of the first {LOC_SECONDS:g} s, then {len(quiet)} quiet "
+            f"blocks: state, queue, counter and events identical to plain, "
+            f"points max err {lerr:.3g} cm (bound 1e-3); per launch in a "
+            f"graph of launches: fired {t['fired']:.5f} ms, quiet "
+            f"{t['quiet']:.5f} ms; plain {plain:.3f} ms per call")
+    newton = locate_times(LocateBlock(locator, 3, 128, device="cuda"), l0,
+                          q0, quiet, fired)
+    log(f"6a the Newton locate kernel on the same blocks: fired "
+        f"{newton['fired']:.5f} ms, quiet {newton['quiet']:.5f} ms")
+    r = rows["arrival"]
+    lb = LocateBlock(locator, 3, 128, model=model, device="cuda")
+    plan, packed = lb.fcnn
+    state_bytes = sum(v.numel() * v.element_size()
+                      for v in (*l0, *q0)) + 3 * (1 + 4 + 4 + 8 + 1)
+    # the FCNN's operations on this run's completions, per fired launch
+    flops = 2 * sum(a * b for a, b in zip(plan.widths[:-1], plan.widths[1:]))
+    report["locate_block_fcnn"] = dict(
+        max_abs_err=max(v["err"] for v in rows.values()),
+        ms=r["times"]["fired"], plain_ms=r["plain"], library_ms=None,
+        bytes=2 * state_bytes + packed.numel() * 4,
+        ops=flops * r["hits"] / len(fired), peak=F32_FLOPS)
+    report["_phase6"] = dict(locate=rows, newton=newton)
+
+
+def mined_lags(json_path, true_on, true_loc, order):
+    """The journey's helper: mined hits matched to the truth by seed onset
+    (within 400 samples) → (sample-lag rows, targets in m)."""
+    hits = json.loads(Path(json_path).read_text())["hits"]
+    lags, targets = [], []
+    for h in hits:
+        on = np.asarray(h["onset_start"], np.int64)
+        check(on.shape == (3,) and (on >= 0).all(), "a mined hit lacks a "
+              "channel")
+        d = np.abs(true_on - on.min())
+        j = int(np.argmin(d))
+        if d[j] > 400:
+            continue
+        if order == "arrival":
+            on = np.sort(on)
+            lags.append([on[1] - on[0], on[2] - on[0]])
+        else:
+            lags.append(list(np.diff(on)))
+        targets.append(true_loc[j] / 100.0)
+    return np.asarray(lags, np.float32), np.asarray(targets, np.float32)
+
+
+def serve_errors(found, true_on, true_loc, tol=3000):
+    """Located hits ``[(sample, Location)]`` matched to the nearest true
+    onset by time: ``(n matched, L1 errors cm)``."""
+    errs = []
+    for s, loc in found:
+        j = int(np.argmin(np.abs(true_on - s)))
+        if abs(int(true_on[j]) - s) < tol:
+            errs.append(abs(loc.x - float(true_loc[j][0]))
+                        + abs(loc.y - float(true_loc[j][1])))
+    return len(errs), errs
+
+
+def mine(wav, name, n_hits, true_on, true_loc, order):
+    """mine_file on the card with K1 launched (warmup and detection, one
+    launch each) and no plain call; the mined lags and targets."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.tools.mine_hits import mine_file
+
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    jp = mine_file(wav, J_DIR / name / "mined", min_channels=3, fix=True,
+                   backend="scan")
+    sec = time.perf_counter() - t0
+    check(jp is not None, f"{name}: nothing mined")
+    check(_cuda.DETECTOR_WARP.launches == 2, f"{name}: K1 launched "
+          f"{_cuda.DETECTOR_WARP.launches} times, want the warmup and the "
+          "recording")
+    for k in _cuda.KERNELS:
+        check(k.plain_calls == 0, f"plain {k.name} ran in mining")
+        if k is not _cuda.DETECTOR_WARP:
+            check(k.launches == 0, f"{k.name} ran in mining")
+    lags, targets = mined_lags(jp, true_on, true_loc, order)
+    log(f"{name}: mined {len(lags)}/{n_hits} hits in {sec:.2f} s "
+        f"(mine_file: K1 on the card, grouping and fix_onsets on the host)")
+    check(len(lags) >= 0.9 * n_hits, f"{name}: mined only {len(lags)}")
+    return lags, targets
+
+
+def train(name, lags, targets, epochs):
+    from onset_fingerprinting_torch.locate.calibration import (
+        train_location_model,
+    )
+
+    t0 = time.perf_counter()
+    bundle, losses = train_location_model(
+        lags, targets, lr=1e-2, num_epochs=epochs, patience=epochs,
+        epochs_per_step=50)
+    sec = time.perf_counter() - t0
+    err = 100 * float(np.abs(bundle(lags).cpu().numpy() - targets)
+                      .sum(axis=1).mean())
+    log(f"{name}: trained the FCNN [10, 10, 10] on the card, {epochs} "
+        f"epochs in {sec:.2f} s ({1e3 * sec / epochs:.3f} ms per epoch, host "
+        f"clock); train L1 {err:.4f} cm")
+    return bundle, err
+
+
+def journey_gates(name, found, serve_on, serve_loc, targets, med_bar,
+                  base_frac):
+    n_matched, errs = serve_errors(found, serve_on, serve_loc)
+    check(n_matched >= 0.8 * len(serve_on),
+          f"{name}: served {n_matched}/{len(serve_on)}")
+    med = float(np.median(errs))
+    mean_pred = targets.mean(axis=0) * 100
+    base = float(np.median([abs(mean_pred[0] - t[0]) + abs(mean_pred[1] - t[1])
+                            for t in serve_loc]))
+    log(f"{name}: served {n_matched}/{len(serve_on)} hits, median L1 "
+        f"{med:.4f} cm (bar {med_bar}), predict-the-mean {base:.4f} cm "
+        f"(bar {base_frac} x)")
+    check(med < med_bar, f"{name}: median L1 {med} cm")
+    check(med < base_frac * base, f"{name}: {med} cm against predict-the-"
+          f"mean {base}")
+    return n_matched, med, base
+
+
+def phase_journey_patch(report, mine_ref):
+    """6b: tests/test_journey.py's arrival journey on the card: mine (K1 held
+    bit for bit to the plain detector on the CPU over the recording) →
+    train → save_setup → build_engine → 8 fresh hits through ``process``;
+    the captured step is three kernel nodes, the locate kernel takes the
+    model on every step, no plain version; the events held to the plain
+    engine on the CPU with the same weights."""
+    from onset_fingerprinting_torch.core import posd
+    from onset_fingerprinting_torch.core.audio_io import read_wav
+    from onset_fingerprinting_torch.detect.amplitude import (
+        detect_onsets_amplitude,
+        offline_detector,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_detect_offline,
+    )
+    from onset_fingerprinting_torch.realtime.main import build_engine
+    from onset_fingerprinting_torch.realtime.setup_io import save_setup
+    from onset_fingerprinting_torch.tools.step_bench import graph_nodes
+
+    wav = J_DIR / "train_patch" / "train_patch.wav"
+    _, true_on, true_loc = journey_session("train_patch", 48, 3)
+    lags, targets = mine(wav, "6b", 48, true_on, true_loc, "arrival")
+    # mining's two K1 launches count in both K1 warp rows
+    for name in ("detector_warp", "detector_warp_mining"):
+        report["_launches"][name] = report["_launches"].get(name, 0) + 2
+
+    # K1 over the whole recording against the plain detector on the CPU
+    audio, sr = read_wav(wav)
+    ch_k, on_k, rel_k = detect_onsets_amplitude(audio, sr=sr)
+    t_wait = time.perf_counter()
+    ref = wait_cpu_reference(*mine_ref)
+    log(f"6b waited {time.perf_counter() - t_wait:.1f} s for the CPU "
+        "detector")
+    ev_ok = (np.array_equal(np.asarray(ch_k), ref["channels"])
+             and np.array_equal(np.asarray(on_k), ref["onsets"]))
+    rel_err = float(np.abs(rel_k - ref["rel"]).max())
+    rel_ok = bool(np.allclose(rel_k, ref["rel"], rtol=1e-3, atol=2e-2))
+    log(f"6b K1 over the recording against the plain detector on the CPU: "
+        f"channels and onsets {'equal' if ev_ok else 'DIFFER'} "
+        f"({len(on_k)} onsets on the card, {len(ref['onsets'])} on the "
+        f"CPU); rel max |diff| {rel_err:.3g} (bound 2e-2 + 1e-3 |rel|: the "
+        "CPU's log2/exp2 and the card's differ in the last bits)")
+    check(ev_ok and rel_ok, "K1 over the recording differs from the plain "
+          "detector on the CPU")
+    # the kernel against the plain version on the same device, bit for bit,
+    # in the mining configuration over the recording's first 0.2 s: the
+    # warmup launch over 0.1 s (a strike in it), then one detection launch
+    # over the next 0.1 s (a strike in it too)
+    from onset_fingerprinting_torch.detect.amplitude import (
+        detect_offline,
+        warmup_minmax,
+    )
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_warmup_minmax,
+    )
+
+    fst, params, st0 = offline_detector(3, sr=sr)
+    warm = J_SR // 10 // 128 * 128
+    xs = torch.as_tensor(audio[: 2 * warm], device="cuda").contiguous()
+    wk = fused_warmup_minmax(fst, params, st0, xs[:warm])
+    wp = warmup_minmax(fst.plain, params, st0, xs[:warm])
+    sk, (ok_, dk, rk) = fused_detect_offline(fst, params, wk, xs[warm:])
+    sp, (op_, dp, rp) = detect_offline(fst.plain, params, wp, xs[warm:])
+    torch.cuda.synchronize()
+    check(int(op_.sum()) > 0 and states_equal(wk, wp)
+          and torch.equal(ok_, op_) and torch.equal(dk, dp)
+          and torch.equal(rk, rp) and states_equal(sk, sp),
+          "K1 in the mining configuration differs from the plain detector "
+          "on the card")
+    log(f"6b K1 against the plain detector on the card over the first "
+        f"{2 * warm} samples (warmup {warm}, then {warm} in one launch, "
+        f"{int(op_.sum())} onsets): warmup state, on, deltas, rel and state "
+        "bit-identical")
+    # mining's two K1 launches timed together: the 0.5 s warmup and the
+    # recording
+    t = len(audio) // 128 * 128
+    w = J_SR // 2 // 128 * 128
+    x = torch.as_tensor(audio[:t], device="cuda").contiguous()
+
+    def both():
+        st = fused_warmup_minmax(fst, params, st0, x[:w])
+        fused_detect_offline(fst, params, st, x)
+
+    ms = time_ms(both, n=3)
+    log(f"6b K1 (detector_warp.cu) as mining launches it, the warmup "
+        f"[{w}, 3] and the recording [{t}, 3], one launch each: {ms:.3f} ms "
+        f"for both (one CTA of 3 warps on one of the 132 SMs); the plain "
+        f"detector {1e3 * ref['seconds']:.0f} ms for both on one CPU thread")
+    work = detector_work((t + w, 3))
+    work["bytes"] += t * 3 * 4  # mining's detection launch writes rel
+    report["detector_warp_mining"] = dict(
+        max_abs_err=0.0, ms=ms, plain_ms=1e3 * ref["seconds"],
+        library_ms=None, **work)
+
+    bundle, err = train("6b", lags, targets, 1500)
+    check(err < 1.5, f"6b train L1 {err} cm")
+    setup = J_DIR / "setup_patch"
+    save_setup([[r, phi, 0.0] for r, phi in J_SENSORS], "air", None, bundle,
+               J_MARGS, setup)
+    eng = build_engine(setup, sr=J_SR)
+    check(eng._graph is not None, "6b: the engine did not capture its step")
+    types, names = graph_nodes(eng._graph.graph)
+    check(types == {"kernel": 3}, f"6b: the captured step holds {types}")
+    serve_wav, serve_on, serve_loc = journey_session("serve_patch", 8, 11)
+    audio, _, _ = posd.load_session(J_DIR / "serve_patch"
+                                    / "serve_patch.json")
+    blocks = [audio[i: i + 128] for i in range(0, len(audio) - 127, 128)]
+    _cuda.reset_counts()
+    found, card = [], []
+    t0 = time.perf_counter()
+    for i, blk in enumerate(blocks):
+        _, locs = eng.process(blk)
+        found.extend((128 * i, loc) for loc in locs)
+        card.extend((i, loc.x, loc.y) for loc in locs)
+    wall = time.perf_counter() - t0
+    n = len(blocks)
+    counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
+    for k in _cuda.KERNELS:
+        check(k.plain_calls == 0, f"plain {k.name} ran in 6b's serving")
+    check(_cuda.LOCATE_BLOCK.launches == n
+          and _cuda.LOCATE_BLOCK.variants["fcnn"] == n
+          and _cuda.DETECTOR_WARP.launches == n
+          and _cuda.RING_WRITE.launches == n,
+          f"6b: {n} blocks, launches {counts}, locate variants "
+          f"{dict(_cuda.LOCATE_BLOCK.variants)}")
+    for name in ("detector_warp", "ring_write"):
+        report["_launches"][name] = (report["_launches"].get(name, 0)
+                                     + counts[name][0])
+    report["_launches"]["locate_block_fcnn"] = (
+        report["_launches"].get("locate_block_fcnn", 0) + n)
+    log(f"6b serving: the captured step {types} ({', '.join(names)}), "
+        f"{n} blocks through process() in {wall:.3f} s; the locate kernel "
+        f"took the model on all {n} steps; no plain version")
+    journey_gates("6b", found, serve_on, serve_loc, targets, 2.5, 1.0)
+
+    # the plain engine on the CPU with the same weights, the same blocks
+    cpu = build_engine(setup, sr=J_SR, device="cpu")
+    t0 = time.perf_counter()
+    plain = []
+    for i, blk in enumerate(blocks):
+        _, locs = cpu.process(blk)
+        plain.extend((i, loc.x, loc.y) for loc in locs)
+    check(len(plain) == len(card) and all(
+        a[0] == b[0] for a, b in zip(card, plain)),
+        f"6b: card events {[c[0] for c in card]} differ from the CPU's "
+        f"{[c[0] for c in plain]}")
+    perr = max((max(abs(a[1] - b[1]), abs(a[2] - b[2]))
+                for a, b in zip(card, plain)), default=0.0)
+    check(perr <= 1e-3, f"6b: card and CPU points differ by {perr} cm")
+    log(f"6b the plain engine on the CPU ({time.perf_counter() - t0:.1f} s): "
+        f"{len(plain)} events in the same blocks, points max err "
+        f"{perr:.3g} cm (bound 1e-3)")
+
+
+def phase_journey_head(report):
+    """6c: the full-head journey (``model_input="by_channel"``): 96 hits,
+    2500 epochs, served through ``run_wav`` (the native executor and the
+    pipelined dispatcher)."""
+    from onset_fingerprinting_torch.core.audio_io import read_wav
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.realtime.main import build_engine, run_wav
+    from onset_fingerprinting_torch.realtime.setup_io import save_setup
+
+    wav, true_on, true_loc = journey_session("train_head", 96, 5, False)
+    lags, targets = mine(wav, "6c", 96, true_on, true_loc, "by_channel")
+    for name in ("detector_warp", "detector_warp_mining"):
+        report["_launches"][name] += 2
+    bundle, _ = train("6c", lags, targets, 2500)
+    setup = J_DIR / "setup_head"
+    save_setup([[r, phi, 0.0] for r, phi in J_SENSORS], "air", None, bundle,
+               J_MARGS, setup, model_input="by_channel")
+    eng = build_engine(setup, sr=J_SR)
+    check(eng.locator.model_input == "by_channel", "6c: not by_channel")
+    serve_wav, serve_on, serve_loc = journey_session("serve_head", 10, 17,
+                                                     False)
+    n = len(read_wav(serve_wav)[0]) // 128
+    found = []
+    _cuda.reset_counts()
+    stats = run_wav(eng, serve_wav,
+                    on_hit=lambda onset, loc: found.append((onset, loc)))
+    counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
+    for k in _cuda.KERNELS:
+        check(k.plain_calls == 0, f"plain {k.name} ran in 6c's serving")
+    check(stats["blocks"] == n and stats["drops"] == 0
+          and _cuda.LOCATE_BLOCK.variants["fcnn"] == n
+          and _cuda.DETECTOR_WARP.launches == n,
+          f"6c: run_wav {stats}, {n} blocks, launches {counts}")
+    for name in ("detector_warp", "ring_write"):
+        report["_launches"][name] += counts[name][0]
+    report["_launches"]["locate_block_fcnn"] += n
+    log(f"6c run_wav: {stats['blocks']} blocks through the native executor "
+        f"at audio rate, {stats['drops']} drops, {stats['misses']} deadline "
+        f"misses of the executor's enqueue, its p50 "
+        f"{stats['p50_us'] / 1e3:.4f} ms p99 {stats['p99_us'] / 1e3:.4f} ms; "
+        f"{len(found)} hits harvested")
+    journey_gates("6c", found, serve_on, serve_loc, targets, 4.0, 0.5)
+
+
+def phase_calibration(report):
+    """6d: examples/calibration_demo.py's stages 1-2 on the card and on the
+    CPU in this process: the TDOA residual, the refined C, the card's
+    positions against the CPU's, both timed."""
+    from onset_fingerprinting_torch.core.coords import spherical_to_cartesian
+    from onset_fingerprinting_torch.locate.calibration import (
+        calibrate,
+        calibration_locations,
+        optimize_positions,
+    )
+
+    sr, c_sound = 96000, 343.0
+    radius = 14 * 2.54 / 2 / 100
+    rng = np.random.default_rng(0)
+    true = np.array([[float(v) for v in spherical_to_cartesian(*p)]
+                     for p in [(0.8 * radius, 135, 80),
+                               (0.8 * radius, 15, 60), (0.15, 100, 20)]])
+    sounds = np.asarray([(0.0, 0.0, 0.0)] * 4 + [
+        tuple(float(v) for v in spherical_to_cartesian(*p))
+        for p in calibration_locations(10, 4, radius * 0.9, 0)])
+    dists = np.linalg.norm(sounds[:, None, :] - true[None], axis=-1) \
+        / c_sound
+    tdoa = np.diff(dists, axis=1)
+    onsets = np.cumsum(np.concatenate([np.zeros((len(tdoa), 1)), tdoa * sr],
+                                      axis=1), axis=1)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        est = calibrate(onsets, sr=sr, C=c_sound, n_lugs=10, n_each=4,
+                        hits_at=0.9, center_hits=4, norm=2, device=dev)
+        t1 = time.perf_counter()
+        lags01 = (dists[:, :2] - dists[:, 2:]) * sr
+        init = est + np.random.default_rng(0).normal(0, 0.002, est.shape)
+        sens, snd, c2 = optimize_positions(
+            lags01, init, sounds, lr=0.05, num_epochs=800, C=c_sound, sr=sr,
+            patience=50, device=dev)
+        t2 = time.perf_counter()
+        res[dev] = (est, sens, snd, c2, t1 - t0, t2 - t1)
+    est, sens, snd, c2, t_cal, t_opt = res["cuda"]
+    d_est = np.linalg.norm(sounds[:, None, :] - est[None], axis=-1) / c_sound
+    resid = float(np.abs(np.diff(d_est, axis=1) - tdoa).mean() * sr)
+    e_cal = float(np.abs(est - res["cpu"][0]).max())
+    e_opt = max(float(np.abs(sens - res["cpu"][1]).max()),
+                float(np.abs(snd - res["cpu"][2]).max()))
+    log(f"6d calibrate (TNC, float64 autograd on the card): TDOA residual "
+        f"{resid:.4f} samples (bar 2), {t_cal:.3f} s (CPU {res['cpu'][4]:.3f} "
+        f"s); positions vs the CPU max |diff| {e_cal:.3g} m (bound 1e-4)")
+    log(f"6d optimize_positions (800 adam epochs, float32 on the card): "
+        f"refined C {c2:.4f} m/s (true {c_sound}; CPU {res['cpu'][3]:.4f}), "
+        f"{t_opt:.3f} s (CPU {res['cpu'][5]:.3f} s); positions vs the CPU "
+        f"max |diff| {e_opt:.3g} m (bound 1e-4)")
+    check(resid < 2.0, f"6d: TDOA residual {resid} samples")
+    check(e_cal <= 1e-4 and e_opt <= 1e-4,
+          f"6d: card and CPU positions differ by {e_cal} / {e_opt} m")
+    check(abs(c2 - res["cpu"][3]) <= 1e-3, "6d: card and CPU C differ")
+    report["_phase6"]["calibration"] = dict(
+        resid=resid, c=c2, seconds=(t_cal, t_opt))
+
+
+def main(argv=None) -> int:
+    """``--only-phase6`` runs the build and phase 6 alone and prints their
+    rows of the kernels line, without the last line (for iterating on
+    phase 6; the smoke run takes no arguments)."""
+    argv = sys.argv[1:] if argv is None else argv
+    only6 = "--only-phase6" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1519,8 +2085,10 @@ def main() -> int:
     def phase(name):
         log(f"[{time.perf_counter() - t0:.1f} s] {name}")
 
-    # the plain engine on the CPU, beside the card phases
-    cpu_ref = start_cpu_reference()
+    # the plain engine and the plain mining detector on the CPU, beside the
+    # card phases
+    cpu_ref = None if only6 else start_cpu_reference()
+    mine_ref = start_mine_reference()
     logs = _cuda.build()
     log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -1529,6 +2097,12 @@ def main() -> int:
                 log(f"  {name}: {line.strip()}")
 
     report = {"_launches": {}}
+    if only6:
+        phase6(report, mine_ref, phase)
+        log(smi)
+        log(json.dumps({"kernels": kernel_rows(report, (
+            "detector_warp_mining", "locate_block_fcnn"))}))
+        return 0
     phase("phase 1: kernels against their plain versions")
     phase_detector(report)
     x = make_audio(CHUNK, N_STREAMS * 4, seed=4)
@@ -1556,8 +2130,31 @@ def main() -> int:
     fix = phase_capability(report)
     phase("phase 5b: the float32 flagship on the card against the CPU")
     phase_train_parity(fix)
+    torch.cuda.empty_cache()
+    phase6(report, mine_ref, phase)
     phase("done")
+    log(smi)  # again here: a tool that keeps the output's end keeps it
+    log(json.dumps({"kernels": kernel_rows(report)}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
+
+def phase6(report, mine_ref, phase):
+    phase("phase 6a: the locate kernel with an FCNN")
+    phase_locate_fcnn(report)
+    phase("phase 6b: the journey on the card, arrival patch")
+    phase_journey_patch(report, mine_ref)
+    torch.cuda.empty_cache()
+    phase("phase 6c: the journey on the card, full head (by_channel)")
+    phase_journey_head(report)
+    phase("phase 6d: calibration on the card")
+    phase_calibration(report)
+
+
+def kernel_rows(report, names=None):
+    """The ``kernels`` line's rows (all, or those in ``names``)."""
     # row: (source, TPU kernel, launch counter)
     sources = {
         "detector": ("onset_fingerprinting_torch/csrc/detector_pipe.cu",
@@ -1598,9 +2195,21 @@ def main() -> int:
         "ring_write": ("onset_fingerprinting_torch/csrc/ring_write.cu",
                        "onset_fingerprinting_tpu/core/ring_buffer.py:68",
                        "ring_write"),
+        # K1 at the mining shape: one launch over a whole recording
+        "detector_warp_mining": (
+            "onset_fingerprinting_torch/csrc/detector_warp.cu",
+            "onset_fingerprinting_tpu/ops/pallas_detector.py:85",
+            "detector_warp_mining"),
+        # the locate kernel with the learned locator (phase 6)
+        "locate_block_fcnn": ("onset_fingerprinting_torch/csrc/"
+                              "locate_block.cu",
+                              "onset_fingerprinting_tpu/locate/"
+                              "multilaterate.py:789", "locate_block_fcnn"),
     }
     kernels = []
     for name, (src, replaces, counter) in sources.items():
+        if names is not None and name not in names:
+            continue
         r = report[name]
         t_bytes = 1e3 * r["bytes"] / HBM_BPS
         t_ops = 1e3 * r["ops"] / r["peak"]
@@ -1612,11 +2221,7 @@ def main() -> int:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=r["library_ms"],
         ))
-    log(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

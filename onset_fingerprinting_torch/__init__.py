@@ -16,16 +16,21 @@ found under the same path:
                  the CUDA cores), the roll gather, and the realtime
                  engine's locate step.
 - ``detect``   — the amplitude onset detector in plain PyTorch (the
-                 reference the detector kernel is held against) and CC
-                 onset refinement.
-- ``locate``   — lag maps, TDOA trilateration, the online locators, the
-                 lag-FCNN's training (``calibration.train_location_model``).
+                 reference the detector kernel is held against) and its
+                 host wrappers, onset grouping, CC onset refinement.
+- ``locate``   — lag maps, TDOA trilateration, the online locators (with
+                 the learned locator), sensor calibration and the
+                 lag-FCNN's training.
 - ``realtime`` — the per-block realtime engine (its step captured in a
-                 CUDA graph), its classifier, location-triggered actions.
-- ``models``   — the CCCNN, FCNN and CNN models, the flax-params
-                 importer, the trainer with optax's optimizers, the
-                 hyperparameter search (a copy) and the location-model
-                 experiment.
+                 CUDA graph), its classifier, location-triggered actions,
+                 the analysis side channel, setup persistence and the
+                 serve application (``realtime.main``).
+- ``runtime_native`` — the native ring and block executor
+                 (``csrc/ofrt.cpp``).
+- ``models``   — the CCCNN, FCNN and CNN models, the flax-params and
+                 reference-checkpoint importers, the trainer with optax's
+                 optimizers, the hyperparameter search (a copy) and the
+                 location-model experiment.
 - ``workload`` — the injected-hit fleet workload and its recall/precision
                  gate.
 - ``pipeline`` — the offline detect → fingerprint fleet path.
@@ -34,7 +39,9 @@ found under the same path:
                  bf16 conv stack's parity gate and its calibration;
                  ``realtime_sim``: the realtime demo's stream through the
                  engine; ``fingerprint_capability``: the location models
-                 trained on the card against predict-the-mean.
+                 trained on the card against predict-the-mean;
+                 ``mine_hits`` and ``train_setup``: recordings → POSD
+                 sessions → a trained serve setup.
 
 Every entry point takes ``device=None``, which means ``"cuda"``; without a
 card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run

@@ -38,6 +38,18 @@
 // - The Newton solve (20 masked iterations) runs on lane 0 with the
 //   triangle in registers and stops at the first iteration whose mask
 //   freezes the iterate: the later ones change nothing.
+// - With a learned locator (the JAX step's model= path,
+//   locate/multilaterate.py:789-815 there) the completion evaluates the
+//   FCNN instead: its BatchNorm folded into each Dense and all layers
+//   packed into one buffer at LocateBlock's construction
+//   (ops/locate_block.py::pack_fcnn).  Warp 0 runs one unit per lane (in
+//   passes of 32, up to FCNN_MAX_W units per layer), the layer's input and
+//   output vectors in shared memory, one __syncwarp per layer; the
+//   features are the group's two lags ("arrival") or the adjacent
+//   channel-order differences of its onsets in int32 ("by_channel").  A
+//   point is emitted only where the prediction (meters x 100) is finite.
+//   Each unit sums bias + W[j][k] * h[k] for k in order, every product and
+//   sum rounded on its own (fcnn_packed_reference emulates it on the CPU).
 // - Lane g writes its slot back only where it changed, lane 0 the queue
 //   entries of the block's hits, the queue counter, next_age and the
 //   sample counter.
@@ -55,6 +67,8 @@
 #define MAX_CH 32
 #define MAX_SLOTS 32
 #define MAX_TIERS 4
+#define FCNN_MAX_W 64
+#define FCNN_MAX_HIDDEN 8
 #define THREADS 256
 #define FULL 0xffffffffu
 
@@ -63,6 +77,9 @@ struct LocDesc {
     int C, G, S, H, W, E, T, B;
     float radius, c_over_sr;
     float tols[MAX_TIERS];
+    // the learned locator: layers = hidden + 1, widths[0..layers]
+    int has_model, n_layers, act, model_input;
+    int widths[FCNN_MAX_HIDDEN + 2];
 };
 
 static const int AGE_INF = 2147483647;
@@ -107,6 +124,51 @@ __device__ __forceinline__ void resid_jac(float px, float py,
     j[1][1] = gy[2] - gy[0];
 }
 
+// the FCNN's activations (ops/locate_block.py::ACT_CODES; models/fcnn.py)
+__device__ __forceinline__ float act(int code, float x) {
+    switch (code) {
+        case 0: return x < 0.0f ? 0.0f : x;                   // relu
+        case 1: return x / (1.0f + expf(-x));                 // silu
+        case 2: return x > 0.0f ? x : 0.01f * x;              // leakyrelu
+        case 3: return x > 0.0f ? x : expm1f(x);              // elu
+        case 4: return tanhf(x);                              // tanh
+        default: return 1.0f / (1.0f + expf(-x));             // sigmoid
+    }
+}
+
+// the packed FCNN on (f0, f1), by warp 0 (every lane calls it): lane l
+// computes units l, l + 32 of each layer; h holds the layer's input and
+// output.  Returns whether the point (meters x 100 = cm) is finite.
+__device__ bool fcnn_point(const LocDesc& d, const float* __restrict__ net,
+                           float (*h)[FCNN_MAX_W], int lane, float f0,
+                           float f1, float* px, float* py) {
+    __syncwarp();
+    if (lane == 0) {
+        h[0][0] = f0;
+        h[0][1] = f1;
+    }
+    __syncwarp();
+    int cur = 0;
+    const float* p = net;
+    for (int l = 0; l < d.n_layers; ++l) {
+        const int nin = d.widths[l], nout = d.widths[l + 1];
+        const float* w = p;
+        const float* b = p + nin * nout;
+        const bool last = l == d.n_layers - 1;
+        for (int j = lane; j < nout; j += 32) {
+            float acc = b[j];
+            for (int k = 0; k < nin; ++k) acc = acc + w[j * nin + k] * h[cur][k];
+            h[cur ^ 1][j] = last ? acc : act(d.act, acc);
+        }
+        __syncwarp();
+        cur ^= 1;
+        p += nin * nout + nout;
+    }
+    *px = h[cur][0] * 100.0f;
+    *py = h[cur][1] * 100.0f;
+    return isfinite(*px) && isfinite(*py);
+}
+
 // damped Newton, 20 masked iterations (trilateration.py::solve_tdoa,
 // unroll=True); returns success.  Once `done`, an iteration changes
 // nothing, so the loop ends there.
@@ -144,8 +206,9 @@ __global__ void __launch_bounds__(THREADS) locate_block_kernel(
     const float* __restrict__ min_l, const float* __restrict__ max_l,
     const float* __restrict__ mml, const float* __restrict__ xyz, float* qp,
     int32_t* qo, int32_t* qe, int32_t* qc, int32_t* hit_onsets,
-    float* hit_points, uint8_t* hit_emits) {
+    float* hit_points, uint8_t* hit_emits, const float* __restrict__ fcnn) {
     __shared__ int s_on[MAX_CH], s_delta[MAX_CH], s_order[MAX_CH];
+    __shared__ float s_h[2][FCNN_MAX_W];
     __shared__ int s_emit[MAX_CH];
     __shared__ float s_pts[MAX_CH][2];
     // per update: the completing groups to scan (two buffers: the next
@@ -304,7 +367,22 @@ __global__ void __launch_bounds__(THREADS) locate_block_kernel(
         const int age_g = __shfl_sync(FULL, age, gidx);
         bool emit = false;
         float px = 0.0f, py = 0.0f;
-        if (returned && lane == 0) {
+        if (returned && d.has_model) {
+            // returned is uniform across warp 0: every lane takes part
+            float f0, f1;
+            if (d.model_input == 1) {
+                int by_ch[3] = {0, 0, 0};
+                by_ch[max(seed_s, 0)] = seed_o;
+                by_ch[max(g_s1, 0)] = g_o1;
+                by_ch[sensor] = onset;
+                f0 = (float)(by_ch[1] - by_ch[0]);
+                f1 = (float)(by_ch[2] - by_ch[1]);
+            } else {
+                f0 = (float)(g_o1 - seed_o);
+                f1 = (float)(onset - seed_o);
+            }
+            emit = fcnn_point(d, fcnn, s_h, lane, f0, f1, &px, &py);
+        } else if (returned && lane == 0) {
             const int a0 = max(seed_s, 0), a1 = max(g_s1, 0);
             const float lag1 = (float)(g_o1 - seed_o);
             const float lag2 = (float)(onset - seed_o);
@@ -407,20 +485,32 @@ extern "C" const char* ofpt_error_string(int code) {
 
 // One launch per block.  The locator state, the event queue and the sample
 // counter are updated in place; the block's hits go to fresh outputs.
+// `fcnn` is the packed learned locator (null without one).
 extern "C" int ofpt_locate_block(
     const LocDesc* hd, const uint8_t* on, const int32_t* deltas,
     int32_t* sample_count, int32_t* sens, int32_t* ons, int32_t* cnt,
     int32_t* age, int32_t* next, const float* maps, const float* min_l,
     const float* max_l, const float* mml, const float* xyz, float* qp,
     int32_t* qo, int32_t* qe, int32_t* qc, int32_t* hit_onsets,
-    float* hit_points, uint8_t* hit_emits, void* stream) {
+    float* hit_points, uint8_t* hit_emits, const float* fcnn,
+    void* stream) {
     cudaGetLastError();  // clear an error left by earlier, unrelated work
     const LocDesc d = *hd;
     if (d.C > MAX_CH || d.G < 1 || d.G > MAX_SLOTS || d.T > MAX_TIERS ||
         d.E < 1)
         return (int)cudaErrorInvalidValue;
+    if (d.has_model) {
+        if (fcnn == nullptr || d.n_layers < 1 ||
+            d.n_layers > FCNN_MAX_HIDDEN + 1 || d.widths[0] != 2 ||
+            d.widths[d.n_layers] != 2 || (d.model_input == 1 && d.S != 3))
+            return (int)cudaErrorInvalidValue;
+        for (int l = 0; l <= d.n_layers; ++l)
+            if (d.widths[l] < 1 || d.widths[l] > FCNN_MAX_W)
+                return (int)cudaErrorInvalidValue;
+    }
     locate_block_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
         d, on, deltas, sample_count, sens, ons, cnt, age, next, maps, min_l,
-        max_l, mml, xyz, qp, qo, qe, qc, hit_onsets, hit_points, hit_emits);
+        max_l, mml, xyz, qp, qo, qe, qc, hit_onsets, hit_points, hit_emits,
+        fcnn);
     return (int)cudaGetLastError();
 }

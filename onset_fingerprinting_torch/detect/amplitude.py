@@ -14,6 +14,11 @@ version of the fused detector kernel (``ops/fused_detector.py``): every
 sample runs the same float32 operations in the same order, so on the card
 the kernel is bit-identical to it.  The kernel's wrappers count the
 calls they make to it (``_cuda.Kernel.plain_calls``).
+
+The host-facing wrappers (JAX amplitude.py:455-625) go through the fused
+detector: :class:`AmplitudeOnsetDetector` (the reference's per-block call
+contract) and :func:`detect_onsets_amplitude` (a whole recording, the
+mining path), which on the card run K1 and on the CPU its plain version.
 """
 
 from __future__ import annotations
@@ -412,3 +417,205 @@ def detect_offline_chunked(
     rel = (np.concatenate(rels) if rels else np.zeros((0, c), np.float32)
            ) if emit_rel else None
     return state, (on, d, rel)
+
+
+class AmplitudeOnsetDetector:
+    """Stateful host-facing detector with the reference's call contract
+    (detection.py:727-798): ``od(x [B, C]) -> (channels, deltas, rel)``.
+    Every block goes through the fused detector on ``device`` (None = the
+    card: K1; ``"cpu"``: its plain version)."""
+
+    def __init__(self, n_signals: Optional[int] = None, block_size: int = 32,
+                 cfg: Optional[DetectorConfig] = None, device=None,
+                 **kwargs):
+        if cfg is None:
+            cfg = DetectorConfig(n_channels=n_signals, block_size=block_size,
+                                 **kwargs)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.static, self.params, self.state = detector_init(cfg,
+                                                             self.device)
+
+    def _run(self, x):
+        from onset_fingerprinting_torch.ops.fused_detector import (
+            detector_static,
+            fused_detect_offline,
+        )
+
+        xt = torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                             device=self.device)
+        self.state, (on, deltas, rel) = fused_detect_offline(
+            detector_static(self.static, self.params), self.params,
+            self.state, xt)
+        return on, deltas, rel
+
+    def __call__(self, x: np.ndarray):
+        on, deltas, rel = self._run(x)
+        on = on[0].cpu().numpy()
+        deltas = deltas[0].cpu().numpy()
+        channels = np.nonzero(on)[0]
+        return list(channels), list(deltas[channels]), rel.cpu().numpy()
+
+    def init_minmax_tracker(self, x: np.ndarray) -> None:
+        from onset_fingerprinting_torch.ops.fused_detector import (
+            detector_static,
+            fused_warmup_minmax,
+        )
+
+        t = (len(x) // self.cfg.block_size) * self.cfg.block_size
+        if t:
+            self.state = fused_warmup_minmax(
+                detector_static(self.static, self.params), self.params,
+                self.state, torch.as_tensor(
+                    np.ascontiguousarray(x[:t], np.float32),
+                    device=self.device))
+
+    def init(self, x: np.ndarray, verbose: bool = True) -> np.ndarray:
+        """Bulk threshold calibration from representative audio
+        (detection.py:842-888): warm the envelopes on 0.1-0.5 s (assumed
+        quiet), derive absolute on/off thresholds from the relative
+        envelope's median over the first second (noise floor) and its max
+        (performance peak), and switch to those manual thresholds (the
+        reference leaves ``manual`` False after init, a latent defect the
+        JAX package fixes).  Returns the per-channel relative noise
+        thresholds."""
+        import dataclasses
+
+        from onset_fingerprinting_torch.ops.filters import sliding_max
+
+        bsz = self.cfg.block_size
+        sr = self.cfg.sr
+        t = (len(x) // bsz) * bsz
+        lo = (int(0.1 * sr) // bsz) * bsz
+        hi = (int(0.5 * sr) // bsz) * bsz
+        self.init_minmax_tracker(x[lo:min(hi, t)])
+        state = self.state
+        _, _, rel = self._run(x[:t])
+        self.state = state
+        first_sec = rel[: min(sr, t)]
+        mins = torch.quantile(first_sec, 0.5, dim=0)
+        maxs = torch.amax(rel, dim=0)
+        on_abs = maxs * self.cfg.on_threshold + mins
+        off_abs = maxs * self.cfg.off_threshold + mins
+        noise_max = torch.quantile(sliding_max(rel, int(sr * 0.01)), 0.5,
+                                   dim=0)
+        noise_thresh = ((noise_max - mins) / maxs).cpu().numpy()
+        if verbose:
+            print("Approx. relative noise thresholds at "
+                  f"{[float(np.round(v, 3)) for v in noise_thresh]}!")
+        self.static = dataclasses.replace(self.static, manual=True)
+        self.params = self.params._replace(
+            on_threshold=on_abs.to(torch.float32).contiguous(),
+            off_threshold=off_abs.to(torch.float32).contiguous())
+        return noise_thresh
+
+
+def offline_detector(
+    n_channels: int,
+    block_size: int = 128,
+    floor: float = -70.0,
+    hipass_freq: float = 2000.0,
+    fast_ar: tuple[float, float] = (3.0, 383.0),
+    slow_ar: tuple[float, float] = (2205.0, 2205.0),
+    on_threshold: float = 0.5,
+    off_threshold: float = 0.1,
+    cooldown: int = 1323,
+    backtrack: bool = False,
+    backtrack_buffer_size: int = 128,
+    backtrack_smooth_size: int = 5,
+    sr: int = 96000,
+    device=None,
+):
+    """``(fused static, params, initial state)`` of
+    :func:`detect_onsets_amplitude`'s detector on ``device`` (None = the
+    card), thresholds per channel."""
+    from onset_fingerprinting_torch.ops.fused_detector import detector_static
+
+    dev = resolve_device(device)
+    cfg = DetectorConfig(
+        n_channels=n_channels,
+        block_size=block_size,
+        floor=floor,
+        hipass_freq=hipass_freq,
+        fast_attack=fast_ar[0],
+        fast_release=fast_ar[1],
+        slow_attack=slow_ar[0],
+        slow_release=slow_ar[1],
+        on_threshold=np.max(on_threshold) if np.ndim(on_threshold)
+        else on_threshold,
+        off_threshold=np.max(off_threshold) if np.ndim(off_threshold)
+        else off_threshold,
+        cooldown=cooldown,
+        backtrack=backtrack,
+        backtrack_buffer_size=backtrack_buffer_size,
+        backtrack_smooth_size=backtrack_smooth_size,
+        sr=sr,
+    )
+    static, params, state = detector_init(cfg, dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    params = params._replace(
+        on_threshold=torch.as_tensor(np.asarray(on_threshold, np.float32),
+                                     **f32).expand(n_channels).contiguous(),
+        off_threshold=torch.as_tensor(np.asarray(off_threshold, np.float32),
+                                      **f32).expand(n_channels).contiguous())
+    return detector_static(static, params), params, state
+
+
+def detect_onsets_amplitude(
+    x: np.ndarray,
+    block_size: int = 128,
+    floor: float = -70.0,
+    hipass_freq: float = 2000.0,
+    fast_ar: tuple[float, float] = (3.0, 383.0),
+    slow_ar: tuple[float, float] = (2205.0, 2205.0),
+    on_threshold: float = 0.5,
+    off_threshold: float = 0.1,
+    cooldown: int = 1323,
+    backtrack: bool = False,
+    backtrack_buffer_size: int = 128,
+    backtrack_smooth_size: int = 5,
+    sr: int = 96000,
+    backend: str = "scan",
+    device=None,
+):
+    """Offline amplitude detection over a whole recording ``[N, C]`` (the
+    reference driver's contract, detection.py:19-86): the min/max tracker
+    warms on the first 0.5 s, then every full block is detected.  Returns
+    ``(channels, onsets, rel)`` with onsets as absolute sample indices.
+
+    On the card (``device=None``) the warmup and the detection are one K1
+    launch each over the whole span (``ops/fused_detector``); on the CPU
+    both run the plain detector.  ``backend`` ("scan" or "pallas", the JAX
+    package's two programs) is accepted for the signature's sake: both
+    name the same computation here."""
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_detect_offline,
+        fused_warmup_minmax,
+    )
+
+    if backend not in ("scan", "pallas"):
+        raise ValueError(f"unknown backend {backend!r}")
+    fstatic, params, state = offline_detector(
+        x.shape[1], block_size=block_size, floor=floor,
+        hipass_freq=hipass_freq, fast_ar=fast_ar, slow_ar=slow_ar,
+        on_threshold=on_threshold, off_threshold=off_threshold,
+        cooldown=cooldown, backtrack=backtrack,
+        backtrack_buffer_size=backtrack_buffer_size,
+        backtrack_smooth_size=backtrack_smooth_size, sr=sr, device=device)
+    f32 = dict(dtype=torch.float32, device=state.fast.device)
+    xt = torch.as_tensor(np.ascontiguousarray(x, np.float32), **f32)
+    warm = (min(int(0.5 * sr), len(x)) // block_size) * block_size
+    if warm:
+        state = fused_warmup_minmax(fstatic, params, state,
+                                    xt[:warm].contiguous())
+    t = (len(x) // block_size) * block_size
+    _, (on, deltas, rel) = fused_detect_offline(fstatic, params, state,
+                                                xt[:t].contiguous())
+    on = on.cpu().numpy()
+    deltas = deltas.cpu().numpy()
+    blocks, chans = np.nonzero(on)
+    order = np.argsort(blocks, kind="stable")
+    channels = list(chans[order])
+    onsets = list(blocks[order] * block_size
+                  + deltas[blocks[order], chans[order]])
+    return channels, onsets, rel.cpu().numpy()

@@ -1,7 +1,11 @@
-"""Onset refinement by cross-correlation (port of the device side of
-``onset_fingerprinting_tpu.detect.refine``, plus its two host helpers
-``adjust_onset_rel`` and ``adjust_onset``; reference: detection.py:271-352
+"""Onset refinement by cross-correlation (port of
+``onset_fingerprinting_tpu.detect.refine``; reference: detection.py:271-484
 and multilateration.py:457-501).
+
+The host functions (``adjust_onset_rel``, ``adjust_onset``,
+``filter_data``, ``fix_onsets``, ``detect_onset_region``) are numpy and
+scipy, as in the JAX package: the mining path's CC alignment of each hit's
+onsets across channels.
 
 The device functions keep the JAX names (``cc_refine_lag_jax``,
 ``cc_refine_adjust_jax``): fixed shapes, no host read, so the locator's
@@ -11,12 +15,17 @@ The device functions keep the JAX names (``cc_refine_lag_jax``,
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
+from scipy.ndimage import median_filter
 
 from onset_fingerprinting_torch.ops.filters import median_filter_1d
-from onset_fingerprinting_torch.ops.xcorr import cross_correlation_lag_jax
+from onset_fingerprinting_torch.ops.xcorr import (
+    cross_correlation_lag,
+    cross_correlation_lag_jax,
+)
 
 
 def _cc_section(window: torch.Tensor, pos0, lookaround: int) -> torch.Tensor:
@@ -136,3 +145,93 @@ def adjust_onset(onsets: list[int], x: np.ndarray, y: np.ndarray,
             return 0, -lag_diff
         return lag_diff, 0
     return 0, -lag_diff
+
+
+def filter_data(x: np.ndarray, direction: str) -> np.ndarray:
+    """Null samples moving against the expected transient direction
+    (detection.py:355-370)."""
+    diff = np.diff(x, 1, axis=0, prepend=x[:1])
+    if direction == "up":
+        x[diff < 0] = 0
+    elif direction == "down":
+        x[diff > 0] = 0
+    else:
+        raise ValueError(f"Unknown onset direction {direction!r}")
+    return x
+
+
+def fix_onsets(
+    audio: np.ndarray,
+    onsets: np.ndarray,
+    filter_size: int = 5,
+    d: int = 0,
+    onset_direction: Optional[str] = None,
+    take_abs: bool = False,
+    zero_left: bool = False,
+    normalization_cutoff: int = 10,
+    onset_tolerance: int = 30,
+    shift_onsets: int = 0,
+) -> np.ndarray:
+    """Make per-hit onsets consistent across channels (detection.py:373-451).
+
+    For each onset group: median-filter + optionally direction-null/abs a
+    window around the group, then CC-align every channel against the earliest
+    channel, moving whichever onset the energy heuristic prefers.
+    """
+    lookaround = normalization_cutoff + onset_tolerance
+    onsets = onsets.copy() + shift_onsets
+    for og in onsets:
+        idx = np.argsort(og)
+        a, b = og[idx[0]], og[idx[-1]]
+        section = audio[a - lookaround : b + lookaround]
+        section = np.diff(median_filter(section, filter_size, axes=0), d, axis=0)
+        if onset_direction == "up":
+            section[section < 0] = 0
+        elif onset_direction == "down":
+            section[section > 0] = 0
+        if take_abs:
+            section = np.abs(section)
+        local = og - (a - lookaround)
+
+        for i in idx[1:]:
+            pair = [local[idx[0]], local[i]]
+            x = section[:, idx[0]]
+            y = section[:, i]
+            if zero_left:
+                x[: pair[0]] = 0.0
+                y[: pair[1]] = 0.0
+            new_lag = cross_correlation_lag(
+                x,
+                y,
+                pair,
+                normalization_cutoff=normalization_cutoff,
+                onset_tolerance=onset_tolerance,
+            )
+            if new_lag is not None:
+                ca, cb = adjust_onset(pair, x, y, new_lag)
+                og[idx[0]] += ca
+                og[i] += cb
+                local[idx[0]] += ca
+                local[i] += cb
+    return onsets
+
+
+def detect_onset_region(
+    audio: np.ndarray,
+    detected_onset: int,
+    n: int = 256,
+    median_filter_size: int = 5,
+    threshold_factor: float = 0.5,
+) -> int:
+    """Find the start of the loud region around an onset
+    (detection.py:454-484)."""
+    from scipy.ndimage import binary_opening
+    from scipy.signal import medfilt
+
+    start_idx = max(detected_onset - n // 2, 0)
+    end_idx = min(detected_onset + n // 2, len(audio))
+    region = np.abs(audio[start_idx:end_idx])
+    filtered = medfilt(region, kernel_size=median_filter_size)
+    mask = filtered > threshold_factor * np.max(filtered)
+    mask = binary_opening(mask, structure=np.ones(5))
+    return start_idx + int(np.argmax(mask))

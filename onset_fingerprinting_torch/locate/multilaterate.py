@@ -13,12 +13,15 @@ Two layers, as in the JAX package:
   slots, with no host read and no Python branch on a device value, so the
   engine's whole per-block step can be captured in one CUDA graph.
 
-The learned locator (``model=FCNNBundle``) waits for the FCNN's port;
-``Multilaterate`` and ``MultilateratePaired`` wait too (ROADMAP).
+Both take the learned locator (``model=FCNNBundle``, JAX
+multilaterate.py:273-282 and 789-815): the FCNN maps the completed group's
+lag features to meters in place of the Newton solve.  ``Multilaterate``
+and ``MultilateratePaired`` wait (ROADMAP).
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -31,6 +34,7 @@ from onset_fingerprinting_torch.core.coords import (
     speed_of_sound,
     spherical_to_cartesian,
 )
+from onset_fingerprinting_torch.device import resolve_device
 from onset_fingerprinting_torch.detect.refine import (
     adjust_onset,
     cc_refine_adjust_jax,
@@ -52,11 +56,14 @@ def remove_seed(groups, group):
             if not (g[0][0] == seed_sensor and g[1][0] == seed_onset)]
 
 
-def _no_model(model) -> None:
-    if model is not None:
-        raise NotImplementedError(
-            "the learned locator (model=FCNNBundle) needs the FCNN, which "
-            "is not ported yet; use the Newton locator (model=None)")
+def _check_model_input(model_input: str, n_sensors: int) -> None:
+    if model_input not in ("arrival", "by_channel"):
+        raise ValueError(f"unknown model_input {model_input!r}")
+    if model_input == "by_channel" and n_sensors != 3:
+        raise ValueError(
+            "model_input='by_channel' needs exactly 3 sensors (groups "
+            "complete on the 3rd arrival, so with more sensors some "
+            "channels would be absent from the feature vector)")
 
 
 class _LagMapsMixin:
@@ -129,12 +136,10 @@ class Multilaterate3D(_LagMapsMixin):
                  c: Optional[float] = None, model=None,
                  model_input: str = "arrival",
                  feasibility_tols: tuple = (1.0,)):
-        _no_model(model)
         self.c = speed_of_sound(100, medium=medium) if c is None else c * 100
         self.model = model
         self.feasibility_tols = tuple(feasibility_tols)
-        if model_input not in ("arrival", "by_channel"):
-            raise ValueError(f"unknown model_input {model_input!r}")
+        _check_model_input(model_input, len(sensor_locations))
         self.model_input = model_input
         self.radius = drum_diameter / 2
         self.sensor_locs = [
@@ -216,10 +221,21 @@ class Multilaterate3D(_LagMapsMixin):
     def trilaterate(self, group, initial_guess):
         """Newton trilateration of a completed group in its natural (seed,
         a, b) order (the JAX package's choice; the reference's reorder at
-        multilateration.py:542-544 assumes one sensor layout)."""
+        multilateration.py:542-544 assumes one sensor layout), or, with a
+        model, the FCNN's prediction (meters, returned in cm)."""
         sensors, onsets = group[0], group[1]
         d_a1 = onsets[1] - onsets[0]
         d_b1 = onsets[2] - onsets[0]
+        if self.model is not None:
+            if self.model_input == "by_channel":
+                # adjacent channel-order diffs = np.diff (calibration.py:347
+                # of the reference)
+                by_ch = np.zeros(3, dtype=np.float64)
+                by_ch[list(sensors)] = onsets
+                feats = tuple(np.diff(by_ch))
+            else:
+                feats = (d_a1, d_b1)
+            return self.model.call_np(feats) * 100
         triple = torch.tensor([self.sensor_locs[s] for s in sensors[:3]],
                               dtype=torch.float32)
         deltas = torch.tensor([d_a1 / self.sr * self.c,
@@ -261,7 +277,8 @@ class LocatorConfig:
 
 
 def locator_init(capacity: int = 8, device=None) -> LocatorState:
-    i32 = dict(dtype=torch.int32, device=device)
+    """An empty slot table on ``device`` (None = the card)."""
+    i32 = dict(dtype=torch.int32, device=resolve_device(device))
     return LocatorState(
         sensors=torch.full((capacity, 3), -1, **i32),
         onsets=torch.zeros((capacity, 3), **i32),
@@ -282,7 +299,9 @@ class LocatorTables(NamedTuple):
 
 
 def build_locator_tables(m: Multilaterate3D, device=None) -> LocatorTables:
-    """Pack a host locator's lag maps into dense tensors on ``device``."""
+    """Pack a host locator's lag maps into dense tensors on ``device``
+    (None = the card)."""
+    device = resolve_device(device)
     s = len(m.sensor_locs)
     h, w = next(iter(m.lag_maps[0].values())).shape
     maps = np.full((s, s, h, w), np.nan, dtype=np.float32)
@@ -318,6 +337,15 @@ def make_locate_update(m: Multilaterate3D, capacity: int = 8,
     """The fixed-capacity locate step (the JAX package's
     ``make_locate_update``, masks ported literally).
 
+    ``model`` (an :class:`~onset_fingerprinting_torch.models.fcnn.
+    FCNNBundle`) takes the Newton solve's place: the FCNN in eval mode
+    maps the completed group's features to meters (points in cm), and a
+    point is emitted only where the prediction is finite.
+    ``model_input="arrival"`` feeds ``(lag1, lag2)``, the sample lags after
+    the seed swap; ``"by_channel"`` (3 sensors) scatters the group's three
+    onsets into channel order and takes adjacent differences in int32
+    before the float cast (the onsets grow without bound).
+
     ``update(state, sensor, onset) -> (state, xy, emit)`` with 0-d int
     tensors; with ``cc_refine=True`` it also takes ``(window [W, C],
     win_start)``, a fixed-length slice of live audio ending now
@@ -329,13 +357,15 @@ def make_locate_update(m: Multilaterate3D, capacity: int = 8,
     swap against the oldest such group, joins on pairwise legality, 3-way
     completion through the lag-map feasibility cascade (argmax cell as
     the Newton guess), trilateration, seed dedup, eviction of the oldest
-    group.  The lag maps and the geometry are tensors on ``device``.
+    group.  The lag maps and the geometry are tensors on ``device`` (None
+    = the card).
     """
-    _no_model(model)
-    if model_input not in ("arrival", "by_channel"):
-        raise ValueError(f"unknown model_input {model_input!r}")
+    _check_model_input(model_input, len(m.sensor_locs))
     tables = build_locator_tables(m, device)
     maps, min_l, max_l, mml, xyz = tables
+    net = None
+    if model is not None:
+        net = copy.deepcopy(model.model).to(maps.device).eval()
     g = capacity
     radius = float(m.radius)
     samples_per_cm = float(m.samples_per_cm)
@@ -456,9 +486,24 @@ def make_locate_update(m: Multilaterate3D, capacity: int = 8,
         lag1 = _at(lag1_all, gidx)
         lag2 = _at(lag2_all, gidx)
         guess = _at(cell_all, gidx) - radius
-        triple = xyz[torch.stack([s0, s1, sensor.long()])]
-        deltas = torch.stack([lag1, lag2]) * c_over_sr
-        point, solved = solve_tdoa(triple, deltas, guess, unroll=True)
+        if model is not None:
+            if model_input == "by_channel":
+                ids = torch.stack([s0, s1, sensor.long()])
+                ons = torch.stack([_at(state.onsets[:, 0], gidx),
+                                   _at(state.onsets[:, 1], gidx), onset])
+                by_ch = torch.zeros(3, dtype=torch.int32,
+                                    device=ons.device).index_put(
+                    (ids,), ons.to(torch.int32))
+                feats = (by_ch[1:] - by_ch[:-1]).to(torch.float32)
+            else:
+                feats = torch.stack([lag1, lag2])
+            with torch.no_grad():
+                point = net(feats[None, :])[0] * 100.0
+            solved = torch.all(torch.isfinite(point))
+        else:
+            triple = xyz[torch.stack([s0, s1, sensor.long()])]
+            deltas = torch.stack([lag1, lag2]) * c_over_sr
+            point, solved = solve_tdoa(triple, deltas, guess, unroll=True)
         emit = returned & solved
 
         # joins apply to completing groups too: an infeasible completer

@@ -194,7 +194,7 @@ GATHER_ROLL_VEC = Kernel(
 # program), in place; the plain version counts its calls here too
 LOCATE_BLOCK = Kernel(
     "locate_block", "locate_block.cu",
-    {"ofpt_locate_block": [_P] * 22},
+    {"ofpt_locate_block": [_P] * 23},
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )

@@ -81,3 +81,13 @@ def median_filter_1d(x: torch.Tensor, size: int) -> torch.Tensor:
     if size % 2:
         return w[:, mid]
     return (w[:, mid - 1] + w[:, mid]) / 2
+
+
+def sliding_max(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Centred sliding maximum along axis 0, edge-replicated
+    (``maximum_filter1d``, detection.py:875 of the reference)."""
+    pad_l = size // 2
+    pad_r = size - 1 - pad_l
+    xp = torch.cat([x[:1].expand(pad_l, *x.shape[1:]), x,
+                    x[-1:].expand(pad_r, *x.shape[1:])])
+    return xp.unfold(0, size, 1).amax(dim=-1)

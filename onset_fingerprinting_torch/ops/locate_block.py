@@ -16,9 +16,19 @@ CPU runs and the card tests hold the kernel to.
 
 Dispatch is by device, as for the other kernels: a CPU tensor runs the
 plain version (counted in ``plain_calls``), a CUDA tensor launches the
-kernel or raises.  The kernel takes the Newton locator without CC
-refinement (the engine's configuration); ``cc_refine=True`` runs only on
-the CPU.
+kernel or raises.  The kernel takes the Newton locator or the learned one
+(``model=FCNNBundle``, JAX multilaterate.py:789-815) without CC
+refinement; ``cc_refine=True`` runs only on the CPU.
+
+The learned locator in the kernel: at construction the FCNN's eval-mode
+BatchNorm is folded into each Dense (:func:`fold_fcnn`) and the layers are
+packed into one float32 buffer (:func:`pack_fcnn`), which the kernel's
+first warp evaluates one hidden unit per lane on a completion, in place of
+the Newton solve.  :func:`fcnn_plan` states what the kernel takes (at most
+``FCNN_MAX_WIDTH`` units per layer, ``FCNN_MAX_HIDDEN`` hidden layers, two
+lag features in, a point out); an FCNN outside it raises when the
+``LocateBlock`` is built for the card.  :func:`fcnn_packed_reference`
+evaluates the packed buffer on the CPU in the kernel's order of rounding.
 
 The kernel updates the locator state, the queue and the counter in place.
 Without ``out=`` the wrapper hands it fresh copies and the inputs stay as
@@ -35,12 +45,14 @@ from typing import NamedTuple
 import torch
 
 from onset_fingerprinting_torch.core.tree import leaves, write_into
+from onset_fingerprinting_torch.device import resolve_device
 from onset_fingerprinting_torch.locate.multilaterate import (
     LocatorState,
     Multilaterate3D,
     _at,
     make_locate_update,
 )
+from onset_fingerprinting_torch.models.fcnn import ACTIVATIONS, FCNN
 from onset_fingerprinting_torch.ops import _cuda
 
 #: _BIG sorts the channels that did not fire after every real onset
@@ -50,6 +62,14 @@ _BIG = 10 ** 9
 MAX_CHANNELS = 32
 MAX_SLOTS = 32
 MAX_TIERS = 4
+#: the kernel's FCNN plan (csrc/locate_block.cu): a unit per lane of warp 0,
+#: in passes of 32
+FCNN_MAX_WIDTH = 64
+FCNN_MAX_HIDDEN = 8
+#: activation codes of csrc/locate_block.cu::act
+ACT_CODES = {"relu": 0, "silu": 1, "leakyrelu": 2, "elu": 3, "tanh": 4,
+             "sigmoid": 5}
+MODEL_INPUTS = {"arrival": 0, "by_channel": 1}
 
 
 class EventQueue(NamedTuple):
@@ -72,17 +92,116 @@ class _LocDesc(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in (
         "C", "G", "S", "H", "W", "E", "T", "B")] + [
         ("radius", ctypes.c_float), ("c_over_sr", ctypes.c_float),
-        ("tols", ctypes.c_float * MAX_TIERS)]
+        ("tols", ctypes.c_float * MAX_TIERS)] + [
+        (n, ctypes.c_int) for n in (
+            "has_model", "n_layers", "act", "model_input")] + [
+        ("widths", ctypes.c_int * (FCNN_MAX_HIDDEN + 2))]
+
+
+class FCNNPlan(NamedTuple):
+    """An FCNN as the kernel runs it: the widths from the input through
+    each hidden layer to the output, and the activation's code."""
+
+    widths: tuple
+    act: int
+
+
+def fcnn_plan(net: FCNN) -> FCNNPlan:
+    """The kernel's plan for ``net``; raises ``ValueError`` for an FCNN the
+    kernel does not take (there is no plain fallback on the card)."""
+    if not isinstance(net, FCNN):
+        raise ValueError(f"the locate kernel takes an FCNN, not "
+                         f"{type(net).__name__}")
+    lins = [*net.layers, net.out]
+    widths = (lins[0].in_features, *(lin.out_features for lin in lins))
+    if widths[0] != 2 or widths[-1] != 2:
+        raise ValueError(f"the locate kernel's FCNN maps 2 lag features to "
+                         f"a point, not {widths[0]} -> {widths[-1]}")
+    if len(net.layers) > FCNN_MAX_HIDDEN or max(widths) > FCNN_MAX_WIDTH:
+        raise ValueError(
+            f"the locate kernel's FCNN plan is at most {FCNN_MAX_HIDDEN} "
+            f"hidden layers of at most {FCNN_MAX_WIDTH} units; got "
+            f"hidden layers {list(widths[1:-1])}")
+    if net.activation not in ACT_CODES:
+        raise ValueError(f"no kernel activation {net.activation!r}")
+    return FCNNPlan(widths, ACT_CODES[net.activation])
+
+
+@torch.no_grad()
+def fold_fcnn(net: FCNN) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """``[(W [out, in], b [out]), ...]`` of ``net`` in eval mode, each
+    hidden layer's BatchNorm folded into its Dense (in float64, rounded
+    once to float32): ``W * s``, ``(b - mean) * s + beta`` with ``s = gamma
+    / sqrt(var + eps)``, the port's ``fcnn.BatchNorm`` (flax's)."""
+    out = []
+    for i, lin in enumerate([*net.layers, net.out]):
+        w = lin.weight.detach().double().cpu()
+        b = (lin.bias.detach().double().cpu() if lin.bias is not None
+             else torch.zeros(w.shape[0], dtype=torch.float64))
+        if i < len(net.layers) and len(net.norms):
+            bn = net.norms[i]
+            sc = bn.weight.double().cpu() * torch.rsqrt(
+                bn.running_var.double().cpu() + bn.eps)
+            w = w * sc[:, None]
+            b = (b - bn.running_mean.double().cpu()) * sc \
+                + bn.bias.double().cpu()
+        out.append((w.float(), b.float()))
+    return out
+
+
+def pack_fcnn(net: FCNN) -> tuple[FCNNPlan, torch.Tensor]:
+    """The plan and one float32 buffer (on the CPU): for each layer its
+    folded ``W`` row-major then ``b``."""
+    plan = fcnn_plan(net)
+    return plan, torch.cat([t.reshape(-1) for wb in fold_fcnn(net)
+                            for t in wb])
+
+
+def fcnn_packed_reference(plan: FCNNPlan, packed: torch.Tensor,
+                          x: torch.Tensor) -> torch.Tensor:
+    """The packed FCNN on ``x [N, 2]`` in the kernel's order of rounding:
+    each unit starts at its bias and adds ``W[j, k] * h[k]`` for k in
+    order, each product and sum rounded on its own; the activation after
+    every hidden layer."""
+    act = ACTIVATIONS[next(k for k, v in ACT_CODES.items()
+                           if v == plan.act)]
+    h = x.to(torch.float32)
+    off = 0
+    n = len(plan.widths) - 1
+    for layer in range(n):
+        nin, nout = plan.widths[layer], plan.widths[layer + 1]
+        w = packed[off: off + nin * nout].reshape(nout, nin)
+        acc = packed[off + nin * nout: off + nin * nout + nout].expand(
+            h.shape[0], nout).clone()
+        for k in range(nin):
+            acc = acc + w[:, k] * h[:, k: k + 1]
+        h = act(acc) if layer < n - 1 else acc
+        off += nin * nout + nout
+    return h
 
 
 class LocateBlock:
     """The locate step of one engine: the locator's update function (its
-    lag maps and geometry on ``device``) and the constants the kernel
-    takes."""
+    lag maps and geometry on ``device``, None = the card), the packed FCNN
+    of a learned locator and the constants the kernel takes."""
 
     def __init__(self, locator: Multilaterate3D, n_channels: int,
                  block_size: int, capacity: int = 8, cc_refine: bool = False,
                  model=None, model_input: str = "arrival", device=None):
+        self.model = model
+        self.model_input = model_input
+        self.fcnn = None
+        if model is not None:
+            # an FCNN the kernel cannot run raises here, before anything
+            # reaches the card; the CPU runs any FCNN in its plain version
+            try:
+                self.fcnn = pack_fcnn(model.model)
+            except ValueError:
+                if device is None or torch.device(device).type == "cuda":
+                    raise
+        device = resolve_device(device)
+        if self.fcnn is not None:
+            self.fcnn = (self.fcnn[0], self.fcnn[1].to(device))
         self.update = make_locate_update(
             locator, capacity=capacity, cc_refine=cc_refine, model=model,
             model_input=model_input, device=device)
@@ -108,6 +227,8 @@ class LocateBlock:
             raise ValueError(
                 f"the locate kernel takes at most {MAX_CHANNELS} channels, "
                 f"{MAX_SLOTS} slots and {MAX_TIERS} feasibility tiers")
+        if self.model is not None:
+            fcnn_plan(self.model.model)
 
 
 def locate_block_reference(lb: LocateBlock, lstate: LocatorState,
@@ -204,6 +325,18 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
                  radius=lb.radius, c_over_sr=lb.c_over_sr)
     for i, t in enumerate(lb.tols):
         d.tols[i] = t
+    fcnn_ptr = None
+    if lb.model is not None:
+        plan, packed = lb.fcnn
+        if packed.device != on.device:
+            raise ValueError("the packed FCNN must be on the events' device")
+        d.has_model = 1
+        d.n_layers = len(plan.widths) - 1
+        d.act = plan.act
+        d.model_input = MODEL_INPUTS[lb.model_input]
+        for i, w in enumerate(plan.widths):
+            d.widths[i] = w
+        fcnn_ptr = packed.data_ptr()
     new_l, new_q, count = out
     hits = BlockHits(torch.empty_like(deltas),
                      torch.empty((c, 2), dtype=torch.float32,
@@ -211,6 +344,8 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
                      torch.empty_like(on))
     ptrs = [v.data_ptr() for v in (
         on, deltas, count, *new_l, *lb.tables, *new_q, *hits)]
+    # a launch with the learned locator counts under variant "fcnn"
     _cuda.LOCATE_BLOCK.launch("ofpt_locate_block", ctypes.addressof(d),
-                              *ptrs, _cuda.stream())
+                              *ptrs, fcnn_ptr, _cuda.stream(),
+                              variant="fcnn" if fcnn_ptr else "")
     return new_l, new_q, hits, count

@@ -25,14 +25,22 @@ read, the pipelined dispatcher and harvester threads, and the classifier.
 On the card it replays the captured step; with ``device="cpu"`` it runs
 the step eagerly and every kernel runs its plain version.
 
-Not ported yet (ROADMAP): the analysis side channel and recording
-(``attach_analysis``, ``start_recording``, ``bpm``), the sounddevice
-stream, and the learned locator (``model=FCNNBundle``).
+The learned locator (``model=FCNNBundle``) runs inside the locate kernel
+(``ops/locate_block``).  The analysis side channel (:meth:`~RealtimeEngine.
+attach_analysis`, ``realtime/analysis.OnlineAnalysis``) and the recording
+commands read the host audio ring the engine writes; :meth:`~
+RealtimeEngine.stream` opens a PortAudio stream where sounddevice exists.
+
+The captured step is replayed on the stream that was current when the
+engine was built (``_GraphedStep.stream``), whichever thread calls it (the
+native executor's callback, the pipelined dispatcher), and every host read
+of the engine's state goes through that stream too.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue
 import threading
 import time
@@ -162,8 +170,10 @@ def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
                      model=None, model_input: str = "arrival", device=None):
     """``(initial EngineState, params, step)`` on ``device`` (None = the
     card).  The locator's lag maps and geometry are tensors there.
-    ``model`` (the learned locator) raises until the FCNN is ported;
-    ``cc_refine=True`` runs on the CPU only (``ops/locate_block``).
+    ``model`` (an ``FCNNBundle``) replaces the Newton solve with the FCNN
+    inside the locate kernel (JAX engine.py:168-215); ``model_input`` as
+    ``locate.make_locate_update``.  ``cc_refine=True`` runs on the CPU
+    only (``ops/locate_block``).
     ``step`` works in place: it writes the new state into the one it is
     given and returns that state's tensors."""
     dev = resolve_device(device)
@@ -223,11 +233,13 @@ class _GraphedStep:
     Launches of the kernels the capture recorded are added to their
     counters on every replay (capturing launches nothing).  The graph is
     kept (``keep_graph``) so that a measurement can read its nodes
-    (``tools/step_bench.graph_nodes``)."""
+    (``tools/step_bench.graph_nodes``).  ``stream`` is the stream current
+    at construction: every replay runs on it, from whatever thread."""
 
     def __init__(self, step, state: EngineState, params: DetectorParams,
                  block_shape):
         self.state = state
+        self.stream = torch.cuda.current_stream()
         self.block = torch.zeros(block_shape, dtype=torch.float32,
                                  device=state.sample_count.device)
         # first call outside the capture, on a copy: builds the kernels
@@ -258,8 +270,9 @@ class _GraphedStep:
             k.variants = variants[k]
 
     def replay(self, block) -> None:
-        self.block.copy_(block, non_blocking=True)
-        self.graph.replay()
+        with torch.cuda.stream(self.stream):
+            self.block.copy_(block, non_blocking=True)
+            self.graph.replay()
         for k, n in self.launches.items():
             k.launches += n
             k.variants.update(self.variants[k])
@@ -335,6 +348,18 @@ class RealtimeEngine:
         self.hit_latencies_ms: list[float] = []
         self._pipe_q = None
         self._harvester = None
+        #: analysis side channel (attach_analysis); None until attached
+        self.analysis = None
+        self.recording_active = False
+        #: completed recordings: (start, end, bpm) tuples
+        self.recordings: list[tuple[int, int, Optional[float]]] = []
+
+    def _on_stream(self):
+        """The context of every device call and read: the captured step's
+        stream on the card (see the module docstring)."""
+        if self._graph is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._graph.stream)
 
     @property
     def state(self) -> EngineState:
@@ -347,7 +372,90 @@ class RealtimeEngine:
         if self._graph is None:
             self._state = new
             return
-        write_into(self._state, new)
+        with self._on_stream():
+            write_into(self._state, new)
+
+    def attach_analysis(self, rt_cfg=None):
+        """Create the online analysis side channel over the host audio ring
+        (the reference's RecAnalysis/AnalysisOnDemand processes,
+        recording.py:121-604; JAX engine.py:391-415): a local object fed by
+        the blocks :meth:`process` and :meth:`process_nosync` write into
+        ``host_ring`` (created here if absent).  Its per-hop math runs on
+        the engine's device.  Pace it with ``engine.analysis.poll()`` or
+        ``realtime.analysis.AnalysisWorker``."""
+        from onset_fingerprinting_torch.core.config import RealtimeConfig
+        from onset_fingerprinting_torch.realtime.analysis import (
+            OnlineAnalysis,
+        )
+
+        if rt_cfg is None:
+            rt_cfg = RealtimeConfig(sr=self.cfg.sr,
+                                    blocksize=self.cfg.block_size,
+                                    hop_length=self.cfg.block_size)
+        if self.host_ring is None:
+            self.host_ring = CircularArray(
+                np.zeros((rt_cfg.rec_n, self.cfg.n_channels), np.float32))
+        self.analysis = OnlineAnalysis(rt_cfg, self.host_ring,
+                                       device=self.device)
+        return self.analysis
+
+    # -- recording commands (the reference's analysis_action protocol,
+    #    recording.py:379-395: 1 = quantize_start, 2 = quantize_end) -----
+
+    def start_recording(self) -> int:
+        """Mark a recording start at now and snap it to a nearby strong
+        onset (recording.py:495-529).  Returns the quantized start
+        sample."""
+        if self.analysis is None:
+            raise RuntimeError("attach_analysis() first")
+        self.analysis.poll()
+        self.analysis.recording_start = self.current_index
+        self.analysis.quantize_start()
+        self.recording_active = True
+        return self.analysis.recording_start
+
+    def stop_recording(self) -> tuple[int, int, Optional[float]]:
+        """Mark the recording end at now, extrapolate it to a whole number
+        of beats from the BPM estimate (recording.py:531-569) and return
+        ``(start, end, bpm)``."""
+        if self.analysis is None:
+            raise RuntimeError("attach_analysis() first")
+        self.analysis.poll()
+        self.analysis.recording_end = self.current_index
+        end = self.analysis.quantize_end()
+        self.recording_active = False
+        rec = (self.analysis.recording_start, end, self.analysis.last_bpm)
+        self.recordings.append(rec)
+        return rec
+
+    def bpm(self, seconds: float = 4.0) -> float:
+        """The BPM estimate over the last ``seconds`` of audio."""
+        if self.analysis is None:
+            raise RuntimeError("attach_analysis() first")
+        self.analysis.poll()
+        frames = int(seconds * self.cfg.sr / self.analysis.cfg.hop_length)
+        return self.analysis.bpm(-frames)
+
+    def stream(self, device=None, latency: float = 0.001):
+        """A PortAudio stream (sounddevice) whose callback runs
+        :meth:`process` per block; raises ``RuntimeError`` where
+        sounddevice is absent (JAX engine.py:895-914)."""
+        try:
+            import sounddevice as sd
+        except ImportError as e:
+            raise RuntimeError(
+                "sounddevice/PortAudio not available in this environment"
+            ) from e
+
+        def callback(indata, outdata, frames, tinfo, status):
+            out, _ = self.process(indata.copy())
+            outdata[:] = out[:, : outdata.shape[1]]
+
+        return sd.Stream(samplerate=self.cfg.sr, device=device,
+                         channels=(self.cfg.n_channels,
+                                   self.monitor_channels),
+                         callback=callback, latency=latency,
+                         blocksize=self.cfg.block_size)
 
     def attach_classifier(self, model: torch.nn.Module, window: int = 256,
                           pre: int = 64, capacity: int = 16) -> None:
@@ -379,11 +487,13 @@ class RealtimeEngine:
             for i, (onset, _) in enumerate(chunk):
                 onsets[i] = onset
                 valid[i] = True
-            preds, fresh = self._classify(
-                self.state.ring, torch.as_tensor(onsets, device=self.device),
-                torch.as_tensor(valid, device=self.device))
-            out.append(preds.float().cpu().numpy()[: len(chunk)])
-            fresh_out.append(fresh.cpu().numpy()[: len(chunk)])
+            with self._on_stream():
+                preds, fresh = self._classify(
+                    self.state.ring,
+                    torch.as_tensor(onsets, device=self.device),
+                    torch.as_tensor(valid, device=self.device))
+                out.append(preds.float().cpu().numpy()[: len(chunk)])
+                fresh_out.append(fresh.cpu().numpy()[: len(chunk)])
         fresh = np.concatenate(fresh_out, axis=0)
         self.last_classify_fresh = fresh
         n_stale = int((~fresh).sum())
@@ -405,11 +515,12 @@ class RealtimeEngine:
         if t:
             static, _, _ = detector_init(self.cfg, self.device)
             det = self.state.detector
-            fused_warmup_minmax(
-                detector_static(static, self.params), self.params, det,
-                torch.as_tensor(np.ascontiguousarray(audio[:t]),
-                                dtype=torch.float32, device=self.device),
-                out=det)
+            with self._on_stream():
+                fused_warmup_minmax(
+                    detector_static(static, self.params), self.params, det,
+                    torch.as_tensor(np.ascontiguousarray(audio[:t]),
+                                    dtype=torch.float32, device=self.device),
+                    out=det)
 
     def _run(self, block: np.ndarray) -> None:
         x = torch.from_numpy(np.ascontiguousarray(block, dtype=np.float32))
@@ -427,7 +538,8 @@ class RealtimeEngine:
             self.host_ring.write(block)
         t0 = time.perf_counter()
         self._run(block)
-        emits = self._events.emits.cpu().numpy()
+        with self._on_stream():
+            emits = self._events.emits.cpu().numpy()
         if self.metrics is not None:
             self.metrics.observe("engine.step",
                                  (time.perf_counter() - t0) * 1e3)
@@ -435,7 +547,8 @@ class RealtimeEngine:
             self.metrics.count("engine.hits", float(emits.sum()))
         locations: list[Location] = []
         if emits.any():
-            pts = self._events.points.cpu().numpy()
+            with self._on_stream():
+                pts = self._events.points.cpu().numpy()
             for ch in np.nonzero(emits)[0]:
                 locations.append(Location(x=float(pts[ch, 0]),
                                           y=float(pts[ch, 1]),
@@ -565,8 +678,9 @@ class RealtimeEngine:
         Events overwritten before a harvest saw them are counted in
         :attr:`harvest_drops` and warned about."""
         st = self.state
-        packed = _pack_events(st.ev_count, st.ev_points, st.ev_onsets,
-                              st.ev_emits).cpu().numpy()
+        with self._on_stream():
+            packed = _pack_events(st.ev_count, st.ev_points, st.ev_onsets,
+                                  st.ev_emits).cpu().numpy()
         t_host = time.monotonic()  # the events are on the host as of now
         count = int(packed[0])
         new = count - self._harvested

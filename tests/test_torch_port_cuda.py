@@ -967,3 +967,134 @@ def test_ring_write_kernel_matches_plain(cap, b, c, head):
         assert torch.equal(ring.data, ring_p.data), i
         assert torch.equal(ring.counter, ring_p.counter), i
     assert (k.launches, k.plain_calls) == (before[0] + 7, before[1])
+
+
+@pytest.mark.parametrize("mode", ["arrival", "by_channel"])
+def test_locate_block_kernel_with_fcnn_matches_plain(mode):
+    """csrc/locate_block.cu with the learned locator (the packed FCNN)
+    against its plain version (the FCNN in torch) on the same blocks: the
+    locator state, the queue and the emits exactly, points within 1e-3
+    cm; every launch counts under the "fcnn" variant."""
+    from onset_fingerprinting_torch.locate.multilaterate import (
+        locator_init,
+    )
+    from onset_fingerprinting_torch.models.fcnn import (
+        FCNN,
+        FCNNBundle,
+        init_module,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.locate_block import (
+        EventQueue,
+        LocateBlock,
+        locate_block,
+        locate_block_reference,
+    )
+
+    sim, _, _ = _engine_stream(0.01)
+    eng = sim.build_engine("cpu", ring_seconds=0.01)
+    net = init_module(FCNN(2, hidden_layers=(32, 32)), 1, "cpu")
+    with torch.no_grad():
+        net.layers[0].weight /= 50
+        net.out.weight /= 20
+        for bn in net.norms:
+            bn.running_mean.normal_(0, 0.3)
+            bn.running_var.uniform_(0.5, 1.5)
+    model = FCNNBundle(net.cuda())
+    lb = LocateBlock(eng.locator, 3, 128, model=model, model_input=mode,
+                     device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+
+    def queue():
+        return EventQueue(torch.zeros((16, 2), device="cuda"),
+                          torch.zeros(16, **i32), torch.zeros(16, **i32),
+                          torch.zeros((), **i32))
+
+    sk, qk = locator_init(8, "cuda"), queue()
+    sp, qp = locator_init(8, "cuda"), queue()
+    before = _cuda.LOCATE_BLOCK.variants["fcnn"]
+    n_emit = 0
+    blocks = _block_events(6)
+    for count, on, d in blocks:
+        args = (torch.tensor(on, device="cuda"), torch.tensor(d, **i32),
+                torch.tensor(count, **i32))
+        sk, qk, hk, ck = locate_block(lb, sk, qk, *args)
+        sp, qp, hp, cp = locate_block_reference(lb, sp, qp, *args)
+        assert torch.equal(ck, cp)
+        for a, b in zip(sk, sp):
+            assert torch.equal(a, b), count
+        assert torch.equal(hk.emits, hp.emits)
+        assert float((hk.points - hp.points).abs().max()) <= 1e-3
+        for name in ("onsets", "emits", "count"):
+            assert torch.equal(getattr(qk, name), getattr(qp, name))
+        n_emit += int(hk.emits.sum())
+    assert _cuda.LOCATE_BLOCK.variants["fcnn"] == before + len(blocks)
+    assert n_emit >= 30
+
+
+def test_mining_detector_matches_plain_on_the_card():
+    """detect_onsets_amplitude on the card (K1 as detector_warp.cu: one
+    warmup launch, one launch over the recording, the 2 kHz high-pass and
+    the coupled off-gate) against the plain detector on the card over the
+    same recording: channels, onsets and rel bit for bit."""
+    from onset_fingerprinting_torch.detect.amplitude import (
+        detect_offline,
+        offline_detector,
+        warmup_minmax,
+    )
+    from onset_fingerprinting_torch.detect.amplitude import (
+        detect_onsets_amplitude,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+
+    sim, audio, _ = _engine_stream(0.3)
+    before = _cuda.DETECTOR_WARP.launches
+    ch, on, rel = detect_onsets_amplitude(audio, sr=sim.SR)
+    assert _cuda.DETECTOR_WARP.launches == before + 2
+    fst, params, st = offline_detector(3, sr=sim.SR)
+    x = torch.as_tensor(audio, device="cuda")
+    t = len(audio) // 128 * 128
+    w = min(sim.SR // 2, len(audio)) // 128 * 128
+    st = warmup_minmax(fst.plain, params, st, x[:w].contiguous())
+    _, (on_p, d_p, rel_p) = detect_offline(fst.plain, params, st,
+                                           x[:t].contiguous())
+    assert np.array_equal(rel, rel_p.cpu().numpy())
+    b, c = np.nonzero(on_p.cpu().numpy())
+    order = np.argsort(b, kind="stable")
+    assert [int(v) for v in ch] == [int(v) for v in c[order]]
+    assert [int(v) for v in on] == [
+        int(v) for v in b[order] * 128
+        + d_p.cpu().numpy()[b[order], c[order]]]
+    assert len(on) >= 3
+
+
+def test_calibration_on_the_card_matches_the_cpu():
+    """calibrate (float64 TNC) and optimize_positions (float32 adam) on the
+    card against the same calls on the CPU: positions within 1e-4 m."""
+    from onset_fingerprinting_torch.core.coords import spherical_to_cartesian
+    from onset_fingerprinting_torch.locate.calibration import (
+        calibrate,
+        calibration_locations,
+        optimize_positions,
+    )
+
+    radius = 14 * 2.54 / 2 / 100
+    true = np.array([[float(v) for v in spherical_to_cartesian(*p)]
+                     for p in [(0.8 * radius, 135, 80),
+                               (0.8 * radius, 15, 60), (0.15, 100, 20)]])
+    sounds = np.asarray([(0.0, 0.0, 0.0)] * 4 + [
+        tuple(float(v) for v in spherical_to_cartesian(*p))
+        for p in calibration_locations(10, 4, radius * 0.9, 0)])
+    d = np.linalg.norm(sounds[:, None, :] - true[None], axis=-1) / 343.0
+    onsets = np.cumsum(np.concatenate(
+        [np.zeros((len(d), 1)), np.diff(d, axis=1) * 96000], axis=1), axis=1)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        est = calibrate(onsets, norm=2, device=dev)
+        sens, snd, c = optimize_positions(
+            (d[:, :2] - d[:, 2:]) * 96000, est, sounds, lr=0.05,
+            num_epochs=200, C=343.0, device=dev)
+        out[dev] = (est, sens, snd, c)
+    for a, b in zip(out["cuda"][:3], out["cpu"][:3]):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    assert abs(out["cuda"][3] - out["cpu"][3]) < 1e-3

@@ -28,7 +28,11 @@ def test_port_and_chip_smoke_import_no_jax():
         "       'models.train', 'models.fcnn', 'models.cnn',\n"
         "       'models.experiment', 'models.hpo', 'core.audio_io',\n"
         "       'core.posd', 'data.synth', 'data.frames', 'data.datasets',\n"
-        "       'locate.calibration', 'tools.fingerprint_capability'}\n"
+        "       'locate.calibration', 'tools.fingerprint_capability',\n"
+        "       'detect.amplitude', 'detect.grouping', 'tools.mine_hits',\n"
+        "       'tools.train_setup', 'realtime.setup_io',\n"
+        "       'models.torch_import', 'realtime.analysis', 'realtime.main',\n"
+        "       'runtime_native'}\n"
         "assert new <= names, new - names\n"
         "import onset_fingerprinting_torch.tools.fingerprint_anatomy\n"
         "import chip_smoke\n"
@@ -96,3 +100,90 @@ def test_entry_points_default_to_the_card():
                              np.zeros((4, 2), np.float32), num_epochs=1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         fingerprint_capability.run(hits=8, epochs=1)
+
+
+def test_setup_loop_entry_points_default_to_the_card(tmp_path):
+    """The player's setup loop: mining, calibration, the setup's model, the
+    engine built from a setup and the analysis side channel run on the card
+    unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    from onset_fingerprinting_torch.core.config import RealtimeConfig
+    from onset_fingerprinting_torch.core.ring_buffer import CircularArray
+    from onset_fingerprinting_torch.detect.amplitude import (
+        AmplitudeOnsetDetector,
+        detect_onsets_amplitude,
+    )
+    from onset_fingerprinting_torch.locate import calibration as cal
+    from onset_fingerprinting_torch.locate.multilaterate import (
+        Multilaterate3D,
+        build_locator_tables,
+        locator_init,
+        make_locate_update,
+    )
+    from onset_fingerprinting_torch.models.fcnn import FCNN, FCNNBundle
+    from onset_fingerprinting_torch.realtime import main, setup_io
+    from onset_fingerprinting_torch.realtime.analysis import OnlineAnalysis
+    from onset_fingerprinting_torch.tools.mine_hits import mine_file
+
+    x = np.zeros((1024, 3), np.float32)
+    cuda = pytest.raises(RuntimeError, match="CUDA is not available")
+    with cuda:
+        detect_onsets_amplitude(x)
+    with cuda:
+        AmplitudeOnsetDetector(3, 128)
+    from onset_fingerprinting_torch.core.audio_io import write_wav
+
+    write_wav(tmp_path / "x.wav", x, 96000)
+    with cuda:
+        mine_file(tmp_path / "x.wav", tmp_path / "m")
+    with cuda:
+        cal.calibrate(np.zeros((44, 3)))
+    with cuda:
+        cal.optimize_positions(np.zeros((4, 2)), np.zeros((3, 3)),
+                               np.zeros((4, 3)), num_epochs=1)
+    with cuda:
+        cal.tdoa_calib_errors(np.zeros(9), np.zeros((4, 3)),
+                              np.zeros((4, 2)))
+    loc = Multilaterate3D([(0.9, 0, 0), (0.9, 120, 0), (0.9, 240, 0)])
+    with cuda:
+        build_locator_tables(loc)
+    with cuda:
+        make_locate_update(loc)
+    with cuda:
+        locator_init(8)
+    margs = {"output_size": 2, "hidden_layers": [4]}
+    setup_io.save_setup([[0.9, 0, 0], [0.9, 120, 0], [0.9, 240, 0]], "air",
+                        None, FCNNBundle(FCNN(2, hidden_layers=(4,))),
+                        margs, tmp_path / "setup")
+    with cuda:
+        setup_io.load_setup(tmp_path / "setup")
+    with cuda:
+        main.build_engine(tmp_path / "setup")
+    with cuda:
+        OnlineAnalysis(RealtimeConfig(max_recording_seconds=1),
+                       CircularArray(np.zeros((96000, 1), np.float32)))
+
+
+def test_locate_kernel_refuses_an_fcnn_outside_its_plan():
+    """An FCNN the locate kernel cannot run raises when the LocateBlock is
+    built for the card, before anything reaches the card: no plain
+    fallback.  (On the CPU the plain version takes it.)"""
+    from onset_fingerprinting_torch.locate.multilaterate import (
+        Multilaterate3D,
+    )
+    from onset_fingerprinting_torch.models.fcnn import FCNN, FCNNBundle
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.locate_block import LocateBlock
+
+    loc = Multilaterate3D([(0.9, 0, 0), (0.9, 120, 0), (0.9, 240, 0)])
+    before = (_cuda.LOCATE_BLOCK.launches, _cuda.LOCATE_BLOCK.plain_calls)
+    for hidden in ((65,), (8,) * 9):
+        wide = FCNNBundle(FCNN(2, hidden_layers=hidden))
+        for device in ("cuda", None):
+            with pytest.raises(ValueError, match="plan"):
+                LocateBlock(loc, 3, 128, model=wide, device=device)
+    assert (_cuda.LOCATE_BLOCK.launches,
+            _cuda.LOCATE_BLOCK.plain_calls) == before
+    lb = LocateBlock(loc, 3, 128, model=wide, device="cpu")
+    assert lb.fcnn is None

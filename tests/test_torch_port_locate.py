@@ -330,10 +330,20 @@ def test_host_locator_tables_match_jax():
         for k, lm in j.lag_maps[i].items():
             np.testing.assert_array_equal(t.lag_maps[i][k], lm)
             assert t.min_lags[i][k] == j.min_lags[i][k]
-    for a, b in zip(tml.build_locator_tables(t), jml.build_locator_tables(j)):
+    for a, b in zip(tml.build_locator_tables(t, device="cpu"),
+                    jml.build_locator_tables(j)):
         np.testing.assert_array_equal(np_(a), np.asarray(b))
-    with pytest.raises(NotImplementedError, match="FCNN"):
-        tml.Multilaterate3D(POLAR, model=object())
+    # the learned locator is ported (test_torch_port_learned_locator); its
+    # input modes are checked as JAX checks them
+    with pytest.raises(ValueError, match="model_input"):
+        tml.Multilaterate3D(POLAR, model_input="nope")
+    with pytest.raises(ValueError, match="3 sensors"):
+        tml.Multilaterate3D(POLAR + [(0.9, 60.0, 0.0)],
+                            model_input="by_channel")
+    with pytest.raises(ValueError, match="3 sensors"):
+        tml.make_locate_update(tml.Multilaterate3D(
+            POLAR + [(0.9, 60.0, 0.0)]), model_input="by_channel",
+            device="cpu")
 
 
 def _strike_events(rng, t, xyz, c):
