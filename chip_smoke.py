@@ -10,8 +10,9 @@ non-zero exit code, printing no result, on any error or without CUDA.
 
 Phase 0  prints the card's name and power limit, starts the plain
          realtime engine on the CPU in a child process (phase 4's
-         reference) and the plain detector over 6b's recording in another
-         (phase 6b's), and builds the eleven kernel libraries from
+         reference), the plain detector over 6b's recording in another
+         (phase 6b's) and over its channel 0 in a third (7a's), and builds
+         the eleven kernel libraries from
          ``onset_fingerprinting_torch/csrc`` with nvcc, all started
          together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
@@ -133,6 +134,29 @@ Phase 6  the player's setup loop at the JAX journey's size (3 sensors at
          ``examples/calibration_demo.py``'s stages 1-2 on the card and on
          the CPU: the TDOA residual under 2 samples, the refined C, the
          positions within 1e-4 m of the CPU's, both timed.
+Phase 7  the classification pillar and the reference-model migration.  7a
+         ``detect_onsets`` over channel 0 of 6b's recording: the spectral
+         route on the card against the CPU (the same peaks, the flux
+         within 1e-5 of its scale), the amplitude route on the card (K1,
+         two launches, no plain call) against the plain detector on the
+         CPU (a child process from phase 0; the same onsets).  7b
+         ``tools.zone_classifier.run`` at the JAX demo's defaults (150
+         hits per zone, 3 rounds of augmentation, the modal transform, the
+         CNN trained 700 epochs, seed 0) on the card through POSD's device
+         half: held-out accuracy >= 0.60, no plain call, the MFCC and modal
+         transforms on the card within 1e-4 of the CPU's on the same rows,
+         the augmentation, the transform, training and the two
+         augmentation recursions timed.  7c reference-layout checkpoints
+         (CNN, the flagship CCCNN with ``conv_impl="pallas"``, a
+         bidirectional 2-layer GRU RNN, a CNNRNN; seeded weights) through
+         ``models.torch_import``: each model on the card within 1e-4 of its
+         scale of the CPU's; the imported CCCNN serves 1024 of phase 5's
+         capability windows through K3 f32 (one launch, nothing else), K3
+         at that shape held to its plain version at 5e-4/1e-4 and timed
+         beside cuDNN's f32 chain.  7d the leftover ops on the card against
+         the CPU (``ar_envelope``, ``streaming_cc_scan``,
+         ``batch_cross_correlate_dft``) and the host ``Multilaterate`` on a
+         16-strike onset stream against the true positions.
 
 Prints one ``{"kernels": [...]}`` line (K1 as three rows: ``detector``,
 the pipe, the fleet path's; ``detector_warp``, the warp-per-channel kernel
@@ -149,11 +173,14 @@ step, which replaces no TPU kernel, timed on fired blocks; ``ring_write``,
 the engine's audio-ring write, which replaces no TPU kernel either;
 ``detector_warp_mining``, K1's warp kernel as mining launches it, timed
 over 6b's warmup and recording; ``locate_block_fcnn``, the locate kernel
-with the learned locator, timed on fired blocks).  Launch counts are the
-sums over the paths that phases 2, 2b, 3, 4, 5c and 6 drive, each from
-counts set to 0 just before it (``detector_warp`` counts the engines' and
-mining's launches, ``locate_block`` the Newton engine's, the FCNN rows
-phase 6's).  Last comes ``{"ok": true, "device": {...}}``.
+with the learned locator, timed on fired blocks;
+``conv_stack_f32_imported``, K3 f32 serving the imported reference CCCNN,
+timed at its shape).  Launch counts are the sums over the paths that
+phases 2, 2b, 3, 4, 5c, 6 and 7 drive, each from counts set to 0 just
+before it (``detector_warp`` counts the engines', mining's and 7a's
+launches, ``locate_block`` the Newton engine's, the FCNN rows phase 6's,
+``conv_stack_f32_imported`` 7c's).  Last comes ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -2058,12 +2085,443 @@ def phase_calibration(report):
         resid=resid, c=c2, seconds=(t_cal, t_opt))
 
 
+# -- phase 7: the classification pillar and the reference-model migration --
+
+#: 7b: the zone demo's defaults (examples/zone_classifier_demo.py)
+Z_HITS, Z_SEED, Z_EPOCHS = 150, 0, 700
+#: 7b's gate on the held-out accuracy (chance 1/3; the JAX demo's runs land
+#: 0.68-0.78 across seeds)
+Z_BAR = 0.60
+#: 7c: capability windows through the imported models (the CCCNN's K3 runs
+#: MIG_WINDOWS x C signals)
+MIG_WINDOWS = 1024
+MIG_RNN_WINDOWS = 256
+
+
+def amp_cpu_reference(wav, out):
+    """7a's reference, in a child process beside the card phases: the
+    amplitude route of ``detect_onsets`` on the CPU over channel 0 of 6b's
+    recording (channels, onsets, seconds)."""
+    from onset_fingerprinting_torch.core.audio_io import read_wav
+    from onset_fingerprinting_torch.detect import detect_onsets
+
+    torch.set_num_threads(1)
+    audio, sr = read_wav(wav)
+    t0 = time.perf_counter()
+    ch, on, _ = detect_onsets(audio[:, :1], sr=sr, method="amp",
+                              device="cpu")
+    out.put(dict(channels=np.asarray(ch), onsets=np.asarray(on),
+                 seconds=time.perf_counter() - t0))
+
+
+def start_amp_reference():
+    """Start 7a's CPU reference (6b's recording must exist)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=amp_cpu_reference,
+                    args=(str(J_DIR / "train_patch" / "train_patch.wav"), q),
+                    daemon=True)
+    p.start()
+    return p, q
+
+
+def scale_err(card, cpu):
+    """max |card - cpu| over max |cpu|."""
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    return float(np.abs(card - cpu).max() / max(np.abs(cpu).max(), 1e-30))
+
+
+def phase_detect7(report, amp_ref):
+    """7a: the spectral route of ``detect_onsets`` on the card against the
+    CPU over channel 0 of 6b's recording (the same peaks, the normalised
+    flux within 1e-5 of its scale), then the amplitude route on the card
+    (K1, two launches, no plain call) against the plain detector on the
+    CPU (a child process from phase 0): the same channels and onsets."""
+    from onset_fingerprinting_torch.core.audio_io import read_wav
+    from onset_fingerprinting_torch.detect import detect_onsets
+    from onset_fingerprinting_torch.detect.spectral import (
+        spectral_flux_envelope,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+
+    audio, sr = read_wav(J_DIR / "train_patch" / "train_patch.wav")
+    x = np.ascontiguousarray(audio[:, 0])
+    detect_onsets(x, sr=sr, method="spectral")  # cuFFT plans, warm
+    t0 = time.perf_counter()
+    peaks, oe = detect_onsets(x, sr=sr, method="spectral", return_oe=True)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_peaks, cpu_oe = detect_onsets(x, sr=sr, method="spectral",
+                                      return_oe=True, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    err = scale_err(oe, cpu_oe)
+    xt = torch.as_tensor(x).cuda()
+    flux_ms = time_ms(lambda: spectral_flux_envelope(xt, sr=sr), n=10)
+    log(f"7a spectral over {len(x)} samples: {len(peaks)} peaks on the "
+        f"card, {len(cpu_peaks)} on the CPU "
+        f"({'equal' if np.array_equal(peaks, cpu_peaks) else 'DIFFER'}); "
+        f"flux max |diff| {err:.3g} of its scale; detect_onsets "
+        f"{1e3 * t_card:.1f} ms on the card (STFT + flux {flux_ms:.3f} ms by "
+        f"CUDA events; percentile and peak pick on the host), "
+        f"{1e3 * t_cpu:.1f} ms on the CPU (host clock)")
+    check(len(peaks) > 0 and np.array_equal(peaks, cpu_peaks),
+          "7a: the spectral peaks on the card differ from the CPU's")
+    check(err <= 1e-5, f"7a: the spectral flux is {err:.3g} of its scale "
+          "from the CPU's")
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    ch, on, _ = detect_onsets(audio[:, :1], sr=sr, method="amp")
+    torch.cuda.synchronize()
+    t_amp = time.perf_counter() - t0
+    counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS
+              if k.launches or k.plain_calls}
+    log(f"7a amplitude route: K1 launches/plain calls {counts}; "
+        f"{len(on)} onsets in {1e3 * t_amp:.1f} ms (host clock, both "
+        "launches)")
+    k1 = (_cuda.DETECTOR, _cuda.DETECTOR_WARP, _cuda.DETECTOR_PIPE)
+    check(sum(k.launches for k in k1) == 2 and all(
+        k.plain_calls == 0 for k in _cuda.KERNELS),
+        f"7a: the amplitude route did not run K1 twice alone ({counts})")
+    for k in k1:
+        report["_launches"][k.name] = (report["_launches"].get(k.name, 0)
+                                       + k.launches)
+    ref = wait_cpu_reference(*amp_ref)
+    same = (np.array_equal(np.asarray(ch), ref["channels"])
+            and np.array_equal(np.asarray(on), ref["onsets"]))
+    log(f"7a K1 against the plain detector on the CPU ({ref['seconds']:.1f}"
+        f" s there): channels and onsets {'equal' if same else 'DIFFER'} "
+        f"({len(on)} on the card, {len(ref['onsets'])} on the CPU)")
+    check(same and len(on) > 0, "7a: K1's onsets differ from the plain "
+          "detector's")
+
+
+def phase_zone(report):
+    """7b: ``tools.zone_classifier.run`` at the demo's defaults on the card
+    (POSD's device half, the modal transform, the CNN trained by the
+    Trainer): held-out accuracy >= Z_BAR; no hand-written kernel on this
+    loop and no plain call; both transforms on the card against the CPU
+    on the same rows (within 1e-4 of their scale); the two augmentation
+    recursions timed on one zone's rows."""
+    from onset_fingerprinting_torch.data.augment import (
+        air_absorption,
+        seven_band_eq,
+        some_of,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.tools import zone_classifier as zc
+
+    _cuda.reset_counts()
+    res = zc.run(Z_HITS, Z_SEED, Z_EPOCHS, log=lambda *a: log("7b", *a))
+    check(all(k.plain_calls == 0 for k in _cuda.KERNELS),
+          "7b: a plain version ran on the zone-classifier loop")
+    zc.report(res, log=lambda *a: log("7b", *a))
+    s = res["seconds"]
+    log(f"7b seconds (host clock, synchronised): augmentation (POSD's "
+        f"rows) {s['augment']:.3f}, modal transform {s['transform']:.3f}, "
+        f"training {s['train']:.2f} ({1e3 * s['train'] / res['epochs']:.3f}"
+        f" ms per epoch, {res['epochs']} epochs of {res['n_train_rows']} "
+        "rows in batches of 32)")
+    check(res["accuracy"] >= Z_BAR, f"7b: held-out accuracy "
+          f"{res['accuracy']:.3f} < {Z_BAR}")
+    ds = res["dataset"]
+    rows = ds.audio
+    m_card = zc.mfcc_transform(rows, ds)
+    m_cpu = zc.mfcc_transform(rows.cpu(), ds)
+    e_mfcc = scale_err(m_card.cpu(), m_cpu)
+    e_modal = scale_err(res["x"].cpu(), zc.modal_transform(rows.cpu(), ds))
+    log(f"7b transforms, card against CPU on the same {len(rows)} rows: "
+        f"MFCC {tuple(m_card.shape)} {e_mfcc:.3g} of its scale, modal "
+        f"{tuple(res['x'].shape)} {e_modal:.3g}")
+    check(e_mfcc <= 1e-4 and e_modal <= 1e-4,
+          "7b: a transform on the card differs from the CPU's")
+    base = rows[:Z_HITS]
+    g = torch.Generator(base.device).manual_seed(0)
+    times = {}
+    for name, aug in (("seven_band_eq", seven_band_eq),
+                      ("air_absorption", air_absorption)):
+        d = aug.draws(g, base)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aug.apply(base, d, zc.SR)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    some_of(g, base, zc.SR)
+    torch.cuda.synchronize()
+    times["some_of"] = time.perf_counter() - t0
+    log(f"7b augmentation on one zone's {tuple(base.shape)} rows (host "
+        "clock): " + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+        + f"; POSD runs some_of {3 * zc.ROUNDS} times")
+
+
+def _ref_module(**children):
+    m = torch.nn.Module()
+    for name, child in children.items():
+        setattr(m, name, child)
+    return m
+
+
+def _ref_convs(cin, widths, kernels, norm=None, **kw):
+    """``conv_layers.conv{i}`` (+ ``bn{i}``), the reference's names."""
+    seq = torch.nn.Module()
+    for i, (w, k) in enumerate(zip(widths, kernels), start=1):
+        setattr(seq, f"conv{i}", torch.nn.Conv1d(cin, w, k, **kw))
+        if norm is not None:
+            setattr(seq, f"bn{i}", norm(w))
+        cin = w
+    return seq
+
+
+def _ref_state_dict(module, seed):
+    """``module``'s state_dict drawn from a seeded generator: weights
+    normal over sqrt(fan-in), vectors 0.1 x normal, variances positive."""
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in module.state_dict().items():
+        if v.is_floating_point():
+            z = torch.randn(v.shape, generator=g)
+            v = (z / max(v[0].numel(), 1) ** 0.5 if v.dim() > 1
+                 else 0.1 * z)
+            if k.endswith("running_var"):
+                v = 0.5 + v.abs()
+        sd[k] = v
+    return sd
+
+
+def migration_cases(c, length):
+    """Reference-layout state_dicts and model_args for the four families
+    (``(family, model_args, state_dict)``): the zone demo's CNN widths, the
+    flagship CCCNN with ``conv_impl="pallas"``, a bidirectional 2-layer GRU
+    RNN and a CNNRNN."""
+    nn = torch.nn
+    cnn = dict(input_size=140, channels=5, output_size=3,
+               layer_sizes=[16, 32], kernel_size=5, dropout_rate=0.4,
+               pool=True, batch_norm=True)
+    v = 140
+    for _ in range(2):
+        v = (v + 2 - 4) // 2
+    cnn_sd = _ref_state_dict(_ref_module(
+        conv_layers=_ref_convs(5, [16, 32], [5, 5], nn.BatchNorm1d,
+                               padding=1),
+        fc=nn.Linear(32 * v, 3)), 11)
+    ks = [1, 33, 64, 15, 15, 15, 1]
+    cccnn = dict(input_size=length, channels=c, output_size=2,
+                 layer_sizes=[5] * 7, kernel_sizes=ks, batch_norm=False,
+                 group=False, cc_norm=False, dropout_rate=0.5,
+                 conv_impl="pallas")
+    v = length
+    for k in ks:
+        v = v + 2 - k + 1
+    cccnn_sd = _ref_state_dict(_ref_module(
+        conv_layers=_ref_convs(1, [5] * 7, ks, padding=1),
+        fc=nn.Linear(c * (2 * v - 1), 2)), 12)
+    rnn = dict(input_size=length, channels=c, output_size=2, hidden_size=64,
+               num_layers=2, num_heads=2, rnn_type="GRU", bidirectional=True,
+               dropout_rate=0.5)
+    rnn_sd = _ref_state_dict(_ref_module(
+        rnn=nn.GRU(c, 64, 2, batch_first=True, bidirectional=True),
+        layer_norm=nn.LayerNorm(128),
+        attention=nn.MultiheadAttention(128, 2, batch_first=True),
+        fc=nn.Linear(128, 2)), 13)
+    cnnrnn = dict(input_size=length, channels=c, output_size=2,
+                  layer_sizes=[8, 16], kernel_size=3, n_hidden=64,
+                  dropout_rate=0.5)
+    cnnrnn_sd = _ref_state_dict(_ref_module(
+        conv_layers=_ref_convs(c, [8, 16], [3, 3], padding=1),
+        rnn=nn.GRU(length, 64, 1, batch_first=True),
+        attention=nn.MultiheadAttention(64, 2, batch_first=True),
+        fc=nn.Linear(64, 2)), 14)
+    return [("cnn", cnn, cnn_sd), ("cccnn", cccnn, cccnn_sd),
+            ("rnn", rnn, rnn_sd), ("cnnrnn", cnnrnn, cnnrnn_sd)]
+
+
+def phase_migration(report, windows):
+    """7c: reference-layout checkpoints of the four families through the
+    port's maps; each model on the card against the same model on the CPU
+    (within 1e-4 of its scale); the imported flagship CCCNN
+    (``conv_impl="pallas"``) serving a batch of phase 5's capability
+    windows through K3 f32 (one launch, no plain call), K3 at that shape
+    held to its plain version at 5e-4/1e-4 and timed beside it and cuDNN's
+    f32 chain."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from onset_fingerprinting_torch.models import torch_import as ti
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        conv_stack,
+        conv_stack_reference,
+        kernel_for,
+    )
+
+    c, length = windows.shape[1], windows.shape[2]
+    g = torch.Generator().manual_seed(15)
+    inputs = {
+        "cnn": torch.randn(MIG_RNN_WINDOWS, 5, 140, generator=g),
+        "cccnn": windows[:MIG_WINDOWS].cpu(),
+        "rnn": windows[:MIG_RNN_WINDOWS].cpu(),
+        "cnnrnn": windows[:MIG_RNN_WINDOWS].cpu(),
+    }
+    for family, margs, sd in migration_cases(c, length):
+        build = getattr(ti, f"{family}_from_model_args")
+        to_port = getattr(ti, f"{family}_state_dict_from_reference")
+        cpu_model = build(margs)
+        cpu_model.load_state_dict(to_port(sd, cpu_model))
+        cpu_model.eval()
+        card_model = copy.deepcopy(cpu_model).cuda()
+        x = inputs[family]
+        with torch.no_grad():
+            out_cpu = cpu_model(x)
+            _cuda.reset_counts()
+            out_card = card_model(x.cuda())
+            torch.cuda.synchronize()
+        counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS
+                  if k.launches or k.plain_calls}
+        err = scale_err(out_card.cpu(), out_cpu)
+        log(f"7c {family} ({type(cpu_model).__name__}, {tuple(x.shape)} -> "
+            f"{tuple(out_card.shape)}): card against CPU {err:.3g} of its "
+            f"scale; kernel launches/plain calls {counts}")
+        check(bool(torch.isfinite(out_card).all()) and err <= 1e-4,
+              f"7c: the imported {family} on the card is {err:.3g} of its "
+              "scale from the CPU's")
+        if family != "cccnn":
+            check(not counts, f"7c {family}: unexpected kernels {counts}")
+            continue
+        check(card_model.fused and counts == {"conv_stack": (1, 0)},
+              f"7c: the imported CCCNN did not serve through K3 f32 alone "
+              f"({counts})")
+        report["_launches"]["conv_stack_f32_imported"] = (
+            _cuda.CONV_STACK.launches)
+        xf = x.cuda().reshape(-1, length).contiguous()
+        ws = [m.weight.detach() for m in card_model.convs]
+        bs = [m.bias.detach() for m in card_model.convs]
+        check(kernel_for(length, ws, 1, torch.float32) is _cuda.CONV_STACK,
+              "7c: the imported stack is not routed to conv_stack.cu")
+        with torch.no_grad():
+            k = conv_stack(xf, ws, bs, 1, "silu", torch.float32)
+            p = conv_stack_reference(xf, ws, bs, 1, "silu", torch.float32)
+            bad = int(((k - p).abs() > 5e-4 + 1e-4 * p.abs()).sum())
+            k3_err = max_err(k, p)
+
+            def library(x3=xf[:, None, :]):
+                y = x3
+                for w, b in zip(ws, bs):
+                    y = F.silu(F.conv1d(y, w, b, padding=1))
+                return y
+
+            ms = time_ms(lambda: conv_stack(xf, ws, bs, 1, "silu",
+                                            torch.float32), n=20)
+            plain_ms = time_ms(lambda: conv_stack_reference(
+                xf, ws, bs, 1, "silu", torch.float32))
+            library_ms = time_ms(library, n=20)
+        check(bad == 0, f"7c: K3 f32 at the imported CCCNN's shape: {bad} "
+              f"values outside 5e-4 + 1e-4 |plain| (max err {k3_err})")
+        flops, t = 0, length
+        for w in ws:
+            o, i, kk = w.shape
+            t = t + 2 - kk + 1
+            flops += 2 * o * i * kk * t * len(xf)
+        report["conv_stack_f32_imported"] = dict(
+            max_abs_err=k3_err, ms=ms, plain_ms=plain_ms,
+            library_ms=library_ms, ops=flops, peak=F32_FLOPS,
+            bytes=len(xf) * (length + t * ws[-1].shape[0]) * 4)
+        log(f"7c K3 f32 at the imported CCCNN's shape (B = {len(xf)}, L = "
+            f"{length}): max err {k3_err:.3g} against plain; kernel {ms:.4f}"
+            f" ms, plain {plain_ms:.4f} ms, cuDNN f32 chain (TF32 off) "
+            f"{library_ms:.4f} ms; operations bound "
+            f"{1e3 * flops / F32_FLOPS:.4f} ms")
+
+
+def phase_tail(report):
+    """7d: the leftover ops on the card against the CPU (``ar_envelope``,
+    ``streaming_cc_scan``, ``batch_cross_correlate_dft``) and the 2D host
+    locator ``Multilaterate`` on a 16-strike onset stream against the true
+    positions."""
+    from onset_fingerprinting_torch.core.coords import (
+        DIAMETER,
+        polar_to_cartesian,
+        speed_of_sound,
+    )
+    from onset_fingerprinting_torch.locate.multilaterate import Multilaterate
+    from onset_fingerprinting_torch.ops.envelope import ar_envelope
+    from onset_fingerprinting_torch.ops.xcorr import (
+        batch_cross_correlate_dft,
+        batch_full_correlate,
+        streaming_cc_init,
+        streaming_cc_scan,
+    )
+
+    g = torch.Generator().manual_seed(16)
+    x = torch.randn(4000, 64, generator=g).abs()
+    y0 = torch.zeros(64)
+    e_env = scale_err(ar_envelope(x.cuda(), y0.cuda(), 1 / 3, 1 / 383).cpu(),
+                      ar_envelope(x, y0, 1 / 3, 1 / 383))
+    blocks = torch.randn(2, 64, 16, 128, generator=g)
+    _, ccs = streaming_cc_scan(streaming_cc_init(1024, (16,)),
+                               blocks[0].cuda(), blocks[1].cuda())
+    _, ccs_cpu = streaming_cc_scan(streaming_cc_init(1024, (16,), "cpu"),
+                                   blocks[0], blocks[1])
+    e_scc = scale_err(ccs.cpu(), ccs_cpu)
+    a, b = torch.randn(2, 512, 4, 256, generator=g)
+    cc = batch_cross_correlate_dft(a.cuda(), b.cuda())
+    e_dft = scale_err(cc.cpu(), batch_cross_correlate_dft(a, b))
+    e_full = scale_err(cc.cpu(), batch_full_correlate(a, b))
+    log(f"7d card against CPU, of the scale: ar_envelope [4000, 64] "
+        f"{e_env:.3g}; streaming_cc_scan 64 blocks x [16, 128], n = 1024 "
+        f"{e_scc:.3g}; batch_cross_correlate_dft [512, 4, 256] {e_dft:.3g} "
+        f"(against the rFFT form {e_full:.3g})")
+    check(e_env <= 1e-5 and e_scc <= 1e-4 and e_dft <= 1e-4
+          and e_full <= 1e-4, "7d: a leftover op on the card differs from "
+          "the CPU")
+    sensors, sr = [(0.9, 0.0), (0.9, 120.0), (0.9, 240.0)], 96000
+    radius = DIAMETER / 2
+    locs = [tuple(float(v) for v in polar_to_cartesian(r * radius, p))
+            for r, p in sensors]
+    c = speed_of_sound(100, medium="drumhead")
+    rng = np.random.default_rng(0)
+    m = Multilaterate(sensors, sr=sr)
+    errs = []
+    for h in range(16):
+        r, phi = rng.uniform(0.1, 0.8), rng.uniform(0, 360)
+        px, py = (float(v) for v in polar_to_cartesian(r * radius, phi))
+        t0 = 5000 + 20000 * h
+        got = None
+        for on, sensor in sorted(
+                (t0 + int(round(np.hypot(px - sx, py - sy) / c * sr)), i)
+                for i, (sx, sy) in enumerate(locs)):
+            got = m.locate(sensor, on) or got
+        if got is not None:
+            qx, qy = (float(v) for v in polar_to_cartesian(
+                got[0] * radius, got[1]))
+            errs.append(float(np.hypot(qx - px, qy - py)))
+    log(f"7d Multilaterate (host) on 16 strikes: {len(errs)} located, "
+        f"median error {np.median(errs):.4f} cm")
+    check(len(errs) >= 14 and np.median(errs) < 1.0,
+          "7d: Multilaterate located too few strikes or too far")
+
+
+def phase7(report, amp_ref, windows, phase):
+    phase("phase 7a: spectral and amplitude detection")
+    phase_detect7(report, amp_ref)
+    phase("phase 7b: the zone-classifier loop")
+    phase_zone(report)
+    torch.cuda.empty_cache()
+    phase("phase 7c: reference checkpoints into the port, K3 f32 serving")
+    phase_migration(report, windows)
+    phase("phase 7d: the leftover ops and locators")
+    phase_tail(report)
+
+
 def main(argv=None) -> int:
-    """``--only-phase6`` runs the build and phase 6 alone and prints their
-    rows of the kernels line, without the last line (for iterating on
-    phase 6; the smoke run takes no arguments)."""
+    """``--only-phase6`` / ``--only-phase7`` run the build and that phase
+    alone and print their rows of the kernels line, without the last line
+    (for iterating on one phase; the smoke run takes no arguments)."""
     argv = sys.argv[1:] if argv is None else argv
     only6 = "--only-phase6" in argv
+    only7 = "--only-phase7" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2087,8 +2545,9 @@ def main(argv=None) -> int:
 
     # the plain engine and the plain mining detector on the CPU, beside the
     # card phases
-    cpu_ref = None if only6 else start_cpu_reference()
+    cpu_ref = None if (only6 or only7) else start_cpu_reference()
     mine_ref = start_mine_reference()
+    amp_ref = None if only6 else start_amp_reference()
     logs = _cuda.build()
     log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -2102,6 +2561,16 @@ def main(argv=None) -> int:
         log(smi)
         log(json.dumps({"kernels": kernel_rows(report, (
             "detector_warp_mining", "locate_block_fcnn"))}))
+        return 0
+    if only7:
+        from onset_fingerprinting_torch.tools.fingerprint_capability import (
+            make_fixture,
+        )
+
+        phase7(report, amp_ref, make_fixture(CAP_HITS).x_train, phase)
+        log(smi)
+        log(json.dumps({"kernels": kernel_rows(report, (
+            "conv_stack_f32_imported",))}))
         return 0
     phase("phase 1: kernels against their plain versions")
     phase_detector(report)
@@ -2132,6 +2601,8 @@ def main(argv=None) -> int:
     phase_train_parity(fix)
     torch.cuda.empty_cache()
     phase6(report, mine_ref, phase)
+    torch.cuda.empty_cache()
+    phase7(report, amp_ref, fix.x_train, phase)
     phase("done")
     log(smi)  # again here: a tool that keeps the output's end keeps it
     log(json.dumps({"kernels": kernel_rows(report)}))
@@ -2205,6 +2676,11 @@ def kernel_rows(report, names=None):
                               "locate_block.cu",
                               "onset_fingerprinting_tpu/locate/"
                               "multilaterate.py:789", "locate_block_fcnn"),
+        # K3 f32 serving an imported reference CCCNN (phase 7c)
+        "conv_stack_f32_imported": (
+            "onset_fingerprinting_torch/csrc/conv_stack.cu",
+            "onset_fingerprinting_tpu/ops/pallas_conv.py:187",
+            "conv_stack_f32_imported"),
     }
     kernels = []
     for name, (src, replaces, counter) in sources.items():

@@ -1,5 +1,5 @@
 """A copy of ``onset_fingerprinting_tpu.core.posd`` (no jax in it), with
-only its imports changed.
+only its imports changed (pandas is imported where a DataFrame is made).
 
 POSD (Percussive Onset Sound Dataset) format I/O.
 
@@ -30,11 +30,6 @@ from typing import Iterable, Optional
 
 import numpy as np
 
-try:  # pandas is optional at import time; required only for DataFrame APIs
-    import pandas as pd
-except Exception:  # pragma: no cover
-    pd = None
-
 from onset_fingerprinting_torch.core.audio_io import read_wav, write_wav
 
 
@@ -50,9 +45,11 @@ def write_json(d: dict, path: str | Path) -> None:
 
 def parse_hits(hits: dict | list):
     """Hits dict/list → DataFrame, unwrapping the nested conditions mapping
-    (reference data.py:40-52)."""
-    if pd is None:  # pragma: no cover
-        raise ImportError("pandas is required for parse_hits")
+    (reference data.py:40-52).  pandas is imported here, not with the
+    module: the card's machine has none, and only the DataFrame APIs need
+    it."""
+    import pandas as pd
+
     if isinstance(hits, list):
         hits = {
             k: [h.get(k) for h in hits]

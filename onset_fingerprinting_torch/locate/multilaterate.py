@@ -15,8 +15,10 @@ Two layers, as in the JAX package:
 
 Both take the learned locator (``model=FCNNBundle``, JAX
 multilaterate.py:273-282 and 789-815): the FCNN maps the completed group's
-lag features to meters in place of the Newton solve.  ``Multilaterate``
-and ``MultilateratePaired`` wait (ROADMAP).
+lag features to meters in place of the Newton solve.  Two more host
+locators: :class:`Multilaterate`, the 2D-sensor variant returning polar
+coordinates, and :class:`MultilateratePaired`, which trilaterates from
+neighbour-pair lags or votes on lag maps with CC lags.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from scipy.ndimage import median_filter
 
 from onset_fingerprinting_torch.core.coords import (
     DIAMETER,
+    cartesian_to_polar,
+    polar_to_cartesian,
     speed_of_sound,
     spherical_to_cartesian,
 )
@@ -39,9 +43,15 @@ from onset_fingerprinting_torch.detect.refine import (
     adjust_onset,
     cc_refine_adjust_jax,
 )
-from onset_fingerprinting_torch.locate.geometry import lag_map_3d
-from onset_fingerprinting_torch.locate.trilateration import solve_tdoa
-from onset_fingerprinting_torch.ops.xcorr import cross_correlation_lag
+from onset_fingerprinting_torch.locate.geometry import lag_map_2d, lag_map_3d
+from onset_fingerprinting_torch.locate.trilateration import (
+    solve_tdoa,
+    solve_trilateration,
+)
+from onset_fingerprinting_torch.ops.xcorr import (
+    cross_correlation_lag,
+    find_lag,
+)
 
 ONSET_TOL = 50
 NORM_CUTOFF = 10
@@ -244,6 +254,134 @@ class Multilaterate3D(_LagMapsMixin):
                            torch.as_tensor(initial_guess,
                                            dtype=torch.float32))
         return tuple(map(float, p)) if bool(ok) else None
+
+
+class Multilaterate(_LagMapsMixin):
+    """2D-sensor streaming locator returning polar ``(r, phi°)``, ``r`` a
+    fraction of the radius (multilateration.py:578-733)."""
+
+    def __init__(self, sensor_locations, drum_diameter: float = DIAMETER,
+                 medium: str = "drumhead", sr: int = 44100,
+                 feasibility_tols: tuple = (1.0,)):
+        self.radius = drum_diameter / 2
+        self.sensor_locs = [
+            tuple(float(v) for v in polar_to_cartesian(x[0] * self.radius,
+                                                       x[1]))
+            for x in sensor_locations
+        ]
+        self.medium = medium
+        self.sr = sr
+        self.samples_per_cm = sr / speed_of_sound(100, medium=medium)
+        self.feasibility_tols = tuple(feasibility_tols)
+        self._build_maps(lag_map_2d, drum_diameter, sr)
+        self.ongoing: list = []
+
+    def locate(self, sensor_index: int, onset_index: int):
+        """Process one onset event: ``(r, phi)`` when a hit completes, else
+        None."""
+        new_groups = []
+        for group in self.ongoing:
+            lag = onset_index - group[1][0]
+            if sensor_index not in group[0]:
+                if self.is_legal(group[0][0], sensor_index, lag):
+                    group = (group[0] + [sensor_index],
+                             group[1] + [onset_index])
+                    if len(group[0]) == 3:
+                        res = self._feasible_cell(group)
+                        if res != (0, 0):
+                            res = self.trilaterate(
+                                group, np.array(res) - self.radius)
+                            self.ongoing = new_groups
+                            return res
+                    new_groups.append(group)
+            if lag <= self.max_max_lags[group[0][0]]:
+                new_groups.append(group)
+        new_groups.append(([sensor_index], [onset_index]))
+        self.ongoing = new_groups
+        return None
+
+    def trilaterate(self, group, initial_guess):
+        sensors, onsets = group[0], group[1]
+        c = speed_of_sound(100, medium=self.medium)
+        d_a1 = (onsets[1] - onsets[0]) * c / self.sr
+        d_b1 = (onsets[2] - onsets[0]) * c / self.sr
+        res = solve_trilateration(
+            self.sensor_locs[sensors[1]], self.sensor_locs[sensors[2]],
+            self.sensor_locs[sensors[0]], d_a1, d_b1, initial_guess)
+        if res is None:
+            return None
+        r, phi = cartesian_to_polar(res[0], res[1], self.radius)
+        return float(r), float(phi)
+
+
+class MultilateratePaired:
+    """Neighbour-pair lag-map voting locator (multilateration.py:736-875):
+    lag maps between adjacent sensors; CC lags of adjacent pairs vote on
+    map cells and the argmax cell wins."""
+
+    def __init__(self, sensor_locations, drum_diameter: float = DIAMETER,
+                 scale: float = 10, medium: str = "drumhead",
+                 sr: int = 44100):
+        self.radius = int(np.round(drum_diameter * scale / 2, 1))
+        self.sensor_locs = [
+            tuple(float(v) for v in polar_to_cartesian(x[0] * self.radius,
+                                                       x[1]))
+            for x in sensor_locations
+        ]
+        self.scale = scale
+        self.medium = medium
+        self.sr = sr
+        n = len(self.sensor_locs)
+        self.lag_maps = [dict() for _ in range(n)]
+        for i in range(n):
+            for k in (-1, 1):
+                j = (i + k) % n
+                self.lag_maps[i][j] = lag_map_2d(
+                    self.sensor_locs[i], self.sensor_locs[j],
+                    d=drum_diameter, sr=sr, scale=scale,
+                    medium="drumhead").numpy()
+        self.res = np.zeros_like(self.lag_maps[0][1])
+
+    def locate(self, lags: list[int], i: int):
+        """Direct trilateration from neighbour-pair lags with an
+        intensity-weighted initial guess (multilateration.py:802-832)."""
+        n = len(self.sensor_locs)
+        sensor_a = self.sensor_locs[(i - 1) % n]
+        sensor_b = self.sensor_locs[(i + 1) % n]
+        sensor_origin = self.sensor_locs[i]
+        c = speed_of_sound(100 * self.scale, medium=self.medium)
+        d_a1 = lags[0] * c / self.sr
+        d_b1 = lags[1] * c / self.sr
+        wa = abs(d_a1) / self.radius
+        wb = abs(d_b1) / self.radius
+        wo = abs(d_a1 + d_b1) / (2 * self.radius)
+        guess = np.array([
+            sensor_a[0] * wa + sensor_b[0] * wb + sensor_origin[0] * wo,
+            sensor_a[1] * wa + sensor_b[1] * wb + sensor_origin[1] * wo,
+        ])
+        res = solve_trilateration(sensor_a, sensor_b, sensor_origin, d_a1,
+                                  d_b1, guess)
+        if res is None:
+            return None
+        r, phi = cartesian_to_polar(res[0], res[1], self.radius)
+        return float(r), float(phi)
+
+    def locate_cc(self, x: np.ndarray, onset_idx: int, i: int, tol: int = 2,
+                  left: int = 0, right: int = 256):
+        """Lag-map voting from the CC lags of each adjacent pair
+        (multilateration.py:834-875)."""
+        self.res[:] = 0
+        for j in self.lag_maps[i]:
+            lag = find_lag(x[onset_idx - left:onset_idx + right, i],
+                           x[onset_idx - left:onset_idx + right, j])
+            with np.errstate(invalid="ignore"):
+                self.res += ((self.lag_maps[i][j] < lag + tol)
+                             & (self.lag_maps[i][j] > lag - tol))
+        coord = np.unravel_index(np.argmax(self.res), self.res.shape)
+        px = coord[1] - (self.res.shape[1] - 1) / 2
+        py = (self.res.shape[0] - 1) / 2 - coord[0]
+        r, phi = cartesian_to_polar(px, py, self.radius)
+        return float(r), float(phi)
 
 
 # ---------------------------------------------------------------------------

@@ -13,7 +13,9 @@ model, so the port has its own:
   gives, kept values scaled by ``1 / keep``;
 - :func:`flax_init_`: LeCun-normal kernels (a normal truncated at two
   standard deviations, rescaled to variance ``1 / fan_in``), zero biases,
-  norms at scale 1 and bias 0, drawn from a seeded generator.
+  norms at scale 1 and bias 0, drawn from a seeded generator; recurrent
+  layers per gate as flax's cells (input kernels LeCun-normal, hidden
+  kernels orthogonal), attention projections LeCun-normal.
 """
 
 from __future__ import annotations
@@ -119,6 +121,23 @@ def flax_init_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             lecun_normal_(m.weight, m.weight[0].numel(), generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.RNNBase):
+            for name, p in m.named_parameters():
+                if name.startswith("bias"):
+                    p.zero_()
+                    continue
+                for gate in p.view(-1, m.hidden_size, p.shape[1]):
+                    if name.startswith("weight_ih"):
+                        lecun_normal_(gate, p.shape[1], generator)
+                    else:
+                        nn.init.orthogonal_(gate, generator=generator)
+        elif isinstance(m, nn.MultiheadAttention):
+            for proj in m.in_proj_weight.view(3, m.embed_dim, -1):
+                lecun_normal_(proj, m.embed_dim, generator)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         elif isinstance(m, (BatchNorm, nn.GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -1,5 +1,5 @@
-"""Carry JAX-package parameters (CCCNN, FCNN, CNN) and detector state into
-the port.
+"""Carry JAX-package parameters (CCCNN, FCNN, CNN, RNN, CNNRNN) and
+detector state into the port.
 
 The reverse direction of ``onset_fingerprinting_tpu.models.torch_import``.
 Inputs are plain numpy: flax variables as nested dicts of arrays, detector
@@ -104,6 +104,105 @@ def cnn_state_dict_from_flax(variables: Mapping) -> dict:
         conv = params[f"Conv_{i}"]
         sd[f"convs.{i}.weight"] = _t(conv["kernel"], 2, 1, 0)
         sd[f"convs.{i}.bias"] = _t(conv["bias"])
+    sd["fc.weight"] = _t(params["Dense_0"]["kernel"], 1, 0)
+    sd["fc.bias"] = _t(params["Dense_0"]["bias"])
+    return sd
+
+
+#: flax's gate blocks in torch's order of fused gate rows
+_CELL_GATES = {"GRUCell": ("r", "z", "n"),
+               "OptimizedLSTMCell": ("i", "f", "g", "o"),
+               "SimpleCell": ("",)}
+
+
+def _cell_state_dict(cell_name: str, p: Mapping, suffix: str) -> dict:
+    """One flax cell → one direction of a torch recurrent layer
+    (``weight_ih_l0{suffix}`` ...).  flax keeps one bias per gate: the GRU's
+    r and z biases and the LSTM's biases (on its hidden kernels) become
+    torch's input-side biases with zero hidden-side ones; the GRU's
+    candidate gate keeps both, as torch does; the tanh cell's input bias
+    goes to the input side."""
+    gates = _CELL_GATES[cell_name]
+    w_ih = torch.cat([_t(p[f"i{g}"]["kernel"], 1, 0) for g in gates])
+    w_hh = torch.cat([_t(p[f"h{g}"]["kernel"], 1, 0) for g in gates])
+    h = w_hh.shape[1]
+    zeros = torch.zeros(h)
+    if cell_name == "GRUCell":
+        b_ih = torch.cat([_t(p[f"i{g}"]["bias"]) for g in gates])
+        b_hh = torch.cat([zeros, zeros, _t(p["hn"]["bias"])])
+    elif cell_name == "OptimizedLSTMCell":
+        b_ih = torch.cat([_t(p[f"h{g}"]["bias"]) for g in gates])
+        b_hh = torch.zeros(4 * h)
+    else:
+        b_ih = _t(p["i"]["bias"])
+        b_hh = zeros
+    return {f"weight_ih_l0{suffix}": w_ih, f"weight_hh_l0{suffix}": w_hh,
+            f"bias_ih_l0{suffix}": b_ih, f"bias_hh_l0{suffix}": b_hh}
+
+
+def _attention_state_dict(p: Mapping) -> dict:
+    """flax ``MultiHeadDotProductAttention`` (per-projection ``[E, heads,
+    head_dim]`` kernels) → ``nn.MultiheadAttention``'s packed tensors
+    (head-major features)."""
+    e = np.asarray(p["out"]["bias"]).shape[0]
+    qkv = ("query", "key", "value")
+    return {
+        "attention.in_proj_weight": torch.cat(
+            [_t(np.asarray(p[n]["kernel"]).reshape(e, e), 1, 0)
+             for n in qkv]),
+        "attention.in_proj_bias": torch.cat(
+            [_t(np.asarray(p[n]["bias"]).reshape(e)) for n in qkv]),
+        "attention.out_proj.weight": _t(
+            np.asarray(p["out"]["kernel"]).reshape(e, e), 1, 0),
+        "attention.out_proj.bias": _t(p["out"]["bias"]),
+    }
+
+
+def _cells(params: Mapping) -> tuple[str, list]:
+    names = [k for k in params if k.rsplit("_", 1)[0] in _CELL_GATES]
+    if not names:
+        raise ValueError(f"no recurrent cell among {sorted(params)}")
+    kind = names[0].rsplit("_", 1)[0]
+    return kind, [params[f"{kind}_{i}"] for i in range(len(names))]
+
+
+def rnn_state_dict_from_flax(variables: Mapping, bidirectional: bool = False
+                             ) -> dict:
+    """Flax RNN params → the port's ``RNN`` ``state_dict``: the cells in
+    flax's order (layer 0 forward, layer 0 reverse, layer 1 ...) →
+    ``rnn.{layer}``, ``LayerNorm_0`` → ``layer_norm``, the attention,
+    ``Dense_0`` → ``fc``."""
+    params = variables.get("params", variables)
+    kind, cells = _cells(params)
+    dirs = ("", "_reverse") if bidirectional else ("",)
+    sd = {}
+    for i, cell in enumerate(cells):
+        layer, d = divmod(i, len(dirs))
+        sd.update({f"rnn.{layer}.{k}": v for k, v in
+                   _cell_state_dict(kind, cell, dirs[d]).items()})
+    sd["layer_norm.weight"] = _t(params["LayerNorm_0"]["scale"])
+    sd["layer_norm.bias"] = _t(params["LayerNorm_0"]["bias"])
+    sd.update(_attention_state_dict(params["MultiHeadDotProductAttention_0"]))
+    sd["fc.weight"] = _t(params["Dense_0"]["kernel"], 1, 0)
+    sd["fc.bias"] = _t(params["Dense_0"]["bias"])
+    return sd
+
+
+def cnnrnn_state_dict_from_flax(variables: Mapping) -> dict:
+    """Flax CNNRNN variables → the port's ``CNNRNN`` ``state_dict``: the
+    conv stack as :func:`cnn_state_dict_from_flax`, ``GRUCell_i`` →
+    ``rnn.i``, the attention, ``Dense_0`` → ``fc``."""
+    params = variables["params"]
+    sd = _batch_norms(params, variables.get("batch_stats", {}), "norms")
+    for i in range(len([k for k in params if k.startswith("Conv_")])):
+        conv = params[f"Conv_{i}"]
+        sd[f"convs.{i}.weight"] = _t(conv["kernel"], 2, 1, 0)
+        sd[f"convs.{i}.bias"] = _t(conv["bias"])
+    _, cells = _cells(params)
+    for i, cell in enumerate(cells):
+        sd.update({f"rnn.{i}.{k}": v for k, v in
+                   _cell_state_dict("GRUCell", cell, "").items()})
+    sd.update(_attention_state_dict(params["MultiHeadDotProductAttention_0"]))
     sd["fc.weight"] = _t(params["Dense_0"]["kernel"], 1, 0)
     sd["fc.bias"] = _t(params["Dense_0"]["bias"])
     return sd

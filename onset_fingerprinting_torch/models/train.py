@@ -331,13 +331,17 @@ class Trainer:
         perm_rng = np.random.default_rng(self.cfg.seed)
         for epoch in range(num_epochs):
             if bsz is None:
-                losses = [float(self.step(state, x, y))]
+                losses = [self.step(state, x, y)]
             else:
-                idx = perm_rng.permutation(len(x))
-                losses = []
-                for i in range(0, len(x) - bsz + 1, bsz):
-                    b = torch.as_tensor(idx[i:i + bsz], device=self.device)
-                    losses.append(float(self.step(state, x[b], y[b])))
+                # one host read per epoch: the order goes to the device
+                # once and the losses come back together
+                idx = torch.as_tensor(perm_rng.permutation(len(x)),
+                                      device=self.device)
+                losses = [self.step(state, x[b], y[b]) for b in (
+                    idx[i:i + bsz]
+                    for i in range(0, len(x) - bsz + 1, bsz))]
+            losses = (torch.stack(losses).cpu().numpy().astype(np.float64)
+                      if losses else np.zeros(0))
             train_loss = float(np.mean(losses))
             self.history["train_loss"].append(train_loss)
             monitor = self._monitor(state, val_data, train_loss)

@@ -1,5 +1,5 @@
-"""Stateful IIR filters and the median filter (port of
-``onset_fingerprinting_tpu.ops.filters``).
+"""Stateful IIR filters, the EMA smoother and the sliding-window filters
+(port of ``onset_fingerprinting_tpu.ops.filters``).
 
 Filter design stays on the host (scipy) with float32 coefficients, like the
 reference's ``ButterworthFilter`` (detection.py:492-497); the application is
@@ -66,17 +66,52 @@ def iir_apply(state: IIRState, x: torch.Tensor
     return y, IIRState(b, a, torch.stack(z) if z else zi)
 
 
-def median_filter_1d(x: torch.Tensor, size: int) -> torch.Tensor:
-    """Median filter along axis 0, edge-replicated (scipy.ndimage.
-    median_filter with mode='nearest', detection.py:421 of the reference);
-    an even ``size`` averages the two middle values, as ``jnp.median``."""
+def ema_smooth(x: torch.Tensor, alpha: float, y0: torch.Tensor
+               ) -> torch.Tensor:
+    """Exponential moving average along axis 0, float32 (used by onset
+    backtracking, detection.py:722-724 of the reference): one step per
+    sample, vectorised over the other axes."""
+    alpha = float(np.float32(alpha))
+    beta = float(np.float32(1) - np.float32(alpha))
+    x = x.to(torch.float32)
+    y = y0.to(torch.float32)
+    ys = torch.empty_like(x)
+    for t in range(x.shape[0]):
+        y = torch.add(alpha * x[t], beta * y, out=ys[t])
+    return ys
+
+
+def _sliding_windows(x: torch.Tensor, size: int) -> torch.Tensor:
+    """``[T, ...] → [T, size, ...]`` edge-replicated centred windows (a
+    view of the padded signal)."""
     pad_l = size // 2
     pad_r = size - 1 - pad_l
     xp = torch.cat([x[:1].expand(pad_l, *x.shape[1:]), x,
                     x[-1:].expand(pad_r, *x.shape[1:])])
-    idx = (torch.arange(x.shape[0], device=x.device)[:, None]
-           + torch.arange(size, device=x.device)[None, :])
-    w = torch.sort(xp[idx], dim=1).values
+    return xp.unfold(0, size, 1).movedim(-1, 1)
+
+
+def sliding_mean(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Centred sliding mean along axis 0, edge-replicated."""
+    return _sliding_windows(x, size).mean(dim=1)
+
+
+def binary_opening_1d(x: torch.Tensor, size: int) -> torch.Tensor:
+    """1-D binary opening (erosion then dilation) with an all-ones
+    structure, borders False (scipy.ndimage.binary_opening, detection.py:482
+    of the reference)."""
+    pad = (size // 2, size - 1 - size // 2)
+    xe = torch.nn.functional.pad(x.to(torch.bool).to(torch.uint8), pad)
+    eroded = xe.unfold(0, size, 1).amin(dim=-1)
+    ed = torch.nn.functional.pad(eroded, pad)
+    return ed.unfold(0, size, 1).amax(dim=-1).to(torch.bool)
+
+
+def median_filter_1d(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Median filter along axis 0, edge-replicated (scipy.ndimage.
+    median_filter with mode='nearest', detection.py:421 of the reference);
+    an even ``size`` averages the two middle values, as ``jnp.median``."""
+    w = torch.sort(_sliding_windows(x, size), dim=1).values
     mid = size // 2
     if size % 2:
         return w[:, mid]
@@ -86,8 +121,4 @@ def median_filter_1d(x: torch.Tensor, size: int) -> torch.Tensor:
 def sliding_max(x: torch.Tensor, size: int) -> torch.Tensor:
     """Centred sliding maximum along axis 0, edge-replicated
     (``maximum_filter1d``, detection.py:875 of the reference)."""
-    pad_l = size // 2
-    pad_r = size - 1 - pad_l
-    xp = torch.cat([x[:1].expand(pad_l, *x.shape[1:]), x,
-                    x[-1:].expand(pad_r, *x.shape[1:])])
-    return xp.unfold(0, size, 1).amax(dim=-1)
+    return _sliding_windows(x, size).amax(dim=1)

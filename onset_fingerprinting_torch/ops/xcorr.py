@@ -22,19 +22,25 @@ there), chosen per call and never by a process-wide flag:
   and multiplies in float32.  A bf16 CCCNN runs its head this way, as
   the JAX package's does (models/cccnn.py:479-497 there).
 
+``batch_cross_correlate_dft`` is the cross twin of the self head (four
+forward products, the complex cross spectrum, two inverse products).
+
 The rest is what the locator needs: ``full_correlate`` and the lag
 pickers, among them the contribution-normalised legal-lag picker
 ``cross_correlation_lag`` and its fixed-shape device twin
-``cross_correlation_lag_jax`` (named after the JAX function it mirrors).
+``cross_correlation_lag_jax`` (named after the JAX function it mirrors);
+and the block-streaming cross-correlation ``StreamingCC``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from onset_fingerprinting_torch.device import resolve_device
 
 #: the DFT heads' precisions (module docstring)
 PRECISIONS = ("highest", "default")
@@ -188,6 +194,29 @@ def self_and_pair_correlate_dft(feats: torch.Tensor, pi, pj,
     return self_cc, pair_cc
 
 
+def batch_cross_correlate_dft(a: torch.Tensor, b: torch.Tensor,
+                              precision: str = "highest",
+                              sum_axis: int | None = None) -> torch.Tensor:
+    """Batched cross-correlation ``batch_full_correlate(a, b)`` as matrix
+    products (JAX xcorr.py:114): the cross spectrum ``F(a)·conj(F(b))`` is
+    complex, so four forward products and two inverse ones (cosine on the
+    real part, sine on the imaginary part).  ``precision`` and ``sum_axis``
+    (summed before the inverse, by linearity) as the self head's; index
+    ``n-1+l`` holds ``Σ_m a[m+l]·b[m]``."""
+    dft_re, dft_im, inv_cos, inv_sin = _dft_tensors(a.shape[-1], a.device)
+    a_re = dft_matmul(a, dft_re, precision)
+    a_im = dft_matmul(a, dft_im, precision)
+    b_re = dft_matmul(b, dft_re, precision)
+    b_im = dft_matmul(b, dft_im, precision)
+    cross_re = a_re * b_re + a_im * b_im
+    cross_im = a_im * b_re - a_re * b_im
+    if sum_axis is not None:
+        cross_re = cross_re.sum(dim=sum_axis)
+        cross_im = cross_im.sum(dim=sum_axis)
+    return (dft_matmul(cross_re, inv_cos, precision)
+            + dft_matmul(cross_im, inv_sin, precision))
+
+
 def full_correlate(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``np.correlate(a, b, mode='full')`` for equal-length inputs (the
     rFFT form): index ``n-1`` is lag 0, index ``n-1+l`` is ``sum_m a[m+l]
@@ -303,3 +332,48 @@ def cross_correlation_lag_jax(
     arg = torch.argmax(masked)
     lag = -(arg - (center - onset_tolerance) - (current_lag + onset_tolerance))
     return lag.to(torch.int32), valid
+
+
+# ---------------------------------------------------------------------------
+# Streaming cross-correlation (state batched over pairs)
+# ---------------------------------------------------------------------------
+
+class StreamingCC(NamedTuple):
+    """Block-streaming full cross-correlation of the last ``n`` samples of
+    two streams, any leading batch dims (JAX xcorr.py:332-340)."""
+
+    buf_a: torch.Tensor  # [..., n]
+    buf_b: torch.Tensor  # [..., n]
+
+
+def streaming_cc_init(n: int, batch_shape: tuple = (), device=None
+                      ) -> StreamingCC:
+    """Zeroed windows on ``device`` (None = the card)."""
+    z = torch.zeros(tuple(batch_shape) + (n,), dtype=torch.float32,
+                    device=resolve_device(device))
+    return StreamingCC(z, z)
+
+
+def streaming_cc_update(state: StreamingCC, block_a: torch.Tensor,
+                        block_b: torch.Tensor
+                        ) -> tuple[StreamingCC, torch.Tensor]:
+    """Shift in a ``[..., block]`` of new samples and return the full CC
+    ``[..., 2n-1]`` over the current windows: an exact recompute every
+    block (the reference's online_cc drifts, c/cross_corr.c:257-273)."""
+    b = block_a.shape[-1]
+    buf_a = torch.cat([state.buf_a[..., b:], block_a.to(torch.float32)], -1)
+    buf_b = torch.cat([state.buf_b[..., b:], block_b.to(torch.float32)], -1)
+    return StreamingCC(buf_a, buf_b), batch_full_correlate(buf_a, buf_b)
+
+
+def streaming_cc_scan(state: StreamingCC, blocks_a: torch.Tensor,
+                      blocks_b: torch.Tensor
+                      ) -> tuple[StreamingCC, torch.Tensor]:
+    """Many updates in turn: ``blocks_* [nb, ..., block]`` → ``(state, ccs
+    [nb, ..., 2n-1])``, the reference harness's offline sweep
+    (c/test.py:36-38)."""
+    ccs = []
+    for a, b in zip(blocks_a, blocks_b):
+        state, cc = streaming_cc_update(state, a, b)
+        ccs.append(cc)
+    return state, torch.stack(ccs)

@@ -32,7 +32,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "       'detect.amplitude', 'detect.grouping', 'tools.mine_hits',\n"
         "       'tools.train_setup', 'realtime.setup_io',\n"
         "       'models.torch_import', 'realtime.analysis', 'realtime.main',\n"
-        "       'runtime_native'}\n"
+        "       'runtime_native', 'ops.stft', 'ops.envelope',\n"
+        "       'detect.spectral', 'data.augment', 'models.rnn',\n"
+        "       'models.jax_import', 'tools.zone_classifier'}\n"
         "assert new <= names, new - names\n"
         "import onset_fingerprinting_torch.tools.fingerprint_anatomy\n"
         "import chip_smoke\n"
@@ -47,6 +49,54 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "CLEAN" in out.stdout
+
+
+def test_data_and_detect_import_no_pandas():
+    """The card's machine has no pandas: importing the data and detect
+    packages (POSD, the augmentations, the detectors) must not need it."""
+    code = (
+        "import sys\n"
+        "import onset_fingerprinting_torch.data\n"
+        "import onset_fingerprinting_torch.detect\n"
+        "import onset_fingerprinting_torch.tools.zone_classifier\n"
+        "assert 'pandas' not in sys.modules\n"
+        "print('CLEAN')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "CLEAN" in out.stdout
+
+
+def test_classification_entry_points_default_to_the_card():
+    """The classification slice's entry points run on the card unless asked
+    for the CPU: no quiet fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    from onset_fingerprinting_torch.data.datasets import POSD
+    from onset_fingerprinting_torch.detect import (
+        detect_onsets,
+        detect_onsets_spectral,
+    )
+    from onset_fingerprinting_torch.ops.envelope import minmax_init
+    from onset_fingerprinting_torch.ops.xcorr import streaming_cc_init
+    from onset_fingerprinting_torch.tools import zone_classifier
+
+    x = np.zeros(4096, np.float32)
+    cuda = pytest.raises(RuntimeError, match="CUDA is not available")
+    with cuda:
+        detect_onsets_spectral(x)
+    with cuda:
+        detect_onsets(x, method="spectral")
+    with cuda:
+        POSD.from_audio_onsets([x], [[100]], 96000, 64, n_rounds_aug=0)
+    with cuda:
+        zone_classifier.run(hits=2, epochs=1)
+    with cuda:
+        minmax_init(3)
+    with cuda:
+        streaming_cc_init(64)
 
 
 def test_chip_smoke_fails_without_cuda():
