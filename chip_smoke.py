@@ -11,7 +11,9 @@ non-zero exit code, printing no result, on any error or without CUDA.
 Phase 0  prints the card's name and power limit, starts the plain
          realtime engine on the CPU in a child process (phase 4's
          reference), the plain detector over 6b's recording in another
-         (phase 6b's) and over its channel 0 in a third (7a's), and builds
+         (phase 6b's) and over its channel 0 in a third (7a's), the plain
+         engine with ``cc_refine=True`` over the stream's first 2 s in a
+         fourth (8d's), and builds
          the eleven kernel libraries from
          ``onset_fingerprinting_torch/csrc`` with nvcc, all started
          together.
@@ -83,8 +85,9 @@ Phase 4  drives the realtime engine (``tools.realtime_sim``: 3 sensors at
          device ring after the run to the stream's last 16 s bit for bit,
          counter included; holds the events of the first 5 s to the plain
          engine on the CPU and the classifier to its plain version on the
-         same windows; holds K1, in place as the step calls it, over those
-         5 s to the plain detector (events and state), the locate kernel,
+         same windows; holds K1, in place as the step calls it, over the
+         first 0.5 s to the plain detector (events and state; the plain
+         detector takes ~50 ms a block on the card), the locate kernel,
          in place, to its plain version on their fired and quiet blocks,
          and the ring write to its plain version on the engine's ring with
          the head wrapping; times the step (graph replays, a graph of 256
@@ -158,6 +161,39 @@ Phase 7  the classification pillar and the reference-model migration.  7a
          ``batch_cross_correlate_dft``) and the host ``Multilaterate`` on a
          16-strike onset stream against the true positions.
 
+Phase 8  the parallel package on a world-1 NCCL process group (a localhost
+         store; NCCL takes no two ranks on one card, so the CPU tests show
+         two ranks), destroyed at the end.  8a
+         ``make_detect_fingerprint_sharded`` at bench.py's headline point
+         (8192 streams x 4, layout 'wide', one chunk of 32000 samples,
+         compact_capacity 32768, the bf16 flagship): one launch each of
+         K1's pipe, K2 (gather_vec, not anchored) and K3 (mma), no plain
+         call; starts, valid, n_dropped and predictions equal to
+         ``pipeline.DetectFingerprint``'s stages on the same chunk and
+         state with block-start windows; a chunk timed.  8b
+         ``detect_offline_time_sharded`` and ``detect_events_time_sharded``
+         over 6b's recording: dense events and the all_gather-ed event list
+         equal to the sequential K1.  8c ``make_detect_locate_sharded`` over
+         1024 streams of the realtime demo's drum (2 s each, a seed per
+         stream, 32 events per stream, the bf16 flagship classifier on
+         256-sample windows): one K1 launch over the batch of streams, one
+         launch of the stream-batched locate kernel, K3; the located rate
+         and median error against the truth at the realtime bars; the
+         locate kernel equal to its plain scan on the CPU on 8 streams, K1
+         to the plain detector on 2 streams' first 24064 samples; both
+         timed.  8d ``tools.realtime_sim`` with ``cc_refine=True`` over
+         phase 4's 20 s stream: three kernel nodes, phase 4's bars, the
+         first 2 s equal to the plain engine on the CPU (a fourth child
+         process from phase 0), the refining locate kernel in place against
+         its plain version block by block on the first 2 s (each logged
+         refinement held to the plain CC; an argmax may differ only at a
+         float32 tie), its fired-block launch timed beside the Newton
+         kernel's.  8e the capability fixture's float32 flagship, 10
+         full-batch steps with ``Trainer(mesh=)`` against the unmeshed
+         trainer: losses within 1e-6 relative.
+
+Each phase line prints the seconds of the phase before it.
+
 Prints one ``{"kernels": [...]}`` line (K1 as three rows: ``detector``,
 the pipe, the fleet path's; ``detector_warp``, the warp-per-channel kernel
 of the coupled mode, the realtime engine's, timed at [128, 3];
@@ -175,9 +211,12 @@ the engine's audio-ring write, which replaces no TPU kernel either;
 over 6b's warmup and recording; ``locate_block_fcnn``, the locate kernel
 with the learned locator, timed on fired blocks;
 ``conv_stack_f32_imported``, K3 f32 serving the imported reference CCCNN,
-timed at its shape).  Launch counts are the sums over the paths that
-phases 2, 2b, 3, 4, 5c, 6 and 7 drive, each from counts set to 0 just
-before it (``detector_warp`` counts the engines', mining's and 7a's
+timed at its shape; ``detector_warp_streams``, K1's warp kernel over 8c's
+batch of streams; ``locate_streams``, the locate kernel's stream-batched
+entry at 8c's shape; ``locate_block_cc_refine``, the locate kernel with
+CC refinement, timed on fired blocks).  Launch counts are the sums over
+the paths that phases 2, 2b, 3, 4, 5c, 6, 7 and 8 drive, each from counts
+set to 0 just before it (``detector_warp`` counts the engines', mining's and 7a's
 launches, ``locate_block`` the Newton engine's, the FCNN rows phase 6's,
 ``conv_stack_f32_imported`` 7c's).  Last comes ``{"ok": true, "device":
 {...}}``.
@@ -910,6 +949,9 @@ def check_bf16_head(feats, cc):
 #: phase 4: the realtime stream's length and the CPU reference's prefix
 RT_SECONDS = 20.0
 RT_CPU_SECONDS = 5.0
+#: the prefix over which K1 is held to the plain detector on the card (the
+#: plain detector takes ~50 ms per block there)
+RT_K1_PLAIN_SECONDS = 0.5
 #: graph replays and eager steps timed
 RT_REPLAYS = 1000
 RT_EAGER = 300
@@ -1088,8 +1130,9 @@ def phase_realtime(report, cpu_ref):
     # against the plain detector over the first RT_CPU_SECONDS, events and
     # state, from the same warmed state (while the CPU reference runs on);
     # the locate kernel's inputs there
-    l0, q0, quiet, fired, (on_k, d_k, det_k, warm) = locate_calls(
-        audio, blocks, RT_CPU_SECONDS)
+    l0, q0, quiet, fired, _ = locate_calls(audio, blocks, RT_CPU_SECONDS)
+    _, _, _, _, (on_k, d_k, det_k, warm) = locate_calls(
+        audio, blocks, RT_K1_PLAIN_SECONDS)
     cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
                          sr=sim.SR)
     fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
@@ -1108,7 +1151,8 @@ def phase_realtime(report, cpu_ref):
         check(torch.equal(u, v), f"K1 (detector_warp) state {field} differs "
               "from plain on the stream")
     log(f"K1 (detector_warp.cu) one launch per block over the first "
-        f"{RT_CPU_SECONDS:g} s ({on_k.shape[0]} blocks, {int(on_k.sum())} "
+        f"{RT_K1_PLAIN_SECONDS:g} s ({on_k.shape[0]} blocks, "
+        f"{int(on_k.sum())} "
         "onsets): warmup state, on, deltas and final state bit-identical to "
         "the plain detector")
 
@@ -2515,6 +2559,643 @@ def phase7(report, amp_ref, windows, phase):
     phase_tail(report)
 
 
+#: phase 8: the sharded paths on a world-1 NCCL group
+#: 8c: streams of the realtime demo's drum, their seconds, events per stream
+SERVE_STREAMS = 1024
+SERVE_SECONDS = 2.0
+SERVE_EVENTS = 32
+#: 8c: streams held to the plain scan on the CPU, and to the plain detector
+#: (over their first SERVE_PLAIN_SAMPLES samples)
+SERVE_PLAIN_STREAMS = 8
+SERVE_PLAIN_DET_STREAMS = 2
+SERVE_PLAIN_SAMPLES = 24064
+#: 8d: the cc_refine engine's CPU reference prefix
+CC_CPU_SECONDS = 2.0
+#: 8e: full-batch steps of the meshed trainer
+MESH_STEPS = 10
+
+
+def cc_cpu_reference(seconds, prefix, seed, out):
+    """8d's reference, in a child process beside the card phases: the plain
+    engine with ``cc_refine=True`` on the CPU over the stream's first
+    ``prefix`` seconds, its event queue as numpy arrays."""
+    from onset_fingerprinting_torch.tools import realtime_sim as sim
+
+    torch.set_num_threads(1)
+    audio, _, _ = sim.synth_stream(seconds, seed)
+    eng = sim.build_engine("cpu", cc_refine=True)
+    sim.run(eng, audio[: int(prefix * sim.SR)], classify=False)
+    st = eng.state
+    out.put({k: getattr(st, k).numpy() for k in
+             ("ev_count", "ev_points", "ev_onsets", "ev_emits")})
+
+
+def start_cc_reference():
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=cc_cpu_reference,
+                    args=(RT_SECONDS, CC_CPU_SECONDS, 0, q), daemon=True)
+    p.start()
+    return p, q
+
+
+def nccl_world1():
+    """A world-1 NCCL process group on a localhost store, and its mesh."""
+    import socket
+
+    import torch.distributed as dist
+
+    from onset_fingerprinting_torch.parallel import make_mesh
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    mesh = make_mesh((1,), ("data",))
+    check(mesh.group("data") is not None and dist.get_backend() == "nccl",
+          "no NCCL group on the mesh")
+    return mesh
+
+
+def add_launches(report, names, counts):
+    """Add a path's launch counts (``counts``: row -> launches)."""
+    for name in names:
+        report["_launches"][name] = (report["_launches"].get(name, 0)
+                                     + counts.get(name, 0))
+
+
+def phase_sharded_fleet(report, mesh):
+    """8a: ``make_detect_fingerprint_sharded`` at bench.py's headline point
+    (8192 streams x 4 channels, layout 'wide', one chunk of 32000 samples,
+    compact_capacity 32768, the bf16 flagship) against
+    ``pipeline.DetectFingerprint``'s stages on the same chunk and state."""
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.detect.amplitude import detector_init
+    from onset_fingerprinting_torch.models.cccnn import CCCNN
+    from onset_fingerprinting_torch.models.jax_import import (
+        cccnn_state_dict_from_flax,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.windows import (
+        compact_hit_list,
+        gather_hit_windows,
+        gather_kernel_for,
+        top_hit_blocks,
+    )
+    from onset_fingerprinting_torch.parallel import (
+        make_detect_fingerprint_sharded,
+    )
+    from onset_fingerprinting_torch.pipeline import (
+        fleet_detector_config,
+        make_detect_fingerprint,
+    )
+    from onset_fingerprinting_torch.workload import (
+        FLAGSHIP,
+        PRE,
+        WINDOW,
+        flagship_flax_params,
+        make_audio,
+    )
+
+    model = CCCNN(input_size=WINDOW, dtype=torch.bfloat16, **FLAGSHIP)
+    model.load_state_dict(cccnn_state_dict_from_flax(
+        flagship_flax_params(seed=0)))
+    static, params, state = detector_init(DetectorConfig(
+        n_channels=4, block_size=128, hipass_freq=2000.0, sr=96000,
+        coupled_off_gate=False))
+    cap = 16
+    run = make_detect_fingerprint_sharded(
+        static, params, state, (CHUNK, N_STREAMS * 4), mesh, model,
+        window=WINDOW, pre=PRE, capacity=cap, layout="wide",
+        channels_per_stream=4, compact_capacity=G)
+    x = make_audio(CHUNK, N_STREAMS * 4, seed=10)
+    _cuda.reset_counts()
+    preds, starts, valid, dropped = run(x)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    log(f"8a sharded fleet ({N_STREAMS} streams x 4, wide, one chunk of "
+        f"{CHUNK}, compact {G}): launches {counts}, plain calls "
+        f"{ {k.name: k.plain_calls for k in _cuda.KERNELS} }")
+    route = gather_kernel_for(4, WINDOW, x.data_ptr())
+    check(all(k.plain_calls == 0 for k in _cuda.KERNELS),
+          "a plain version ran on the sharded fleet path")
+    check(counts["detector_pipe"] == 1 and counts["conv_stack_mma"] == 1
+          and route.kernel is _cuda.GATHER_VEC
+          and route.kernel.variants[route.variant] == 1
+          and sum(counts.values()) == 3,
+          "8a: want one launch each of K1's pipe, K2 gather_vec and K3 mma")
+    add_launches(report, ("detector_pipe", "gather_vec", "conv_stack_mma"),
+                 counts)
+    # the same chunk and state through the pipeline's stages; the sharded
+    # route's windows are the gather's non-anchored contract at block
+    # starts (JAX's sharded function), the pipeline's sample-anchored
+    pipe = make_detect_fingerprint(fleet_detector_config(N_STREAMS), model,
+                                   N_STREAMS, CHUNK, G)
+    _, on, deltas = pipe.detect(pipe.init_state(), x)
+    st_ref, v_ref = top_hit_blocks(on, 128, N_STREAMS, cap)
+    sts, sids, ok, n_drop, idx = compact_hit_list(st_ref, v_ref, G,
+                                                  return_indices=True)
+    p = pipe.predict(gather_hit_windows(x, sts, sids, 4, WINDOW, PRE,
+                                        anchored=False), ok)
+    want = torch.zeros((N_STREAMS * cap, p.shape[-1]), dtype=p.dtype,
+                       device=p.device)
+    want[idx[ok].long()] = p[ok]
+    perr = max_err(preds.reshape(-1, p.shape[-1]), want)
+    check(torch.equal(starts, st_ref) and torch.equal(valid, v_ref)
+          and int(dropped.sum()) == int(n_drop) == 0 and perr == 0.0
+          and bool(torch.isfinite(preds).all()),
+          f"8a: sharded fleet differs from the pipeline's stages (pred err "
+          f"{perr}, dropped {dropped.tolist()} / {int(n_drop)})")
+    _, anch_v = top_hit_blocks(on, 128, N_STREAMS, cap, deltas)
+    check(torch.equal(anch_v, v_ref), "8a: hit slots differ by route")
+    log(f"8a: starts, valid ({int(valid.sum())} hits) and n_dropped "
+        f"{dropped.tolist()} equal the pipeline's stages, predictions equal "
+        f"(max err {perr}); the routes differ only in the window start: "
+        "block start (JAX's sharded contract) against the pipeline's "
+        "sample-anchored start, with the same hit slots")
+    ms = time_ms(lambda: run(x), n=5)
+    report["_sharded"] = dict(fleet_ms=ms)
+    log(f"8a: one sharded chunk {ms:.3f} ms (CUDA events, mean of 5; "
+        f"{ms * 3:.3f} ms per second of audio, phase 2's per-chunk sum "
+        f"beside it in the same log)")
+    del x, pipe, run
+    torch.cuda.empty_cache()
+
+
+def phase_time_sharded(report, mesh):
+    """8b: ``detect_offline_time_sharded`` and ``detect_events_time_sharded``
+    over 6b's recording against the sequential detector (K1 over the whole
+    recording): dense events exactly, the event list equal; the NCCL
+    all_gather runs."""
+    from onset_fingerprinting_torch.core.audio_io import read_wav
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.detect.amplitude import detector_init
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        detector_static,
+        fused_detect_offline,
+    )
+    from onset_fingerprinting_torch.parallel import (
+        detect_events_time_sharded,
+        detect_offline_time_sharded,
+    )
+    from onset_fingerprinting_torch.parallel.sharding import (
+        events_from_dense,
+    )
+
+    audio, sr = read_wav(J_DIR / "train_patch" / "train_patch.wav")
+    t = len(audio) // 128 * 128
+    x = torch.as_tensor(np.ascontiguousarray(audio[:t]), device="cuda")
+    static, params, state = detector_init(DetectorConfig(
+        n_channels=3, block_size=128, sr=sr))
+    _, (on_s, d_s, _) = fused_detect_offline(
+        detector_static(static, params), params, state, x, emit_rel=False)
+    _cuda.reset_counts()
+    on, d, _ = detect_offline_time_sharded(static, params, state, x, mesh)
+    # a segment holds every event of the recording at world size 1
+    ch, ons = detect_events_time_sharded(static, params, state, x, mesh,
+                                         capacity=1024)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    check(all(k.plain_calls == 0 for k in _cuda.KERNELS)
+          and counts["detector_warp"] == 2,
+          f"8b: want two launches of K1's warp kernel, no plain: {counts}")
+    report["_launches"]["detector_warp_mining"] = (
+        report["_launches"].get("detector_warp_mining", 0) + 2)
+    check(torch.equal(on, on_s) and torch.equal(d[on], d_s[on_s]),
+          "8b: time-sharded dense events differ from the sequential")
+    want = sorted(zip(*events_from_dense(on_s, d_s, 128)))
+    got = sorted(zip(ch.tolist(), ons.tolist()))
+    check(got == [(int(a), int(b)) for a, b in want] and len(got) > 0,
+          "8b: the gathered event list differs from the sequential")
+    ms = time_ms(lambda: detect_offline_time_sharded(static, params, state,
+                                                     x, mesh), n=3)
+    ems = time_ms(lambda: detect_events_time_sharded(
+        static, params, state, x, mesh, capacity=1024), n=3)
+    log(f"8b: {tuple(x.shape)} recording, time-sharded over the world-1 "
+        f"NCCL mesh: {int(on.sum())} dense events equal to the sequential "
+        f"K1, the all_gather-ed list of {len(got)} events equal; K1 "
+        f"launches {counts['detector_warp']}; detect_offline_time_sharded "
+        f"{ms:.3f} ms, detect_events_time_sharded {ems:.3f} ms (CUDA "
+        "events, mean of 3, halo and gathers included)")
+
+
+def phase_sharded_serve(report, mesh):
+    """8c: ``make_detect_locate_sharded`` on the realtime demo's drum, the
+    bf16 flagship as classifier (window 256): K1 over the batch of streams
+    in one launch, the stream-batched locate kernel, K3; the locate held to
+    its plain scan on the CPU, K1 to the plain detector on a subset; the
+    realtime bars against the synthetic truth."""
+    from types import SimpleNamespace
+
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.detect.amplitude import (
+        DetectorState,
+        detect_offline,
+        detector_init,
+    )
+    from onset_fingerprinting_torch.models.cccnn import CCCNN
+    from onset_fingerprinting_torch.models.jax_import import (
+        cccnn_state_dict_from_flax,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        detector_static,
+        fused_detect_streams,
+        fused_warmup_minmax,
+    )
+    from onset_fingerprinting_torch.ops.locate_block import (
+        LocateBlock,
+        locate_streams,
+        locate_streams_reference,
+    )
+    from onset_fingerprinting_torch.parallel import (
+        make_detect_locate_sharded,
+    )
+    from onset_fingerprinting_torch.parallel.sharding import stream_events
+    from onset_fingerprinting_torch.tools import realtime_sim as sim
+    from onset_fingerprinting_torch.workload import (
+        FLAGSHIP,
+        cccnn_flax_params,
+    )
+
+    t0 = time.perf_counter()
+    n_s = SERVE_STREAMS
+    n_t = int(SERVE_SECONDS * sim.SR) // 128 * 128
+    streams, truths = [], []
+    for s in range(n_s):
+        a, _, hits = sim.synth_stream(SERVE_SECONDS, seed=1000 + s)
+        streams.append(a[:n_t])
+        truths.append(hits)
+    x = torch.as_tensor(np.stack(streams), device="cuda")
+    del streams
+    log(f"8c: {n_s} streams of {n_t} samples x 3 made in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
+                         sr=sim.SR)
+    static, params, state = detector_init(cfg)
+    state = fused_warmup_minmax(detector_static(static, params), params,
+                                state, x[0, : sim.WARMUP // 128 * 128])
+    locator = sim.build_engine("cpu", ring_seconds=0.01).locator
+    conf = dict(FLAGSHIP, channels=3, output_size=sim.N_ZONES)
+    model = CCCNN(input_size=256, dtype=torch.bfloat16, **conf)
+    model.load_state_dict(cccnn_state_dict_from_flax(
+        cccnn_flax_params(conf, seed=0, window=256)))
+    run = make_detect_locate_sharded(
+        static, params, state, tuple(x.shape), mesh, locator, model=model,
+        event_capacity=SERVE_EVENTS, window=256, pre=64)
+    _cuda.reset_counts()
+    points, onsets, emits, preds = run(x)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    variants = {k.name: dict(k.variants) for k in _cuda.KERNELS
+                if k.variants}
+    log(f"8c: launches {counts}, variants {variants}")
+    check(all(k.plain_calls == 0 for k in _cuda.KERNELS),
+          "a plain version ran on the sharded serve path")
+    check(_cuda.DETECTOR_WARP.variants["streams"] == 1
+          and counts["detector_warp"] == 1
+          and _cuda.LOCATE_BLOCK.variants["streams"] == 1
+          and counts["locate_block"] == 1 and counts["conv_stack_mma"] == 1,
+          "8c: want one launch each of K1 over the streams, the "
+          "stream-batched locate kernel and K3")
+    report["_launches"]["detector_warp_streams"] = 1
+    report["_launches"]["locate_streams"] = 1
+    add_launches(report, ("conv_stack_mma",), counts)
+    check(bool(torch.isfinite(preds).all()) and not bool(
+        preds[~emits].any()), "8c: classifier output")
+
+    # the realtime bars against the synthetic truth, over all streams
+    pts, ons, ems = (v.cpu().numpy() for v in (points, onsets, emits))
+    matched = total = 0
+    errs = []
+    for s in range(n_s):
+        ev = [(int(o), SimpleNamespace(x=float(p[0]), y=float(p[1])))
+              for o, p, e in zip(ons[s], pts[s], ems[s]) if e]
+        m, _, _ = sim.locate_gates(truths[s], ev)
+        matched += m
+        total += len(truths[s])
+        for base, hx, hy, _ in truths[s]:
+            near = [np.hypot(loc.x - hx, loc.y - hy) for o, loc in ev
+                    if abs(o - base) < 2400]
+            if near:
+                errs.append(min(near))
+    rate, med = matched / total, float(np.median(errs))
+    log(f"8c: {int(ems.sum())} hits located, {matched}/{total} strikes "
+        f"matched ({rate:.4f}, bar {sim.MIN_LOCATED}), median error "
+        f"{med:.4f} cm (bar {sim.MAX_MEDIAN_CM})")
+    check(rate >= sim.MIN_LOCATED and med <= sim.MAX_MEDIAN_CM,
+          "8c: realtime bars failed")
+
+    # the locate kernel against its plain scan on the CPU, same events
+    lb = LocateBlock(locator, 3, 128, device="cuda")
+    k = SERVE_PLAIN_STREAMS
+    # the events' channels, from K1 again (run() keeps them inside)
+    states = DetectorState(*(v.expand((n_s,) + tuple(v.shape)).contiguous()
+                             for v in state))
+    fst = detector_static(static, params)
+    _, (on_k, d_k, _) = fused_detect_streams(fst, params, states, x)
+    ev_on, chs = stream_events(on_k, d_k, 128, SERVE_EVENTS)
+    check(torch.equal(ev_on, onsets), "8c: events differ between runs")
+    t0 = time.perf_counter()
+    pp, ep = locate_streams_reference(
+        LocateBlock(locator, 3, 128, device="cpu"), ev_on[:k].cpu(),
+        chs[:k].cpu())
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    lerr = max_err(points[:k].cpu(), pp)
+    check(torch.equal(emits[:k].cpu(), ep) and lerr <= 1e-3,
+          f"8c: locate kernel vs plain scan on {k} streams (err {lerr})")
+    log(f"8c: the stream-batched locate kernel on {k} streams equal to its "
+        f"plain scan on the CPU ({int(ep.sum())} emits, points max err "
+        f"{lerr:.3g} cm, the scan {plain_ms:.1f} ms)")
+    # K1 over the batch against the plain detector on a subset and prefix
+    kd, td = SERVE_PLAIN_DET_STREAMS, SERVE_PLAIN_SAMPLES
+    sub = x[:kd, :td].contiguous()
+    sub_states = DetectorState(*(v[:kd].contiguous() for v in states))
+    _, (on_b, d_b, _) = fused_detect_streams(fst, params, sub_states, sub)
+    cpu_state = DetectorState(*(v.cpu() for v in state))
+    cpu_params = type(params)(*(v.cpu() for v in params))
+    t0 = time.perf_counter()
+    for s in range(kd):
+        _, (on_p, d_p, _) = detect_offline(static, cpu_params, cpu_state,
+                                           sub[s].cpu())
+        check(torch.equal(on_b[s].cpu(), on_p) and torch.equal(
+            d_b[s].cpu(), d_p), f"8c: K1 over streams differs, stream {s}")
+    det_plain_ms = 1e3 * (time.perf_counter() - t0)
+    log(f"8c: K1 (detector_warp.cu, one CTA per stream) equal to the plain "
+        f"detector on the CPU over {kd} streams x {td} samples "
+        f"({det_plain_ms:.0f} ms plain)")
+
+    # times: K1 over the streams, the locate kernel, at 8c's shape
+    det_ms = time_ms(lambda: fused_detect_streams(fst, params, states, x),
+                     n=3)
+    loc_ms = time_ms(lambda: locate_streams(lb, onsets, chs), n=20)
+    run_ms = time_ms(lambda: run(x), n=3)
+    log(f"8c: K1 over {n_s} streams x {n_t} x 3 {det_ms:.3f} ms; the "
+        f"stream-batched locate kernel {loc_ms:.4f} ms ({n_s} x "
+        f"{SERVE_EVENTS} events); run() {run_ms:.3f} ms for "
+        f"{SERVE_SECONDS:g} s of {n_s} streams")
+    report["detector_warp_streams"] = dict(
+        max_abs_err=0.0, ms=det_ms, plain_ms=det_plain_ms, library_ms=None,
+        **detector_work((n_t, n_s * 3)))
+    ev_bytes = n_s * SERVE_EVENTS * (4 + 4 + 8 + 1)
+    report["locate_streams"] = dict(
+        max_abs_err=lerr, ms=loc_ms, plain_ms=plain_ms, library_ms=None,
+        bytes=ev_bytes + sum(v.numel() * 4 for v in lb.tables), ops=0,
+        peak=F32_FLOPS)
+    report["_sharded"].update(serve_ms=run_ms, serve_rate=rate,
+                              serve_median_cm=med)
+    del x, states
+    torch.cuda.empty_cache()
+
+
+def phase_cc_refine(report, cc_ref):
+    """8d: the realtime engine with ``cc_refine=True`` over phase 4's 20 s
+    stream on the card: three kernel nodes, phase 4's bars, the first 2 s
+    equal to the plain engine on the CPU (a child process from phase 0),
+    the locate kernel in place against its plain version on fired and quiet
+    blocks (each refinement held to the plain one, a differing argmax only
+    at a float32 tie), and its fired-block launch timed beside the Newton
+    kernel's."""
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.core.ring_buffer import ring_init
+    from onset_fingerprinting_torch.locate.multilaterate import (
+        locator_init,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_detect_offline,
+        fused_warmup_minmax,
+        make_fused_detector,
+    )
+    from onset_fingerprinting_torch.ops.locate_block import (
+        LOG_W,
+        EventQueue,
+        LocateBlock,
+        check_refinements,
+        locate_block,
+        locate_block_reference,
+    )
+    from onset_fingerprinting_torch.ops.ring_write import write_block
+    from onset_fingerprinting_torch.tools import realtime_sim as sim
+    from onset_fingerprinting_torch.tools.step_bench import (
+        graph_ms,
+        graph_nodes,
+    )
+
+    audio, _, hits = sim.synth_stream(RT_SECONDS, 0)
+    eng = sim.build_engine(None, cc_refine=True)
+    types, names = graph_nodes(eng._graph.graph)
+    check(types == {"kernel": 3}, f"8d: the captured step holds {types}")
+    n_blocks = len(sim.blocks_of(audio))
+    _cuda.reset_counts()
+    events, _, wall = sim.run(eng, audio, classify=False)
+    counts = {k.name: k.launches for k in _cuda.KERNELS}
+    check(all(k.plain_calls == 0 for k in _cuda.KERNELS)
+          and _cuda.LOCATE_BLOCK.variants["cc_refine"] == n_blocks
+          and counts["locate_block"] == n_blocks,
+          f"8d: want {n_blocks} refining locate launches: {counts}")
+    add_launches(report, ("detector_warp", "ring_write"), counts)
+    report["_launches"]["locate_block_cc_refine"] = n_blocks
+    matched, med, ok = sim.locate_gates(hits, events)
+    log(f"8d: captured step {types} {names}; {len(events)} hits, "
+        f"{matched}/{len(hits)} strikes matched, median error {med:.4f} cm "
+        f"(bars {sim.MIN_LOCATED}, {sim.MAX_MEDIAN_CM}); {n_blocks} blocks "
+        f"in {wall:.3f} s host wall")
+    check(ok, "8d: realtime bars failed with cc_refine")
+
+    # the first CC_CPU_SECONDS against the plain engine on the CPU
+    ref = wait_cpu_reference(*cc_ref)
+    n_ref = int(ref["ev_count"])
+    cpu_end = 128 * len(sim.blocks_of(audio[: int(CC_CPU_SECONDS * sim.SR)]))
+    st = eng.state
+    emits = st.ev_emits.cpu().numpy()[: int(st.ev_count)]
+    check(n_ref > 0 and int((emits < cpu_end).sum()) == n_ref
+          and np.array_equal(st.ev_onsets.cpu().numpy()[:n_ref],
+                             ref["ev_onsets"][:n_ref])
+          and np.array_equal(emits[:n_ref], ref["ev_emits"][:n_ref]),
+          "8d: card and CPU cc_refine engines' events differ")
+    perr = max_err(st.ev_points[:n_ref].cpu(),
+                   torch.as_tensor(ref["ev_points"][:n_ref]))
+    check(perr <= 1e-3, f"8d: card and CPU points differ by {perr} cm")
+    log(f"8d: first {CC_CPU_SECONDS:g} s: {n_ref} events equal to the plain "
+        f"cc_refine engine on the CPU, points max err {perr:.3g} cm")
+
+    # the kernel in place against its plain version, block by block from
+    # the plain version's state, over the first CC_CPU_SECONDS
+    cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
+                         sr=sim.SR)
+    fst, params, det, _ = make_fused_detector(cfg, emit_rel=False)
+    det = fused_warmup_minmax(fst, params, det, torch.as_tensor(
+        audio[: sim.WARMUP // 128 * 128], device="cuda"))
+    ring = ring_init(int(sim.RING_SECONDS * sim.SR), (3,), device="cuda")
+    lb = LocateBlock(eng.locator, 3, 128, cc_refine=True, device="cuda")
+    i32 = dict(dtype=torch.int32, device="cuda")
+    lp = locator_init(8, "cuda")
+    qp = EventQueue(torch.zeros((sim.EVENT_QUEUE, 2), device="cuda"),
+                    torch.zeros(sim.EVENT_QUEUE, **i32),
+                    torch.zeros(sim.EVENT_QUEUE, **i32),
+                    torch.zeros((), **i32))
+    l0 = type(lp)(*(v.clone() for v in lp))
+    q0 = type(qp)(*(v.clone() for v in qp))
+    blocks = torch.as_tensor(np.stack(sim.blocks_of(audio)), device="cuda")
+    fired, n_quiet, n_checked, ties, lerr = [], 0, 0, [], 0.0
+    plain_s = 0.0
+    for i in range(int(CC_CPU_SECONDS * sim.SR) // 128):
+        det, (on, d, _) = fused_detect_offline(fst, params, det, blocks[i],
+                                               False, out=det)
+        ring = write_block(ring, blocks[i])
+        on, d = on[0], d[0]
+        count = torch.tensor(128 * i, **i32)
+        is_fired = bool(on.any())
+        if not is_fired and n_quiet >= 64:
+            continue  # a quiet block leaves the locator and the queue
+        lk = type(lp)(*(v.clone() for v in lp))
+        qk = type(qp)(*(v.clone() for v in qp))
+        ck = count.clone()
+        was = [v.clone() for v in (*lk, *qk)]
+        log_t = torch.zeros((3, LOG_W), **i32)
+        _, _, hk, _ = locate_block(lb, lk, qk, on, d, ck, ring, log_t,
+                                   out=(lk, qk, ck))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp, qp, hp, cp = locate_block_reference(lb, lp, qp, on, d, count,
+                                                ring)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        n, t = check_refinements(lb, log_t, ring)
+        n_checked += n
+        ties += t
+        same = (all(torch.equal(u, v) for u, v in zip(
+            (*lk, *qk[1:], ck), (*lp, *qp[1:], cp)))
+            and torch.equal(hk.emits, hp.emits))
+        check(same or t, f"8d: the refining locate kernel differs from "
+              f"plain at block {i} without a tie")
+        if same:
+            lerr = max(lerr, max_err(hk.points, hp.points),
+                       max_err(qk.points, qp.points))
+        if is_fired:
+            fired.append((on, d, count, ring.counter.clone()))
+        else:
+            n_quiet += 1
+            check(all(torch.equal(u, v) for u, v in zip(was, (*lk, *qk))),
+                  f"8d: the kernel changed the state on quiet block {i}")
+    check(n_checked >= 10 and lerr <= 1e-3,
+          f"8d: {n_checked} refinements checked, points err {lerr}")
+    log(f"8d: the refining locate kernel in place over the first "
+        f"{CC_CPU_SECONDS:g} s ({len(fired)} fired, {n_quiet} quiet blocks): "
+        f"state, queue, counter and emits equal to plain, points max err "
+        f"{lerr:.3g} cm; {n_checked} refinements held to the plain CC, "
+        f"{len(ties)} float32 ties: {ties}")
+
+    # the fired-block launch with refinement beside the Newton kernel, per
+    # launch in a graph of launches over the fired blocks in stream order
+    # (the ring as it stands after the last one)
+    lb_n = LocateBlock(eng.locator, 3, 128, device="cuda")
+
+    def fired_ms(b, with_ring):
+        work = [v.clone() for v in (*l0, *q0)]
+        pristine = [v.clone() for v in work]
+        counts_ = [c.clone() for _, _, c, _ in fired]
+        lw, qw = type(l0)(*work[:5]), type(q0)(*work[5:9])
+
+        def restore():
+            for w, p in zip(work, pristine):
+                w.copy_(p)
+
+        def chain():
+            for (on, d, _, _), c in zip(fired, counts_):
+                locate_block(b, lw, qw, on, d, c,
+                             ring if with_ring else None, out=(lw, qw, c))
+
+        return graph_ms([chain], before=restore) / len(fired)
+
+    cc_ms = fired_ms(lb, True)
+    newton_ms = fired_ms(lb_n, False)
+    plain_ms = 1e3 * plain_s / max(len(fired) + n_quiet, 1)
+    log(f"8d: locate kernel per fired launch in a graph: with cc_refine "
+        f"{cc_ms:.5f} ms, Newton without {newton_ms:.5f} ms; the plain "
+        f"version {plain_ms:.3f} ms per block (eager, host clock)")
+    state_bytes = sum(v.numel() * v.element_size() for v in (*l0, *q0))
+    win = lb.window_len
+    report["locate_block_cc_refine"] = dict(
+        max_abs_err=lerr, ms=cc_ms, plain_ms=plain_ms, library_ms=None,
+        bytes=2 * state_bytes + n_checked / max(len(fired), 1) * 2 * win * 4,
+        ops=n_checked / max(len(fired), 1) * 2 * ONSET_TOL_2 * win,
+        peak=F32_FLOPS)
+    report["_sharded"].update(cc_newton_ms=newton_ms)
+
+
+#: the lags the refinement's CC sums (2 * ONSET_TOL)
+ONSET_TOL_2 = 100
+
+
+def phase_trainer_mesh(report, mesh, fix):
+    """8e: the capability fixture's float32 flagship for MESH_STEPS
+    full-batch steps with ``Trainer(mesh=)`` on the world-1 NCCL mesh
+    against the unmeshed trainer (5b's optimizer): the losses within 1e-6
+    relative."""
+    from onset_fingerprinting_torch.core.config import TrainConfig
+    from onset_fingerprinting_torch.models.train import (
+        Trainer,
+        make_optimizer,
+    )
+    from onset_fingerprinting_torch.tools.fingerprint_capability import (
+        flagship_f32,
+    )
+
+    x, y = fix.x_train, fix.y_train
+    losses, secs = {}, {}
+    # a step first, untimed: the libraries' lazy set-up
+    warm = Trainer(flagship_f32(), TrainConfig(loss="l1", seed=0))
+    warm.step(warm.init_state(), x, y)
+    for meshed in (False, True):
+        tr = Trainer(flagship_f32(), TrainConfig(loss="l1", seed=0),
+                     optimizer=make_optimizer("adam", 3e-3, "cosine", 100),
+                     mesh=mesh if meshed else None)
+        st = tr.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses[meshed] = torch.stack(
+            [tr.step(st, x, y) for _ in range(MESH_STEPS)]).cpu().numpy()
+        secs[meshed] = time.perf_counter() - t0
+    rel = float(np.max(np.abs(losses[True] - losses[False])
+                       / np.abs(losses[False])))
+    check(rel <= 1e-6 and bool(np.isfinite(losses[True]).all()),
+          f"8e: meshed and unmeshed losses differ by {rel} relative")
+    log(f"8e: the f32 flagship on the fixture's {x.shape[0]} windows, "
+        f"{MESH_STEPS} full-batch steps: meshed (world-1 NCCL, gradients "
+        f"all_reduce-d) losses {losses[True][[0, -1]].tolist()} equal the "
+        f"unmeshed within {rel:.3g} relative; "
+        f"{1e3 * secs[True] / MESH_STEPS:.3f} / "
+        f"{1e3 * secs[False] / MESH_STEPS:.3f} ms per step meshed / not "
+        "(host clock)")
+
+
+def phase8(report, cc_ref, fix, phase):
+    """Phase 8 on a world-1 NCCL process group, destroyed at the end."""
+    import torch.distributed as dist
+
+    mesh = nccl_world1()
+    try:
+        phase("phase 8a: the sharded fleet path")
+        phase_sharded_fleet(report, mesh)
+        phase("phase 8b: time sharding and the event all_gather")
+        phase_time_sharded(report, mesh)
+        phase("phase 8c: the sharded serve datapath")
+        phase_sharded_serve(report, mesh)
+        phase("phase 8d: cc_refine in the locate kernel")
+        phase_cc_refine(report, cc_ref)
+        phase("phase 8e: the trainer on a mesh")
+        phase_trainer_mesh(report, mesh, fix)
+    finally:
+        dist.destroy_process_group()
+
+
 def main(argv=None) -> int:
     """``--only-phase6`` / ``--only-phase7`` run the build and that phase
     alone and print their rows of the kernels line, without the last line
@@ -2522,6 +3203,7 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only6 = "--only-phase6" in argv
     only7 = "--only-phase7" in argv
+    only8 = "--only-phase8" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -2539,15 +3221,27 @@ def main(argv=None) -> int:
     from onset_fingerprinting_torch.workload import make_audio
 
     t0 = time.perf_counter()
+    last = [t0]
 
     def phase(name):
-        log(f"[{time.perf_counter() - t0:.1f} s] {name}")
+        now = time.perf_counter()
+        log(f"[{now - t0:.1f} s] {name} (the phase before it: "
+            f"{now - last[0]:.1f} s)")
+        last[0] = now
 
     # the plain engine and the plain mining detector on the CPU, beside the
     # card phases
-    cpu_ref = None if (only6 or only7) else start_cpu_reference()
-    mine_ref = start_mine_reference()
-    amp_ref = None if only6 else start_amp_reference()
+    cpu_ref = None if (only6 or only7 or only8) else start_cpu_reference()
+    cc_ref = None if (only6 or only7) else start_cc_reference()
+    if only8:  # 8b's recording only
+        import shutil
+
+        shutil.rmtree(J_DIR, ignore_errors=True)
+        journey_session("train_patch", 48, 3)
+        mine_ref = None
+    else:
+        mine_ref = start_mine_reference()
+    amp_ref = None if (only6 or only8) else start_amp_reference()
     logs = _cuda.build()
     log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -2555,7 +3249,18 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    report = {"_launches": {}}
+    report = {"_launches": {}, "_sharded": {}}
+    if only8:
+        from onset_fingerprinting_torch.tools.fingerprint_capability import (
+            make_fixture,
+        )
+
+        phase8(report, cc_ref, make_fixture(CAP_HITS), phase)
+        log(smi)
+        log(json.dumps({"kernels": kernel_rows(report, (
+            "detector_warp_streams", "locate_streams",
+            "locate_block_cc_refine"))}))
+        return 0
     if only6:
         phase6(report, mine_ref, phase)
         log(smi)
@@ -2603,6 +3308,8 @@ def main(argv=None) -> int:
     phase6(report, mine_ref, phase)
     torch.cuda.empty_cache()
     phase7(report, amp_ref, fix.x_train, phase)
+    torch.cuda.empty_cache()
+    phase8(report, cc_ref, fix, phase)
     phase("done")
     log(smi)  # again here: a tool that keeps the output's end keeps it
     log(json.dumps({"kernels": kernel_rows(report)}))
@@ -2681,6 +3388,21 @@ def kernel_rows(report, names=None):
             "onset_fingerprinting_torch/csrc/conv_stack.cu",
             "onset_fingerprinting_tpu/ops/pallas_conv.py:187",
             "conv_stack_f32_imported"),
+        # K1 over a batch of streams, one CTA each (phase 8c)
+        "detector_warp_streams": (
+            "onset_fingerprinting_torch/csrc/detector_warp.cu",
+            "onset_fingerprinting_tpu/ops/pallas_detector.py:85",
+            "detector_warp_streams"),
+        # no TPU kernel: the sharded serve path's lax.scan of the locate
+        # update (phase 8c)
+        "locate_streams": ("onset_fingerprinting_torch/csrc/locate_block.cu",
+                           "onset_fingerprinting_tpu/parallel/sharding.py"
+                           ":655", "locate_streams"),
+        # no TPU kernel: the locate step with CC refinement (phase 8d)
+        "locate_block_cc_refine": (
+            "onset_fingerprinting_torch/csrc/locate_block.cu",
+            "onset_fingerprinting_tpu/locate/multilaterate.py:661",
+            "locate_block_cc_refine"),
     }
     kernels = []
     for name, (src, replaces, counter) in sources.items():

@@ -97,6 +97,27 @@ __global__ void __launch_bounds__(32 * MAX_CH) detector_warp_kernel(
     const int C = p.C, bsz = p.bsz, ld = bsz + 1;
     const int lane = threadIdx.x & 31, c = threadIdx.x >> 5;
     const int nb = p.T / bsz;
+    if (blockIdx.x > 0) {
+        // a batch of streams (ofpt_detect_warp_streams): CTA s runs stream
+        // s, its chunk, state and outputs stream-major; the thresholds are
+        // shared
+        const size_t s = blockIdx.x;
+        x += s * p.T * C;
+        if (zi) zi += s * 4 * C;
+        fast += s * C;
+        slow += s * C;
+        mn_s += s * C;
+        mx_s += s * C;
+        gate_s += s * C;
+        prev_s += s * C;
+        deb_s += s * C;
+        if (bt) bt += s * p.nbt * C;
+        bt_pos_in += s;
+        bt_pos_out += s;
+        if (on_out) on_out += s * nb * C;
+        if (delta_out) delta_out += s * nb * C;
+        if (rel_out) rel_out += s * p.T * C;
+    }
 
     // everything read here precedes the first barrier: the writes after the
     // last one may go to the same buffers
@@ -292,6 +313,33 @@ __global__ void __launch_bounds__(32 * MAX_CH) detector_warp_kernel(
 
 extern "C" const char* ofpt_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
+}
+
+// One launch over a whole chunk x [T, C] of each of `n_streams` streams
+// (x [S, T, C], the state and outputs with a leading stream axis), C <= 32,
+// one CTA of 32 * C threads per stream.  The state buffers are updated in
+// place (bt_pos_in may be bt_pos_out).
+extern "C" int ofpt_detect_warp_streams(
+    const DetParams* hp, int n_streams, const float* x, const float* on_p,
+    const float* off_p, float* zi, float* fast, float* slow, float* mn,
+    float* mx, uint8_t* gate, float* prev, int32_t* deb, float* bt,
+    const int32_t* bt_pos_in, int32_t* bt_pos_out, uint8_t* on_out,
+    int32_t* delta_out, float* rel_out, void* stream) {
+    cudaGetLastError();  // clear an error left by earlier, unrelated work
+    const DetParams p = *hp;
+    if (p.C < 1 || p.C > MAX_CH || p.bsz < 1 || n_streams < 1)
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = (size_t)2 * p.C * (p.bsz + 1) * sizeof(float);
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            detector_warp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    detector_warp_kernel<<<n_streams, 32 * p.C, smem, (cudaStream_t)stream>>>(
+        p, x, on_p, off_p, zi, fast, slow, mn, mx, gate, prev, deb, bt,
+        bt_pos_in, bt_pos_out, on_out, delta_out, rel_out);
+    return (int)cudaGetLastError();
 }
 
 // One launch over a whole chunk x [T, C], C <= 32, on one CTA of 32 * C

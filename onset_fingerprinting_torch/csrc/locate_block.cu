@@ -54,6 +54,27 @@
 //   entries of the block's hits, the queue counter, next_age and the
 //   sample counter.
 //
+// CC refinement (cc_refine=True, the JAX step's refinement of each fired
+// onset against the oldest candidate group's seed: locate/multilaterate.py
+// :661-705, detect/refine.py:81-135, ops/xcorr.py:292-325 there) runs in
+// the same launch, between the seed swap and the joins: warp 0 picks the
+// candidate and the two window positions; the whole CTA reads the
+// `win_len`-sample window ending at the block straight from the device
+// audio ring (ring_read_last's rows, the head included), trims it before
+// pos0 - LOOKAROUND, takes the median of 5 (edge-replicated) and the
+// rectified negative first difference of both channels into shared
+// memory, and sums the normalised CC at the 2 * ONSET_TOL lags of the
+// tolerance window only, a warp per lag, in double; warp 0 takes the first
+// argmax, the energy heuristic (its weights' sums in double) and the seed
+// swap.  The plain version's CC is an rFFT in float32, so two lags within
+// its rounding of each other may pick differently: a tie, which an
+// optional per-update log (`log`) lets a caller check against the plain CC.
+//
+// A batch of streams (ofpt_locate_streams, the sharded serve path's
+// offline entry): one CTA per stream feeds that stream's onset-ordered
+// events through the same update from an empty slot table, Newton only;
+// each event's point (zero where not emitted) and emit flag come out.
+//
 // Numerics: compiled with -fmad=false, each multiply and add rounds on its
 // own in the plain version's order; sqrt and division are IEEE (an
 // approximate reciprocal could flip `converged` at the margin and change
@@ -71,6 +92,14 @@
 #define FCNN_MAX_HIDDEN 8
 #define THREADS 256
 #define FULL 0xffffffffu
+// the CC refinement's constants (locate/multilaterate.py's ONSET_TOL,
+// NORM_CUTOFF and LOOKAROUND)
+#define ONSET_TOL 50
+#define NORM_CUTOFF 10
+#define LOOKAROUND (ONSET_TOL + NORM_CUTOFF)
+// ints per update in the refinement log: done, then sh.ref (go, seed
+// channel, channel, pos0, pos1, c_seed, c_new, ok, argmax index)
+#define LOG_W 10
 
 // must match ops/locate_block.py::_LocDesc
 struct LocDesc {
@@ -80,11 +109,50 @@ struct LocDesc {
     // the learned locator: layers = hidden + 1, widths[0..layers]
     int has_model, n_layers, act, model_input;
     int widths[FCNN_MAX_HIDDEN + 2];
+    // CC refinement: on, the live window's length, the ring's frames
+    int cc, win_len, ring_cap;
 };
 
 static const int AGE_INF = 2147483647;
 static const int AGE_REBASE = 1 << 30;
 static const int BIG = 1000000000;
+// the sharded serve path's empty event key (parallel/sharding.py::_BIG)
+static const int EV_BIG = 1 << 30;
+
+// the lag maps, the geometry and the packed FCNN
+struct Tables {
+    const float *maps, *min_l, *max_l, *mml, *xyz, *fcnn;
+};
+
+// the device audio ring [cap, C] after this block's write, and the sample
+// where the live window starts
+struct Ring {
+    const float* data;
+    int count, win_start;
+};
+
+// one lane's slot of the candidate-group table (warp 0, lane g = slot g)
+struct Slots {
+    int s0, s1, s2, o0, o1, o2, cnt, age, next_age;
+    bool act;
+};
+
+struct Shared {
+    int on[MAX_CH], delta[MAX_CH], order[MAX_CH], emit[MAX_CH];
+    float pts[MAX_CH][2];
+    float h[2][FCNN_MAX_W];
+    // per update: the completing groups to scan (two buffers: the next
+    // update's count may be written while a warp still reads this one's)
+    int nscan[2];
+    int lm1[MAX_SLOTS], lm2[MAX_SLOTS];
+    float lag1[MAX_SLOTS], lag2[MAX_SLOTS];
+    int best[MAX_SLOTS][MAX_TIERS];
+    // the CC refinement: go, seed channel, channel, pos0, pos1 in; c_seed,
+    // c_new, ok, argmax index out
+    int ref[9];
+    int xmax[2];
+    float ccv[2 * ONSET_TOL];
+};
 
 // NaN-propagating max of |a|, |b|, as torch.amax
 __device__ __forceinline__ float amax2(float a, float b) {
@@ -199,40 +267,385 @@ __device__ __forceinline__ bool solve_tdoa(const float (&s)[3][3],
     return ok && done && isfinite(x) && isfinite(y) && amax2(f[0], f[1]) < bound;
 }
 
+// the median of five (torch.sort's middle value)
+__device__ __forceinline__ float median5(float a, float b, float c, float d,
+                                         float e) {
+    float v[5] = {a, b, c, d, e};
+#pragma unroll
+    for (int i = 1; i < 5; ++i)
+#pragma unroll
+        for (int j = i; j > 0; --j)
+            if (v[j] < v[j - 1]) {
+                const float t = v[j];
+                v[j] = v[j - 1];
+                v[j - 1] = t;
+            }
+    return v[2];
+}
+
+// The CC refinement of the pair in sh.ref (every thread calls it): the
+// section prep of both channels into `buf` ([2][win_len] raw, then [2]
+// [win_len] medians), the masked normalised CC at the tolerance window's
+// lags, its first argmax and the energy heuristic (detect/refine.py::
+// cc_refine_adjust_jax of the port).  Writes c_seed, c_new, ok and the
+// argmax index to sh.ref[5..8].
+__device__ __forceinline__ void cc_refine(const LocDesc& d, Shared& sh,
+                                          float* buf, const Ring& rg) {
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int W = d.win_len, n = W - 1, C = d.C;
+    const int ch0 = sh.ref[1], ch1 = sh.ref[2];
+    const int pos0 = sh.ref[3], pos1 = sh.ref[4];
+    float* raw = buf;          // [2][W]; later the sections x, y
+    float* med = buf + 2 * W;  // [2][W]
+    // ring_read_last: row r is frame count - W + r, modulo the ring
+    for (int r = tid; r < W; r += THREADS) {
+        int row = (rg.count - W + r) % d.ring_cap;
+        if (row < 0) row += d.ring_cap;
+        const bool keep = r >= pos0 - LOOKAROUND;
+        raw[r] = keep ? rg.data[(size_t)row * C + ch0] : 0.0f;
+        raw[W + r] = keep ? rg.data[(size_t)row * C + ch1] : 0.0f;
+    }
+    if (tid < 2) sh.xmax[tid] = 0;
+    __syncthreads();
+    for (int q = tid; q < 2 * W; q += THREADS) {
+        const int k = q >= W, r = q - k * W;
+        const float* col = raw + k * W;
+        med[q] = median5(col[max(r - 2, 0)], col[max(r - 1, 0)], col[r],
+                         col[min(r + 1, W - 1)], col[min(r + 2, W - 1)]);
+    }
+    __syncthreads();
+    // the rectified negative first difference, into raw; its maxima
+    int mx0 = 0, mx1 = 0;
+    for (int q = tid; q < 2 * n; q += THREADS) {
+        const int k = q >= n, r = q - k * n;
+        const float dd = med[k * W + r + 1] - med[k * W + r];
+        const float v = dd >= 0.0f ? 0.0f : fabsf(dd);
+        raw[k * W + r] = v;
+        // v >= 0: its bits order as its values
+        if (k) mx1 = max(mx1, __float_as_int(v));
+        else mx0 = max(mx0, __float_as_int(v));
+    }
+    atomicMax(&sh.xmax[0], mx0);
+    atomicMax(&sh.xmax[1], mx1);
+    __syncthreads();
+    const float* x = raw;
+    const float* y = raw + W;
+    // the CC at the tolerance window's lags: index idx of the full CC is
+    // sum_m x[m + l] y[m], l = idx - (n - 1), over the contribution count
+    const int cur = pos1 - pos0;
+    const int center = n - cur;
+    const int lo = center - ONSET_TOL;
+    for (int j = warp; j < 2 * ONSET_TOL; j += THREADS / 32) {
+        const int idx = lo + j;
+        float val = -INFINITY;
+        if (idx >= 0 && idx < 2 * n - 1) {
+            const int l = idx - (n - 1);
+            const int m0 = max(0, -l), m1 = min(n, n - l);
+            double acc = 0.0;
+            for (int m = m0 + lane; m < m1; m += 32)
+                acc += (double)x[m + l] * (double)y[m];
+#pragma unroll
+            for (int o = 16; o; o >>= 1) acc += __shfl_down_sync(FULL, acc, o);
+            const int ni = idx < n ? idx : 2 * n - 2 - idx;
+            val = (float)acc / (float)max(ni + 1, NORM_CUTOFF);
+        }
+        if (lane == 0) sh.ccv[j] = val;
+    }
+    __syncthreads();
+    if (warp == 0) {
+        // the first argmax (jnp.argmax); no lag in the support: index 0
+        int arg = -1;
+        float best = -INFINITY;
+        for (int j = 0; j < 2 * ONSET_TOL; ++j)
+            if (sh.ccv[j] > best) {
+                best = sh.ccv[j];
+                arg = j;
+            }
+        const int argf = arg < 0 ? 0 : lo + arg;
+        const int lag = -(argf - (center - ONSET_TOL) - (cur + ONSET_TOL));
+        const bool valid = center - ONSET_TOL >= 0 &&
+                           center + ONSET_TOL <= 2 * n - 1 &&
+                           pos0 >= LOOKAROUND && pos1 > pos0 && pos1 < W - 1;
+        // the energy heuristic: weights exp(-e k / (|ld| - 1)) descending
+        // over x from min(pos0, pos0 + ld), ascending over y
+        const int ld = cur - lag;
+        const int nn = abs(ld);
+        const float denom = (float)max(nn - 1, 1);
+        const int sx = min(pos0, pos0 + ld), sy = min(pos1, pos1 - ld);
+        const float ne = -2.7182817459106445f;
+        double da = 0.0, db = 0.0;
+        for (int k = lane; k <= ONSET_TOL; k += 32) {
+            if (k < nn) {
+                const float wd = expf((ne * (float)k) / denom);
+                const float wa = expf((ne * (float)(nn - 1 - k)) / denom);
+                da += (double)(x[min(max(sx + k, 0), n - 1)] * wd);
+                db += (double)(y[min(max(sy + k, 0), n - 1)] * wa);
+            }
+        }
+#pragma unroll
+        for (int o = 16; o; o >>= 1) {
+            da += __shfl_down_sync(FULL, da, o);
+            db += __shfl_down_sync(FULL, db, o);
+        }
+        if (lane == 0) {
+            const float fa = (float)da /
+                             fmaxf(__int_as_float(sh.xmax[0]), 1e-20f);
+            const float fb = (float)db /
+                             fmaxf(__int_as_float(sh.xmax[1]), 1e-20f);
+            const bool move_seed = fa > fb && pos0 + ld >= 0;
+            sh.ref[5] = move_seed ? ld : 0;
+            sh.ref[6] = move_seed ? 0 : -ld;
+            sh.ref[7] = valid;
+            sh.ref[8] = argf;
+        }
+    }
+    __syncthreads();
+}
+
+// One update of the fixed-capacity locator with (sensor, onset), by every
+// thread of the CTA (its barriers need all of them); warp 0 holds the
+// slots.  `i` counts the updates of the launch.  Returns the emit flag on
+// warp 0 and the point on its lane 0 (every lane with a model); writes the
+// refinement's log row where `log` is given.
+__device__ __forceinline__ bool locate_update(
+    const LocDesc& d, Shared& sh, float* cc_buf, const Tables& tb,
+    const Ring& rg, Slots& sl, int i, int sensor, int onset, int* log,
+    float* px_out, float* py_out) {
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int S = d.S, H = d.H, W = d.W, T = d.T;
+    const int buf = i & 1;
+    int cslot = 0;
+    bool al = false, jn = false, comp = false;
+    int gj = 0, o0g = 0, s0g = 0;
+    if (tid < 32) {
+        // negative-lag seed swap against the oldest group whose seed came
+        // after this onset
+        const bool sw = sl.act && sl.cnt > 0 && onset - sl.o0 < 0;
+        const int gswap = argmin_lane(sw ? sl.age : AGE_INF);
+        const bool any_swap = __any_sync(FULL, sw);
+        const int old_s = __shfl_sync(FULL, sl.s0, gswap);
+        const int old_o = __shfl_sync(FULL, sl.o0, gswap);
+        if (any_swap) {
+            if (lane == gswap) {
+                sl.s0 = sensor;
+                sl.o0 = onset;
+            }
+            sensor = old_s;
+            onset = old_o;
+        }
+        if (d.cc) {
+            // the oldest candidate: a live group this onset could join
+            const int seed0 = max(sl.s0, 0);
+            const float lag0 = (float)(onset - sl.o0);
+            const bool member = (sl.s0 == sensor && 0 < sl.cnt) ||
+                                (sl.s1 == sensor && 1 < sl.cnt) ||
+                                (sl.s2 == sensor && 2 < sl.cnt);
+            const bool cand = sl.act && sl.cnt > 0 && lag0 >= 0.0f &&
+                              lag0 <= tb.mml[seed0] && !member;
+            gj = argmin_lane(cand ? sl.age : AGE_INF);
+            const bool anyc = __any_sync(FULL, cand);
+            o0g = __shfl_sync(FULL, sl.o0, gj);
+            s0g = max(__shfl_sync(FULL, sl.s0, gj), 0);
+            if (lane == 0) {
+                sh.ref[0] = anyc;
+                sh.ref[1] = s0g;
+                sh.ref[2] = sensor;
+                sh.ref[3] = o0g - rg.win_start;
+                sh.ref[4] = onset - rg.win_start;
+                sh.ref[5] = sh.ref[6] = sh.ref[7] = 0;
+                sh.ref[8] = -1;
+            }
+        }
+    }
+    if (d.cc) {
+        __syncthreads();
+        if (sh.ref[0]) cc_refine(d, sh, cc_buf, rg);
+        if (tid < 32) {
+            if (log != nullptr && lane == 0) {
+                log[0] = 1;
+                for (int k = 0; k < 9; ++k) log[1 + k] = sh.ref[k];
+            }
+            if (sh.ref[0] && sh.ref[7]) {
+                // the heuristic moved the seed or the new onset; a refined
+                // onset before the seed becomes the seed
+                onset += sh.ref[6];
+                const int seed_onset = o0g + sh.ref[5];
+                const bool neg = onset < seed_onset;
+                if (lane == gj) {
+                    if (neg) sl.s0 = sensor;
+                    sl.o0 = neg ? onset : seed_onset;
+                }
+                if (neg) {
+                    sensor = s0g;
+                    onset = seed_onset;
+                }
+            }
+        }
+        __syncthreads();  // sh.ref is rewritten by the next update
+    }
+    if (tid < 32) {
+        const float lag = (float)(onset - sl.o0);
+        const int seed = max(sl.s0, 0);
+        al = sl.act && sl.cnt > 0 && lag <= tb.mml[seed];
+        const bool member = (sl.s0 == sensor && 0 < sl.cnt) ||
+                            (sl.s1 == sensor && 1 < sl.cnt) ||
+                            (sl.s2 == sensor && 2 < sl.cnt);
+        const bool legal = tb.min_l[seed * S + sensor] < lag &&
+                           lag < tb.max_l[seed * S + sensor];
+        jn = al && !member && legal && sl.cnt < 3;
+        comp = jn && sl.cnt == 2;
+        const unsigned cmask = __ballot_sync(FULL, comp);
+        cslot = __popc(cmask & ((1u << lane) - 1u));
+        if (comp) {
+            sh.lm1[cslot] = seed * S + max(sl.s1, 0);
+            sh.lm2[cslot] = seed * S + sensor;
+            sh.lag1[cslot] = (float)(sl.o1 - sl.o0);
+            sh.lag2[cslot] = lag;
+            for (int t = 0; t < MAX_TIERS; ++t) sh.best[cslot][t] = AGE_INF;
+        }
+        if (lane == 0) sh.nscan[buf] = __popc(cmask);
+    }
+    __syncthreads();
+    const int nscan = sh.nscan[buf];
+    if (nscan > 0) {
+        // the least column-major cell index where both lags fit, per
+        // completing group and tier
+        for (int k = 0; k < nscan; ++k) {
+            const float* lm1 = tb.maps + (size_t)sh.lm1[k] * H * W;
+            const float* lm2 = tb.maps + (size_t)sh.lm2[k] * H * W;
+            const float lag1 = sh.lag1[k], lag2 = sh.lag2[k];
+            for (int f = tid; f < H * W; f += THREADS) {
+                const int col = f / H, row = f % H;
+                const float a = lm1[row * W + col], b = lm2[row * W + col];
+                for (int t = 0; t < T; ++t) {
+                    const float tol = d.tols[t];
+                    if (a < lag1 + tol && a > lag1 - tol &&
+                        b < lag2 + tol && b > lag2 - tol)
+                        atomicMin(&sh.best[k][t], f);
+                }
+            }
+        }
+        __syncthreads();
+    }
+    if (tid >= 32) return false;
+
+    // the oldest feasible completer; a tier is feasible where its least
+    // legal index is a cell other than (0, 0)
+    int tier = -1;
+    if (comp)
+        for (int t = 0; t < T && tier < 0; ++t)
+            if (sh.best[cslot][t] != AGE_INF && sh.best[cslot][t] != 0)
+                tier = t;
+    const bool feas = comp && tier >= 0;
+    const int gidx = argmin_lane(feas ? sl.age : AGE_INF);
+    const bool returned = __any_sync(FULL, feas);
+    const int cell = __shfl_sync(FULL, feas ? sh.best[cslot][tier] : 0, gidx);
+    const int seed_s = __shfl_sync(FULL, sl.s0, gidx);
+    const int seed_o = __shfl_sync(FULL, sl.o0, gidx);
+    const int g_s1 = __shfl_sync(FULL, sl.s1, gidx);
+    const int g_o1 = __shfl_sync(FULL, sl.o1, gidx);
+    const int age_g = __shfl_sync(FULL, sl.age, gidx);
+    bool emit = false;
+    float px = 0.0f, py = 0.0f;
+    if (returned && d.has_model) {
+        // returned is uniform across warp 0: every lane takes part
+        float f0, f1;
+        if (d.model_input == 1) {
+            int by_ch[3] = {0, 0, 0};
+            by_ch[max(seed_s, 0)] = seed_o;
+            by_ch[max(g_s1, 0)] = g_o1;
+            by_ch[sensor] = onset;
+            f0 = (float)(by_ch[1] - by_ch[0]);
+            f1 = (float)(by_ch[2] - by_ch[1]);
+        } else {
+            f0 = (float)(g_o1 - seed_o);
+            f1 = (float)(onset - seed_o);
+        }
+        emit = fcnn_point(d, tb.fcnn, sh.h, lane, f0, f1, &px, &py);
+    } else if (returned && lane == 0) {
+        const int a0 = max(seed_s, 0), a1 = max(g_s1, 0);
+        const float lag1 = (float)(g_o1 - seed_o);
+        const float lag2 = (float)(onset - seed_o);
+        float tri[3][3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            tri[0][k] = tb.xyz[a0 * 3 + k];
+            tri[1][k] = tb.xyz[a1 * 3 + k];
+            tri[2][k] = tb.xyz[sensor * 3 + k];
+        }
+        px = (float)(cell / H) - d.radius;
+        py = (float)(cell % H) - d.radius;
+        emit = solve_tdoa(tri, lag1 * d.c_over_sr, lag2 * d.c_over_sr, &px,
+                          &py);
+    }
+    emit = __shfl_sync(FULL, emit, 0);
+    // joins (an infeasible completer keeps its third member), then the
+    // drops of the completion path
+    const bool same_seed = sl.s0 == seed_s && sl.o0 == seed_o;
+    const bool later_or_self = sl.age >= age_g;
+    int n = sl.cnt;
+    if (jn) {
+        const int pos = min(max(sl.cnt, 0), 2);
+        if (pos == 0) { sl.s0 = sensor; sl.o0 = onset; }
+        if (pos == 1) { sl.s1 = sensor; sl.o1 = onset; }
+        if (pos == 2) { sl.s2 = sensor; sl.o2 = onset; }
+        n += 1;
+    }
+    const bool keep =
+        al && !(returned && later_or_self) && !(emit && same_seed);
+    int newcnt = keep ? n : 0;
+    if (!returned) {
+        // the fresh group: a free slot, else the oldest one
+        const int ins = argmin_lane(
+            sl.act ? (newcnt == 0 ? sl.age - AGE_REBASE : sl.age) : AGE_INF);
+        if (lane == ins) {
+            sl.s0 = sensor;
+            sl.s1 = -1;
+            sl.s2 = -1;
+            sl.o0 = onset;
+            newcnt = 1;
+            sl.age = sl.next_age;
+        }
+    }
+    const int new_next = sl.next_age + 1;
+    const int base = __reduce_min_sync(
+        FULL, sl.act ? (newcnt > 0 ? sl.age : new_next) : AGE_INF);
+    const int shift = new_next > AGE_REBASE ? base : 0;
+    sl.age = newcnt > 0 ? sl.age - shift : (shift > 0 ? 0 : sl.age);
+    sl.cnt = newcnt;
+    sl.next_age = new_next - shift;
+    *px_out = px;
+    *py_out = py;
+    return emit;
+}
+
 __global__ void __launch_bounds__(THREADS) locate_block_kernel(
     LocDesc d, const uint8_t* __restrict__ on, const int32_t* __restrict__ deltas,
     int32_t* sample_count, int32_t* sens_g, int32_t* ons_g, int32_t* cnt_g,
-    int32_t* age_g, int32_t* next_g, const float* __restrict__ maps,
-    const float* __restrict__ min_l, const float* __restrict__ max_l,
-    const float* __restrict__ mml, const float* __restrict__ xyz, float* qp,
-    int32_t* qo, int32_t* qe, int32_t* qc, int32_t* hit_onsets,
-    float* hit_points, uint8_t* hit_emits, const float* __restrict__ fcnn) {
-    __shared__ int s_on[MAX_CH], s_delta[MAX_CH], s_order[MAX_CH];
-    __shared__ float s_h[2][FCNN_MAX_W];
-    __shared__ int s_emit[MAX_CH];
-    __shared__ float s_pts[MAX_CH][2];
-    // per update: the completing groups to scan (two buffers: the next
-    // update's count may be written while a warp still reads this one's)
-    __shared__ int s_nscan[2];
-    __shared__ int s_lm1[MAX_SLOTS], s_lm2[MAX_SLOTS];
-    __shared__ float s_lag1[MAX_SLOTS], s_lag2[MAX_SLOTS];
-    __shared__ int s_best[MAX_SLOTS][MAX_TIERS];
+    int32_t* age_g, int32_t* next_g, Tables tb, float* qp, int32_t* qo,
+    int32_t* qe, int32_t* qc, int32_t* hit_onsets, float* hit_points,
+    uint8_t* hit_emits, const float* __restrict__ ring,
+    const int32_t* __restrict__ ring_count, int32_t* log) {
+    __shared__ Shared sh;
+    extern __shared__ float cc_buf[];  // [4][win_len] with cc_refine
     const int tid = threadIdx.x, lane = tid & 31;
-    const int C = d.C, G = d.G, S = d.S, H = d.H, W = d.W, E = d.E, T = d.T;
+    const int C = d.C, G = d.G, E = d.E;
 
     // read once, by every thread, before the first barrier: the counter is
     // written after it
     int fired = 0;
     if (tid < C) {
         fired = on[tid];
-        s_on[tid] = fired;
-        s_delta[tid] = deltas[tid];
+        sh.on[tid] = fired;
+        sh.delta[tid] = deltas[tid];
     }
     const int sample = sample_count[0];
+    Ring rg = {ring, 0, sample + d.B - d.win_len};
+    if (d.cc) rg.count = ring_count[0];
     if (!__syncthreads_or(fired)) {
         // a quiet block: the block's hits and the counter, nothing else
         if (tid < C) {
-            hit_onsets[tid] = sample + s_delta[tid];
+            hit_onsets[tid] = sample + sh.delta[tid];
             hit_points[2 * tid] = 0.0f;
             hit_points[2 * tid + 1] = 0.0f;
             hit_emits[tid] = 0;
@@ -243,240 +656,139 @@ __global__ void __launch_bounds__(THREADS) locate_block_kernel(
     // the number of fired channels, in every warp (the loop below is
     // uniform across the CTA: its barriers need every thread)
     const int n_fired =
-        __popc(__ballot_sync(FULL, lane < C && s_on[lane] != 0));
+        __popc(__ballot_sync(FULL, lane < C && sh.on[lane] != 0));
 
     // warp 0: lane g holds slot g
-    const bool act = lane < G;
-    int s0 = -1, s1 = -1, s2 = -1, o0 = 0, o1 = 0, o2 = 0, cnt = 0, age = 0;
-    int next_age = 0, q0 = 0;
+    Slots sl = {-1, -1, -1, 0, 0, 0, 0, 0, 0, lane < G};
+    int q0 = 0;
     if (tid < 32) {
-        if (act) {
-            s0 = sens_g[lane * 3];
-            s1 = sens_g[lane * 3 + 1];
-            s2 = sens_g[lane * 3 + 2];
-            o0 = ons_g[lane * 3];
-            o1 = ons_g[lane * 3 + 1];
-            o2 = ons_g[lane * 3 + 2];
-            cnt = cnt_g[lane];
-            age = age_g[lane];
+        if (sl.act) {
+            sl.s0 = sens_g[lane * 3];
+            sl.s1 = sens_g[lane * 3 + 1];
+            sl.s2 = sens_g[lane * 3 + 2];
+            sl.o0 = ons_g[lane * 3];
+            sl.o1 = ons_g[lane * 3 + 1];
+            sl.o2 = ons_g[lane * 3 + 2];
+            sl.cnt = cnt_g[lane];
+            sl.age = age_g[lane];
         }
-        next_age = next_g[0];
+        sl.next_age = next_g[0];
         q0 = qc[0];
         // stable rank of where(on, deltas, BIG): the onset order
         if (lane < C) {
-            const int key = s_on[lane] ? s_delta[lane] : BIG;
+            const int key = sh.on[lane] ? sh.delta[lane] : BIG;
             int rank = 0;
             for (int c = 0; c < C; ++c) {
-                const int kc = s_on[c] ? s_delta[c] : BIG;
+                const int kc = sh.on[c] ? sh.delta[c] : BIG;
                 rank += kc < key || (kc == key && c < lane);
             }
-            s_order[rank] = lane;
-            s_emit[lane] = 0;
-            s_pts[lane][0] = s_pts[lane][1] = 0.0f;
+            sh.order[rank] = lane;
+            sh.emit[lane] = 0;
+            sh.pts[lane][0] = sh.pts[lane][1] = 0.0f;
         }
-        __syncwarp();
     }
-    const int os0 = s0, os1 = s1, os2 = s2, oo0 = o0, oo1 = o1, oo2 = o2,
-              ocnt = cnt, oage = age;
+    __syncthreads();  // every warp reads the onset order below
+    const Slots old = sl;
 
     for (int i = 0; i < n_fired; ++i) {
-        const int buf = i & 1;
-        int sensor = 0, onset = 0, cslot = 0;
-        bool al = false, jn = false, comp = false;
-        if (tid < 32) {
-            const int ch = s_order[i];
-            sensor = ch;
-            onset = sample + s_delta[ch];
-            // negative-lag seed swap against the oldest group whose seed
-            // came after this onset
-            const bool sw = act && cnt > 0 && onset - o0 < 0;
-            const int gswap = argmin_lane(sw ? age : AGE_INF);
-            const bool any_swap = __any_sync(FULL, sw);
-            const int old_s = __shfl_sync(FULL, s0, gswap);
-            const int old_o = __shfl_sync(FULL, o0, gswap);
-            if (any_swap) {
-                if (lane == gswap) {
-                    s0 = sensor;
-                    o0 = onset;
-                }
-                sensor = old_s;
-                onset = old_o;
-            }
-            const float lag = (float)(onset - o0);
-            const int seed = max(s0, 0);
-            al = act && cnt > 0 && lag <= mml[seed];
-            const bool member = (s0 == sensor && 0 < cnt) ||
-                                (s1 == sensor && 1 < cnt) ||
-                                (s2 == sensor && 2 < cnt);
-            const bool legal = min_l[seed * S + sensor] < lag &&
-                               lag < max_l[seed * S + sensor];
-            jn = al && !member && legal && cnt < 3;
-            comp = jn && cnt == 2;
-            const unsigned cmask = __ballot_sync(FULL, comp);
-            cslot = __popc(cmask & ((1u << lane) - 1u));
-            if (comp) {
-                s_lm1[cslot] = seed * S + max(s1, 0);
-                s_lm2[cslot] = seed * S + sensor;
-                s_lag1[cslot] = (float)(o1 - o0);
-                s_lag2[cslot] = lag;
-                for (int t = 0; t < MAX_TIERS; ++t)
-                    s_best[cslot][t] = AGE_INF;
-            }
-            if (lane == 0) s_nscan[buf] = __popc(cmask);
-        }
-        __syncthreads();
-        const int nscan = s_nscan[buf];
-        if (nscan > 0) {
-            // the least column-major cell index where both lags fit, per
-            // completing group and tier
-            for (int k = 0; k < nscan; ++k) {
-                const float* lm1 = maps + (size_t)s_lm1[k] * H * W;
-                const float* lm2 = maps + (size_t)s_lm2[k] * H * W;
-                const float lag1 = s_lag1[k], lag2 = s_lag2[k];
-                for (int f = tid; f < H * W; f += THREADS) {
-                    const int col = f / H, row = f % H;
-                    const float a = lm1[row * W + col], b = lm2[row * W + col];
-                    for (int t = 0; t < T; ++t) {
-                        const float tol = d.tols[t];
-                        if (a < lag1 + tol && a > lag1 - tol &&
-                            b < lag2 + tol && b > lag2 - tol)
-                            atomicMin(&s_best[k][t], f);
-                    }
-                }
-            }
-            __syncthreads();
-        }
-        if (tid >= 32) continue;
-
-        // the oldest feasible completer; a tier is feasible where its least
-        // legal index is a cell other than (0, 0)
-        int tier = -1;
-        if (comp)
-            for (int t = 0; t < T && tier < 0; ++t)
-                if (s_best[cslot][t] != AGE_INF && s_best[cslot][t] != 0)
-                    tier = t;
-        const bool feas = comp && tier >= 0;
-        const int gidx = argmin_lane(feas ? age : AGE_INF);
-        const bool returned = __any_sync(FULL, feas);
-        const int cell =
-            __shfl_sync(FULL, feas ? s_best[cslot][tier] : 0, gidx);
-        const int seed_s = __shfl_sync(FULL, s0, gidx);
-        const int seed_o = __shfl_sync(FULL, o0, gidx);
-        const int g_s1 = __shfl_sync(FULL, s1, gidx);
-        const int g_o1 = __shfl_sync(FULL, o1, gidx);
-        const int age_g = __shfl_sync(FULL, age, gidx);
-        bool emit = false;
-        float px = 0.0f, py = 0.0f;
-        if (returned && d.has_model) {
-            // returned is uniform across warp 0: every lane takes part
-            float f0, f1;
-            if (d.model_input == 1) {
-                int by_ch[3] = {0, 0, 0};
-                by_ch[max(seed_s, 0)] = seed_o;
-                by_ch[max(g_s1, 0)] = g_o1;
-                by_ch[sensor] = onset;
-                f0 = (float)(by_ch[1] - by_ch[0]);
-                f1 = (float)(by_ch[2] - by_ch[1]);
-            } else {
-                f0 = (float)(g_o1 - seed_o);
-                f1 = (float)(onset - seed_o);
-            }
-            emit = fcnn_point(d, fcnn, s_h, lane, f0, f1, &px, &py);
-        } else if (returned && lane == 0) {
-            const int a0 = max(seed_s, 0), a1 = max(g_s1, 0);
-            const float lag1 = (float)(g_o1 - seed_o);
-            const float lag2 = (float)(onset - seed_o);
-            float tri[3][3];
-#pragma unroll
-            for (int k = 0; k < 3; ++k) {
-                tri[0][k] = xyz[a0 * 3 + k];
-                tri[1][k] = xyz[a1 * 3 + k];
-                tri[2][k] = xyz[sensor * 3 + k];
-            }
-            px = (float)(cell / H) - d.radius;
-            py = (float)(cell % H) - d.radius;
-            emit = solve_tdoa(tri, lag1 * d.c_over_sr, lag2 * d.c_over_sr,
-                              &px, &py);
-        }
-        emit = __shfl_sync(FULL, emit, 0);
-        // joins (an infeasible completer keeps its third member), then the
-        // drops of the completion path
-        const bool same_seed = s0 == seed_s && o0 == seed_o;
-        const bool later_or_self = age >= age_g;
-        int n = cnt;
-        if (jn) {
-            const int pos = min(max(cnt, 0), 2);
-            if (pos == 0) { s0 = sensor; o0 = onset; }
-            if (pos == 1) { s1 = sensor; o1 = onset; }
-            if (pos == 2) { s2 = sensor; o2 = onset; }
-            n += 1;
-        }
-        const bool keep =
-            al && !(returned && later_or_self) && !(emit && same_seed);
-        int newcnt = keep ? n : 0;
-        if (!returned) {
-            // the fresh group: a free slot, else the oldest one
-            const int ins = argmin_lane(
-                act ? (newcnt == 0 ? age - AGE_REBASE : age) : AGE_INF);
-            if (lane == ins) {
-                s0 = sensor;
-                s1 = -1;
-                s2 = -1;
-                o0 = onset;
-                newcnt = 1;
-                age = next_age;
-            }
-        }
-        const int new_next = next_age + 1;
-        const int base = __reduce_min_sync(
-            FULL, act ? (newcnt > 0 ? age : new_next) : AGE_INF);
-        const int shift = new_next > AGE_REBASE ? base : 0;
-        age = newcnt > 0 ? age - shift : (shift > 0 ? 0 : age);
-        cnt = newcnt;
-        next_age = new_next - shift;
-        if (lane == 0) {
-            const int ch = s_order[i];
-            s_pts[ch][0] = emit ? px : 0.0f;
-            s_pts[ch][1] = emit ? py : 0.0f;
-            s_emit[ch] = emit;
+        const int ch = sh.order[i];
+        float px, py;
+        const bool emit = locate_update(
+            d, sh, cc_buf, tb, rg, sl, i, ch, sample + sh.delta[ch],
+            log == nullptr ? nullptr : log + i * LOG_W, &px, &py);
+        if (tid == 0) {
+            sh.pts[ch][0] = emit ? px : 0.0f;
+            sh.pts[ch][1] = emit ? py : 0.0f;
+            sh.emit[ch] = emit;
         }
     }
     if (tid >= 32) return;
     __syncwarp();
 
     // the slots that changed
-    if (act) {
-        if (s0 != os0) sens_g[lane * 3] = s0;
-        if (s1 != os1) sens_g[lane * 3 + 1] = s1;
-        if (s2 != os2) sens_g[lane * 3 + 2] = s2;
-        if (o0 != oo0) ons_g[lane * 3] = o0;
-        if (o1 != oo1) ons_g[lane * 3 + 1] = o1;
-        if (o2 != oo2) ons_g[lane * 3 + 2] = o2;
-        if (cnt != ocnt) cnt_g[lane] = cnt;
-        if (age != oage) age_g[lane] = age;
+    if (sl.act) {
+        if (sl.s0 != old.s0) sens_g[lane * 3] = sl.s0;
+        if (sl.s1 != old.s1) sens_g[lane * 3 + 1] = sl.s1;
+        if (sl.s2 != old.s2) sens_g[lane * 3 + 2] = sl.s2;
+        if (sl.o0 != old.o0) ons_g[lane * 3] = sl.o0;
+        if (sl.o1 != old.o1) ons_g[lane * 3 + 1] = sl.o1;
+        if (sl.o2 != old.o2) ons_g[lane * 3 + 2] = sl.o2;
+        if (sl.cnt != old.cnt) cnt_g[lane] = sl.cnt;
+        if (sl.age != old.age) age_g[lane] = sl.age;
     }
     if (lane < C) {
-        hit_onsets[lane] = sample + s_delta[lane];
-        hit_points[2 * lane] = s_pts[lane][0];
-        hit_points[2 * lane + 1] = s_pts[lane][1];
-        hit_emits[lane] = s_emit[lane] ? 1 : 0;
+        hit_onsets[lane] = sample + sh.delta[lane];
+        hit_points[2 * lane] = sh.pts[lane][0];
+        hit_points[2 * lane + 1] = sh.pts[lane][1];
+        hit_emits[lane] = sh.emit[lane] ? 1 : 0;
     }
     if (lane == 0) {
         // completed hits to the event queue, in channel order
         int q = q0;
         for (int c = 0; c < C; ++c) {
-            if (!s_emit[c]) continue;
+            if (!sh.emit[c]) continue;
             const int slot = ((q % E) + E) % E;
-            qp[2 * slot] = s_pts[c][0];
-            qp[2 * slot + 1] = s_pts[c][1];
-            qo[slot] = sample + s_delta[c];
+            qp[2 * slot] = sh.pts[c][0];
+            qp[2 * slot + 1] = sh.pts[c][1];
+            qo[slot] = sample + sh.delta[c];
             qe[slot] = sample;
             q += 1;
         }
         if (q != q0) qc[0] = q;
-        next_g[0] = next_age;
+        next_g[0] = sl.next_age;
         sample_count[0] = sample + d.B;
     }
+}
+
+// One CTA per stream: its onset-ordered events [E] (EV_BIG = none; the
+// real ones first) from an empty slot table through the update, Newton
+// only; each event's point (zero where not emitted) and emit flag.
+__global__ void __launch_bounds__(THREADS) locate_streams_kernel(
+    LocDesc d, int n_events, const int32_t* __restrict__ ev_on,
+    const int32_t* __restrict__ ev_ch, Tables tb, float* points,
+    uint8_t* emits) {
+    __shared__ Shared sh;
+    const int tid = threadIdx.x, lane = tid & 31;
+    const size_t s = blockIdx.x;
+    ev_on += s * n_events;
+    ev_ch += s * n_events;
+    points += s * n_events * 2;
+    emits += s * n_events;
+    int n_valid = 0;
+    while (n_valid < n_events && ev_on[n_valid] < EV_BIG) ++n_valid;
+    Slots sl = {-1, -1, -1, 0, 0, 0, 0, 0, 0, lane < d.G};
+    const Ring rg = {nullptr, 0, 0};
+    for (int i = 0; i < n_valid; ++i) {
+        float px, py;
+        const bool emit = locate_update(d, sh, nullptr, tb, rg, sl, i,
+                                        ev_ch[i], ev_on[i], nullptr, &px,
+                                        &py);
+        if (tid == 0) {
+            points[2 * i] = emit ? px : 0.0f;
+            points[2 * i + 1] = emit ? py : 0.0f;
+            emits[i] = emit;
+        }
+    }
+    for (int i = n_valid + tid; i < n_events; i += THREADS) {
+        points[2 * i] = 0.0f;
+        points[2 * i + 1] = 0.0f;
+        emits[i] = 0;
+    }
+}
+
+static bool desc_ok(const LocDesc& d, const float* fcnn) {
+    if (d.C > MAX_CH || d.G < 1 || d.G > MAX_SLOTS || d.T > MAX_TIERS ||
+        d.E < 1)
+        return false;
+    if (d.has_model) {
+        if (fcnn == nullptr || d.n_layers < 1 ||
+            d.n_layers > FCNN_MAX_HIDDEN + 1 || d.widths[0] != 2 ||
+            d.widths[d.n_layers] != 2 || (d.model_input == 1 && d.S != 3))
+            return false;
+        for (int l = 0; l <= d.n_layers; ++l)
+            if (d.widths[l] < 1 || d.widths[l] > FCNN_MAX_W) return false;
+    }
+    return true;
 }
 
 extern "C" const char* ofpt_error_string(int code) {
@@ -485,7 +797,9 @@ extern "C" const char* ofpt_error_string(int code) {
 
 // One launch per block.  The locator state, the event queue and the sample
 // counter are updated in place; the block's hits go to fresh outputs.
-// `fcnn` is the packed learned locator (null without one).
+// `fcnn` is the packed learned locator (null without one); `ring` and
+// `ring_count` the device audio ring [ring_cap, C] and its frame counter
+// (with cc_refine); `log` [C, LOG_W] int32 the refinement log (or null).
 extern "C" int ofpt_locate_block(
     const LocDesc* hd, const uint8_t* on, const int32_t* deltas,
     int32_t* sample_count, int32_t* sens, int32_t* ons, int32_t* cnt,
@@ -493,24 +807,47 @@ extern "C" int ofpt_locate_block(
     const float* max_l, const float* mml, const float* xyz, float* qp,
     int32_t* qo, int32_t* qe, int32_t* qc, int32_t* hit_onsets,
     float* hit_points, uint8_t* hit_emits, const float* fcnn,
+    const float* ring, const int32_t* ring_count, int32_t* log,
     void* stream) {
     cudaGetLastError();  // clear an error left by earlier, unrelated work
     const LocDesc d = *hd;
-    if (d.C > MAX_CH || d.G < 1 || d.G > MAX_SLOTS || d.T > MAX_TIERS ||
-        d.E < 1)
-        return (int)cudaErrorInvalidValue;
-    if (d.has_model) {
-        if (fcnn == nullptr || d.n_layers < 1 ||
-            d.n_layers > FCNN_MAX_HIDDEN + 1 || d.widths[0] != 2 ||
-            d.widths[d.n_layers] != 2 || (d.model_input == 1 && d.S != 3))
+    if (!desc_ok(d, fcnn)) return (int)cudaErrorInvalidValue;
+    size_t smem = 0;
+    if (d.cc) {
+        if (ring == nullptr || ring_count == nullptr || d.win_len < 8 ||
+            d.win_len > d.ring_cap)
             return (int)cudaErrorInvalidValue;
-        for (int l = 0; l <= d.n_layers; ++l)
-            if (d.widths[l] < 1 || d.widths[l] > FCNN_MAX_W)
-                return (int)cudaErrorInvalidValue;
+        smem = (size_t)4 * d.win_len * sizeof(float);
+        if (smem > 48 * 1024) {
+            cudaError_t e = cudaFuncSetAttribute(
+                locate_block_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (e != cudaSuccess) return (int)e;
+        }
     }
-    locate_block_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
-        d, on, deltas, sample_count, sens, ons, cnt, age, next, maps, min_l,
-        max_l, mml, xyz, qp, qo, qe, qc, hit_onsets, hit_points, hit_emits,
-        fcnn);
+    const Tables tb = {maps, min_l, max_l, mml, xyz, fcnn};
+    locate_block_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
+        d, on, deltas, sample_count, sens, ons, cnt, age, next, tb, qp, qo,
+        qe, qc, hit_onsets, hit_points, hit_emits, ring, ring_count, log);
+    return (int)cudaGetLastError();
+}
+
+// One launch over a batch of streams: ev_on, ev_ch [n_streams, n_events]
+// int32; points [n_streams, n_events, 2] float32 and emits
+// [n_streams, n_events] uint8 out.  Newton only (no model, no cc_refine).
+extern "C" int ofpt_locate_streams(
+    const LocDesc* hd, int n_streams, int n_events, const int32_t* ev_on,
+    const int32_t* ev_ch, const float* maps, const float* min_l,
+    const float* max_l, const float* mml, const float* xyz, float* points,
+    uint8_t* emits, void* stream) {
+    cudaGetLastError();  // clear an error left by earlier, unrelated work
+    const LocDesc d = *hd;
+    if (!desc_ok(d, nullptr) || d.has_model || d.cc || n_streams < 1 ||
+        n_events < 0)
+        return (int)cudaErrorInvalidValue;
+    if (n_events == 0) return 0;
+    const Tables tb = {maps, min_l, max_l, mml, xyz, nullptr};
+    locate_streams_kernel<<<n_streams, THREADS, 0, (cudaStream_t)stream>>>(
+        d, n_events, ev_on, ev_ch, tb, points, emits);
     return (int)cudaGetLastError();
 }

@@ -36,7 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from onset_fingerprinting_torch.models.fcnn import dropout
-from onset_fingerprinting_torch.ops.conv_stack import _ACTIVATIONS, conv_stack
+# the module, not its names: ops/conv_stack imports models.fcnn, so a first
+# import of ops.conv_stack reaches this line while it is half initialised
+from onset_fingerprinting_torch.ops import conv_stack as _conv_stack
 from onset_fingerprinting_torch.ops.xcorr import (
     batch_full_correlate,
     batch_self_correlate_dft,
@@ -113,7 +115,7 @@ class CCCNN(nn.Module):
         if conv_impl not in ("conv", "mxu", "pallas"):
             raise ValueError("conv_impl must be 'conv', 'mxu' or 'pallas', "
                              f"got {conv_impl!r}")
-        if activation not in _ACTIVATIONS:
+        if activation not in _conv_stack._ACTIVATIONS:
             raise ValueError(f"unknown activation {activation!r}")
         n = len(layer_sizes)
         ks = [kernel_sizes] * n if isinstance(kernel_sizes, int) else list(
@@ -187,7 +189,7 @@ class CCCNN(nn.Module):
         → [B, C, K, V]``."""
         b, c, length = x.shape
         # shared weights: fold the channels into the batch (cccnn.py:455-458)
-        feats = conv_stack(
+        feats = _conv_stack.conv_stack(
             x.reshape(b * c, length).contiguous(),
             [m.weight for m in self.convs],
             [m.bias for m in self.convs],
@@ -201,7 +203,7 @@ class CCCNN(nn.Module):
         """The conv stack as an ``F.conv1d`` chain in ``dtype`` (GroupNorm
         in float32): ``x [B, C, L] → [B, C, K, V]``.  Runs any stack."""
         b, c, length = x.shape
-        act = _ACTIVATIONS[self.activation]
+        act = _conv_stack._ACTIVATIONS[self.activation]
         y = x if self.groups > 1 else x.reshape(b * c, 1, length)
         for i, conv in enumerate(self.convs):
             y = F.conv1d(

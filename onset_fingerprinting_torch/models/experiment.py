@@ -74,12 +74,14 @@ def run_location_hpo(folder: str | Path, name: str, w: int = 256,
                      channels: int = 4, pre_samples: int = 8,
                      n_trials: int = 3, num_epochs: int = 1000,
                      min_epochs: int = 100, patience: int = 500,
-                     subsample: int = 8, seed: int = 0, sampler: str = "tpe",
-                     search_pairs: bool = False, device=None) -> Study:
+                     subsample: int = 8, seed: int = 0, mesh=None,
+                     sampler: str = "tpe", search_pairs: bool = False,
+                     device=None) -> Study:
     """MCPOSD load → hit-level train / val / test split → HPO study over
     CCCNN configurations → the best validation L1, the selected trial's
     test L1 as its user attribute ``test_l1`` (train.py:22-145 of the
-    reference)."""
+    reference).  ``mesh`` trains each trial data parallel over its
+    ``data`` axis (``Trainer(mesh=)``)."""
     dataset = MCPOSD.from_file(folder, name, w, pre_samples, 16, 4,
                                device=device)
     train_ds, eval_ds = dataset.split_hits(0.8, seed=seed)
@@ -100,7 +102,7 @@ def run_location_hpo(folder: str | Path, name: str, w: int = 256,
                           optimizer="adam")
         trainer = Trainer(model, cfg, optimizer=make_optimizer(
             "adam", lr, schedule="cosine", schedule_period=100),
-            device=device)
+            device=device, mesh=mesh)
         # a pruning check every 10% of the budget; training continues
         # across the chunks (the state threaded through)
         chunk = max(num_epochs // 10, 1)

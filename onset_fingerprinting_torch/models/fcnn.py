@@ -11,6 +11,12 @@ model, so the port has its own:
   one);
 - :func:`dropout`: a Bernoulli keep mask drawn from a generator the caller
   gives, kept values scaled by ``1 / keep``;
+- under :func:`data_parallel` (a trainer on a mesh, each rank holding
+  rows of the global batch) :class:`BatchNorm` takes its statistics over
+  the global batch (sums and sums of squares ``all_reduce``-d, the
+  gradient flowing back through the collective) and :func:`dropout` draws
+  the global batch's mask from the generator and keeps the rank's rows, as
+  the JAX trainer's one program over the sharded batch computes them;
 - :func:`flax_init_`: LeCun-normal kernels (a normal truncated at two
   standard deviations, rescaled to variance ``1 / fan_in``), zero biases,
   norms at scale 1 and bias 0, drawn from a seeded generator; recurrent
@@ -20,7 +26,9 @@ model, so the port has its own:
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import contextlib
+import contextvars
+from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -43,6 +51,31 @@ ACTIVATIONS: dict[str, Callable] = {
 _TRUNC_STD = 0.87962566103423978
 
 
+class DataParallel(NamedTuple):
+    """A rank's place in a data-parallel step: the process group of the
+    ``data`` axis, its size and this rank's index along it (its rows are
+    the ``rank``-th of ``world`` equal parts of the global batch)."""
+
+    group: object
+    world: int
+    rank: int
+
+
+_DATA_PARALLEL: contextvars.ContextVar = contextvars.ContextVar(
+    "data_parallel", default=None)
+
+
+@contextlib.contextmanager
+def data_parallel(dp: DataParallel | None):
+    """Run the enclosed forward passes as ``dp``'s rank of a data-parallel
+    step (None: a single process, nothing changes)."""
+    token = _DATA_PARALLEL.set(dp)
+    try:
+        yield
+    finally:
+        _DATA_PARALLEL.reset(token)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: torch.Generator | None) -> torch.Tensor:
     """flax ``nn.Dropout``: in training, keep each value with probability
@@ -55,7 +88,16 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if rate == 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    dp = _DATA_PARALLEL.get()
+    if dp is None:
+        mask = torch.rand(x.shape, generator=generator, device=x.device) \
+            < keep
+    else:
+        # the global batch's mask, this rank's rows of it
+        b = x.shape[0]
+        mask = torch.rand((b * dp.world,) + tuple(x.shape[1:]),
+                          generator=generator, device=x.device)[
+            dp.rank * b: (dp.rank + 1) * b] < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -81,7 +123,22 @@ class BatchNorm(nn.Module):
         axes = [d for d in range(x.dim()) if d != self.axis]
         shape = [1] * x.dim()
         shape[self.axis] = -1
-        if self.training:
+        dp = _DATA_PARALLEL.get()
+        if self.training and dp is not None:
+            # the global batch's statistics: the ranks' sums, reduced
+            from torch.distributed.nn.functional import all_reduce
+
+            n = x.numel() // x.shape[self.axis] * dp.world
+            sums = all_reduce(torch.stack([x.sum(dim=axes),
+                                           (x * x).sum(dim=axes)]),
+                              group=dp.group)
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_((1 - m) * mean.detach())
+                self.running_var.mul_(m).add_((1 - m) * var.detach())
+        elif self.training:
             mean = x.mean(dim=axes)
             var = torch.clamp((x * x).mean(dim=axes) - mean * mean, min=0.0)
             with torch.no_grad():

@@ -19,8 +19,14 @@
   end.
 - Checkpoints are ``torch.save`` of the module's ``state_dict`` where the
   JAX package uses orbax.
-
-The JAX trainer's data-parallel mesh has no counterpart here.
+- ``mesh`` (a ``parallel.Mesh`` with a ``data`` axis) trains data
+  parallel, as the JAX trainer's ``in_shardings``: every rank is given
+  the global batch and takes its rows of it, the gradients are averaged
+  over the axis (one ``all_reduce`` of their flat concatenation), and the
+  parameters and optimizer state stay replicated.  BatchNorm takes its
+  statistics over the global batch and dropout draws the global batch's
+  mask (``models.fcnn.data_parallel``), so a meshed step computes the
+  unmeshed one's update.  The returned loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -32,12 +38,17 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from onset_fingerprinting_torch.core.config import TrainConfig
 from onset_fingerprinting_torch.device import resolve_device
-from onset_fingerprinting_torch.models.fcnn import init_module
+from onset_fingerprinting_torch.models.fcnn import (
+    DataParallel,
+    data_parallel,
+    init_module,
+)
 
 
 def cosine_warm_restarts(lr: float, period: int, t_mult: int = 1):
@@ -256,8 +267,11 @@ class Trainer:
     optimizer: Optional[OptimizerSpec] = None
     log_every: int = 0
     device: Any = None
+    mesh: Any = None
 
     def __post_init__(self):
+        if self.mesh is not None and self.device is None:
+            self.device = self.mesh.device
         self.device = resolve_device(self.device)
         if self.optimizer is None:
             self.optimizer = make_optimizer(
@@ -283,14 +297,56 @@ class Trainer:
     def step(self, state: TrainState, x: torch.Tensor,
              y: torch.Tensor) -> torch.Tensor:
         """One update on ``(x, y)`` in train mode; returns the loss at the
-        pre-update weights as a device scalar (no host sync)."""
+        pre-update weights as a device scalar (no host sync).  On a mesh
+        ``(x, y)`` is the global batch: this rank trains on its rows."""
         m = state.module.train()
-        loss = self.loss_fn(m(x, generator=state.generator), y)
-        state.optimizer.zero_grad()
-        loss.backward()
+        dp = self._data_parallel()
+        if dp is None:
+            loss = self.loss_fn(m(x, generator=state.generator), y)
+            state.optimizer.zero_grad()
+            loss.backward()
+        else:
+            b = x.shape[0]
+            if b % dp.world:
+                raise ValueError(f"a batch of {b} does not split over "
+                                 f"{dp.world} ranks")
+            rows = slice(dp.rank * b // dp.world,
+                         (dp.rank + 1) * b // dp.world)
+            with data_parallel(dp):
+                loss = self.loss_fn(m(x[rows], generator=state.generator),
+                                    y[rows])
+                state.optimizer.zero_grad()
+                loss.backward()
+            self._average_grads(state, dp)
+            loss = loss.detach().clone()
+            dist.all_reduce(loss, group=dp.group)
+            loss = loss / dp.world
         state.optimizer.step()
         state.step += 1
         return loss.detach()
+
+    def _data_parallel(self) -> Optional[DataParallel]:
+        """This rank's place on the mesh's ``data`` axis (None unmeshed,
+        or without a process group)."""
+        if self.mesh is None or self.mesh.group("data") is None:
+            return None
+        return DataParallel(self.mesh.group("data"),
+                            self.mesh.shape["data"], self.mesh.index("data"))
+
+    @staticmethod
+    def _average_grads(state: TrainState, dp: DataParallel) -> None:
+        """Each gradient's mean over the ranks, in one ``all_reduce``."""
+        params = [p for p in state.module.parameters() if p.grad is not None]
+        if not params:
+            return
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        dist.all_reduce(flat, group=dp.group)
+        flat /= dp.world
+        off = 0
+        for p in params:
+            k = p.grad.numel()
+            p.grad.copy_(flat[off: off + k].view_as(p.grad))
+            off += k
 
     def _eval_loss(self, state: TrainState, x, y) -> float:
         return float(self.loss_fn(self._out(state, x), y))

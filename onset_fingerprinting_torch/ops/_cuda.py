@@ -154,7 +154,8 @@ DETECTOR = Kernel(
 # K1 in the coupled mode at C <= 32, one warp per channel
 DETECTOR_WARP = Kernel(
     "detector_warp", "detector_warp.cu",
-    {"ofpt_detect_warp": [_P] * 19},
+    {"ofpt_detect_warp": [_P] * 19,
+     "ofpt_detect_warp_streams": [_P, _I] + [_P] * 18},
     # the same rounding as detector.cu and the plain version
     extra_flags=("-fmad=false",),
 )
@@ -194,7 +195,8 @@ GATHER_ROLL_VEC = Kernel(
 # program), in place; the plain version counts its calls here too
 LOCATE_BLOCK = Kernel(
     "locate_block", "locate_block.cu",
-    {"ofpt_locate_block": [_P] * 23},
+    {"ofpt_locate_block": [_P] * 26,
+     "ofpt_locate_streams": [_P, _I, _I] + [_P] * 10},
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )

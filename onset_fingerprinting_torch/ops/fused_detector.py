@@ -16,6 +16,9 @@ which:
   ``WARP_MAX_CHANNELS`` channels (the realtime engine's): ``csrc/
   detector_warp.cu`` (counter ``_cuda.DETECTOR_WARP``), one CTA, one warp
   per channel, the element-wise passes spread over the lanes;
+  :func:`fused_detect_streams` runs it over a batch of independent
+  streams in one launch, one CTA per stream (variant ``"streams"``: the
+  sharded serve path's coupled detector);
 - ``coupled_off=True`` with more channels (at most 1024):
   ``csrc/detector.cu`` (counter ``_cuda.DETECTOR``), one thread per
   channel.  So does a block size the pipe has no plan for (not a multiple
@@ -214,6 +217,28 @@ def _check(fstatic: FusedDetectorStatic, params: DetectorParams,
         raise ValueError("out must be a contiguous state like the input's")
 
 
+def _det_params(fstatic: FusedDetectorStatic, t: int, c: int,
+                emit_rel: bool, warmup: bool) -> _DetParams:
+    """The kernels' parameter block for a chunk of ``t`` samples of ``c``
+    channels."""
+    s = fstatic.plain
+    k = sample_constants(s)
+    return _DetParams(
+        T=t, C=c, bsz=s.block_size, use_iir=int(s.use_hipass),
+        manual=int(s.manual), coupled=int(s.coupled_off),
+        backtrack=int(s.backtrack), warmup=int(warmup),
+        emit_rel=int(emit_rel and not warmup), nbt=s.bt_size,
+        cooldown=float(s.cooldown), floor_db=k["floor"], eps=k["eps"],
+        k_db=k["k_db"], k_lin=k["k_lin"], fa=k["fa"], fr=k["fr"],
+        sa=k["sa"], sr=k["sr"], am=k["am"], ax=k["ax"], iam=k["iam"],
+        iax=k["iax"], minmin=k["minmin"],
+        b0=fstatic.iir_b[0], b1=fstatic.iir_b[1], b2=fstatic.iir_b[2],
+        b3=fstatic.iir_b[3], b4=fstatic.iir_b[4], a1=fstatic.iir_a[1],
+        a2=fstatic.iir_a[2], a3=fstatic.iir_a[3], a4=fstatic.iir_a[4],
+        bt_alpha=k["bt_alpha"], bt_omba=k["bt_omba"], bt_tol=k["bt_tol"],
+    )
+
+
 def _launch(fstatic: FusedDetectorStatic, params: DetectorParams,
             state: DetectorState, x: torch.Tensor, emit_rel: bool,
             warmup: bool, kernel: _cuda.Kernel | None = None, out=None):
@@ -254,20 +279,7 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
     t, c = x.shape
     bsz = s.block_size
     nb = t // bsz
-    k = sample_constants(s)
-    p = _DetParams(
-        T=t, C=c, bsz=bsz, use_iir=int(s.use_hipass), manual=int(s.manual),
-        coupled=int(s.coupled_off), backtrack=int(s.backtrack),
-        warmup=int(warmup), emit_rel=int(emit_rel and not warmup),
-        nbt=s.bt_size, cooldown=float(s.cooldown), floor_db=k["floor"],
-        eps=k["eps"], k_db=k["k_db"], k_lin=k["k_lin"], fa=k["fa"],
-        fr=k["fr"], sa=k["sa"], sr=k["sr"], am=k["am"], ax=k["ax"],
-        iam=k["iam"], iax=k["iax"], minmin=k["minmin"],
-        b0=fstatic.iir_b[0], b1=fstatic.iir_b[1], b2=fstatic.iir_b[2],
-        b3=fstatic.iir_b[3], b4=fstatic.iir_b[4], a1=fstatic.iir_a[1],
-        a2=fstatic.iir_a[2], a3=fstatic.iir_a[3], a4=fstatic.iir_a[4],
-        bt_alpha=k["bt_alpha"], bt_omba=k["bt_omba"], bt_tol=k["bt_tol"],
-    )
+    p = _det_params(fstatic, t, c, emit_rel, warmup)
     # the kernel updates these buffers in place
     if out is None:
         new = DetectorState(*(v.clone() for v in state))
@@ -336,6 +348,67 @@ def fused_detect_offline(fstatic: FusedDetectorStatic, params: DetectorParams,
         return st, (on, d, rel if emit_rel else None)
     return _launch(fstatic, params, state, x, emit_rel, warmup=False,
                    out=out)
+
+
+def fused_detect_streams(fstatic: FusedDetectorStatic,
+                         params: DetectorParams, states: DetectorState,
+                         x: torch.Tensor, emit_rel: bool = False):
+    """The detector over a batch of independent streams ``x [S, T, C]``,
+    each from its own state (``states``: every field with a leading stream
+    axis), in ONE launch: the coupled detector of
+    ``csrc/detector_warp.cu``, one CTA per stream (variant ``"streams"``);
+    the plain version runs ``detect_offline`` stream by stream.  Returns
+    ``(new states, (on [S, nb, C], deltas [S, nb, C], rel [S, T, C] or
+    None))``; ``states`` stay as they were."""
+    s = fstatic.plain
+    if x.dim() != 3:
+        raise ValueError("x must be [S, T, C]")
+    n, t, c = x.shape
+    if x.device.type == "cpu":
+        _cuda.DETECTOR_WARP.plain_calls += 1
+        res = [detect_offline(s, params, DetectorState(*(v[i] for v in
+                                                         states)), x[i])
+               for i in range(n)]
+        new = DetectorState(*(torch.stack(f) for f in zip(
+            *(r[0] for r in res))))
+        on, d, rel = (torch.stack(f) for f in zip(*(r[1] for r in res)))
+        return new, (on, d, rel if emit_rel else None)
+    if kernel_for(s) is not _cuda.DETECTOR_WARP:
+        raise ValueError(
+            "the stream-batched detector runs detector_warp.cu: a coupled "
+            f"config of at most {WARP_MAX_CHANNELS} channels")
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32 [S, T, C] tensor")
+    if t % s.block_size or c != s.n_channels:
+        raise ValueError(f"x [{n}, {t}, {c}] does not fit the detector "
+                         f"({s.n_channels} channels, block {s.block_size})")
+    want = DetectorState(
+        zi=(n, ORDER if s.use_hipass else 0, c), fast=(n, c), slow=(n, c),
+        min_val=(n, c), max_val=(n, c), gate=(n, c), prev_rel=(n, c),
+        debounce=(n, c), bt_buffer=(n, s.bt_size, c), bt_pos=(n,))
+    if any(tuple(v.shape) != w or v.device != x.device
+           or not v.is_contiguous() for v, w in zip(states, want)):
+        raise ValueError("states must be contiguous, on x's device, with a "
+                         f"leading stream axis of {n}")
+    new = DetectorState(*(v.clone() for v in states))
+    nb = t // s.block_size
+    on = torch.empty((n, nb, c), dtype=torch.bool, device=x.device)
+    deltas = torch.empty((n, nb, c), dtype=torch.int32, device=x.device)
+    rel = (torch.empty((n, t, c), dtype=torch.float32, device=x.device)
+           if emit_rel else None)
+    p = _det_params(fstatic, t, c, emit_rel, False)
+    _cuda.DETECTOR_WARP.launch(
+        "ofpt_detect_warp_streams", ctypes.addressof(p), n, x.data_ptr(),
+        params.on_threshold.contiguous().data_ptr(),
+        params.off_threshold.contiguous().data_ptr(),
+        new.zi.data_ptr() if s.use_hipass else None, new.fast.data_ptr(),
+        new.slow.data_ptr(), new.min_val.data_ptr(), new.max_val.data_ptr(),
+        new.gate.data_ptr(), new.prev_rel.data_ptr(), new.debounce.data_ptr(),
+        new.bt_buffer.data_ptr() if s.backtrack else None,
+        new.bt_pos.data_ptr(), new.bt_pos.data_ptr(), on.data_ptr(),
+        deltas.data_ptr(), None if rel is None else rel.data_ptr(),
+        _cuda.stream(), variant="streams")
+    return new, (on, deltas, rel)
 
 
 def fused_warmup_minmax(fstatic: FusedDetectorStatic, params: DetectorParams,

@@ -17,8 +17,27 @@ CPU runs and the card tests hold the kernel to.
 Dispatch is by device, as for the other kernels: a CPU tensor runs the
 plain version (counted in ``plain_calls``), a CUDA tensor launches the
 kernel or raises.  The kernel takes the Newton locator or the learned one
-(``model=FCNNBundle``, JAX multilaterate.py:789-815) without CC
-refinement; ``cc_refine=True`` runs only on the CPU.
+(``model=FCNNBundle``, JAX multilaterate.py:789-815), with or without CC
+refinement.
+
+CC refinement (``cc_refine=True``, JAX multilaterate.py:661-705): each
+fired onset is refined against the oldest candidate group's seed over the
+``window_len``-sample window of live audio ending at the block.  The step
+passes the engine's audio ring itself (``ring=``): the kernel reads the
+window's two channels straight from it, so the captured step needs no
+``ring_read_last`` copy; the plain version reads the window with
+``ring_read_last`` and runs the JAX step's refinement.  The kernel sums the
+normalised CC directly at the tolerance window's lags where the plain
+version takes an rFFT, so two lags within float32 rounding of each other
+may pick differently: ``log=`` (an int32 ``[C, LOG_W]`` buffer) records
+each update's refinement, and :func:`refine_reference` recomputes one in
+the plain version, with the CC, to tell a tie from a fault.
+
+:func:`locate_streams` is the sharded serve path's offline entry: a batch
+of streams' onset-ordered events through the same update from empty slot
+tables (Newton, no refinement), one launch of the kernel's stream-batched
+entry, one CTA per stream (variant ``"streams"``);
+:func:`locate_streams_reference` is the JAX function's ``lax.scan``.
 
 The learned locator in the kernel: at construction the FCNN's eval-mode
 BatchNorm is folded into each Dense (:func:`fold_fcnn`) and the layers are
@@ -44,12 +63,26 @@ from typing import NamedTuple
 
 import torch
 
+import numpy as np
+
+from onset_fingerprinting_torch.core.ring_buffer import (
+    RingBuffer,
+    ring_read_last,
+)
 from onset_fingerprinting_torch.core.tree import leaves, write_into
+from onset_fingerprinting_torch.detect.refine import (
+    _cc_section,
+    cc_refine_adjust_jax,
+)
 from onset_fingerprinting_torch.device import resolve_device
 from onset_fingerprinting_torch.locate.multilaterate import (
+    LOOKAROUND,
+    NORM_CUTOFF,
+    ONSET_TOL,
     LocatorState,
     Multilaterate3D,
     _at,
+    locator_init,
     make_locate_update,
 )
 from onset_fingerprinting_torch.models.fcnn import ACTIVATIONS, FCNN
@@ -70,6 +103,14 @@ FCNN_MAX_HIDDEN = 8
 ACT_CODES = {"relu": 0, "silu": 1, "leakyrelu": 2, "elu": 3, "tanh": 4,
              "sigmoid": 5}
 MODEL_INPUTS = {"arrival": 0, "by_channel": 1}
+#: ints per update in the refinement log (csrc/locate_block.cu::LOG_W):
+#: done, go (a candidate existed), seed channel, channel, pos0, pos1,
+#: c_seed, c_new, ok, the CC's argmax index
+LOG_W = 10
+LOG_FIELDS = ("done", "go", "ch0", "ch1", "pos0", "pos1", "c_seed", "c_new",
+              "ok", "arg")
+#: the sharded serve path's empty event key (parallel/sharding.py::_BIG)
+EV_BIG = 2 ** 30
 
 
 class EventQueue(NamedTuple):
@@ -95,7 +136,8 @@ class _LocDesc(ctypes.Structure):
         ("tols", ctypes.c_float * MAX_TIERS)] + [
         (n, ctypes.c_int) for n in (
             "has_model", "n_layers", "act", "model_input")] + [
-        ("widths", ctypes.c_int * (FCNN_MAX_HIDDEN + 2))]
+        ("widths", ctypes.c_int * (FCNN_MAX_HIDDEN + 2))] + [
+        (n, ctypes.c_int) for n in ("cc", "win_len", "ring_cap")]
 
 
 class FCNNPlan(NamedTuple):
@@ -218,10 +260,6 @@ class LocateBlock:
 
     def check_kernel_shape(self) -> None:
         """Raise on what ``csrc/locate_block.cu`` does not take."""
-        if self.cc_refine:
-            raise NotImplementedError(
-                "the locate kernel runs the Newton locator without CC "
-                "refinement; cc_refine=True runs on the CPU only")
         if self.n_channels > MAX_CHANNELS or self.capacity > MAX_SLOTS \
                 or len(self.tols) > MAX_TIERS:
             raise ValueError(
@@ -231,21 +269,32 @@ class LocateBlock:
             fcnn_plan(self.model.model)
 
 
+def _window(lb: LocateBlock, ring, sample_count):
+    """The refinement's live window and its first sample (the JAX
+    engine's ``ring_read_last`` after the block's write)."""
+    if ring is None:
+        raise ValueError("cc_refine needs the engine's audio ring")
+    return (ring_read_last(ring, lb.window_len),
+            sample_count + lb.block_size - lb.window_len)
+
+
 def locate_block_reference(lb: LocateBlock, lstate: LocatorState,
                            queue: EventQueue, on: torch.Tensor,
                            deltas: torch.Tensor, sample_count: torch.Tensor,
-                           window=None, win_start=None, out=None):
+                           ring: RingBuffer | None = None, out=None):
     """Plain version: the JAX engine's locate loop and queue push
     (engine.py:249-304 there), every slot's state selected by the
-    channel's validity, never branched on.  Returns ``(locator state,
-    event queue, BlockHits, sample_count + block size)``.  ``out``: a
-    ``(locator state, event queue, counter)`` to copy the new ones into
-    and return (it may be the inputs)."""
+    channel's validity, never branched on.  With ``cc_refine`` the
+    refinement reads the live window from ``ring`` (the audio ring after
+    the block's write).  Returns ``(locator state, event queue, BlockHits,
+    sample_count + block size)``.  ``out``: a ``(locator state, event
+    queue, counter)`` to copy the new ones into and return (it may be the
+    inputs)."""
     _cuda.LOCATE_BLOCK.plain_calls += 1
     dev = on.device
     c = lb.n_channels
     onsets_abs = sample_count + deltas
-    extra = () if window is None else (window, win_start)
+    extra = _window(lb, ring, sample_count) if lb.cc_refine else ()
     # the fired channels in onset order (a stable sort, as jnp.argsort:
     # ties keep channel order)
     order = torch.sort(torch.where(on, deltas, _BIG), stable=True).indices
@@ -281,15 +330,18 @@ def locate_block_reference(lb: LocateBlock, lstate: LocatorState,
 
 def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
                  on: torch.Tensor, deltas: torch.Tensor,
-                 sample_count: torch.Tensor, window=None, win_start=None,
-                 out=None):
+                 sample_count: torch.Tensor, ring: RingBuffer | None = None,
+                 log: torch.Tensor | None = None, out=None):
     """The block's locate step: :func:`locate_block_reference` for CPU
-    tensors, ``csrc/locate_block.cu`` for CUDA tensors.  Returns
-    ``(locator state, event queue, BlockHits, sample_count + block
-    size)``; ``out`` as for the plain version."""
+    tensors, ``csrc/locate_block.cu`` for CUDA tensors.  ``ring``: the
+    engine's audio ring after the block's write (with ``cc_refine``);
+    ``log``: a zeroed int32 ``[C, LOG_W]`` the kernel writes each update's
+    refinement into (the plain version writes none).  Returns ``(locator
+    state, event queue, BlockHits, sample_count + block size)``; ``out`` as
+    for the plain version."""
     if on.device.type == "cpu":
         return locate_block_reference(lb, lstate, queue, on, deltas,
-                                      sample_count, window, win_start, out)
+                                      sample_count, ring, out)
     lb.check_kernel_shape()
     c, g = lb.n_channels, lb.capacity
     e = queue.points.shape[0]
@@ -337,6 +389,26 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
         for i, w in enumerate(plan.widths):
             d.widths[i] = w
         fcnn_ptr = packed.data_ptr()
+    ring_ptrs = (None, None)
+    if lb.cc_refine:
+        if ring is None or ring.data.device != on.device \
+                or ring.data.dtype != torch.float32 \
+                or not ring.data.is_contiguous() \
+                or tuple(ring.data.shape[1:]) != (c,) \
+                or ring.counter.dtype != torch.int32:
+            raise ValueError("cc_refine needs the engine's audio ring: "
+                             f"contiguous float32 [N, {c}] on the events' "
+                             "device, an int32 counter")
+        if lb.window_len > ring.capacity:
+            raise ValueError(f"the refinement window ({lb.window_len}) "
+                             f"exceeds the ring ({ring.capacity})")
+        d.cc, d.win_len, d.ring_cap = 1, lb.window_len, ring.capacity
+        ring_ptrs = (ring.data.data_ptr(), ring.counter.data_ptr())
+    if log is not None and (log.shape != (c, LOG_W)
+                            or log.dtype != torch.int32
+                            or log.device != on.device
+                            or not log.is_contiguous()):
+        raise ValueError(f"log must be a contiguous int32 [{c}, {LOG_W}]")
     new_l, new_q, count = out
     hits = BlockHits(torch.empty_like(deltas),
                      torch.empty((c, 2), dtype=torch.float32,
@@ -345,7 +417,167 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
     ptrs = [v.data_ptr() for v in (
         on, deltas, count, *new_l, *lb.tables, *new_q, *hits)]
     # a launch with the learned locator counts under variant "fcnn"
-    _cuda.LOCATE_BLOCK.launch("ofpt_locate_block", ctypes.addressof(d),
-                              *ptrs, fcnn_ptr, _cuda.stream(),
-                              variant="fcnn" if fcnn_ptr else "")
+    variant = "fcnn" if fcnn_ptr else ""
+    if lb.cc_refine:
+        variant += "cc_refine"
+    _cuda.LOCATE_BLOCK.launch(
+        "ofpt_locate_block", ctypes.addressof(d), *ptrs, fcnn_ptr,
+        *ring_ptrs, None if log is None else log.data_ptr(), _cuda.stream(),
+        variant=variant)
     return new_l, new_q, hits, count
+
+
+def refine_reference(ring: RingBuffer, win_len: int, ch0: int, ch1: int,
+                     pos0: int, pos1: int) -> dict:
+    """One update's CC refinement in the plain version, with what a tie
+    check needs: the pair's window read from ``ring`` as the step reads it
+    (``ring_read_last``), the masked normalised CC (rFFT, as
+    ``cross_correlation_lag_jax``), its first argmax ``arg`` (an index of
+    the full CC), ``c_seed``, ``c_new`` and ``ok`` from
+    ``cc_refine_adjust_jax``, and ``tie_tol(a, b)``: how far apart the CC
+    at two indices may round (16 float32 ulps of ``|x| |y| / log2-length``
+    bound, over the smaller contribution count)."""
+    window = ring_read_last(ring, win_len)
+    pair = torch.stack([window[:, ch0], window[:, ch1]], dim=1)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=pair.device)
+    p1 = torch.tensor(pos1, dtype=torch.int32, device=pair.device)
+    c_seed, c_new, ok = cc_refine_adjust_jax(
+        pair, p0, p1, lookaround=LOOKAROUND, onset_tolerance=ONSET_TOL,
+        normalization_cutoff=NORM_CUTOFF)
+    from onset_fingerprinting_torch.ops.xcorr import batch_full_correlate
+
+    d = _cc_section(pair, p0, LOOKAROUND)
+    x, y = d[:, 0], d[:, 1]
+    n = x.shape[0]
+    norm = np.maximum(np.arange(n) + 1.0, NORM_CUTOFF)
+    full_norm = np.concatenate([norm, norm[n - 2:: -1]])
+    cc = (batch_full_correlate(x, y) / torch.as_tensor(
+        full_norm.astype(np.float32), device=x.device)).cpu().numpy()
+    center = n - (pos1 - pos0)
+    idx = np.arange(2 * n - 1)
+    mask = (idx >= center - ONSET_TOL) & (idx < center + ONSET_TOL)
+    masked = np.where(mask, cc, -np.inf)
+    scale = float(torch.linalg.vector_norm(x) * torch.linalg.vector_norm(y))
+    eps = float(np.finfo(np.float32).eps)
+    log_len = float(np.log2(2 * n))
+
+    def tie_tol(a: int, b: int) -> float:
+        return 16 * eps * log_len * scale / min(full_norm[a], full_norm[b])
+
+    # the energy heuristic's two sides (cc_refine_adjust_jax's da, db)
+    arg = int(np.argmax(masked))
+    ld = (pos1 - pos0) - (n - arg)
+    k = np.arange(ONSET_TOL + 1)
+    nn = abs(ld)
+    act = k < nn
+    den = np.float32(max(nn - 1, 1))
+    ne = np.float32(-np.e)
+    with np.errstate(over="ignore"):  # past n: selected away, as there
+        w_d = np.where(act, np.exp(ne * k.astype(np.float32) / den), 0.0)
+        w_a = np.where(act, np.exp(ne * (nn - 1 - k).astype(np.float32)
+                                   / den), 0.0)
+    xs, ys = x.cpu().numpy(), y.cpu().numpy()
+    xa = xs[np.clip(min(pos0, pos0 + ld) + k, 0, n - 1)]
+    ya = ys[np.clip(min(pos1, pos1 - ld) + k, 0, n - 1)]
+    da = float((xa * w_d).sum() / max(xs.max(), 1e-20))
+    db = float((ya * w_a).sum() / max(ys.max(), 1e-20))
+    return dict(arg=arg, c_seed=int(c_seed), c_new=int(c_new), ok=bool(ok),
+                cc=masked, tie_tol=tie_tol, da=da, db=db)
+
+
+def check_refinements(lb: LocateBlock, log: torch.Tensor, ring: RingBuffer
+                      ) -> tuple[int, list]:
+    """Each refinement a launch logged (``locate_block(log=)``) against the
+    plain version on the same window (:func:`refine_reference`): the same
+    ``ok``; the same argmax, or one whose plain CC is within the rounding
+    of the plain argmax's (a tie); the same corrections where the argmax
+    agrees, or energies ``da``, ``db`` within 1e-5 of each other.  Returns
+    ``(refinements checked, ties)``, a dict per tie; raises
+    ``AssertionError`` on a difference that is not a tie."""
+    n, ties = 0, []
+    for row in log.cpu().numpy():
+        r = dict(zip(LOG_FIELDS, (int(v) for v in row)))
+        if not (r["done"] and r["go"]):
+            continue
+        ref = refine_reference(ring, lb.window_len, r["ch0"], r["ch1"],
+                               r["pos0"], r["pos1"])
+        n += 1
+        assert bool(r["ok"]) == ref["ok"], (r, "ok differs")
+        if not ref["ok"]:
+            continue
+        if r["arg"] != ref["arg"]:
+            gap = float(ref["cc"][ref["arg"]] - ref["cc"][r["arg"]])
+            tol = ref["tie_tol"](ref["arg"], r["arg"])
+            assert 0.0 <= gap <= tol, (r, ref["arg"], gap, tol)
+            ties.append(dict(r, plain_arg=ref["arg"], gap=gap, tol=tol))
+        elif (r["c_seed"], r["c_new"]) != (ref["c_seed"], ref["c_new"]):
+            gap = abs(ref["da"] - ref["db"])
+            tol = 1e-5 * max(abs(ref["da"]), abs(ref["db"]))
+            assert gap <= tol, (r, ref["c_seed"], ref["c_new"], gap, tol)
+            ties.append(dict(r, plain=(ref["c_seed"], ref["c_new"]),
+                             gap=gap, tol=tol))
+    return n, ties
+
+
+def locate_streams_reference(lb: LocateBlock, ev_on: torch.Tensor,
+                             ev_ch: torch.Tensor):
+    """Plain version of :func:`locate_streams`: the JAX function's
+    ``lax.scan`` (sharding.py:655-673 there) per stream, from an empty
+    slot table, each event's update kept where the event is real
+    (``onset < EV_BIG``).  Returns ``(points [S, E, 2], emits [S, E]
+    bool)``, points zero where not emitted."""
+    _cuda.LOCATE_BLOCK.plain_calls += 1
+    n, e = ev_on.shape
+    dev = ev_on.device
+    points = torch.zeros((n, e, 2), dtype=torch.float32, device=dev)
+    emits = torch.zeros((n, e), dtype=torch.bool, device=dev)
+    real = (ev_on < EV_BIG).cpu()
+    for s in range(n):
+        st = locator_init(lb.capacity, dev)
+        for i in range(e):
+            if not real[s, i]:  # the step leaves the state as it is
+                continue
+            new, point, emit = lb.update(st, ev_ch[s, i], ev_on[s, i])
+            st = new
+            points[s, i] = torch.where(emit, point, 0.0)
+            emits[s, i] = emit
+    return points, emits
+
+
+def locate_streams(lb: LocateBlock, ev_on: torch.Tensor,
+                   ev_ch: torch.Tensor):
+    """A batch of streams' events ``ev_on [S, E]`` (onset samples in
+    order, ``EV_BIG`` after the last real one) and ``ev_ch [S, E]``
+    (channels) through the fixed-capacity locator from empty slot tables:
+    :func:`locate_streams_reference` for CPU tensors, one launch of
+    ``csrc/locate_block.cu``'s stream-batched entry for CUDA tensors.
+    Returns ``(points [S, E, 2] cm, zero where not emitted; emits [S, E]
+    bool)``."""
+    if ev_on.device.type == "cpu":
+        return locate_streams_reference(lb, ev_on, ev_ch)
+    lb.check_kernel_shape()
+    if lb.model is not None or lb.cc_refine:
+        raise ValueError("the stream-batched locate entry runs Newton "
+                         "without CC refinement")
+    if ev_on.dim() != 2 or ev_ch.shape != ev_on.shape \
+            or ev_on.dtype != torch.int32 or ev_ch.dtype != torch.int32 \
+            or not ev_on.is_contiguous() or not ev_ch.is_contiguous():
+        raise ValueError("ev_on and ev_ch must be contiguous int32 [S, E]")
+    if any(v.device != ev_on.device for v in lb.tables):
+        raise ValueError("the lag tables must be on the events' device")
+    n, e = ev_on.shape
+    maps = lb.tables.maps
+    d = _LocDesc(C=lb.n_channels, G=lb.capacity, S=maps.shape[0],
+                 H=maps.shape[2], W=maps.shape[3], E=1, T=len(lb.tols),
+                 B=lb.block_size, radius=lb.radius, c_over_sr=lb.c_over_sr)
+    for i, t in enumerate(lb.tols):
+        d.tols[i] = t
+    points = torch.empty((n, e, 2), dtype=torch.float32, device=ev_on.device)
+    emits = torch.empty((n, e), dtype=torch.bool, device=ev_on.device)
+    if n:
+        _cuda.LOCATE_BLOCK.launch(
+            "ofpt_locate_streams", ctypes.addressof(d), n, e,
+            ev_on.data_ptr(), ev_ch.data_ptr(),
+            *(v.data_ptr() for v in lb.tables), points.data_ptr(),
+            emits.data_ptr(), _cuda.stream(), variant="streams")
+    return points, emits

@@ -25,8 +25,9 @@ read, the pipelined dispatcher and harvester threads, and the classifier.
 On the card it replays the captured step; with ``device="cpu"`` it runs
 the step eagerly and every kernel runs its plain version.
 
-The learned locator (``model=FCNNBundle``) runs inside the locate kernel
-(``ops/locate_block``).  The analysis side channel (:meth:`~RealtimeEngine.
+The learned locator (``model=FCNNBundle``) and the CC refinement
+(``cc_refine=True``) run inside the locate kernel (``ops/locate_block``),
+which reads the refinement's live window straight from the audio ring.  The analysis side channel (:meth:`~RealtimeEngine.
 attach_analysis`, ``realtime/analysis.OnlineAnalysis``) and the recording
 commands read the host audio ring the engine writes; :meth:`~
 RealtimeEngine.stream` opens a PortAudio stream where sounddevice exists.
@@ -55,7 +56,6 @@ from onset_fingerprinting_torch.core.ring_buffer import (
     CircularArray,
     RingBuffer,
     ring_init,
-    ring_read_last,
 )
 from onset_fingerprinting_torch.core.tree import write_into
 from onset_fingerprinting_torch.detect.amplitude import (
@@ -172,8 +172,9 @@ def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
     card).  The locator's lag maps and geometry are tensors there.
     ``model`` (an ``FCNNBundle``) replaces the Newton solve with the FCNN
     inside the locate kernel (JAX engine.py:168-215); ``model_input`` as
-    ``locate.make_locate_update``.  ``cc_refine=True`` runs on the CPU
-    only (``ops/locate_block``).
+    ``locate.make_locate_update``.  ``cc_refine=True`` refines each fired
+    onset by cross-correlation over the live window of the audio ring
+    (multilateration.py:457-501), inside the locate kernel on the card.
     ``step`` works in place: it writes the new state into the one it is
     given and returns that state's tensors."""
     dev = resolve_device(device)
@@ -207,14 +208,11 @@ def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
             out=state.detector)
         on, deltas = on[0], deltas[0]
         ring = write_block(state.ring, block)
-        extra = ()
-        if cc_refine:
-            # a fixed-length window of live audio ending now, for onset-lag
-            # refinement in the locator (multilateration.py:457-501)
-            extra = (ring_read_last(ring, lb.window_len),
-                     state.sample_count + block.shape[0] - lb.window_len)
+        # the refinement reads its window of live audio ending now from
+        # the ring itself (multilateration.py:457-501)
         lstate, queue, hits, count = locate_block(
-            lb, state.locator, queue, on, deltas, state.sample_count, *extra,
+            lb, state.locator, queue, on, deltas, state.sample_count,
+            ring if cc_refine else None,
             out=(state.locator, queue, state.sample_count))
         new_state = EngineState(
             detector=dstate, locator=lstate, ring=ring, sample_count=count,
@@ -299,7 +297,9 @@ class RealtimeEngine:
     (audio.py:81-121).
 
     On the card (``device=None``) the step is replayed from a CUDA graph;
-    ``device="cpu"`` runs it eagerly with the kernels' plain versions.  ``metrics`` is any object with the
+    ``device="cpu"`` runs it eagerly with the kernels' plain versions.
+    ``cc_refine`` as :func:`make_engine_step`.  ``metrics`` is any object
+    with the
     ``observe``, ``observe_deadline`` and ``count`` methods of the JAX
     package's ``utils.metrics.Metrics``.
     """
@@ -309,7 +309,8 @@ class RealtimeEngine:
                  ring_seconds: float = 2.0, monitor_channels: int = 2,
                  host_ring: Optional[CircularArray] = None, metrics=None,
                  model=None, model_input: str = "arrival",
-                 event_queue: int = 64, device=None):
+                 event_queue: int = 64, cc_refine: bool = False,
+                 device=None):
         self.cfg = cfg
         self.locator = locator
         self.actions = actions or Actions()
@@ -318,7 +319,7 @@ class RealtimeEngine:
         self.device = resolve_device(device)
         state, self.params, self._step = make_engine_step(
             cfg, locator, ring_seconds, model=model, model_input=model_input,
-            event_queue=event_queue, device=self.device)
+            event_queue=event_queue, cc_refine=cc_refine, device=self.device)
         self._graph = None
         self._state = state
         if self.device.type == "cuda":

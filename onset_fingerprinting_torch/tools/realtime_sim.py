@@ -19,6 +19,7 @@ Run on the card (full size) or on the CPU at a small size::
 
     python -m onset_fingerprinting_torch.tools.realtime_sim
     python -m onset_fingerprinting_torch.tools.realtime_sim --cpu
+    python -m onset_fingerprinting_torch.tools.realtime_sim --cc-refine
 
 It prints the locate gates (at least 95% of the strikes located, median
 error at most 1 cm, the demo's own) and exits 1 if they fail.
@@ -113,15 +114,18 @@ def synth_stream(seconds: float, seed: int = 0):
 
 
 def build_engine(device=None, ring_seconds: float = RING_SECONDS,
-                 event_queue: int = EVENT_QUEUE) -> RealtimeEngine:
-    """The demo's engine (``device=None``: the card)."""
+                 event_queue: int = EVENT_QUEUE,
+                 cc_refine: bool = False) -> RealtimeEngine:
+    """The demo's engine (``device=None``: the card); ``cc_refine`` turns
+    on the locator's onset refinement by cross-correlation."""
     _, polar, _, _ = _geometry()
     cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
                          sr=SR)
     locator = Multilaterate3D(polar, drum_diameter=DIAM, medium="drumhead",
                               sr=SR, feasibility_tols=FEASIBILITY_TOLS)
     return RealtimeEngine(cfg, locator, ring_seconds=ring_seconds,
-                          event_queue=event_queue, device=device)
+                          event_queue=event_queue, cc_refine=cc_refine,
+                          device=device)
 
 
 def classifier(seed: int = 0, dtype=torch.bfloat16) -> CCCNN:
@@ -187,11 +191,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, default=None,
                     help="stream length (default 20 on the card)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cc-refine", action="store_true",
+                    help="refine each onset by cross-correlation in the "
+                    "locator")
     args = ap.parse_args(argv)
     device = "cpu" if args.cpu else None
     seconds = args.seconds or (1.0 if args.cpu else 20.0)
     audio, _, hits = synth_stream(seconds, args.seed)
-    engine = build_engine(device)
+    engine = build_engine(device, cc_refine=args.cc_refine)
     engine.attach_classifier(classifier(args.seed), window=CLS_WINDOW,
                              pre=CLS_PRE, capacity=CLS_CAPACITY)
     events, preds, wall = run(engine, audio)

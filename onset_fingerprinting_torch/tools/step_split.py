@@ -59,15 +59,15 @@ K1_STEPS = (
 )
 #: locate variants, cumulative
 LOCATE_STEPS = (
-    ("stage", "    const int os0 = s0, os1 = s1,",
-     "    if (tid == 0) hit_emits[0] = (uint8_t)(s_order[C - 1] + s0 + o0 +"
-     " cnt + age + next_age + q0);\n    return;\n"
-     "    const int os0 = s0, os1 = s1,"),
-    ("slots", "        const int nscan = s_nscan[buf];",
-     "        const int nscan = 0;"),
-    ("scan", "            emit = solve_tdoa(tri, lag1 * d.c_over_sr, "
-     "lag2 * d.c_over_sr,\n                              &px, &py);",
-     "            emit = false;"),
+    ("stage", "    const Slots old = sl;",
+     "    if (tid == 0) hit_emits[0] = (uint8_t)(sh.order[C - 1] + sl.s0 +"
+     " sl.o0 + sl.cnt + sl.age + sl.next_age + q0);\n    return;\n"
+     "    const Slots old = sl;"),
+    ("slots", "    const int nscan = sh.nscan[buf];",
+     "    const int nscan = 0;"),
+    ("scan", "        emit = solve_tdoa(tri, lag1 * d.c_over_sr, "
+     "lag2 * d.c_over_sr, &px,\n                          &py);",
+     "        emit = false;"),
 )
 
 

@@ -1098,3 +1098,180 @@ def test_calibration_on_the_card_matches_the_cpu():
     for a, b in zip(out["cuda"][:3], out["cpu"][:3]):
         np.testing.assert_allclose(a, b, atol=1e-4)
     assert abs(out["cuda"][3] - out["cpu"][3]) < 1e-3
+
+
+def _refine_blocks(seconds=1.6, seed=3):
+    """The engine's per-block locate inputs with cc_refine on a synthetic
+    stream: K1 (one launch per block, warmed as the engine warms) and the
+    audio ring written per block on the card; yields ``(on, deltas,
+    counter, ring)`` after each block's ring write."""
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.core.ring_buffer import ring_init
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_detect_offline,
+        fused_warmup_minmax,
+        make_fused_detector,
+    )
+    from onset_fingerprinting_torch.ops.ring_write import write_block
+
+    sim, audio, _ = _engine_stream(seconds, seed)
+    cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
+                         sr=sim.SR)
+    fst, params, det, _ = make_fused_detector(cfg, emit_rel=False)
+    det = fused_warmup_minmax(fst, params, det, torch.as_tensor(
+        audio[: sim.WARMUP // 128 * 128], device="cuda"))
+    ring = ring_init(sim.SR, (3,), device="cuda")
+    blocks = torch.as_tensor(np.stack(sim.blocks_of(audio)), device="cuda")
+    for i, blk in enumerate(blocks):
+        det, (on, d, _) = fused_detect_offline(fst, params, det, blk, False,
+                                               out=det)
+        ring = write_block(ring, blk)
+        yield on[0], d[0], torch.tensor(128 * i, dtype=torch.int32,
+                                        device="cuda"), ring
+
+
+def test_locate_block_cc_refine_matches_plain():
+    """The locate kernel with CC refinement in place, from the plain
+    version's state before every block, against the plain version (the
+    JAX step's refinement, its CC by rFFT) on a synthetic stream's fired
+    and quiet blocks: state, queue, counter and emits exactly, points
+    within 1e-3 cm; each logged refinement held to the plain one on its
+    window (an argmax may differ only at a float32 tie of the plain CC)."""
+    from onset_fingerprinting_torch.locate.multilaterate import (
+        locator_init,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.locate_block import (
+        LOG_W,
+        EventQueue,
+        LocateBlock,
+        check_refinements,
+        locate_block,
+        locate_block_reference,
+    )
+
+    sim, _, _ = _engine_stream(0.01)
+    eng = sim.build_engine("cpu", ring_seconds=0.01)
+    lb = LocateBlock(eng.locator, 3, 128, cc_refine=True, device="cuda")
+    lb.check_kernel_shape()  # takes cc_refine
+    i32 = dict(dtype=torch.int32, device="cuda")
+    sp = locator_init(8, "cuda")
+    qp = EventQueue(torch.zeros((16, 2), device="cuda"),
+                    torch.zeros(16, **i32), torch.zeros(16, **i32),
+                    torch.zeros((), **i32))
+    before = _cuda.LOCATE_BLOCK.variants["cc_refine"]
+    n_fired = n_quiet = n_checked = n_emit = 0
+    ties = []
+    for on, d, count, ring in _refine_blocks():
+        fired = bool(on.any())
+        if not fired and n_quiet >= 20:
+            sp, qp, _, _ = locate_block_reference(lb, sp, qp, on, d, count,
+                                                  ring)
+            continue
+        sk = type(sp)(*(v.clone() for v in sp))
+        qk = type(qp)(*(v.clone() for v in qp))
+        ck = count.clone()
+        log = torch.zeros((3, LOG_W), **i32)
+        _, _, hk, _ = locate_block(lb, sk, qk, on, d, ck, ring, log,
+                                   out=(sk, qk, ck))
+        sp, qp, hp, cp = locate_block_reference(lb, sp, qp, on, d, count,
+                                                ring)
+        n, t = check_refinements(lb, log, ring)
+        n_checked += n
+        ties += t
+        same = (all(torch.equal(a, b) for a, b in zip(
+            (*sk, *qk[1:], ck), (*sp, *qp[1:], cp)))
+            and torch.equal(hk.emits, hp.emits))
+        assert same or t, f"kernel differs from plain at {int(count)}"
+        if same:
+            assert float((hk.points - hp.points).abs().max()) <= 1e-3
+        n_fired += fired
+        n_quiet += not fired
+        n_emit += int(hp.emits.sum())
+    assert _cuda.LOCATE_BLOCK.variants["cc_refine"] - before == \
+        n_fired + n_quiet
+    assert n_checked >= 5 and n_emit >= 2, (n_checked, n_emit)
+    print(f"{n_checked} refinements, {len(ties)} ties: {ties}")
+
+
+def test_engine_cc_refine_graph_is_three_kernels():
+    """``cc_refine=True`` on the card: the captured step is still K1, the
+    ring write and the locate kernel (which reads the ring itself)."""
+    from onset_fingerprinting_torch.tools.step_bench import graph_nodes
+
+    sim, _, _ = _engine_stream(0.01)
+    eng = sim.build_engine("cuda", ring_seconds=1.0, event_queue=64,
+                           cc_refine=True)
+    types, names = graph_nodes(eng._graph.graph)
+    assert types == {"kernel": 3}, (types, names)
+
+
+def test_detector_warp_streams_matches_plain():
+    """K1's stream-batched launch (one CTA per stream, each from its own
+    state) against the plain detector stream by stream: events, rel and
+    every state tensor bit for bit."""
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.detect.amplitude import (
+        DetectorState,
+        detect_offline,
+    )
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.fused_detector import (
+        fused_detect_streams,
+        make_fused_detector,
+    )
+    from onset_fingerprinting_torch.workload import make_audio
+
+    cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=2000.0,
+                         backtrack=True, backtrack_buffer_size=256)
+    fst, params, st, _ = make_fused_detector(cfg)
+    n = 5
+    x = torch.stack([make_audio(128 * 30, 3, seed=10 + s) for s in range(n)])
+    states = DetectorState(*(v.expand((n,) + tuple(v.shape)).contiguous()
+                             for v in st))
+    before = _cuda.DETECTOR_WARP.variants["streams"]
+    new, (on, d, rel) = fused_detect_streams(fst, params, states, x,
+                                             emit_rel=True)
+    assert _cuda.DETECTOR_WARP.variants["streams"] == before + 1
+    assert int(on.sum()) > 0
+    for s in range(n):
+        sp, (on_p, d_p, r_p) = detect_offline(fst.plain, params, st, x[s])
+        assert torch.equal(on[s], on_p) and torch.equal(d[s], d_p)
+        assert torch.equal(rel[s], r_p)
+        for a, b in zip(new, sp):
+            assert torch.equal(a[s], b)
+
+
+def test_locate_streams_matches_plain():
+    """The stream-batched locate entry (one CTA per stream) against its
+    plain version, the JAX function's scan, on the detector's events of a
+    few synthetic streams: emits exactly, points within 1e-3 cm."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.locate_block import (
+        EV_BIG,
+        LocateBlock,
+        locate_streams,
+        locate_streams_reference,
+    )
+
+    sim, _, _ = _engine_stream(0.01)
+    eng = sim.build_engine("cpu", ring_seconds=0.01)
+    lb = LocateBlock(eng.locator, 3, 128, device="cuda")
+    blocks = _block_events(7, n_strikes=24)
+    ev = [(count + int(dd), ch) for count, on, d in blocks
+          for ch, (o, dd) in enumerate(zip(on, d)) if o]
+    ev.sort()
+    rows = [ev[: 40], ev[10: 50], ev[:7], ev[30:]]
+    e = 48
+    on_t = torch.full((len(rows), e), EV_BIG, dtype=torch.int32)
+    ch_t = torch.zeros((len(rows), e), dtype=torch.int32)
+    for s, r in enumerate(rows):
+        on_t[s, : len(r)] = torch.tensor([o for o, _ in r[:e]])
+        ch_t[s, : len(r)] = torch.tensor([c for _, c in r[:e]])
+    on_t, ch_t = on_t.cuda(), ch_t.cuda()
+    before = _cuda.LOCATE_BLOCK.variants["streams"]
+    pk, ek = locate_streams(lb, on_t, ch_t)
+    assert _cuda.LOCATE_BLOCK.variants["streams"] == before + 1
+    pp, ep = locate_streams_reference(lb, on_t, ch_t)
+    assert torch.equal(ek, ep) and int(ek.sum()) >= 10
+    assert float((pk - pp).abs().max()) <= 1e-3

@@ -34,7 +34,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "       'models.torch_import', 'realtime.analysis', 'realtime.main',\n"
         "       'runtime_native', 'ops.stft', 'ops.envelope',\n"
         "       'detect.spectral', 'data.augment', 'models.rnn',\n"
-        "       'models.jax_import', 'tools.zone_classifier'}\n"
+        "       'models.jax_import', 'tools.zone_classifier',\n"
+        "       'core.backend_probe', 'parallel', 'parallel.mesh',\n"
+        "       'parallel.distributed', 'parallel.sharding'}\n"
         "assert new <= names, new - names\n"
         "import onset_fingerprinting_torch.tools.fingerprint_anatomy\n"
         "import chip_smoke\n"
@@ -237,3 +239,44 @@ def test_locate_kernel_refuses_an_fcnn_outside_its_plan():
             _cuda.LOCATE_BLOCK.plain_calls) == before
     lb = LocateBlock(loc, 3, 128, model=wide, device="cpu")
     assert lb.fcnn is None
+
+
+def test_parallel_entry_points_default_to_the_card(monkeypatch):
+    """The parallel package runs on the card unless asked for the CPU:
+    meshes, the sharded paths (through their mesh) and the trainer's mesh;
+    ``init_distributed`` takes gloo only with ``device="cpu"`` (NCCL
+    otherwise, which needs the card) and is a no-op for one process or
+    without a launcher's environment."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    import torch.distributed as dist
+
+    from onset_fingerprinting_torch.parallel import (
+        default_mesh,
+        global_mesh,
+        init_distributed,
+        make_mesh,
+        pod_env_detected,
+    )
+
+    cuda = pytest.raises(RuntimeError, match="CUDA is not available")
+    with cuda:
+        make_mesh((1,), ("data",))
+    with cuda:
+        default_mesh()
+    with cuda:
+        global_mesh()
+    for k in ("WORLD_SIZE", "RANK", "MASTER_ADDR"):
+        monkeypatch.delenv(k, raising=False)
+    assert not pod_env_detected()
+    assert init_distributed() is False  # no launcher: a no-op
+    assert init_distributed("localhost:1", 1, 0) is False  # one process
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    assert pod_env_detected()
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    assert not pod_env_detected() and init_distributed() is False
+    # two processes and no device named: NCCL, so the card; it raises
+    # before any rendezvous is tried
+    with cuda:
+        init_distributed("localhost:1", 2, 0)
+    assert not dist.is_initialized()
