@@ -9,13 +9,16 @@ onsets across channels.
 
 The device functions keep the JAX names (``cc_refine_lag_jax``,
 ``cc_refine_adjust_jax``): fixed shapes, no host read, so the locator's
-``cc_refine`` step stays capturable in a CUDA graph.
+``cc_refine`` step stays capturable in a CUDA graph.  ``cc_refine_terms``
+returns what ``cc_refine_adjust_jax`` decides from (the masked CC, its
+argmax, the heuristic's energies), which the locate kernel's refinement
+check compares with.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,6 +28,7 @@ from onset_fingerprinting_torch.ops.filters import median_filter_1d
 from onset_fingerprinting_torch.ops.xcorr import (
     cross_correlation_lag,
     cross_correlation_lag_jax,
+    masked_normalized_cc,
 )
 
 
@@ -61,23 +65,40 @@ def cc_refine_lag_jax(window: torch.Tensor, pos0: torch.Tensor,
     return lag, cc_valid & _in_bounds(window, pos0, pos1, lookaround)
 
 
-def cc_refine_adjust_jax(window: torch.Tensor, pos0: torch.Tensor,
-                         pos1: torch.Tensor, lookaround: int = 60,
-                         onset_tolerance: int = 50,
-                         normalization_cutoff: int = 10):
-    """CC refinement plus the reference's energy heuristic (adjust_onset,
-    detection.py:299-352): which onset of the pair moves to the CC lag is
-    decided by exponentially weighted rectified energy between each
-    onset's old and CC-implied position.  The shift is at most
-    ``onset_tolerance`` (the CC search window), so the weights have a fixed
-    length.  Returns ``(c_seed, c_new, valid)``, the corrections to add to
-    the seed and the new onset; one of them is 0."""
+class RefineTerms(NamedTuple):
+    """What :func:`cc_refine_adjust_jax` decides from: the rectified
+    section ``x``, ``y`` (``[W - 1]`` each), the masked, normalised CC
+    ``cc`` and its normaliser ``norm`` (``[2W - 3]``), the CC's first
+    argmax ``arg``, the shift ``ld`` it implies (the new lag less the old),
+    the energies ``da``, ``db`` of the heuristic, and ``valid``."""
+    x: torch.Tensor
+    y: torch.Tensor
+    cc: torch.Tensor
+    norm: torch.Tensor
+    arg: torch.Tensor
+    ld: torch.Tensor
+    da: torch.Tensor
+    db: torch.Tensor
+    valid: torch.Tensor
+
+
+def cc_refine_terms(window: torch.Tensor, pos0: torch.Tensor,
+                    pos1: torch.Tensor, lookaround: int = 60,
+                    onset_tolerance: int = 50,
+                    normalization_cutoff: int = 10) -> RefineTerms:
+    """The terms of :func:`cc_refine_adjust_jax` over one pair's window
+    ``[W, 2]``: the CC and the reference's energy heuristic
+    (adjust_onset, detection.py:299-352), which weighs exponentially the
+    rectified energy between each onset's old and CC-implied position.
+    The shift is at most ``onset_tolerance`` (the CC search window), so
+    the weights have a fixed length."""
     d = _cc_section(window, pos0, lookaround)
     x, y = d[:, 0], d[:, 1]
-    lag, cc_valid = cross_correlation_lag_jax(
-        x, y, torch.stack([pos0, pos1]), onset_tolerance=onset_tolerance,
-        normalization_cutoff=normalization_cutoff)
-    ld = (pos1 - pos0) - lag  # |ld| <= onset_tolerance by CC construction
+    cc, norm, cc_valid = masked_normalized_cc(
+        x, y, pos1 - pos0, normalization_cutoff, onset_tolerance)
+    arg = torch.argmax(cc)
+    # the CC's index n - lag holds lag; |ld| <= onset_tolerance
+    ld = (pos1 - pos0) - (x.shape[0] - arg).to(torch.int32)
     k = torch.arange(onset_tolerance + 1, device=window.device)
     n = torch.abs(ld)
     act = k < n
@@ -96,11 +117,25 @@ def cc_refine_adjust_jax(window: torch.Tensor, pos0: torch.Tensor,
     ya = y[torch.clamp(sy + k, 0, last)]
     da = torch.sum(xa * w_desc) / torch.clamp(torch.max(x), min=1e-20)
     db = torch.sum(ya * w_asc) / torch.clamp(torch.max(y), min=1e-20)
-    move_seed = (da > db) & (pos0 + ld >= 0)
-    c_seed = torch.where(move_seed, ld, 0).to(torch.int32)
-    c_new = torch.where(move_seed, 0, -ld).to(torch.int32)
-    return c_seed, c_new, cc_valid & _in_bounds(window, pos0, pos1,
-                                                lookaround)
+    return RefineTerms(x, y, cc, norm, arg, ld, da, db,
+                       cc_valid & _in_bounds(window, pos0, pos1, lookaround))
+
+
+def cc_refine_adjust_jax(window: torch.Tensor, pos0: torch.Tensor,
+                         pos1: torch.Tensor, lookaround: int = 60,
+                         onset_tolerance: int = 50,
+                         normalization_cutoff: int = 10):
+    """CC refinement plus the reference's energy heuristic
+    (:func:`cc_refine_terms`): the onset of the pair with more energy
+    between its old and CC-implied position moves to the CC lag.  Returns
+    ``(c_seed, c_new, valid)``, the corrections to add to the seed and the
+    new onset; one of them is 0."""
+    t = cc_refine_terms(window, pos0, pos1, lookaround, onset_tolerance,
+                        normalization_cutoff)
+    move_seed = (t.da > t.db) & (pos0 + t.ld >= 0)
+    c_seed = torch.where(move_seed, t.ld, 0).to(torch.int32)
+    c_new = torch.where(move_seed, 0, -t.ld).to(torch.int32)
+    return c_seed, c_new, t.valid
 
 
 def adjust_onset_rel(onsets: list[int], relx: np.ndarray, rely: np.ndarray,

@@ -71,8 +71,8 @@ from onset_fingerprinting_torch.core.ring_buffer import (
 )
 from onset_fingerprinting_torch.core.tree import leaves, write_into
 from onset_fingerprinting_torch.detect.refine import (
-    _cc_section,
     cc_refine_adjust_jax,
+    cc_refine_terms,
 )
 from onset_fingerprinting_torch.device import resolve_device
 from onset_fingerprinting_torch.locate.multilaterate import (
@@ -416,10 +416,10 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
                      torch.empty_like(on))
     ptrs = [v.data_ptr() for v in (
         on, deltas, count, *new_l, *lb.tables, *new_q, *hits)]
-    # a launch with the learned locator counts under variant "fcnn"
-    variant = "fcnn" if fcnn_ptr else ""
-    if lb.cc_refine:
-        variant += "cc_refine"
+    # the variant: "fcnn" with the learned locator, "cc_refine" with the
+    # refinement, "fcnn+cc_refine" with both
+    variant = "+".join(name for name, on in (
+        ("fcnn", fcnn_ptr is not None), ("cc_refine", lb.cc_refine)) if on)
     _cuda.LOCATE_BLOCK.launch(
         "ofpt_locate_block", ctypes.addressof(d), *ptrs, fcnn_ptr,
         *ring_ptrs, None if log is None else log.data_ptr(), _cuda.stream(),
@@ -431,58 +431,32 @@ def refine_reference(ring: RingBuffer, win_len: int, ch0: int, ch1: int,
                      pos0: int, pos1: int) -> dict:
     """One update's CC refinement in the plain version, with what a tie
     check needs: the pair's window read from ``ring`` as the step reads it
-    (``ring_read_last``), the masked normalised CC (rFFT, as
-    ``cross_correlation_lag_jax``), its first argmax ``arg`` (an index of
-    the full CC), ``c_seed``, ``c_new`` and ``ok`` from
-    ``cc_refine_adjust_jax``, and ``tie_tol(a, b)``: how far apart the CC
-    at two indices may round (16 float32 ulps of ``|x| |y| / log2-length``
-    bound, over the smaller contribution count)."""
+    (``ring_read_last``), then ``cc_refine_terms``: the masked normalised CC
+    ``cc`` (rFFT), its first argmax ``arg`` (an index of the full CC), the
+    heuristic's energies ``da``, ``db``; ``c_seed``, ``c_new`` and ``ok``
+    as ``cc_refine_adjust_jax`` gives them; and ``tie_tol(a, b)``: how far
+    apart the CC at two indices may round (16 float32 ulps of ``|x| |y|
+    log2-length``, over the smaller contribution count)."""
     window = ring_read_last(ring, win_len)
     pair = torch.stack([window[:, ch0], window[:, ch1]], dim=1)
     p0 = torch.tensor(pos0, dtype=torch.int32, device=pair.device)
     p1 = torch.tensor(pos1, dtype=torch.int32, device=pair.device)
-    c_seed, c_new, ok = cc_refine_adjust_jax(
-        pair, p0, p1, lookaround=LOOKAROUND, onset_tolerance=ONSET_TOL,
-        normalization_cutoff=NORM_CUTOFF)
-    from onset_fingerprinting_torch.ops.xcorr import batch_full_correlate
-
-    d = _cc_section(pair, p0, LOOKAROUND)
-    x, y = d[:, 0], d[:, 1]
-    n = x.shape[0]
-    norm = np.maximum(np.arange(n) + 1.0, NORM_CUTOFF)
-    full_norm = np.concatenate([norm, norm[n - 2:: -1]])
-    cc = (batch_full_correlate(x, y) / torch.as_tensor(
-        full_norm.astype(np.float32), device=x.device)).cpu().numpy()
-    center = n - (pos1 - pos0)
-    idx = np.arange(2 * n - 1)
-    mask = (idx >= center - ONSET_TOL) & (idx < center + ONSET_TOL)
-    masked = np.where(mask, cc, -np.inf)
-    scale = float(torch.linalg.vector_norm(x) * torch.linalg.vector_norm(y))
+    args = dict(lookaround=LOOKAROUND, onset_tolerance=ONSET_TOL,
+                normalization_cutoff=NORM_CUTOFF)
+    t = cc_refine_terms(pair, p0, p1, **args)
+    c_seed, c_new, _ = cc_refine_adjust_jax(pair, p0, p1, **args)
+    norm = t.norm.cpu().numpy()
+    scale = float(torch.linalg.vector_norm(t.x)
+                  * torch.linalg.vector_norm(t.y))
     eps = float(np.finfo(np.float32).eps)
-    log_len = float(np.log2(2 * n))
+    log_len = float(np.log2(2 * t.x.shape[0]))
 
     def tie_tol(a: int, b: int) -> float:
-        return 16 * eps * log_len * scale / min(full_norm[a], full_norm[b])
+        return 16 * eps * log_len * scale / min(norm[a], norm[b])
 
-    # the energy heuristic's two sides (cc_refine_adjust_jax's da, db)
-    arg = int(np.argmax(masked))
-    ld = (pos1 - pos0) - (n - arg)
-    k = np.arange(ONSET_TOL + 1)
-    nn = abs(ld)
-    act = k < nn
-    den = np.float32(max(nn - 1, 1))
-    ne = np.float32(-np.e)
-    with np.errstate(over="ignore"):  # past n: selected away, as there
-        w_d = np.where(act, np.exp(ne * k.astype(np.float32) / den), 0.0)
-        w_a = np.where(act, np.exp(ne * (nn - 1 - k).astype(np.float32)
-                                   / den), 0.0)
-    xs, ys = x.cpu().numpy(), y.cpu().numpy()
-    xa = xs[np.clip(min(pos0, pos0 + ld) + k, 0, n - 1)]
-    ya = ys[np.clip(min(pos1, pos1 - ld) + k, 0, n - 1)]
-    da = float((xa * w_d).sum() / max(xs.max(), 1e-20))
-    db = float((ya * w_a).sum() / max(ys.max(), 1e-20))
-    return dict(arg=arg, c_seed=int(c_seed), c_new=int(c_new), ok=bool(ok),
-                cc=masked, tie_tol=tie_tol, da=da, db=db)
+    return dict(arg=int(t.arg), c_seed=int(c_seed), c_new=int(c_new),
+                ok=bool(t.valid), cc=t.cc.cpu().numpy(), tie_tol=tie_tol,
+                da=float(t.da), db=float(t.db))
 
 
 def check_refinements(lb: LocateBlock, log: torch.Tensor, ring: RingBuffer

@@ -314,6 +314,22 @@ def cross_correlation_lag_jax(
         y = torch.diff(y, d)
     if take_abs:
         x, y = x.abs(), y.abs()
+    masked, _, valid = masked_normalized_cc(
+        x, y, onsets[1] - onsets[0], normalization_cutoff, onset_tolerance)
+    # the full CC's index n - lag holds lag
+    lag = x.shape[-1] - torch.argmax(masked)
+    return lag.to(torch.int32), valid
+
+
+def masked_normalized_cc(x: torch.Tensor, y: torch.Tensor,
+                         current_lag: torch.Tensor,
+                         normalization_cutoff: int = 10,
+                         onset_tolerance: int = 50):
+    """The contribution-normalised full CC of ``x`` and ``y`` (``[n]``
+    each), ``-inf`` outside the ``2·onset_tolerance`` indices around
+    ``current_lag``: what :func:`cross_correlation_lag_jax` takes the first
+    argmax of.  Returns ``(masked [2n-1], normaliser [2n-1] float32,
+    valid)``, ``valid`` False where the window leaves the CC's support."""
     n = x.shape[-1]
     cc = batch_full_correlate(x, y)
     norm = _contribution_normalizer(n, normalization_cutoff)
@@ -321,17 +337,13 @@ def cross_correlation_lag_jax(
         np.concatenate([norm, norm[n - 2:: -1]]).astype(np.float32),
         device=cc.device)
     cc = cc / full_norm
-    current_lag = onsets[1] - onsets[0]
     center = n - current_lag
     idx = torch.arange(2 * n - 1, device=cc.device)
     window = (idx >= center - onset_tolerance) & (
         idx < center + onset_tolerance)
     valid = (center - onset_tolerance >= 0) & (
         center + onset_tolerance <= 2 * n - 1)
-    masked = torch.where(window, cc, -torch.inf)
-    arg = torch.argmax(masked)
-    lag = -(arg - (center - onset_tolerance) - (current_lag + onset_tolerance))
-    return lag.to(torch.int32), valid
+    return torch.where(window, cc, -torch.inf), full_norm, valid
 
 
 # ---------------------------------------------------------------------------

@@ -95,3 +95,73 @@ def test_cc_refine_engine_matches_jax():
     assert np.abs(np.asarray(ustate.ev_points)[:n]
                   - tstate.ev_points.numpy()[:n]).max() > 1e-3
 
+
+
+def _refine_cases():
+    """Refinement pairs over a ring that has wrapped: the window ending
+    just after the first strike, each later-arriving channel paired with
+    the first at its true arrival and at shifted ones."""
+    from onset_fingerprinting_torch.core.ring_buffer import (
+        ring_init,
+        ring_write,
+    )
+    from onset_fingerprinting_torch.ops.locate_block import LocateBlock
+
+    audio, _, hits = sim.synth_stream(0.4, seed=3)
+    lb = LocateBlock(sim.build_engine("cpu", ring_seconds=0.01).locator, 3,
+                     128, cc_refine=True, device="cpu")
+    arrive = [hits[0][0] - 10 + int(np.argmax(
+        np.abs(audio[hits[0][0] - 10:, ch]) > 1e-2)) for ch in range(3)]
+    first = int(np.argmin(arrive))
+    end = (max(arrive) + 100 + 127) // 128 * 128
+    ring = ring_init(4096, (3,), device="cpu")
+    for s in range(0, end, 128):
+        ring = ring_write(ring, torch.as_tensor(audio[s: s + 128]))
+    start = end - lb.window_len
+    cases = [(first, ch, arrive[first] - start, arrive[ch] - start + shift)
+             for ch in range(3) if ch != first for shift in (0, 9, -4, 31)]
+    return lb, ring, audio[start:end], cases
+
+
+def test_refine_reference_matches_jax_and_checks_a_log():
+    """``refine_reference`` (the locate kernel's refinement check) on a
+    wrapped ring against JAX's ``cc_refine_adjust_jax`` on the same
+    window: corrections and validity exactly.  ``check_refinements`` takes
+    a log equal to the plain refinements with no tie, and rejects one whose
+    argmax or validity differs where the CC is no tie."""
+    import pytest
+
+    from onset_fingerprinting_torch.ops.locate_block import (
+        LOG_FIELDS,
+        LOG_W,
+        check_refinements,
+        refine_reference,
+    )
+    from onset_fingerprinting_tpu.detect.refine import (
+        cc_refine_adjust_jax as j_adjust,
+    )
+
+    lb, ring, window, cases = _refine_cases()
+    rows, moved = [], 0
+    for ch0, ch1, p0, p1 in cases:
+        ref = refine_reference(ring, lb.window_len, ch0, ch1, p0, p1)
+        j = j_adjust(jnp.asarray(window[:, [ch0, ch1]]), jnp.int32(p0),
+                     jnp.int32(p1), lookaround=60, onset_tolerance=50,
+                     normalization_cutoff=10)
+        assert (ref["c_seed"], ref["c_new"], ref["ok"]) == (
+            int(j[0]), int(j[1]), bool(j[2])), (ch0, ch1, p0, p1)
+        moved += ref["ok"] and (ref["c_seed"], ref["c_new"]) != (0, 0)
+        rows.append([1, 1, ch0, ch1, p0, p1, ref["c_seed"], ref["c_new"],
+                     int(ref["ok"]), ref["arg"]])
+    assert moved >= 2
+    log = torch.tensor(rows, dtype=torch.int32)
+    assert log.shape[1] == LOG_W == len(LOG_FIELDS)
+    assert check_refinements(lb, log, ring) == (len(rows), [])
+    bad = log.clone()
+    bad[0, LOG_FIELDS.index("arg")] += 20  # 20 lags from the peak
+    with pytest.raises(AssertionError):
+        check_refinements(lb, bad, ring)
+    bad = log.clone()
+    bad[0, LOG_FIELDS.index("ok")] ^= 1
+    with pytest.raises(AssertionError):
+        check_refinements(lb, bad, ring)

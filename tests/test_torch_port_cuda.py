@@ -1130,13 +1130,11 @@ def _refine_blocks(seconds=1.6, seed=3):
                                         device="cuda"), ring
 
 
-def test_locate_block_cc_refine_matches_plain():
-    """The locate kernel with CC refinement in place, from the plain
-    version's state before every block, against the plain version (the
-    JAX step's refinement, its CC by rFFT) on a synthetic stream's fired
-    and quiet blocks: state, queue, counter and emits exactly, points
-    within 1e-3 cm; each logged refinement held to the plain one on its
-    window (an argmax may differ only at a float32 tie of the plain CC)."""
+def _cc_refine_kernel_matches_plain(model=None, mode="arrival"):
+    """The locate kernel with CC refinement (and ``model``, the learned
+    locator, if given) in place, from the plain version's state before
+    every block, against the plain version on ``_refine_blocks``' fired
+    and quiet blocks; returns ``(refinements checked, ties)``."""
     from onset_fingerprinting_torch.locate.multilaterate import (
         locator_init,
     )
@@ -1152,14 +1150,16 @@ def test_locate_block_cc_refine_matches_plain():
 
     sim, _, _ = _engine_stream(0.01)
     eng = sim.build_engine("cpu", ring_seconds=0.01)
-    lb = LocateBlock(eng.locator, 3, 128, cc_refine=True, device="cuda")
+    lb = LocateBlock(eng.locator, 3, 128, model=model, model_input=mode,
+                     cc_refine=True, device="cuda")
     lb.check_kernel_shape()  # takes cc_refine
+    variant = "cc_refine" if model is None else "fcnn+cc_refine"
     i32 = dict(dtype=torch.int32, device="cuda")
     sp = locator_init(8, "cuda")
     qp = EventQueue(torch.zeros((16, 2), device="cuda"),
                     torch.zeros(16, **i32), torch.zeros(16, **i32),
                     torch.zeros((), **i32))
-    before = _cuda.LOCATE_BLOCK.variants["cc_refine"]
+    before = _cuda.LOCATE_BLOCK.variants[variant]
     n_fired = n_quiet = n_checked = n_emit = 0
     ties = []
     for on, d, count, ring in _refine_blocks():
@@ -1188,10 +1188,39 @@ def test_locate_block_cc_refine_matches_plain():
         n_fired += fired
         n_quiet += not fired
         n_emit += int(hp.emits.sum())
-    assert _cuda.LOCATE_BLOCK.variants["cc_refine"] - before == \
+    assert _cuda.LOCATE_BLOCK.variants[variant] - before == \
         n_fired + n_quiet
     assert n_checked >= 5 and n_emit >= 2, (n_checked, n_emit)
-    print(f"{n_checked} refinements, {len(ties)} ties: {ties}")
+    print(f"{variant}: {n_checked} refinements, {len(ties)} ties: {ties}")
+    return n_checked, ties
+
+
+def test_locate_block_cc_refine_matches_plain():
+    """The locate kernel with CC refinement in place, from the plain
+    version's state before every block, against the plain version (the
+    JAX step's refinement, its CC by rFFT) on a synthetic stream's fired
+    and quiet blocks: state, queue, counter and emits exactly, points
+    within 1e-3 cm; each logged refinement held to the plain one on its
+    window (an argmax may differ only at a float32 tie of the plain CC)."""
+    _cc_refine_kernel_matches_plain()
+
+
+@pytest.mark.parametrize("mode", ["arrival", "by_channel"])
+def test_locate_block_fcnn_cc_refine_matches_plain(mode):
+    """The same with the learned locator as well (variant
+    "fcnn+cc_refine", JAX's ``make_locate_update(model=, cc_refine=True)``):
+    the refinement moves the onsets, the packed FCNN places the hit."""
+    from onset_fingerprinting_torch.models.fcnn import (
+        FCNN,
+        FCNNBundle,
+        init_module,
+    )
+
+    net = init_module(FCNN(2, hidden_layers=(32, 32)), 1, "cpu")
+    with torch.no_grad():
+        net.layers[0].weight /= 50
+        net.out.weight /= 20
+    _cc_refine_kernel_matches_plain(FCNNBundle(net.cuda()), mode)
 
 
 def test_engine_cc_refine_graph_is_three_kernels():
