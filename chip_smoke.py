@@ -8,15 +8,16 @@ Run from the repository root with no arguments:
 It imports only ``onset_fingerprinting_torch`` (never jax) and fails with a
 non-zero exit code, printing no result, on any error or without CUDA.
 
-Phase 0  prints the card's name and power limit, starts the plain
-         realtime engine on the CPU in a child process (phase 4's
-         reference), the plain detector over 6b's recording in another
-         (phase 6b's) and over its channel 0 in a third (7a's), the plain
-         engine with ``cc_refine=True`` over the stream's first 2 s in a
-         fourth (8d's), and builds
-         the eleven kernel libraries from
-         ``onset_fingerprinting_torch/csrc`` with nvcc, all started
-         together.
+Phase 0  prints the card's name and power limit, builds the eleven kernel
+         libraries from ``onset_fingerprinting_torch/csrc`` with nvcc (all
+         started together), runs phase 9c (below) while nothing else loads
+         the host, then starts the plain realtime engine on the CPU in a
+         child process (phase 4's reference), the plain detector over 6b's
+         recording in another (phase 6b's) and over its channel 0 in a
+         third (7a's), the plain engine with ``cc_refine=True`` over the
+         stream's first 2 s in a fourth (8d's), and the detector tuner at
+         9a's three slider settings over 6b's recording in three more (one
+         each).
 Phase 1  holds each kernel against its plain PyTorch version on the card
          (TF32 off for cuDNN and matmuls): K1 the fused detector bit for
          bit (warmup state, on, deltas, rel, state) on each of its kernels
@@ -188,9 +189,32 @@ Phase 8  the parallel package on a world-1 NCCL process group (a localhost
          its plain version block by block on the first 2 s (each logged
          refinement held to the plain CC; an argmax may differ only at a
          float32 tie), its fired-block launch timed beside the Newton
-         kernel's.  8e the capability fixture's float32 flagship, 10
-         full-batch steps with ``Trainer(mesh=)`` against the unmeshed
-         trainer: losses within 1e-6 relative.
+         kernel's and beside the same with an FCNN (variant
+         ``fcnn+cc_refine``).  8e the capability fixture's float32
+         flagship, 10 full-batch steps with ``Trainer(mesh=)`` against the
+         unmeshed trainer: losses within 1e-6 relative.
+
+Phase 9  the last modules of the JAX package on the card.  9a
+         ``tools.choose_od_settings.DetectorTuner`` over 6b's recording
+         ([299904, 3]) at the defaults and two other slider settings:
+         channels, onsets and groups equal to the tuner on the CPU (child
+         processes from phase 0), two K1 launches (``detector_warp.cu``)
+         per detect() and no plain call, a warm detect() timed by the host
+         clock (the slider-change latency).  9b ``utils.metrics.
+         profile_trace`` around one detect() under ``trace("tuner.detect",
+         metrics)`` and 8 engine steps: the Chrome trace it writes names the
+         span and K1's kernel (no CUDA event fails the phase), and the
+         Metrics hold the span.  9c ``python -m onset_fingerprinting_torch.
+         tools.realtime_sim --serve`` in a child process (a fresh
+         interpreter, as a user runs it) over 30 s of the realtime demo's
+         stream (119 strikes; the demo's 60 s cut) at realtime pacing: the
+         zone CNN trained on the card, the native
+         ring and executor, the dispatcher, harvester and classifier
+         threads, ``Metrics``; every card gate (>= 99% located, median
+         error <= 0.2 cm, zone accuracy >= 0.8, audio-thread p99 under
+         1.333 ms, 0 drops, 0 harvest overflows, the hit-latency p50 bound,
+         the north-star estimate under 1 ms); K1, the ring write and the
+         locate kernel launched on every served block, no plain call.
 
 Each phase line prints the seconds of the phase before it.
 
@@ -215,9 +239,10 @@ timed at its shape; ``detector_warp_streams``, K1's warp kernel over 8c's
 batch of streams; ``locate_streams``, the locate kernel's stream-batched
 entry at 8c's shape; ``locate_block_cc_refine``, the locate kernel with
 CC refinement, timed on fired blocks).  Launch counts are the sums over
-the paths that phases 2, 2b, 3, 4, 5c, 6, 7 and 8 drive, each from counts
-set to 0 just before it (``detector_warp`` counts the engines', mining's and 7a's
-launches, ``locate_block`` the Newton engine's, the FCNN rows phase 6's,
+the paths that phases 2, 2b, 3, 4, 5c, 6, 7, 8 and 9 drive, each from
+counts set to 0 just before it (``detector_warp`` counts the engines'
+(9c's serve loop's too), mining's, the tuner's (9a) and 7a's launches,
+``locate_block`` the Newton engines', the FCNN rows phase 6's,
 ``conv_stack_f32_imported`` 7c's).  Last comes ``{"ok": true, "device":
 {...}}``.
 """
@@ -1078,8 +1103,9 @@ def phase_realtime(report, cpu_ref):
     matched, med, ok = sim.locate_gates(hits, events)
     log(f"locate gates: {len(events)} hits located, {matched}/{len(hits)} "
         f"strikes matched ({matched / len(hits):.3f}, gate "
-        f"{sim.MIN_LOCATED}), median error {med:.4f} cm (gate "
-        f"{sim.MAX_MEDIAN_CM}); {n_blocks} blocks in {wall:.3f} s host wall "
+        f"{sim.LOCATE_BARS['cuda'][0]}), median error {med:.4f} cm (gate "
+        f"{sim.LOCATE_BARS['cuda'][1]}); {n_blocks} blocks in {wall:.3f} s "
+        "host wall "
         f"({1e3 * wall / n_blocks:.4f} ms per block incl. harvests and "
         "classification)")
     check(ok, "realtime locate gates failed")
@@ -2886,11 +2912,11 @@ def phase_sharded_serve(report, mesh):
             if near:
                 errs.append(min(near))
     rate, med = matched / total, float(np.median(errs))
+    min_frac, med_cm = sim.LOCATE_BARS["cuda"]
     log(f"8c: {int(ems.sum())} hits located, {matched}/{total} strikes "
-        f"matched ({rate:.4f}, bar {sim.MIN_LOCATED}), median error "
-        f"{med:.4f} cm (bar {sim.MAX_MEDIAN_CM})")
-    check(rate >= sim.MIN_LOCATED and med <= sim.MAX_MEDIAN_CM,
-          "8c: realtime bars failed")
+        f"matched ({rate:.4f}, bar {min_frac}), median error "
+        f"{med:.4f} cm (bar {med_cm})")
+    check(rate >= min_frac and med <= med_cm, "8c: realtime bars failed")
 
     # the locate kernel against its plain scan on the CPU, same events
     lb = LocateBlock(locator, 3, 128, device="cuda")
@@ -3009,7 +3035,7 @@ def phase_cc_refine(report, cc_ref):
     matched, med, ok = sim.locate_gates(hits, events)
     log(f"8d: captured step {types} {names}; {len(events)} hits, "
         f"{matched}/{len(hits)} strikes matched, median error {med:.4f} cm "
-        f"(bars {sim.MIN_LOCATED}, {sim.MAX_MEDIAN_CM}); {n_blocks} blocks "
+        f"(bars {sim.LOCATE_BARS['cuda']}); {n_blocks} blocks "
         f"in {wall:.3f} s host wall")
     check(ok, "8d: realtime bars failed with cc_refine")
 
@@ -3121,10 +3147,15 @@ def phase_cc_refine(report, cc_ref):
 
     cc_ms = fired_ms(lb, True)
     newton_ms = fired_ms(lb_n, False)
+    # the learned locator with the refinement (variant "fcnn+cc_refine")
+    fcnn_cc_ms = fired_ms(LocateBlock(eng.locator, 3, 128,
+                                      model=locate_fcnn(1), cc_refine=True,
+                                      device="cuda"), True)
     plain_ms = 1e3 * plain_s / max(len(fired) + n_quiet, 1)
     log(f"8d: locate kernel per fired launch in a graph: with cc_refine "
-        f"{cc_ms:.5f} ms, Newton without {newton_ms:.5f} ms; the plain "
-        f"version {plain_ms:.3f} ms per block (eager, host clock)")
+        f"{cc_ms:.5f} ms, Newton without {newton_ms:.5f} ms, the FCNN with "
+        f"cc_refine {fcnn_cc_ms:.5f} ms; the plain version {plain_ms:.3f} "
+        "ms per block (eager, host clock)")
     state_bytes = sum(v.numel() * v.element_size() for v in (*l0, *q0))
     win = lb.window_len
     report["locate_block_cc_refine"] = dict(
@@ -3132,7 +3163,7 @@ def phase_cc_refine(report, cc_ref):
         bytes=2 * state_bytes + n_checked / max(len(fired), 1) * 2 * win * 4,
         ops=n_checked / max(len(fired), 1) * 2 * ONSET_TOL_2 * win,
         peak=F32_FLOPS)
-    report["_sharded"].update(cc_newton_ms=newton_ms)
+    report["_sharded"].update(cc_newton_ms=newton_ms, cc_fcnn_ms=fcnn_cc_ms)
 
 
 #: the lags the refinement's CC sums (2 * ONSET_TOL)
@@ -3207,14 +3238,216 @@ def phase8(report, cc_ref, fix, phase):
         dist.destroy_process_group()
 
 
+#: phase 9: the tuner's slider settings over 6b's recording (the defaults,
+#: then two others; hipass_freq 0 turns the high-pass off)
+TUNER_SETTINGS = (
+    {},
+    {"on_threshold": 0.3, "off_threshold": 0.05, "cooldown": 2000.0,
+     "max_distance": 500.0},
+    {"hipass_freq": 0.0, "floor": -60.0, "fast_attack": 5.0,
+     "fast_release": 200.0, "on_threshold": 0.7},
+)
+#: 9b: the engine steps traced beside the tuner's detect()
+TRACE_STEPS = 8
+TRACE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_trace"
+#: 9c: the serve loop's stream (the demo's 60 s cut to 30 s)
+SERVE_RT_SECONDS = 30.0
+
+
+def tuner_cpu_reference(wav, values, out):
+    """9a's reference, in a child process beside the card phases: the
+    tuner's detect() with the plain detector on the CPU at one slider
+    setting over 6b's recording."""
+    from onset_fingerprinting_torch.core.audio_io import read_wav
+    from onset_fingerprinting_torch.tools.choose_od_settings import (
+        DetectorTuner,
+    )
+
+    torch.set_num_threads(1)
+    audio, sr = read_wav(wav)
+    tuner = DetectorTuner(audio, sr, device="cpu")
+    tuner.values.update(values)
+    t0 = time.perf_counter()
+    ch, on, groups = tuner.detect()
+    out.put(dict(channels=np.asarray(ch), onsets=np.asarray(on),
+                 groups=groups, seconds=time.perf_counter() - t0))
+
+
+def start_tuner_reference():
+    """Start 9a's CPU references, one child process per slider setting (6b's
+    recording must exist)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    refs = []
+    for values in TUNER_SETTINGS:
+        q = ctx.Queue()
+        p = ctx.Process(target=tuner_cpu_reference, args=(
+            str(J_DIR / "train_patch" / "train_patch.wav"), values, q),
+            daemon=True)
+        p.start()
+        refs.append((p, q))
+    return refs
+
+
+def phase_tuner(report, tuner_ref):
+    """9a: ``DetectorTuner`` on the card over 6b's recording at each of
+    TUNER_SETTINGS: channels, onsets and groups equal to the tuner on the
+    CPU (child processes from phase 0), two K1 launches per detect() and no
+    plain call, one detect() timed by the host clock.  Returns the
+    tuner."""
+    from onset_fingerprinting_torch.core.audio_io import read_wav
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.tools.choose_od_settings import (
+        DetectorTuner,
+    )
+
+    audio, sr = read_wav(J_DIR / "train_patch" / "train_patch.wav")
+    tuner = DetectorTuner(audio, sr)
+    defaults = dict(tuner.values)
+    _cuda.reset_counts()
+    secs = []
+    for values, ref in zip(TUNER_SETTINGS, tuner_ref):
+        tuner.values = dict(defaults, **values)
+        before = _cuda.DETECTOR_WARP.launches
+        t0 = time.perf_counter()
+        ch, on, groups = tuner.detect()
+        secs.append(time.perf_counter() - t0)
+        check(_cuda.DETECTOR_WARP.launches == before + 2,
+              f"9a: detect() launched K1 "
+              f"{_cuda.DETECTOR_WARP.launches - before} times, want 2")
+        want = wait_cpu_reference(*ref)
+        same = (np.array_equal(np.asarray(ch), want["channels"])
+                and np.array_equal(np.asarray(on), want["onsets"])
+                and (groups is None) == (want["groups"] is None)
+                and (groups is None
+                     or np.array_equal(groups, want["groups"])))
+        log(f"9a: tuner {values or 'defaults'}: {len(on)} onsets, "
+            f"{0 if groups is None else len(groups)} groups on the card; "
+            f"the CPU's {len(want['onsets'])} onsets in "
+            f"{want['seconds']:.1f} s; equal: {same}")
+        check(same, f"9a: the tuner on the card differs from the CPU at "
+              f"{values or 'the defaults'}")
+    # the slider-change latency, warm, at the defaults
+    tuner.values = dict(defaults)
+    t0 = time.perf_counter()
+    tuner.detect()
+    lat = time.perf_counter() - t0
+    counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
+    check(all(k.plain_calls == 0 for k in _cuda.KERNELS)
+          and _cuda.DETECTOR_WARP.launches == 2 * (len(TUNER_SETTINGS) + 1)
+          and all(k.launches == 0 for k in _cuda.KERNELS
+                  if k is not _cuda.DETECTOR_WARP),
+          f"9a: want K1 warp launches only, 2 per detect(): {counts}")
+    # the tuner's launches are mining's: they count in both K1 warp rows
+    n = _cuda.DETECTOR_WARP.launches
+    add_launches(report, ("detector_warp", "detector_warp_mining"),
+                 {"detector_warp": n, "detector_warp_mining": n})
+    log(f"9a: {audio.shape} recording; detect() host time per setting "
+        f"{[round(1e3 * s, 3) for s in secs]} ms (the first cold); a slider "
+        f"change at the defaults, warm: {1e3 * lat:.3f} ms (host clock, "
+        f"two K1 launches, onset grouping)")
+    return tuner
+
+
+def phase_trace(tuner):
+    """9b: ``utils.metrics.profile_trace`` on the card around one tuner
+    detect() under ``trace("tuner.detect", metrics)`` and TRACE_STEPS engine
+    steps: the written Chrome trace names the span and K1's kernel, and the
+    Metrics hold the span's observation."""
+    import shutil
+
+    from onset_fingerprinting_torch.tools import realtime_sim as sim
+    from onset_fingerprinting_torch.utils.metrics import (
+        Metrics,
+        profile_trace,
+        trace,
+    )
+
+    audio, _, _ = sim.synth_stream(1.0, 0)
+    eng = sim.build_engine(None)
+    eng.warmup(audio[: sim.WARMUP])
+    metrics = Metrics()
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    with profile_trace(TRACE_DIR):
+        with trace("tuner.detect", metrics):
+            tuner.detect()
+        for blk in sim.blocks_of(audio)[:TRACE_STEPS]:
+            eng.process_nosync(blk)
+    files = sorted(TRACE_DIR.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"9b: want one trace file, got {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    spans = [e for e in events if e.get("name") == "tuner.detect"]
+    k1 = [n for n in kernels if "detector_warp_kernel" in n]
+    obs = metrics.summary()["latency"].get("tuner.detect", {})
+    log(f"9b: {files[0].name} ({files[0].stat().st_size} B): "
+        f"{len(events)} events, {len(kernels)} kernel events "
+        f"({sorted(set(kernels))[:6]}), {len(spans)} 'tuner.detect' spans; "
+        f"Metrics: {obs}")
+    check(kernels, "9b: the trace holds no CUDA kernel event (CUPTI)")
+    check(spans and k1, "9b: the trace does not name the span and K1")
+    check(obs.get("count") == 1, "9b: Metrics did not observe the span")
+
+
+def phase_serve(report):
+    """9c: the serve loop as a user runs it, ``python -m
+    onset_fingerprinting_torch.tools.realtime_sim --serve --seconds
+    SERVE_RT_SECONDS``, in a child process: realtime pacing over the demo's
+    stream with every card gate; K1, the ring write and the locate kernel
+    launched on every served block and once more for the engine's first
+    step (run on a copy before its graph is captured), K1 once more for the
+    warmup, no plain call (the child's counts, from 0 at its start).  It
+    runs right after the build, while nothing else loads the host.  With
+    the demo's Python callback on the executor's thread the audio thread's
+    p99 read 1.521 to 6.134 ms on an NVIDIA H100 80GB HBM3 at 700 W, over
+    its 1.333 ms gate: the executor hands blocks over natively
+    (``tools/realtime_sim.serve_stream``)."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "onset_fingerprinting_torch.tools.realtime_sim",
+         "--serve", "--seconds", str(SERVE_RT_SECONDS)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines:
+        if not line.startswith('{"serve"'):
+            log("9c:", line)
+    check(proc.returncode == 0 and lines and lines[-1] == "PASS",
+          f"9c: the serve loop failed (exit {proc.returncode}): "
+          f"{proc.stderr[-3000:]}")
+    res = json.loads(next(ln for ln in lines if ln.startswith('{"serve"')))
+    s, counts = res["serve"], res["launches"]
+    log("9c: " + json.dumps({k: v for k, v in s.items()
+                              if not isinstance(v, list)}))
+    n = s["blocks"]
+    check(all(plain == 0 for _, plain in counts.values())
+          and counts["detector_warp"][0] == n + 2
+          and counts["ring_write"][0] == n + 1
+          and counts["locate_block"][0] == n + 1,
+          f"9c: want {n} served blocks' launches + the first step's (K1 "
+          f"+ the warmup's): {counts}")
+    add_launches(report, ("detector_warp", "ring_write", "locate_block"),
+                 {k: v[0] for k, v in counts.items()})
+
+
+def phase9(report, tuner_ref, phase):
+    """9a and 9b (9c runs first, after the build)."""
+    phase("phase 9a: the detector tuner on the card")
+    tuner = phase_tuner(report, tuner_ref)
+    phase("phase 9b: profile_trace around the tuner and the engine")
+    phase_trace(tuner)
+
+
 def main(argv=None) -> int:
-    """``--only-phase6`` / ``--only-phase7`` run the build and that phase
-    alone and print their rows of the kernels line, without the last line
-    (for iterating on one phase; the smoke run takes no arguments)."""
+    """``--only-phase6`` / ``--only-phase7`` / ``--only-phase8`` run the
+    build and that phase alone and print their rows of the kernels line,
+    ``--only-phase9`` phase 9's launches, without the last line (for
+    iterating on one phase; the smoke run takes no arguments)."""
     argv = sys.argv[1:] if argv is None else argv
     only6 = "--only-phase6" in argv
     only7 = "--only-phase7" in argv
     only8 = "--only-phase8" in argv
+    only9 = "--only-phase9" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3240,19 +3473,6 @@ def main(argv=None) -> int:
             f"{now - last[0]:.1f} s)")
         last[0] = now
 
-    # the plain engine and the plain mining detector on the CPU, beside the
-    # card phases
-    cpu_ref = None if (only6 or only7 or only8) else start_cpu_reference()
-    cc_ref = None if (only6 or only7) else start_cc_reference()
-    if only8:  # 8b's recording only
-        import shutil
-
-        shutil.rmtree(J_DIR, ignore_errors=True)
-        journey_session("train_patch", 48, 3)
-        mine_ref = None
-    else:
-        mine_ref = start_mine_reference()
-    amp_ref = None if (only6 or only8) else start_amp_reference()
     logs = _cuda.build()
     log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -3261,6 +3481,33 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
 
     report = {"_launches": {}, "_sharded": {}}
+    if not (only6 or only7 or only8):
+        # the serve loop first, before the CPU references load the host's
+        # cores: its audio thread's p99 is a host-clock gate
+        phase("phase 9c: the serve loop at realtime pacing (first)")
+        phase_serve(report)
+
+    # the plain engine and the plain mining detector on the CPU, beside the
+    # card phases
+    only = only6 or only7 or only8 or only9
+    cpu_ref = None if only else start_cpu_reference()
+    cc_ref = None if (only6 or only7 or only9) else start_cc_reference()
+    if only8 or only9:  # 8b's and 9a's recording only
+        import shutil
+
+        shutil.rmtree(J_DIR, ignore_errors=True)
+        journey_session("train_patch", 48, 3)
+        mine_ref = None
+    else:
+        mine_ref = start_mine_reference()
+    amp_ref = None if (only6 or only8 or only9) else start_amp_reference()
+    tuner_ref = None if (only6 or only7 or only8) else start_tuner_reference()
+    if only9:
+        phase9(report, tuner_ref, phase)
+        phase("done")
+        log(smi)
+        log(json.dumps({"phase9_launches": report["_launches"]}))
+        return 0
     if only8:
         from onset_fingerprinting_torch.tools.fingerprint_capability import (
             make_fixture,
@@ -3321,6 +3568,8 @@ def main(argv=None) -> int:
     phase7(report, amp_ref, fix.x_train, phase)
     torch.cuda.empty_cache()
     phase8(report, cc_ref, fix, phase)
+    torch.cuda.empty_cache()
+    phase9(report, tuner_ref, phase)
     phase("done")
     log(smi)  # again here: a tool that keeps the output's end keeps it
     log(json.dumps({"kernels": kernel_rows(report)}))

@@ -38,10 +38,16 @@ found under the same path:
                  fingerprint stage on the card; ``conv_stack_gate``: the
                  bf16 conv stack's parity gate and its calibration;
                  ``realtime_sim``: the realtime demo's stream through the
-                 engine; ``fingerprint_capability``: the location models
-                 trained on the card against predict-the-mean;
+                 engine, and its serving stack at realtime pacing;
+                 ``fingerprint_capability``: the location models trained
+                 on the card against predict-the-mean;
                  ``mine_hits`` and ``train_setup``: recordings → POSD
-                 sessions → a trained serve setup.
+                 sessions → a trained serve setup; ``choose_od_settings``:
+                 the detector tuner; ``modify_hits`` and
+                 ``modify_hits_mc``: the hit editors.
+- ``utils``    — metrics and tracing (``Metrics``, ``trace``,
+                 ``profile_trace``, ``TBWriter``), eval helpers and the
+                 plots (matplotlib, imported on first use).
 
 Every entry point takes ``device=None``, which means ``"cuda"``; without a
 card it raises instead of running on the CPU.  Pass ``device="cpu"`` to run

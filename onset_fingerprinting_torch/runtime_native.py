@@ -82,6 +82,9 @@ def _load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int64
         fn.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
                        ctypes.c_int64]
+    lib.ofrt_ring_wait_readable.restype = ctypes.c_int64
+    lib.ofrt_ring_wait_readable.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                            ctypes.c_int64]
     lib.ofrt_executor_create.restype = ctypes.c_void_p
     lib.ofrt_executor_create.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_double, _BLOCK_CB,
@@ -145,6 +148,12 @@ class NativeRing:
             self._ptr, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), n)
         return out if got == n else None
 
+    def wait_readable(self, n: int, timeout: float) -> int:
+        """Wait (without the GIL) until ``n`` frames are readable or
+        ``timeout`` seconds pass; returns the frames readable."""
+        return self._lib.ofrt_ring_wait_readable(self._ptr, n,
+                                                 int(timeout * 1e6))
+
     def peek_last(self, n: int) -> np.ndarray:
         out = np.empty((n, self.channels), dtype=np.float32)
         self._lib.ofrt_ring_peek_last(
@@ -156,22 +165,31 @@ class NativeExecutor:
     """Block executor on a thread of its own, pulling from a
     :class:`NativeRing`.  ``callback(block [B, C] ndarray, block_index)``
     runs on the executor's thread; per-block latency (µs) and the deadline
-    misses against ``block_size / sample_rate`` are kept natively."""
+    misses against ``block_size / sample_rate`` are kept natively.  With a
+    :class:`NativeRing` as ``callback`` each block is copied into that ring
+    natively (``ofrt_ring_push_block``): the executor's thread then never
+    takes the GIL, and a consumer thread reads the blocks from the ring."""
 
     def __init__(self, ring: NativeRing, block_size: int,
-                 callback: Callable[[np.ndarray, int], None],
+                 callback: Callable[[np.ndarray, int], None] | NativeRing,
                  sample_rate: float = 0.0):
         self._lib = lib()
         self.ring = ring
         self.block_size = block_size
+        user = None
+        if isinstance(callback, NativeRing):
+            self._cb = _BLOCK_CB(ctypes.cast(self._lib.ofrt_ring_push_block,
+                                             ctypes.c_void_p).value)
+            self._target = callback  # keep alive
+            user = callback._ptr
+        else:
+            def _cb(ptr, frames, channels, idx, _user):
+                block = np.ctypeslib.as_array(ptr, shape=(frames, channels))
+                callback(block, idx)
 
-        def _cb(ptr, frames, channels, idx, _user):
-            block = np.ctypeslib.as_array(ptr, shape=(frames, channels))
-            callback(block, idx)
-
-        self._cb = _BLOCK_CB(_cb)  # keep alive
+            self._cb = _BLOCK_CB(_cb)  # keep alive
         self._ptr = self._lib.ofrt_executor_create(
-            ring._ptr, block_size, sample_rate, self._cb, None)
+            ring._ptr, block_size, sample_rate, self._cb, user)
 
     def start(self) -> None:
         self._lib.ofrt_executor_start(self._ptr)

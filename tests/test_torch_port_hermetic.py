@@ -36,7 +36,10 @@ def test_port_and_chip_smoke_import_no_jax():
         "       'detect.spectral', 'data.augment', 'models.rnn',\n"
         "       'models.jax_import', 'tools.zone_classifier',\n"
         "       'core.backend_probe', 'parallel', 'parallel.mesh',\n"
-        "       'parallel.distributed', 'parallel.sharding'}\n"
+        "       'parallel.distributed', 'parallel.sharding', 'utils',\n"
+        "       'utils.metrics', 'utils.eval', 'utils.plots',\n"
+        "       'tools.modify_hits', 'tools.modify_hits_mc',\n"
+        "       'tools.choose_od_settings'}\n"
         "assert new <= names, new - names\n"
         "import onset_fingerprinting_torch.tools.fingerprint_anatomy\n"
         "import chip_smoke\n"
@@ -280,3 +283,27 @@ def test_parallel_entry_points_default_to_the_card(monkeypatch):
     with cuda:
         init_distributed("localhost:1", 2, 0)
     assert not dist.is_initialized()
+
+
+def test_tools_and_utils_entry_points_default_to_the_card(tmp_path):
+    """The detector tuner, the profiler capture and the serve loop run on
+    the card unless asked for the CPU: no quiet fallback."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is valid")
+    from onset_fingerprinting_torch.tools import realtime_sim
+    from onset_fingerprinting_torch.tools.choose_od_settings import (
+        DetectorTuner,
+    )
+    from onset_fingerprinting_torch.utils.metrics import profile_trace
+
+    cuda = pytest.raises(RuntimeError, match="CUDA is not available")
+    with cuda:
+        DetectorTuner(np.zeros((4096, 2), np.float32))
+    with cuda:
+        with profile_trace(tmp_path / "trace"):
+            pass
+    with cuda:
+        realtime_sim.serve(seconds=0.5)
+    with cuda:
+        realtime_sim.main(["--serve", "--seconds", "0.5"])
+    assert not (tmp_path / "trace").exists()

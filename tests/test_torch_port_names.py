@@ -13,7 +13,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGES = ("core", "locate", "ops", "realtime", "parallel", "detect",
-            "data", "models")
+            "data", "models", "utils")
 #: JAX names whose port twin has another name
 TWINS = {
     ("models", "fcnn_variables_from_state_dict"):
@@ -50,6 +50,30 @@ def test_importing_the_packages_builds_nothing():
         "import sys\n"
         "assert 'jax' not in sys.modules\n"
         "print('LAZY')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LAZY" in out.stdout
+
+
+def test_utils_imports_without_matplotlib():
+    """The card's machine has no matplotlib: ``utils`` and its metrics
+    import without it, and only ``utils.plots`` needs it."""
+    code = (
+        "import sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import onset_fingerprinting_torch.utils as u\n"
+        "from onset_fingerprinting_torch.utils.metrics import Metrics\n"
+        "from onset_fingerprinting_torch.tools import choose_od_settings\n"
+        "from onset_fingerprinting_torch.tools import modify_hits_mc\n"
+        "from onset_fingerprinting_torch.tools import realtime_sim\n"
+        "assert u.wave_speed(351.0, 0.05) > 0 and Metrics().summary()\n"
+        "try:\n"
+        "    u.plots\n"
+        "except ImportError:\n"
+        "    print('LAZY')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
