@@ -8,16 +8,15 @@ Run from the repository root with no arguments:
 It imports only ``onset_fingerprinting_torch`` (never jax) and fails with a
 non-zero exit code, printing no result, on any error or without CUDA.
 
-Phase 0  prints the card's name and power limit, builds the eleven kernel
-         libraries from ``onset_fingerprinting_torch/csrc`` with nvcc (all
-         started together), runs phase 9c (below) while nothing else loads
-         the host, then starts the plain realtime engine on the CPU in a
-         child process (phase 4's reference), the plain detector over 6b's
-         recording in another (phase 6b's) and over its channel 0 in a
-         third (7a's), the plain engine with ``cc_refine=True`` over the
-         stream's first 2 s in a fourth (8d's), and the detector tuner at
-         9a's three slider settings over 6b's recording in three more (one
-         each).
+Phase 0  prints the card's name and power limit, starts the plain
+         realtime engine on the CPU in a child process (phase 4's
+         reference), the plain detector over 6b's recording in another
+         (phase 6b's) and over its channel 0 in a third (7a's), the plain
+         engine with ``cc_refine=True`` over the stream's first 2 s in a
+         fourth (8d's), the detector tuner at 9a's three slider settings
+         over 6b's recording in three more (one each), and builds the
+         eleven kernel libraries from ``onset_fingerprinting_torch/csrc``
+         with nvcc, all started together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
          (TF32 off for cuDNN and matmuls): K1 the fused detector bit for
          bit (warmup state, on, deltas, rel, state) on each of its kernels
@@ -3339,10 +3338,8 @@ def phase_tuner(report, tuner_ref):
           and all(k.launches == 0 for k in _cuda.KERNELS
                   if k is not _cuda.DETECTOR_WARP),
           f"9a: want K1 warp launches only, 2 per detect(): {counts}")
-    # the tuner's launches are mining's: they count in both K1 warp rows
-    n = _cuda.DETECTOR_WARP.launches
-    add_launches(report, ("detector_warp", "detector_warp_mining"),
-                 {"detector_warp": n, "detector_warp_mining": n})
+    add_launches(report, ("detector_warp",),
+                 {"detector_warp": _cuda.DETECTOR_WARP.launches})
     log(f"9a: {audio.shape} recording; detect() host time per setting "
         f"{[round(1e3 * s, 3) for s in secs]} ms (the first cold); a slider "
         f"change at the defaults, warm: {1e3 * lat:.3f} ms (host clock, "
@@ -3397,12 +3394,7 @@ def phase_serve(report):
     stream with every card gate; K1, the ring write and the locate kernel
     launched on every served block and once more for the engine's first
     step (run on a copy before its graph is captured), K1 once more for the
-    warmup, no plain call (the child's counts, from 0 at its start).  It
-    runs right after the build, while nothing else loads the host.  With
-    the demo's Python callback on the executor's thread the audio thread's
-    p99 read 1.521 to 6.134 ms on an NVIDIA H100 80GB HBM3 at 700 W, over
-    its 1.333 ms gate: the executor hands blocks over natively
-    (``tools/realtime_sim.serve_stream``)."""
+    warmup, no plain call (the child's counts, from 0 at its start)."""
     proc = subprocess.run(
         [sys.executable, "-m", "onset_fingerprinting_torch.tools.realtime_sim",
          "--serve", "--seconds", str(SERVE_RT_SECONDS)],
@@ -3431,11 +3423,13 @@ def phase_serve(report):
 
 
 def phase9(report, tuner_ref, phase):
-    """9a and 9b (9c runs first, after the build)."""
     phase("phase 9a: the detector tuner on the card")
     tuner = phase_tuner(report, tuner_ref)
     phase("phase 9b: profile_trace around the tuner and the engine")
     phase_trace(tuner)
+    del tuner
+    phase("phase 9c: the serve loop at realtime pacing")
+    phase_serve(report)
 
 
 def main(argv=None) -> int:
@@ -3473,20 +3467,6 @@ def main(argv=None) -> int:
             f"{now - last[0]:.1f} s)")
         last[0] = now
 
-    logs = _cuda.build()
-    log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
-    for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
-
-    report = {"_launches": {}, "_sharded": {}}
-    if not (only6 or only7 or only8):
-        # the serve loop first, before the CPU references load the host's
-        # cores: its audio thread's p99 is a host-clock gate
-        phase("phase 9c: the serve loop at realtime pacing (first)")
-        phase_serve(report)
-
     # the plain engine and the plain mining detector on the CPU, beside the
     # card phases
     only = only6 or only7 or only8 or only9
@@ -3502,6 +3482,14 @@ def main(argv=None) -> int:
         mine_ref = start_mine_reference()
     amp_ref = None if (only6 or only8 or only9) else start_amp_reference()
     tuner_ref = None if (only6 or only7 or only8) else start_tuner_reference()
+    logs = _cuda.build()
+    log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    report = {"_launches": {}, "_sharded": {}}
     if only9:
         phase9(report, tuner_ref, phase)
         phase("done")

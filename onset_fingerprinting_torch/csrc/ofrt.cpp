@@ -15,10 +15,9 @@
 //
 //  - ofrt_executor: a paced block executor that pulls fixed-size blocks from
 //    a ring on a dedicated thread at audio rate (or as fast as possible),
-//    invokes a registered callback (Python ctypes callback or C function,
-//    such as ofrt_ring_push_block: a hand-off into a second ring), and
-//    records per-block latency statistics (count/p50/p99/max) — the
-//    1.33 ms budget observability the reference lacked.
+//    invokes a registered callback (Python ctypes callback or C function),
+//    and records per-block latency statistics (count/p50/p99/max) — the
+//    1.33 ms budget observability the reference lacked (SURVEY.md §5.1).
 //
 // Built at first use by onset_fingerprinting_torch/runtime_native.py (g++,
 // into build/ofrt/ beside the package); bound there with ctypes.
@@ -104,30 +103,6 @@ int64_t ofrt_ring_read(ofrt_ring* r, float* out, int64_t n) {
   }
   r->read_counter.store(rc + n, std::memory_order_release);
   return n;
-}
-
-// Wait, sleeping 50 us at a time, until n frames are readable or timeout_us
-// has passed; returns the frames readable.  A Python consumer calls it
-// through ctypes, which releases the GIL for the call.
-int64_t ofrt_ring_wait_readable(const ofrt_ring* r, int64_t n,
-                                int64_t timeout_us) {
-  using clock = std::chrono::steady_clock;
-  const auto end = clock::now() + std::chrono::microseconds(timeout_us);
-  int64_t avail = ofrt_ring_readable(r);
-  while (avail < n && clock::now() < end) {
-    std::this_thread::sleep_for(std::chrono::microseconds(50));
-    avail = ofrt_ring_readable(r);
-  }
-  return avail;
-}
-
-// An executor callback whose user pointer is a ring: each block is copied
-// into that ring, so the executor's thread never enters Python; a consumer
-// thread takes the blocks from there (ofrt_ring_wait_readable, _read).
-void ofrt_ring_push_block(const float* block, int64_t frames,
-                          int64_t /*channels*/, int64_t /*block_index*/,
-                          void* user) {
-  ofrt_ring_write(static_cast<ofrt_ring*>(user), block, frames);
 }
 
 // Read the most recent n frames (linearized), without consuming — the

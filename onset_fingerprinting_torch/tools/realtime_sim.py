@@ -20,13 +20,13 @@ Two entries:
   demo's windows (:func:`zone_windows`), the engine with ``utils.metrics.
   Metrics``, a producer thread writing the stream into the native ring
   (``runtime_native.NativeRing``) at realtime pacing, the native block
-  executor handing each block natively to a pump thread that enqueues it
-  for the pipelined dispatcher, the harvester thread, a classifier
-  thread, and a ParameterChange action per located hit.  Beside the stream it measures the readback floor (host
-  clock) and, on the card, the device time of the event pack, of a step
-  (in a graph of steps, as ``tools/step_bench`` times it) and of a
-  classify batch: their sum is the north-star estimate of one hit's
-  localize + classify.
+  executor whose thread enqueues each block for the pipelined
+  dispatcher, the harvester thread, a classifier thread, and a
+  ParameterChange action per located hit.  Beside the stream it measures
+  the readback floor (host clock) and, on the card, the device time of
+  the event pack, of a step (in a graph of steps, as ``tools/step_bench``
+  times it) and of a classify batch: their sum is the north-star
+  estimate of one hit's localize + classify.
 
 Both hold the demo's gates, by device: on the card at least 99% of the
 strikes located at a median error of at most 0.2 cm; on the CPU, whose
@@ -51,7 +51,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import gc
 import itertools
 import json
 import sys
@@ -251,9 +250,6 @@ ZONE_EPOCHS_PER_STEP = 50
 NATIVE_RING = SR * 4
 #: the producer's writes: 1024 frames (8 blocks) a time, as the demo's
 PRODUCER_CHUNK = 1024
-#: the card's harvester polls at most every 4 blocks: at the demo's 1 ms
-#: it takes the GIL from the audio thread a thousand times a second
-HARVEST_MIN_BLOCKS = 4
 #: --fast: the producer's pace (4x realtime)
 FAST_PACE = 0.25
 #: device-timed repeats beside the stream: event packs, classify batches,
@@ -381,21 +377,16 @@ def serve_stream(engine: RealtimeEngine, audio: np.ndarray, floor_ms: float,
                  pace: float = 1.0) -> dict:
     """The demo's stream (realtime_sim_demo.py:441-491): a producer writes
     ``audio`` into the native ring 8 blocks a time against a wall-clock
-    schedule (``pace`` 1 is realtime); the native executor copies each
-    128-sample block into a second native ring on its own thread, which
-    never takes the GIL, and a pump thread hands each to
-    ``engine.process_pipelined`` (the demo calls it from the executor's
-    thread); the harvester thread drains located hits every ``max(4 x
-    floor, 4 blocks)`` (20 ms on the CPU) into a list, and a classifier
-    thread classifies each from the device ring once the engine has written
-    its whole window.  Then the pipeline and the harvester stop, a last
-    harvest runs, and each hit runs the engine's actions.  While the stream
-    runs, the objects made before it are frozen out of the garbage
-    collector's passes.  Returns ``events [(onset, Location, host time
-    harvested)]``, ``classified {onset: (zone, host time)}``, the
-    executor's ``blocks``, ``deadline_misses`` and latency ``stats``, the
-    blocks ``fed``, ``handoff_drops`` (blocks the pump lost to a lapped
-    ring) and ``thread_errors``."""
+    schedule (``pace`` 1 is realtime); the native executor's thread hands
+    each 128-sample block to ``engine.process_pipelined``; the harvester
+    thread drains located hits every ``max(4 x floor, 1 ms)`` (20 ms on
+    the CPU) into a list, and a classifier thread classifies each from the
+    device ring once the engine has written its whole window.  Then the
+    pipeline and the harvester stop, a last harvest runs, and each hit runs
+    the engine's actions.  Returns ``events
+    [(onset, Location, host time harvested)]``, ``classified {onset: (zone,
+    host time)}``, the executor's ``blocks``, ``deadline_misses`` and
+    latency ``stats``, the blocks ``fed`` and ``thread_errors``."""
     from onset_fingerprinting_torch.runtime_native import (
         NativeExecutor,
         NativeRing,
@@ -438,60 +429,22 @@ def serve_stream(engine: RealtimeEngine, audio: np.ndarray, floor_ms: float,
         except Exception:  # the thread's boundary: serve() fails its gate
             errors.append(traceback.format_exc())
 
-    # the executor copies each block into a second native ring and never
-    # takes the GIL; the pump thread takes them from there into the
-    # engine's pipelined dispatch
-    handoff = NativeRing(NATIVE_RING, 3)
-    pump_stop = threading.Event()
-    lost = [0]
-
-    def pump():
-        try:
-            while True:
-                avail = handoff.wait_readable(128, 0.05)
-                if avail >= 128:
-                    if avail > NATIVE_RING:  # lapped: the oldest are lost
-                        lost[0] += (avail - NATIVE_RING) // 128
-                    engine.process_pipelined(handoff.read(128))
-                elif pump_stop.is_set():
-                    return
-        except Exception:  # the thread's boundary: serve() fails its gate
-            errors.append(traceback.format_exc())
+    def on_block(block, idx):
+        engine.process_pipelined(block)
 
     cls_thread = threading.Thread(target=classify_loop, daemon=True)
-    pump_thread = threading.Thread(target=pump, daemon=True)
     ring = NativeRing(NATIVE_RING, 3)
-    ex = NativeExecutor(ring, 128, handoff, sample_rate=float(SR))
-    fed = 0
-    # a full collection pauses every thread, the audio thread too: with the
-    # start-up objects frozen out of it, it stays short
-    gc.freeze()
+    ex = NativeExecutor(ring, 128, on_block, sample_rate=float(SR))
     try:
         # a CPU engine computes on the host's cores: its queue must absorb
         # the whole stream, and a near-spinning harvester would starve it
         engine.start_pipeline(depth=16384 if cpu else 512)
-        engine.start_harvester(sink, period=max(
-            4.0 * floor_ms / 1e3,
-            0.02 if cpu else HARVEST_MIN_BLOCKS * 128 / SR))
+        engine.start_harvester(sink, period=harvest_period(floor_ms, cpu))
         cls_thread.start()
-        pump_thread.start()
         ex.start()
-        t_start = time.monotonic()
-        for i in range(0, len(audio) - PRODUCER_CHUNK + 1, PRODUCER_CHUNK):
-            ring.write(audio[i: i + PRODUCER_CHUNK])
-            fed = i + PRODUCER_CHUNK
-            delay = t_start + fed / SR * pace - time.monotonic()
-            if delay > 0:
-                time.sleep(delay)
-        deadline = time.monotonic() + 15
-        while (ex.blocks_processed < fed // 128
-               and time.monotonic() < deadline):
-            time.sleep(0.05)
+        fed = feed(ring, ex, audio, pace)
     finally:
         ex.stop()
-        pump_stop.set()
-        if pump_thread.is_alive():
-            pump_thread.join(timeout=60)
         # the dispatcher drains its queue: ~50 ms a block for a CPU engine
         engine.stop_pipeline(timeout=30 + (0.25 * engine.pipeline_backlog
                                            if cpu else 0))
@@ -502,18 +455,43 @@ def serve_stream(engine: RealtimeEngine, audio: np.ndarray, floor_ms: float,
         if cls_thread.is_alive():
             cls_thread.join(timeout=60 + (0.25 * len(located) if cpu
                                           else 0))
-        gc.unfreeze()
-    if cls_thread.is_alive() or pump_thread.is_alive():
-        errors.append("the classifier or the pump thread did not finish")
+    if cls_thread.is_alive():
+        errors.append("the classifier thread did not finish")
     with lock:
         events = list(located)
     for _, loc, _ in events:
         engine.actions.run(np.zeros((128, 2), np.float32), loc)
-    return dict(events=events, classified=classified, fed=fed // 128,
+    return dict(events=events, classified=classified, fed=fed,
                 blocks=ex.blocks_processed,
                 deadline_misses=ex.deadline_misses,
-                stats=ex.latency_stats(), handoff_drops=lost[0],
-                thread_errors=errors)
+                stats=ex.latency_stats(), thread_errors=errors)
+
+
+def feed(ring, executor, audio: np.ndarray, pace: float = 1.0) -> int:
+    """The demo's producer: write ``audio`` into the native ``ring``
+    PRODUCER_CHUNK frames a time against a wall-clock schedule (``pace`` 1
+    is realtime), then wait up to 15 s for the ``executor`` to take every
+    block.  Returns the blocks fed."""
+    fed = 0
+    t_start = time.monotonic()
+    for i in range(0, len(audio) - PRODUCER_CHUNK + 1, PRODUCER_CHUNK):
+        ring.write(audio[i: i + PRODUCER_CHUNK])
+        fed = i + PRODUCER_CHUNK
+        delay = t_start + fed / SR * pace - time.monotonic()
+        if delay > 0:
+            time.sleep(delay)
+    deadline = time.monotonic() + 15
+    while (executor.blocks_processed < fed // 128
+           and time.monotonic() < deadline):
+        time.sleep(0.05)
+    return fed // 128
+
+
+def harvest_period(floor_ms: float, cpu: bool) -> float:
+    """The demo's harvest period in seconds (realtime_sim_demo.py:451-455):
+    four readback floors, at least 1 ms (20 ms on the CPU, whose engine
+    computes on the cores the harvester would spin on)."""
+    return max(4.0 * floor_ms / 1e3, 0.02 if cpu else 0.001)
 
 
 def serve_summary(engine: RealtimeEngine, hits, res: dict,
@@ -540,7 +518,7 @@ def serve_summary(engine: RealtimeEngine, hits, res: dict,
         stale=engine.classify_stale, thread_errors=res["thread_errors"],
         blocks=res["blocks"], fed=res["fed"],
         deadline_misses=res["deadline_misses"],
-        drops=engine.pipeline_drops + res["handoff_drops"],
+        drops=engine.pipeline_drops,
         overflows=engine.harvest_drops,
         budget_ms=engine.budget_ms,
         audio_p50_ms=res["stats"]["p50_us"] / 1e3,

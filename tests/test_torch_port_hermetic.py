@@ -286,11 +286,11 @@ def test_parallel_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_tools_and_utils_entry_points_default_to_the_card(tmp_path):
-    """The detector tuner, the profiler capture and the serve loop run on
-    the card unless asked for the CPU: no quiet fallback."""
+    """The detector tuner, the profiler capture, the serve loop and its
+    split run on the card unless asked for the CPU: no quiet fallback."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is valid")
-    from onset_fingerprinting_torch.tools import realtime_sim
+    from onset_fingerprinting_torch.tools import realtime_sim, serve_split
     from onset_fingerprinting_torch.tools.choose_od_settings import (
         DetectorTuner,
     )
@@ -306,4 +306,6 @@ def test_tools_and_utils_entry_points_default_to_the_card(tmp_path):
         realtime_sim.serve(seconds=0.5)
     with cuda:
         realtime_sim.main(["--serve", "--seconds", "0.5"])
+    with cuda:
+        serve_split.main(["--seconds", "0.5"])
     assert not (tmp_path / "trace").exists()

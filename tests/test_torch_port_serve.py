@@ -38,32 +38,60 @@ def test_serve_cpu_passes_its_gates():
     assert "engine.dispatch: p50" in res.stdout  # Metrics.report()
 
 
-def test_native_handoff_moves_every_block_in_order():
-    """The executor's native hand-off (a ring as its callback) copies each
-    block into the target ring in order, without Python on its thread."""
+def test_native_executor_keeps_its_thread_state():
+    """The executor's thread keeps one Python thread state across blocks
+    (a thread-local set in one callback is there in the next): ctypes
+    would otherwise make and free one per block."""
+    import threading
+    import time
+
     from onset_fingerprinting_torch.runtime_native import (
         NativeExecutor,
         NativeRing,
     )
 
-    src, dst = NativeRing(4096, 3), NativeRing(8192, 3)
-    ex = NativeExecutor(src, 128, dst, sample_rate=96000.0)
-    x = np.random.default_rng(0).normal(size=(128 * 24, 3)).astype(
-        np.float32)
+    local, seen = threading.local(), []
+
+    def on_block(block, idx):
+        seen.append(getattr(local, "last", None))
+        local.last = idx
+
+    ring = NativeRing(4096, 3)
+    ex = NativeExecutor(ring, 128, on_block, sample_rate=96000.0)
     ex.start()
     try:
-        src.write(x[:2048])
-        got = []
-        for i in range(24):
-            if i == 8:
-                src.write(x[2048:])
-            assert dst.wait_readable(128, 10.0) >= 128
-            got.append(dst.read(128))
+        ring.write(np.zeros((128 * 8, 3), np.float32))
+        deadline = time.monotonic() + 10
+        while ex.blocks_processed < 8 and time.monotonic() < deadline:
+            time.sleep(0.01)
     finally:
         ex.stop()
-    assert np.array_equal(np.concatenate(got), x)
-    assert ex.blocks_processed == 24 and dst.readable == 0
-    assert dst.wait_readable(128, 0.01) == 0  # times out
+    assert seen == [None, 0, 1, 2, 3, 4, 5, 6]
+
+
+@pytest.mark.parametrize("floor_ms, cpu, want", [
+    (0.07, False, 0.001), (1.0, False, 0.004), (0.07, True, 0.02),
+    (10.0, True, 0.04)])
+def test_harvest_period_is_the_demos(floor_ms, cpu, want):
+    assert sim.harvest_period(floor_ms, cpu) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("config", ["noop", "dispatch", "harvest"])
+def test_serve_split_configs_on_the_cpu(config):
+    """tools/serve_split's executor configurations on a small CPU engine:
+    every fed block reaches the callback, and the engine's enqueue and
+    dispatch are read where it ran."""
+    from onset_fingerprinting_torch.tools import serve_split
+
+    audio, _, _ = sim.synth_stream(0.3, 0)
+    engine = sim.build_engine("cpu")
+    engine.warmup(audio[: sim.WARMUP])
+    out = serve_split.run_config(config, engine, audio, floor_ms=0.1)
+    assert out["config"] == config
+    assert out["blocks"] == out["fed"] == len(audio) // 1024 * 8
+    assert ("engine.dispatch" in out) == (config != "noop")
+    assert ("engine.enqueue" in out) == (config != "noop")
+    assert 0 < out["audio_p50_ms"] <= out["audio_p99_ms"]
 
 
 def summary(**kw):
