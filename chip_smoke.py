@@ -21,9 +21,11 @@ Phase 1  holds each kernel against its plain PyTorch version on the card
          (TF32 off for cuDNN and matmuls): K1 the fused detector bit for
          bit (warmup state, on, deltas, rel, state) on each of its kernels
          — the pipe at the fleet width on two seeds and at a ragged width,
-         the warp-per-channel kernel in coupled_off + backtrack, at the
-         realtime engine's config (C = 3, no high-pass) and at C = 32, the
-         one-thread-per-channel kernel at C = 1000 — and, at
+         the pipe's coupled instantiation (lane groups, the route of every
+         coupled call of more than one block at C <= 32) in coupled_off +
+         backtrack, at the realtime engine's config (C = 3, no high-pass)
+         and at C = 32, the one-thread-per-channel kernel at C = 1000 —
+         and, at
          the fleet shape as the main path runs it (events only), the pipe
          against the plain detector and against the other kernel bit for
          bit, and the two kernels timed; K2 the window gather
@@ -80,8 +82,9 @@ Phase 4  drives the realtime engine (``tools.realtime_sim``: 3 sensors at
          the device ring; shows that the captured step is three kernel
          nodes and nothing else (no copy); gates the locate rate and median
          error, shows that K1 (coupled, one warp per channel, one launch
-         per block), the ring write and the locate kernel ran on every step
-         and K3 for the classifier, with no plain version; holds the
+         per block), the ring write and the locate kernel ran on every step,
+         the coupled pipe once for the warmup, and K3 for the classifier,
+         with no plain version; holds the
          device ring after the run to the stream's last 16 s bit for bit,
          counter included; holds the events of the first 5 s to the plain
          engine on the CPU and the classifier to its plain version on the
@@ -92,7 +95,8 @@ Phase 4  drives the realtime engine (``tools.realtime_sim``: 3 sensors at
          and the ring write to its plain version on the engine's ring with
          the head wrapping; times the step (graph replays, a graph of 256
          steps, eager), K1 at [128, 3] per launch in a graph of launches
-         beside detector.cu and an empty kernel, the ring write, the
+         (detector_warp.cu and the coupled pipe in turns) beside
+         detector.cu and an empty kernel, the ring write, the
          locate kernel on quiet and fired blocks, and K3 at the
          classifier's shape, held there to the witness gate too
          (``tools/step_bench``).
@@ -121,12 +125,14 @@ Phase 6  the player's setup loop at the JAX journey's size (3 sensors at
          exactly, points within 1e-3 cm) and times it per launch in a graph
          of launches beside the Newton kernel.  6b runs
          tests/test_journey.py's arrival journey on the card: 48 hits (seed
-         3) mined by ``mine_file(fix=True)`` with K1 (``detector_warp.cu``,
+         3) mined by ``mine_file(fix=True)`` with K1 (the coupled pipe,
          one launch for the 0.5 s warmup and one for the whole recording)
          and no plain call, K1's events over the recording equal to the
          plain detector's on the CPU (a child process started in phase 0;
-         rel within 2e-2 + 1e-3 |rel|) and bit-identical to the plain
-         detector on the card over the first 0.2 s, both launches timed;
+         rel within 2e-2 + 1e-3 |rel|), bit-identical to the plain
+         detector on the card over the first 0.2 s and to
+         ``detector_warp.cu`` (named) over the whole recording, both
+         kernels' two launches timed in turns;
          the FCNN trained (1500 epochs), ``save_setup`` → ``build_engine``
          → 8 fresh hits through ``process`` with the journey's bars; the
          captured step three kernel nodes, the locate kernel taking the
@@ -172,16 +178,20 @@ Phase 8  the parallel package on a world-1 NCCL process group (a localhost
          ``pipeline.DetectFingerprint``'s stages on the same chunk and
          state with block-start windows; a chunk timed.  8b
          ``detect_offline_time_sharded`` and ``detect_events_time_sharded``
-         over 6b's recording: dense events and the all_gather-ed event list
-         equal to the sequential K1.  8c ``make_detect_locate_sharded`` over
-         1024 streams of the realtime demo's drum (2 s each, a seed per
-         stream, 32 events per stream, the bf16 flagship classifier on
-         256-sample windows): one K1 launch over the batch of streams, one
-         launch of the stream-batched locate kernel, K3; the located rate
-         and median error against the truth at the realtime bars; the
-         locate kernel equal to its plain scan on the CPU on 8 streams, K1
-         to the plain detector on 2 streams' first 24064 samples; both
-         timed.  8d ``tools.realtime_sim`` with ``cc_refine=True`` over
+         over 6b's recording (two coupled-pipe launches): dense events and
+         the all_gather-ed event list equal to the sequential K1.  8c
+         ``make_detect_locate_sharded`` over 1024 streams of the realtime
+         demo's drum (2 s each, a seed per stream, 32 events per stream,
+         the bf16 flagship classifier on 256-sample windows): one K1
+         launch over the batch of streams (the coupled pipe, 8 streams a
+         CTA), one launch of the stream-batched locate kernel, K3; the
+         located rate and median error against the truth at the realtime
+         bars; the locate kernel equal to its plain scan on the CPU on 8
+         streams, K1 to the plain detector on 3 streams' first 24064
+         samples on the CPU, bit-identical to ``detector_warp.cu``'s
+         stream batch (named) at the full shape and to the plain detector
+         under ``vmap`` on the card on 64 streams' first 24064 samples;
+         K1 old and new timed in turns, the locate kernel timed.  8d ``tools.realtime_sim`` with ``cc_refine=True`` over
          phase 4's 20 s stream: three kernel nodes, phase 4's bars, the
          first 2 s equal to the plain engine on the CPU (a fourth child
          process from phase 0), the refining locate kernel in place against
@@ -197,8 +207,8 @@ Phase 9  the last modules of the JAX package on the card.  9a
          ``tools.choose_od_settings.DetectorTuner`` over 6b's recording
          ([299904, 3]) at the defaults and two other slider settings:
          channels, onsets and groups equal to the tuner on the CPU (child
-         processes from phase 0), two K1 launches (``detector_warp.cu``)
-         per detect() and no plain call, a warm detect() timed by the host
+         processes from phase 0), two K1 launches (the coupled pipe) per
+         detect() and no plain call, a warm detect() timed by the host
          clock (the slider-change latency).  9b ``utils.metrics.
          profile_trace`` around one detect() under ``trace("tuner.detect",
          metrics)`` and 8 engine steps: the Chrome trace it writes names the
@@ -213,7 +223,8 @@ Phase 9  the last modules of the JAX package on the card.  9a
          error <= 0.2 cm, zone accuracy >= 0.8, audio-thread p99 under
          1.333 ms, 0 drops, 0 harvest overflows, the hit-latency p50 bound,
          the north-star estimate under 1 ms); K1, the ring write and the
-         locate kernel launched on every served block, no plain call.
+         locate kernel launched on every served block, the coupled pipe
+         once for the warmup, no plain call.
 
 Each phase line prints the seconds of the phase before it.
 
@@ -230,18 +241,21 @@ shape and with its launches; ``conv_stack_f32`` in float32, the CUDA-core
 kernel, phase 2b's; ``locate_block``, the realtime engine's locate
 step, which replaces no TPU kernel, timed on fired blocks; ``ring_write``,
 the engine's audio-ring write, which replaces no TPU kernel either;
-``detector_warp_mining``, K1's warp kernel as mining launches it, timed
-over 6b's warmup and recording; ``locate_block_fcnn``, the locate kernel
+``detector_warp_mining``, K1's warp kernel timed over 6b's warmup and
+recording, which no path launches since PR 14; ``locate_block_fcnn``, the locate kernel
 with the learned locator, timed on fired blocks;
 ``conv_stack_f32_imported``, K3 f32 serving the imported reference CCCNN,
 timed at its shape; ``detector_warp_streams``, K1's warp kernel over 8c's
-batch of streams; ``locate_streams``, the locate kernel's stream-batched
+batch of streams, which no path launches either; ``locate_streams``, the locate kernel's stream-batched
 entry at 8c's shape; ``locate_block_cc_refine``, the locate kernel with
-CC refinement, timed on fired blocks).  Launch counts are the sums over
+CC refinement, timed on fired blocks; ``detector_pipe_coupled``, the
+pipe's coupled instantiation over one recording, timed at mining's two
+launches, with the launches of mining, the tuner, the engines' warmups,
+time sharding and 7a; ``detector_pipe_coupled_streams``, the same over
+8c's batch of streams).  Launch counts are the sums over
 the paths that phases 2, 2b, 3, 4, 5c, 6, 7, 8 and 9 drive, each from
 counts set to 0 just before it (``detector_warp`` counts the engines'
-(9c's serve loop's too), mining's, the tuner's (9a) and 7a's launches,
-``locate_block`` the Newton engines', the FCNN rows phase 6's,
+(9c's serve loop's too), ``locate_block`` the Newton engines', the FCNN rows phase 6's,
 ``conv_stack_f32_imported`` 7c's).  Last comes ``{"ok": true, "device":
 {...}}``.
 """
@@ -281,6 +295,13 @@ LANE_OPS = 33.5e12
 #: innermost loops (IIR, dB with log2f, envelopes, linear with exp2f,
 #: min/max, pass 2); -fmad=false leaves no FMA to fuse them
 DETECTOR_OPS_PER_SAMPLE = 77
+#: K1's chain bound for one detector: its longest recurrence, the envelope
+#: step (xdb - y, + eps, the attack/release select, x the step, + y), is
+#: 6 dependent FP32 operations a sample at ~4 cycles each, at the SM clock
+#: (1.98 GHz, as LANE_OPS); T samples cannot take less however many lanes
+#: run beside them
+CHAIN_CYCLES_PER_SAMPLE = 6 * 4
+SM_HZ = 1.98e9
 
 
 def log(*a):
@@ -331,7 +352,7 @@ def check_detector(name, cfg, x, warmup_blocks=WARMUP_BLOCKS):
     )
 
     fst, params, st0, _ = make_fused_detector(cfg, emit_rel=True)
-    kernel = kernel_for(fst.plain)
+    kernel = kernel_for(fst.plain, x.shape[0])
     before = kernel.launches
     lead = x[: warmup_blocks * 128]
     wk = fused_warmup_minmax(fst, params, st0, lead)
@@ -389,7 +410,8 @@ def phase_detector(report):
         x = make_audio(64 * 128, n_ch, seed=seed)
         kernel = check_detector(name, cfg, x)
         want = (_cuda.DETECTOR_PIPE if not cfg.coupled_off_gate
-                else _cuda.DETECTOR_WARP if n_ch <= 32 else _cuda.DETECTOR)
+                else _cuda.DETECTOR_PIPE_COUPLED if n_ch <= 32
+                else _cuda.DETECTOR)
         check(kernel is want, f"K1 {name} routed to {kernel.name}")
         del x
 
@@ -425,6 +447,20 @@ def phase_detector(report):
         f"{ms:.3f} ms, one thread per channel (detector.cu) {old_ms:.3f} ms, "
         f"plain {plain_ms:.1f} ms (one call)")
     del x, sk, so
+
+
+def chain_bound_ms(t):
+    """K1's chain bound over ``t`` samples of one detector (the streams of a
+    batch run side by side)."""
+    return 1e3 * t * CHAIN_CYCLES_PER_SAMPLE / SM_HZ
+
+
+def bounds_line(work, t):
+    """The operations, bytes and chain bounds of K1 work, for a log line."""
+    return (f"bounds: operations {1e3 * work['ops'] / work['peak']:.4f} ms, "
+            f"bytes {1e3 * work['bytes'] / HBM_BPS:.4f} ms, chain "
+            f"{chain_bound_ms(t):.4f} ms (T = {t} x "
+            f"{CHAIN_CYCLES_PER_SAMPLE} cycles / {SM_HZ / 1e9:g} GHz)")
 
 
 def detector_work(shape):
@@ -1035,6 +1071,8 @@ def phase_realtime(report, cpu_ref):
     from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.ops.conv_stack import kernel_for
     from onset_fingerprinting_torch.ops.fused_detector import (
+        _launch,
+        fused_warmup_minmax,
         make_fused_detector,
     )
     from onset_fingerprinting_torch.ops.locate_block import (
@@ -1078,9 +1116,12 @@ def phase_realtime(report, cpu_ref):
         f"launches/plain calls: {counts}")
     for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran on the realtime path")
-    check(_cuda.DETECTOR_WARP.launches == n_blocks + 1,
-          f"coupled K1 launched {_cuda.DETECTOR_WARP.launches} times, want "
-          f"{n_blocks} steps + the warmup")
+    check(_cuda.DETECTOR_WARP.launches == n_blocks
+          and _cuda.DETECTOR_PIPE_COUPLED.variants["coupled"] == 1
+          == _cuda.DETECTOR_PIPE_COUPLED.launches,
+          f"coupled K1 launched {_cuda.DETECTOR_WARP.launches} times on the "
+          f"warp kernel, {_cuda.DETECTOR_PIPE_COUPLED.launches} on the "
+          f"coupled pipe: want {n_blocks} steps and the warmup")
     check(_cuda.LOCATE_BLOCK.launches == n_blocks,
           f"the locate kernel launched {_cuda.LOCATE_BLOCK.launches} times")
     check(_cuda.RING_WRITE.launches == n_blocks,
@@ -1089,13 +1130,15 @@ def phase_realtime(report, cpu_ref):
                     torch.bfloat16)
     check(k3.launches > 0 and all(k.launches == 0 for k in _cuda.KERNELS
                                   if k not in (_cuda.DETECTOR_WARP,
+                                               _cuda.DETECTOR_PIPE_COUPLED,
                                                _cuda.RING_WRITE,
                                                _cuda.LOCATE_BLOCK, k3)),
           f"the classifier's K3 ({k3.name}) did not launch, or another "
           "kernel did")
     log(f"classifier: K3 route for B = {3 * sim.CLS_CAPACITY} signals of "
         f"L = {sim.CLS_WINDOW}: {k3.name} ({k3.launches} launches)")
-    for name in ("detector_warp", "ring_write", "locate_block"):
+    for name in ("detector_warp", "ring_write", "locate_block",
+                 "detector_pipe_coupled"):
         report["_launches"][name] = (report["_launches"].get(name, 0)
                                      + counts[name][0])
     report["_launches"]["classifier"] = counts[k3.name][0]
@@ -1277,9 +1320,25 @@ def phase_realtime(report, cpu_ref):
         f"{RT_CPU_SECONDS:g} s, then {len(quiet)} quiet blocks: state, queue "
         f"and counter identical to plain, points max err {lerr:.3g}")
 
-    # times: K1 per launch in a graph of launches beside detector.cu and an
-    # empty kernel; the locate kernel on quiet and on fired blocks
-    k1 = k1_times(blocks[len(blocks) // 2].contiguous())
+    # times: K1 per launch in a graph of launches, detector_warp.cu and the
+    # coupled pipe in turns, beside detector.cu and an empty kernel; the
+    # locate kernel on quiet and on fired blocks
+    xb = blocks[len(blocks) // 2].contiguous()
+    k1a, k1b = k1_times(xb), k1_times(xb, reverse=True)
+    k1 = {k: (k1a[k] + k1b[k]) / 2 for k in k1a}
+    # the engine's warmup launch ([48000, 3]): the coupled pipe (its route)
+    # and detector_warp.cu in turns, old, new, new, old
+    xw = torch.as_tensor(audio[: sim.WARMUP // 128 * 128], device="cuda")
+    warm_t = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        warm_t[which].append(time_ms(
+            (lambda: fused_warmup_minmax(fst, params, st0, xw)) if which ==
+            "new" else (lambda: _launch(fst, params, st0, xw, False, True,
+                                        _cuda.DETECTOR_WARP)), n=5))
+    log(f"the engine's warmup [{xw.shape[0]}, 3], one launch, in turns: "
+        f"the coupled pipe {warm_t['new']} ms, detector_warp.cu "
+        f"{warm_t['old']} ms; chain bound {chain_bound_ms(xw.shape[0]):.4f}"
+        " ms")
     loc = locate_times(lb, l0, q0, quiet, fired)
     on, d, count = fired[-1]
     side = torch.cuda.Stream()
@@ -1291,15 +1350,22 @@ def phase_realtime(report, cpu_ref):
     with torch.cuda.graph(plain_graph):
         locate_block_reference(lb, lp, qp, on, d, count)
     lplain = per_launch_ms(lambda i: plain_graph.replay(), 100)
-    log(f"K1 at [128, 3] per launch in a graph of 128 launches: "
-        f"detector_warp.cu {k1['detector_warp']:.5f} ms, detector.cu "
+    log(f"K1 at [128, 3] per launch in a graph of 128 launches (the mean of "
+        f"two passes, the second in reverse): detector_warp.cu "
+        f"{k1['detector_warp']:.5f} ms ({k1a['detector_warp']:.5f}, "
+        f"{k1b['detector_warp']:.5f}), the coupled pipe "
+        f"{k1['detector_pipe_coupled']:.5f} ms "
+        f"({k1a['detector_pipe_coupled']:.5f}, "
+        f"{k1b['detector_pipe_coupled']:.5f}), detector.cu "
         f"{k1['detector']:.5f} ms, an empty kernel {k1['empty']:.5f} ms; "
-        f"plain {k1_plain:.3f} ms per block (one call over the blocks)")
+        f"plain {k1_plain:.3f} ms per block (one call over the blocks); "
+        f"chain bound {chain_bound_ms(128):.5f} ms")
     log(f"locate kernel per launch in a graph of launches: quiet blocks "
         f"{loc['quiet']:.5f} ms ({loc['quiet_blocks']}), fired blocks "
         f"{loc['fired']:.5f} ms ({loc['fired_blocks']}, in stream order); "
         f"the plain version replayed from a CUDA graph {lplain[0]:.4f} ms")
     xb = blocks[0]
+    report["_realtime_k1_pipe_ms"] = k1["detector_pipe_coupled"]
     report["detector_warp"] = dict(max_abs_err=0.0, ms=k1["detector_warp"],
                                    plain_ms=k1_plain, library_ms=None,
                                    **detector_work(xb.shape))
@@ -1845,12 +1911,13 @@ def mine(wav, name, n_hits, true_on, true_loc, order):
                    backend="scan")
     sec = time.perf_counter() - t0
     check(jp is not None, f"{name}: nothing mined")
-    check(_cuda.DETECTOR_WARP.launches == 2, f"{name}: K1 launched "
-          f"{_cuda.DETECTOR_WARP.launches} times, want the warmup and the "
+    k1 = _cuda.DETECTOR_PIPE_COUPLED
+    check(k1.launches == k1.variants["coupled"] == 2, f"{name}: the coupled "
+          f"pipe launched {k1.launches} times, want the warmup and the "
           "recording")
     for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran in mining")
-        if k is not _cuda.DETECTOR_WARP:
+        if k is not k1:
             check(k.launches == 0, f"{k.name} ran in mining")
     lags, targets = mined_lags(jp, true_on, true_loc, order)
     log(f"{name}: mined {len(lags)}/{n_hits} hits in {sec:.2f} s "
@@ -1919,9 +1986,8 @@ def phase_journey_patch(report, mine_ref):
     wav = J_DIR / "train_patch" / "train_patch.wav"
     _, true_on, true_loc = journey_session("train_patch", 48, 3)
     lags, targets = mine(wav, "6b", 48, true_on, true_loc, "arrival")
-    # mining's two K1 launches count in both K1 warp rows
-    for name in ("detector_warp", "detector_warp_mining"):
-        report["_launches"][name] = report["_launches"].get(name, 0) + 2
+    add_launches(report, ("detector_pipe_coupled",),
+                 {"detector_pipe_coupled": 2})
 
     # K1 over the whole recording against the plain detector on the CPU
     audio, sr = read_wav(wav)
@@ -1970,25 +2036,53 @@ def phase_journey_patch(report, mine_ref):
         f"{2 * warm} samples (warmup {warm}, then {warm} in one launch, "
         f"{int(op_.sum())} onsets): warmup state, on, deltas, rel and state "
         "bit-identical")
-    # mining's two K1 launches timed together: the 0.5 s warmup and the
-    # recording
+    # mining's two K1 launches over the whole recording, the 0.5 s warmup
+    # and the recording: the route (the coupled pipe) against
+    # detector_warp.cu named, bit for bit, then both timed in turns
+    from onset_fingerprinting_torch.ops.fused_detector import _launch
+
     t = len(audio) // 128 * 128
     w = J_SR // 2 // 128 * 128
     x = torch.as_tensor(audio[:t], device="cuda").contiguous()
 
-    def both():
+    def new():
         st = fused_warmup_minmax(fst, params, st0, x[:w])
-        fused_detect_offline(fst, params, st, x)
+        return st, fused_detect_offline(fst, params, st, x)
 
-    ms = time_ms(both, n=3)
-    log(f"6b K1 (detector_warp.cu) as mining launches it, the warmup "
-        f"[{w}, 3] and the recording [{t}, 3], one launch each: {ms:.3f} ms "
-        f"for both (one CTA of 3 warps on one of the 132 SMs); the plain "
-        f"detector {1e3 * ref['seconds']:.0f} ms for both on one CPU thread")
+    def old():
+        st = _launch(fst, params, st0, x[:w], False, True,
+                     _cuda.DETECTOR_WARP)[0]
+        return st, _launch(fst, params, st, x, True, False,
+                           _cuda.DETECTOR_WARP)
+
+    (wn, (sn, outn)), (wo, (so, outo)) = new(), old()
+    torch.cuda.synchronize()
+    check(states_equal(wn, wo) and states_equal(sn, so)
+          and all(torch.equal(u, v) for u, v in zip(outn, outo)),
+          "6b: the coupled pipe differs from detector_warp.cu over the "
+          "recording")
+    log(f"6b the coupled pipe against detector_warp.cu over [{w}, 3] + "
+        f"[{t}, 3] ({int(outn[0].sum())} onsets): warmup state, on, deltas, "
+        "rel and state bit-identical")
+    del wn, sn, outn, wo, so, outo
+    ms_old = [time_ms(old, n=3)]
+    ms_new = [time_ms(new, n=3), time_ms(new, n=3)]
+    ms_old.append(time_ms(old, n=3))
+    ms, old_ms = sum(ms_new) / 2, sum(ms_old) / 2
     work = detector_work((t + w, 3))
     work["bytes"] += t * 3 * 4  # mining's detection launch writes rel
-    report["detector_warp_mining"] = dict(
+    log(f"6b K1 as mining launches it, the warmup [{w}, 3] and the "
+        f"recording [{t}, 3], one launch each, in turns old, new, new, old: "
+        f"the coupled pipe {ms:.3f} ms ({ms_new[0]:.3f}, {ms_new[1]:.3f}), "
+        f"detector_warp.cu {old_ms:.3f} ms ({ms_old[0]:.3f}, "
+        f"{ms_old[1]:.3f}) for both (one CTA of 3 warps); the plain "
+        f"detector {1e3 * ref['seconds']:.0f} ms for both on one CPU "
+        f"thread; {bounds_line(work, t + w)}")
+    report["detector_pipe_coupled"] = dict(
         max_abs_err=0.0, ms=ms, plain_ms=1e3 * ref["seconds"],
+        library_ms=None, **work)
+    report["detector_warp_mining"] = dict(
+        max_abs_err=0.0, ms=old_ms, plain_ms=1e3 * ref["seconds"],
         library_ms=None, **work)
 
     bundle, err = train("6b", lags, targets, 1500)
@@ -2062,8 +2156,8 @@ def phase_journey_head(report):
 
     wav, true_on, true_loc = journey_session("train_head", 96, 5, False)
     lags, targets = mine(wav, "6c", 96, true_on, true_loc, "by_channel")
-    for name in ("detector_warp", "detector_warp_mining"):
-        report["_launches"][name] += 2
+    add_launches(report, ("detector_pipe_coupled",),
+                 {"detector_pipe_coupled": 2})
     bundle, _ = train("6c", lags, targets, 2500)
     setup = J_DIR / "setup_head"
     save_setup([[r, phi, 0.0] for r, phi in J_SENSORS], "air", None, bundle,
@@ -2249,8 +2343,10 @@ def phase_detect7(report, amp_ref):
     log(f"7a amplitude route: K1 launches/plain calls {counts}; "
         f"{len(on)} onsets in {1e3 * t_amp:.1f} ms (host clock, both "
         "launches)")
-    k1 = (_cuda.DETECTOR, _cuda.DETECTOR_WARP, _cuda.DETECTOR_PIPE)
-    check(sum(k.launches for k in k1) == 2 and all(
+    k1 = (_cuda.DETECTOR, _cuda.DETECTOR_WARP, _cuda.DETECTOR_PIPE,
+          _cuda.DETECTOR_PIPE_COUPLED)
+    check(_cuda.DETECTOR_PIPE_COUPLED.variants["coupled"] == 2
+          and sum(k.launches for k in k1) == 2 and all(
         k.plain_calls == 0 for k in _cuda.KERNELS),
         f"7a: the amplitude route did not run K1 twice alone ({counts})")
     for k in k1:
@@ -2595,6 +2691,9 @@ SERVE_EVENTS = 32
 SERVE_PLAIN_STREAMS = 8
 SERVE_PLAIN_DET_STREAMS = (0, SERVE_STREAMS // 2 - 1, SERVE_STREAMS - 1)
 SERVE_PLAIN_SAMPLES = 24064
+#: 8c: streams the coupled pipe is held to the plain detector on the card
+#: (vmap), over their first SERVE_PLAIN_SAMPLES
+SERVE_VMAP_STREAMS = 64
 #: 8d: the cc_refine engine's CPU reference prefix
 CC_CPU_SECONDS = 2.0
 #: 8e: full-batch steps of the meshed trainer
@@ -2788,10 +2887,11 @@ def phase_time_sharded(report, mesh):
     torch.cuda.synchronize()
     counts = {k.name: k.launches for k in _cuda.KERNELS}
     check(all(k.plain_calls == 0 for k in _cuda.KERNELS)
-          and counts["detector_warp"] == 2,
-          f"8b: want two launches of K1's warp kernel, no plain: {counts}")
-    report["_launches"]["detector_warp_mining"] = (
-        report["_launches"].get("detector_warp_mining", 0) + 2)
+          and counts["detector_pipe_coupled"] == 2
+          and _cuda.DETECTOR_PIPE_COUPLED.variants["coupled"] == 2
+          and sum(counts.values()) == 2,
+          f"8b: want two launches of K1's coupled pipe, no plain: {counts}")
+    add_launches(report, ("detector_pipe_coupled",), counts)
     check(torch.equal(on, on_s) and torch.equal(d[on], d_s[on_s]),
           "8b: time-sharded dense events differ from the sequential")
     want = sorted(zip(*events_from_dense(on_s, d_s, 128)))
@@ -2805,7 +2905,8 @@ def phase_time_sharded(report, mesh):
     log(f"8b: {tuple(x.shape)} recording, time-sharded over the world-1 "
         f"NCCL mesh: {int(on.sum())} dense events equal to the sequential "
         f"K1, the all_gather-ed list of {len(got)} events equal; K1 "
-        f"launches {counts['detector_warp']}; detect_offline_time_sharded "
+        f"launches {counts['detector_pipe_coupled']} (the coupled pipe); "
+        f"detect_offline_time_sharded "
         f"{ms:.3f} ms, detect_events_time_sharded {ems:.3f} ms (CUDA "
         "events, mean of 3, halo and gathers included)")
 
@@ -2829,7 +2930,10 @@ def phase_sharded_serve(report, mesh):
         cccnn_state_dict_from_flax,
     )
     from onset_fingerprinting_torch.ops import _cuda
+    from torch.func import vmap
+
     from onset_fingerprinting_torch.ops.fused_detector import (
+        coupled_plan,
         detector_static,
         fused_detect_streams,
         fused_warmup_minmax,
@@ -2883,13 +2987,14 @@ def phase_sharded_serve(report, mesh):
     log(f"8c: launches {counts}, variants {variants}")
     check(all(k.plain_calls == 0 for k in _cuda.KERNELS),
           "a plain version ran on the sharded serve path")
-    check(_cuda.DETECTOR_WARP.variants["streams"] == 1
-          and counts["detector_warp"] == 1
+    check(_cuda.DETECTOR_PIPE_COUPLED.variants["coupled_streams"] == 1
+          and counts["detector_pipe_coupled"] == 1
+          and counts["detector_warp"] == 0
           and _cuda.LOCATE_BLOCK.variants["streams"] == 1
           and counts["locate_block"] == 1 and counts["conv_stack_mma"] == 1,
-          "8c: want one launch each of K1 over the streams, the "
-          "stream-batched locate kernel and K3")
-    report["_launches"]["detector_warp_streams"] = 1
+          "8c: want one launch each of K1 over the streams (the coupled "
+          "pipe), the stream-batched locate kernel and K3")
+    report["_launches"]["detector_pipe_coupled_streams"] = 1
     report["_launches"]["locate_streams"] = 1
     add_launches(report, ("conv_stack_mma",), counts)
     check(bool(torch.isfinite(preds).all()) and not bool(
@@ -2924,7 +3029,42 @@ def phase_sharded_serve(report, mesh):
     states = DetectorState(*(v.expand((n_s,) + tuple(v.shape)).contiguous()
                              for v in state))
     fst = detector_static(static, params)
-    _, (on_k, d_k, _) = fused_detect_streams(fst, params, states, x)
+    new_k, (on_k, d_k, rel_k) = fused_detect_streams(fst, params, states, x,
+                                                     emit_rel=True)
+    # the same launch on detector_warp.cu (named), bit for bit
+    new_o, (on_o, d_o, rel_o) = fused_detect_streams(
+        fst, params, states, x, emit_rel=True, kernel=_cuda.DETECTOR_WARP)
+    torch.cuda.synchronize()
+    check(torch.equal(on_k, on_o) and torch.equal(d_k, d_o)
+          and torch.equal(rel_k, rel_o) and states_equal(new_k, new_o),
+          "8c: the coupled pipe differs from detector_warp.cu over the "
+          "streams")
+    log(f"8c: K1 over [{n_s}, {n_t}, 3] (the coupled pipe, "
+        f"{coupled_plan(n_s, 3, 128).groups_per_cta} streams a CTA) "
+        f"against detector_warp.cu's stream batch: on, deltas, rel and "
+        f"every state tensor bit-identical ({int(on_k.sum())} onsets)")
+    del new_k, rel_k, new_o, on_o, d_o, rel_o
+    torch.cuda.empty_cache()
+    # and against the plain detector on the card, under vmap (JAX's
+    # route, sharding.py:686), on the first SERVE_VMAP_STREAMS streams
+    nv, tv = SERVE_VMAP_STREAMS, SERVE_PLAIN_SAMPLES
+    sub = DetectorState(*(v[:nv].contiguous() for v in states))
+    xv = x[:nv, :tv].contiguous()
+    new_v, (on_v, d_v, rel_v) = fused_detect_streams(fst, params, sub, xv,
+                                                     emit_rel=True)
+    t0 = time.perf_counter()
+    new_p, (on_p, d_p, rel_p) = vmap(
+        lambda st, xs: detect_offline(static, params, DetectorState(*st),
+                                      xs))(tuple(sub), xv)
+    torch.cuda.synchronize()
+    vmap_ms = 1e3 * (time.perf_counter() - t0)
+    check(torch.equal(on_v, on_p) and torch.equal(d_v, d_p)
+          and torch.equal(rel_v, rel_p) and states_equal(new_v, new_p),
+          "8c: the coupled pipe differs from the plain detector on the card")
+    log(f"8c: the coupled pipe over [{nv}, {tv}, 3] against the plain "
+        f"detector under vmap on the card ({vmap_ms:.0f} ms): on, deltas, "
+        f"rel and every state tensor bit-identical ({int(on_v.sum())} "
+        "onsets)")
     ev_on, chs = stream_events(on_k, d_k, 128, SERVE_EVENTS)
     check(torch.equal(ev_on, onsets), "8c: events differ between runs")
     t0 = time.perf_counter()
@@ -2954,24 +3094,40 @@ def phase_sharded_serve(report, mesh):
         check(torch.equal(on_s, on_p) and torch.equal(d_s, d_p),
               f"8c: K1 over streams differs from plain, stream {s}")
     det_plain_ms = 1e3 * (time.perf_counter() - t0)
-    log(f"8c: K1 (detector_warp.cu, one CTA per stream) at the full shape "
+    log(f"8c: K1 (the coupled pipe) at the full shape "
         f"equal to the plain detector on the CPU on streams "
         f"{SERVE_PLAIN_DET_STREAMS} over their first {td} samples (max err "
         f"{det_err:g}; {det_plain_ms:.0f} ms plain)")
 
-    # times: K1 over the streams, the locate kernel, at 8c's shape
-    det_ms = time_ms(lambda: fused_detect_streams(fst, params, states, x),
-                     n=3)
+    # times: K1 over the streams in turns (old, new, new, old), the locate
+    # kernel, at 8c's shape
+    def k1_new():
+        fused_detect_streams(fst, params, states, x)
+
+    def k1_old():
+        fused_detect_streams(fst, params, states, x,
+                             kernel=_cuda.DETECTOR_WARP)
+
+    old_t = [time_ms(k1_old, n=3)]
+    new_t = [time_ms(k1_new, n=3), time_ms(k1_new, n=3)]
+    old_t.append(time_ms(k1_old, n=3))
+    det_ms, old_ms = sum(new_t) / 2, sum(old_t) / 2
     loc_ms = time_ms(lambda: locate_streams(lb, onsets, chs), n=20)
     run_ms = time_ms(lambda: run(x), n=3)
-    log(f"8c: K1 over {n_s} streams x {n_t} x 3 {det_ms:.3f} ms; the "
+    work = detector_work((n_t, n_s * 3))
+    log(f"8c: K1 over {n_s} streams x {n_t} x 3 in turns old, new, new, "
+        f"old: the coupled pipe {det_ms:.3f} ms ({new_t[0]:.3f}, "
+        f"{new_t[1]:.3f}), detector_warp.cu {old_ms:.3f} ms "
+        f"({old_t[0]:.3f}, {old_t[1]:.3f}); {bounds_line(work, n_t)}; the "
         f"stream-batched locate kernel {loc_ms:.4f} ms ({n_s} x "
         f"{SERVE_EVENTS} events); run() {run_ms:.3f} ms for "
         f"{SERVE_SECONDS:g} s of {n_s} streams")
-    report["detector_warp_streams"] = dict(
+    report["detector_pipe_coupled_streams"] = dict(
         max_abs_err=det_err, ms=det_ms, plain_ms=det_plain_ms,
-        library_ms=None,
-        **detector_work((n_t, n_s * 3)))
+        library_ms=None, **work)
+    report["detector_warp_streams"] = dict(
+        max_abs_err=det_err, ms=old_ms, plain_ms=det_plain_ms,
+        library_ms=None, **work)
     ev_bytes = n_s * SERVE_EVENTS * (4 + 4 + 8 + 1)
     report["locate_streams"] = dict(
         max_abs_err=lerr, ms=loc_ms, plain_ms=plain_ms, library_ms=None,
@@ -3027,9 +3183,13 @@ def phase_cc_refine(report, cc_ref):
     counts = {k.name: k.launches for k in _cuda.KERNELS}
     check(all(k.plain_calls == 0 for k in _cuda.KERNELS)
           and _cuda.LOCATE_BLOCK.variants["cc_refine"] == n_blocks
-          and counts["locate_block"] == n_blocks,
-          f"8d: want {n_blocks} refining locate launches: {counts}")
-    add_launches(report, ("detector_warp", "ring_write"), counts)
+          and counts["locate_block"] == n_blocks
+          and counts["detector_warp"] == n_blocks
+          and counts["detector_pipe_coupled"] == 1,
+          f"8d: want {n_blocks} refining locate launches and K1 steps, one "
+          f"K1 warmup (the coupled pipe): {counts}")
+    add_launches(report, ("detector_warp", "ring_write",
+                          "detector_pipe_coupled"), counts)
     report["_launches"]["locate_block_cc_refine"] = n_blocks
     matched, med, ok = sim.locate_gates(hits, events)
     log(f"8d: captured step {types} {names}; {len(events)} hits, "
@@ -3308,13 +3468,13 @@ def phase_tuner(report, tuner_ref):
     secs = []
     for values, ref in zip(TUNER_SETTINGS, tuner_ref):
         tuner.values = dict(defaults, **values)
-        before = _cuda.DETECTOR_WARP.launches
+        before = _cuda.DETECTOR_PIPE_COUPLED.variants["coupled"]
         t0 = time.perf_counter()
         ch, on, groups = tuner.detect()
         secs.append(time.perf_counter() - t0)
-        check(_cuda.DETECTOR_WARP.launches == before + 2,
-              f"9a: detect() launched K1 "
-              f"{_cuda.DETECTOR_WARP.launches - before} times, want 2")
+        got = _cuda.DETECTOR_PIPE_COUPLED.variants["coupled"] - before
+        check(got == 2, f"9a: detect() launched the coupled pipe {got} "
+              "times, want 2")
         want = wait_cpu_reference(*ref)
         same = (np.array_equal(np.asarray(ch), want["channels"])
                 and np.array_equal(np.asarray(on), want["onsets"])
@@ -3333,17 +3493,18 @@ def phase_tuner(report, tuner_ref):
     tuner.detect()
     lat = time.perf_counter() - t0
     counts = {k.name: (k.launches, k.plain_calls) for k in _cuda.KERNELS}
+    k1 = _cuda.DETECTOR_PIPE_COUPLED
     check(all(k.plain_calls == 0 for k in _cuda.KERNELS)
-          and _cuda.DETECTOR_WARP.launches == 2 * (len(TUNER_SETTINGS) + 1)
-          and all(k.launches == 0 for k in _cuda.KERNELS
-                  if k is not _cuda.DETECTOR_WARP),
-          f"9a: want K1 warp launches only, 2 per detect(): {counts}")
-    add_launches(report, ("detector_warp",),
-                 {"detector_warp": _cuda.DETECTOR_WARP.launches})
+          and k1.launches == 2 * (len(TUNER_SETTINGS) + 1)
+          and all(k.launches == 0 for k in _cuda.KERNELS if k is not k1),
+          f"9a: want K1 coupled-pipe launches only, 2 per detect(): "
+          f"{counts}")
+    add_launches(report, ("detector_pipe_coupled",),
+                 {"detector_pipe_coupled": k1.launches})
     log(f"9a: {audio.shape} recording; detect() host time per setting "
         f"{[round(1e3 * s, 3) for s in secs]} ms (the first cold); a slider "
         f"change at the defaults, warm: {1e3 * lat:.3f} ms (host clock, "
-        f"two K1 launches, onset grouping)")
+        f"two K1 launches on the coupled pipe, onset grouping)")
     return tuner
 
 
@@ -3377,12 +3538,16 @@ def phase_trace(tuner):
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
     spans = [e for e in events if e.get("name") == "tuner.detect"]
     k1 = [n for n in kernels if "detector_warp_kernel" in n]
+    pipe = [n for n in kernels if "detector_pipe_kernel" in n]
     obs = metrics.summary()["latency"].get("tuner.detect", {})
     log(f"9b: {files[0].name} ({files[0].stat().st_size} B): "
         f"{len(events)} events, {len(kernels)} kernel events "
         f"({sorted(set(kernels))[:6]}), {len(spans)} 'tuner.detect' spans; "
         f"Metrics: {obs}")
     check(kernels, "9b: the trace holds no CUDA kernel event (CUPTI)")
+    log(f"9b: K1's kernels in the trace: the steps' warp kernel "
+        f"{len(k1)} times, the tuner's coupled pipe {len(pipe)} times "
+        "(CUPTI may drop the first launches of a trace)")
     check(spans and k1, "9b: the trace does not name the span and K1")
     check(obs.get("count") == 1, "9b: Metrics did not observe the span")
 
@@ -3413,12 +3578,14 @@ def phase_serve(report):
                               if not isinstance(v, list)}))
     n = s["blocks"]
     check(all(plain == 0 for _, plain in counts.values())
-          and counts["detector_warp"][0] == n + 2
+          and counts["detector_warp"][0] == n + 1
+          and counts["detector_pipe_coupled"][0] == 1
           and counts["ring_write"][0] == n + 1
           and counts["locate_block"][0] == n + 1,
-          f"9c: want {n} served blocks' launches + the first step's (K1 "
-          f"+ the warmup's): {counts}")
-    add_launches(report, ("detector_warp", "ring_write", "locate_block"),
+          f"9c: want {n} served blocks' launches + the first step's, and "
+          f"the warmup's on the coupled pipe: {counts}")
+    add_launches(report, ("detector_warp", "ring_write", "locate_block",
+                          "detector_pipe_coupled"),
                  {k: v[0] for k, v in counts.items()})
 
 
@@ -3505,13 +3672,14 @@ def main(argv=None) -> int:
         log(smi)
         log(json.dumps({"kernels": kernel_rows(report, (
             "detector_warp_streams", "locate_streams",
-            "locate_block_cc_refine"))}))
+            "locate_block_cc_refine", "detector_pipe_coupled_streams"))}))
         return 0
     if only6:
         phase6(report, mine_ref, phase)
         log(smi)
         log(json.dumps({"kernels": kernel_rows(report, (
-            "detector_warp_mining", "locate_block_fcnn"))}))
+            "detector_warp_mining", "locate_block_fcnn",
+            "detector_pipe_coupled"))}))
         return 0
     if only7:
         from onset_fingerprinting_torch.tools.fingerprint_capability import (
@@ -3651,6 +3819,16 @@ def kernel_rows(report, names=None):
             "onset_fingerprinting_torch/csrc/locate_block.cu",
             "onset_fingerprinting_tpu/locate/multilaterate.py:661",
             "locate_block_cc_refine"),
+        # K1 coupled over a long signal: the pipe's coupled instantiation,
+        # one recording (mining's shape) and a batch of streams (8c)
+        "detector_pipe_coupled": (
+            "onset_fingerprinting_torch/csrc/detector_pipe.cu",
+            "onset_fingerprinting_tpu/ops/pallas_detector.py:85",
+            "detector_pipe_coupled"),
+        "detector_pipe_coupled_streams": (
+            "onset_fingerprinting_torch/csrc/detector_pipe.cu",
+            "onset_fingerprinting_tpu/ops/pallas_detector.py:85",
+            "detector_pipe_coupled_streams"),
     }
     kernels = []
     for name, (src, replaces, counter) in sources.items():

@@ -184,35 +184,60 @@ def detector_init(
     return static, params, state
 
 
+def iir_step(b: list, a: list, z: list, xt: torch.Tensor,
+             use_hipass: bool):
+    """One sample of the DF2T high-pass (identity when off) → ``(z, y)``."""
+    if not use_hipass:
+        return z, xt
+    order = len(z)
+    y = b[0] * xt + z[0]
+    z = [
+        (b[i + 1] * xt + z[i + 1] if i + 1 < order else b[i + 1] * xt)
+        - a[i + 1] * y
+        for i in range(order)
+    ]
+    return z, y
+
+
+def db_step(k: dict, y: torch.Tensor) -> torch.Tensor:
+    """Rectified floor-clipped dB of the filtered sample (no recurrence)."""
+    xdb = k["k_db"] * torch.log2(torch.abs(y + k["eps"]))
+    return torch.clamp(xdb, min=k["floor"])
+
+
 def iir_db_step(k: dict, b: list, a: list, z: list, xt: torch.Tensor,
                 use_hipass: bool):
     """One sample of the first chain: DF2T high-pass (identity when off)
     → rectified floor-clipped dB.  Returns ``(z, xdb)``."""
-    if use_hipass:
-        order = len(z)
-        y = b[0] * xt + z[0]
-        z = [
-            (b[i + 1] * xt + z[i + 1] if i + 1 < order else b[i + 1] * xt)
-            - a[i + 1] * y
-            for i in range(order)
-        ]
-    else:
-        y = xt
-    xdb = k["k_db"] * torch.log2(torch.abs(y + k["eps"]))
-    return z, torch.clamp(xdb, min=k["floor"])
+    z, y = iir_step(b, a, z, xt, use_hipass)
+    return z, db_step(k, y)
+
+
+def envelope_step(k: dict, yf: torch.Tensor, ys: torch.Tensor,
+                  xdb: torch.Tensor):
+    """One sample of the fast and slow AR envelopes → ``(yf, ys, their
+    dB difference)``."""
+    eps = k["eps"]
+    df = xdb - yf + eps
+    yf = yf + torch.where(df > 0, k["fa"], k["fr"]) * df
+    ds = xdb - ys + eps
+    ys = ys + torch.where(ds > 0, k["sa"], k["sr"]) * ds
+    return yf, ys, yf - ys
+
+
+def rel_step(k: dict, d: torch.Tensor) -> torch.Tensor:
+    """The envelopes' dB difference → clipped linear relative envelope (no
+    recurrence)."""
+    rel = torch.exp2(d * k["k_lin"]) - k["eps"]
+    return torch.clamp(rel, 0.0, -k["floor"])
 
 
 def envelope_rel_step(k: dict, yf: torch.Tensor, ys: torch.Tensor,
                       xdb: torch.Tensor):
     """One sample of the second chain: fast and slow AR envelopes → clipped
     linear relative envelope.  Returns ``(yf, ys, rel)``."""
-    eps = k["eps"]
-    df = xdb - yf + eps
-    yf = yf + torch.where(df > 0, k["fa"], k["fr"]) * df
-    ds = xdb - ys + eps
-    ys = ys + torch.where(ds > 0, k["sa"], k["sr"]) * ds
-    rel = torch.exp2((yf - ys) * k["k_lin"]) - eps
-    return yf, ys, torch.clamp(rel, 0.0, -k["floor"])
+    yf, ys, d = envelope_step(k, yf, ys, xdb)
+    return yf, ys, rel_step(k, d)
 
 
 def minmax_step(k: dict, mn: torch.Tensor, mx: torch.Tensor,

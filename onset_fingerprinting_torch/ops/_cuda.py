@@ -44,14 +44,17 @@ _I = ctypes.c_int
 
 
 class Kernel:
-    """One ``.cu`` source: its C entry points, build flags and counters."""
+    """One ``.cu`` source: its C entry points, build flags and counters.
+    ``library``: another record whose library holds these entries too (one
+    source, two routes counted apart, built once)."""
 
     def __init__(self, name: str, source: str, entries: dict,
-                 extra_flags: tuple = ()):
+                 extra_flags: tuple = (), library: Kernel | None = None):
         self.name = name
         self.source = source
         self.entries = entries
         self.flags = NVCC_FLAGS + tuple(extra_flags)
+        self.library = library
         self.launches = 0
         self.plain_calls = 0
         self.backward_recomputes = 0
@@ -59,6 +62,8 @@ class Kernel:
         self._lib = None
 
     def library_path(self) -> Path:
+        if self.library is not None:
+            return self.library.library_path()
         h = hashlib.sha256(
             (CSRC / self.source).read_bytes() + " ".join(self.flags).encode()
         ).hexdigest()[:16]
@@ -104,11 +109,13 @@ def build(kernels=None) -> dict[str, str]:
     given kernels, default all.  Returns each newly compiled kernel's
     compiler output (``-Xptxas -v``: registers, shared memory, spills)."""
     kernels = list(KERNELS if kernels is None else kernels)
+    kernels += [k.library for k in kernels
+                if k.library is not None and k.library not in kernels]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for k in kernels:
         out = k.library_path()
-        if k._lib is not None or out.exists():
+        if k._lib is not None or out.exists() or k.library is not None:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *k.flags, "-o", str(tmp), str(CSRC / k.source)]
@@ -165,6 +172,14 @@ DETECTOR_PIPE = Kernel(
     # the same rounding as detector.cu and the plain version
     extra_flags=("-fmad=false",),
 )
+# K1 in the coupled mode over more than one block at C <= 32: the pipe's
+# coupled instantiation (lane groups), from the same library; variants
+# "coupled" (one recording) and "coupled_streams" (a batch of streams)
+DETECTOR_PIPE_COUPLED = Kernel(
+    "detector_pipe_coupled", "detector_pipe.cu",
+    {"ofpt_detect_pipe_coupled": [_P, _I, _I] + [_P] * 18},
+    extra_flags=("-fmad=false",), library=DETECTOR_PIPE,
+)
 GATHER = Kernel(
     "gather", "gather.cu",
     {"ofpt_gather": [_P, _P, _P, _P] + [_I] * 7 + [_P]},
@@ -206,6 +221,7 @@ RING_WRITE = Kernel(
     "ring_write", "ring_write.cu",
     {"ofpt_ring_write": [_P, _P, _P, _I, _I, _I, _P]},
 )
-KERNELS = (DETECTOR, DETECTOR_WARP, DETECTOR_PIPE, GATHER, CONV_STACK,
+KERNELS = (DETECTOR, DETECTOR_WARP, DETECTOR_PIPE, DETECTOR_PIPE_COUPLED,
+           GATHER, CONV_STACK,
            CONV_STACK_MMA, GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC,
            LOCATE_BLOCK, RING_WRITE)

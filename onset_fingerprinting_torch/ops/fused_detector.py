@@ -2,9 +2,9 @@
 
 Port of ``onset_fingerprinting_tpu.ops.pallas_detector``.  One launch runs
 a whole chunk ``x [T, C]`` with all state carried; the plain version is
-``detect.amplitude.detect_offline`` / ``warmup_minmax``.  Three kernels,
-and :func:`kernel_for` (a static test of the config, no fallback) says
-which:
+``detect.amplitude.detect_offline`` / ``warmup_minmax``.  Three kernels
+(four routes), and :func:`kernel_for` (a static test of the config and
+the chunk's length T, no fallback) says which:
 
 - ``coupled_off=False`` (the fleet path) with a block a multiple of
   ``PIPE_SUB_ROWS``: ``csrc/detector_pipe.cu`` (counter
@@ -12,13 +12,21 @@ which:
   channels, one per lane, and runs three warps over them, one chain of the
   per-sample scan each, handing sub-blocks of 16 rows through rings in
   shared memory (:func:`pipe_plan`);
-- ``coupled_off=True`` (a barrier across all channels per block) at most
-  ``WARP_MAX_CHANNELS`` channels (the realtime engine's): ``csrc/
-  detector_warp.cu`` (counter ``_cuda.DETECTOR_WARP``), one CTA, one warp
-  per channel, the element-wise passes spread over the lanes;
-  :func:`fused_detect_streams` runs it over a batch of independent
-  streams in one launch, one CTA per stream (variant ``"streams"``: the
-  sharded serve path's coupled detector);
+- ``coupled_off=True`` (the off check couples a detector's channels) at
+  most ``WARP_MAX_CHANNELS`` channels over more than one block (mining,
+  the tuner, the engine's warmup, time sharding): the same pipe's coupled
+  instantiation (counter ``_cuda.DETECTOR_PIPE_COUPLED``, variant
+  ``"coupled"``), its lanes in groups of C, one detector per group
+  (:func:`coupled_plan`); :func:`fused_detect_streams` runs it over a
+  batch of independent streams in one launch, several streams a CTA
+  (variant ``"coupled_streams"``: the sharded serve path's);
+- the same at one block (T equal to the block size: the realtime engine's
+  step, captured in its CUDA graph): ``csrc/detector_warp.cu`` (counter
+  ``_cuda.DETECTOR_WARP``), one CTA, one warp per channel, the
+  element-wise passes spread over the lanes.  It takes the step because
+  a ``[128, 3]`` launch is latency, not throughput: PR 7 shaped it for
+  that, and the pipe's three-stage hand-off only pays over many
+  sub-blocks (``PERF.md`` times both there);
 - ``coupled_off=True`` with more channels (at most 1024):
   ``csrc/detector.cu`` (counter ``_cuda.DETECTOR``), one thread per
   channel.  So does a block size the pipe has no plan for (not a multiple
@@ -79,6 +87,15 @@ PIPE_X_SLOTS = 3
 PIPE_DB_SLOTS = 2
 #: registers per thread that ``__launch_bounds__(96, 8)`` leaves
 PIPE_REGS = 80
+#: the coupled instantiation: ``__launch_bounds__(96, 4)``
+COUPLED_REGS = 168
+#: the coupled instantiation's rel ring, in blocks (its REL_BLOCKS); the
+#: most live lanes at which it spreads the dB and exp2 over all lanes (its
+#: SPREAD_LANES), and the rows of a sub-block then, where the block size
+#: allows (its SB_FEW)
+COUPLED_REL_BLOCKS = 2
+COUPLED_SPREAD_LANES = 8
+COUPLED_FEW_SUB_ROWS = 64
 #: the H100's per-SM limits: shared memory (and the 1 KB the system
 #: reserves of it per CTA), resident threads, CTAs, registers; its SMs
 SM_SMEM, CTA_SMEM_RESERVED, CTA_SMEM_MAX = 233472, 1024, 232448
@@ -120,15 +137,16 @@ class PipePlan(NamedTuple):
     waves: int
 
 
-def pipe_plan(n_channels: int, block_size: int) -> PipePlan | None:
+def pipe_plan(n_channels: int, block_size: int, rel_blocks: int = 1,
+              sub_rows: int = PIPE_SUB_ROWS) -> PipePlan | None:
     """The pipelined kernel's launch plan, or None where it takes no such
-    block size (not a multiple of ``PIPE_SUB_ROWS``, or a whole block of
-    rel that would not fit one CTA's shared memory).  Mirrors
+    block size (not a multiple of ``sub_rows``, or ``rel_blocks`` whole
+    blocks of rel that would not fit one CTA's shared memory).  Mirrors
     ``csrc/detector_pipe.cu::pipe_smem_bytes`` and its launch."""
-    if block_size <= 0 or block_size % PIPE_SUB_ROWS:
+    if block_size <= 0 or block_size % sub_rows:
         return None
-    rel_slots = block_size // PIPE_SUB_ROWS
-    slot = PIPE_SUB_ROWS * PIPE_CHANNELS * 4
+    rel_slots = rel_blocks * block_size // sub_rows
+    slot = sub_rows * PIPE_CHANNELS * 4
     n_bars = 2 * PIPE_DB_SLOTS + 2 * rel_slots
     smem = (-(-8 * n_bars // 16) * 16
             + (PIPE_X_SLOTS + PIPE_DB_SLOTS + rel_slots) * slot)
@@ -138,9 +156,65 @@ def pipe_plan(n_channels: int, block_size: int) -> PipePlan | None:
     ctas = -(-n_channels // PIPE_CHANNELS)
     per_sm = min(SM_SMEM // (smem + CTA_SMEM_RESERVED), SM_THREADS // threads,
                  SM_CTAS, SM_REGS // (threads * PIPE_REGS))
-    return PipePlan(PIPE_CHANNELS, PIPE_ROLES, threads, PIPE_SUB_ROWS,
+    return PipePlan(PIPE_CHANNELS, PIPE_ROLES, threads, sub_rows,
                     PIPE_X_SLOTS, PIPE_DB_SLOTS, rel_slots, smem, ctas, per_sm,
                     -(-ctas // (SMS * per_sm)))
+
+
+class CoupledPlan(NamedTuple):
+    """How the pipe's coupled instantiation lays S detectors of C coupled
+    channels out on the card (its rings are :func:`pipe_plan`'s)."""
+
+    channels: int         # C, one lane each
+    groups_per_cta: int   # detectors (streams) a CTA holds, a lane group
+    #                       each
+    live_lanes: int       # groups_per_cta * C: a ring row's width
+    spread: bool          # dB and exp2 across all lanes (few live lanes)
+    sub_rows: int         # rows of a sub-block (more with few live lanes)
+    rel_slots: int        # the rel ring: COUPLED_REL_BLOCKS blocks
+    threads: int
+    smem_bytes: int       # dynamic shared memory of one CTA
+    ctas: int
+    ctas_per_sm: int      # the least of the shared-memory, thread, CTA and
+    #                       register limits
+    waves: int
+
+
+def coupled_plan(n_streams: int, n_channels: int, block_size: int,
+                 groups_per_cta: int | None = None) -> CoupledPlan | None:
+    """The coupled pipe's launch plan for ``n_streams`` detectors of
+    ``n_channels`` coupled channels, or None where it takes no such
+    detector (more than 32 channels, or a block size with no pipe plan).
+    By default a CTA takes ``ceil(S / SMS)`` groups, at most ``32 // C``:
+    one CTA per SM first, then more groups a CTA (at 1024 streams of 3,
+    8 a CTA and 10 a CTA read alike on the H100).  At most
+    ``COUPLED_SPREAD_LANES`` live lanes spread the dB and exp2 and take
+    sub-blocks of ``COUPLED_FEW_SUB_ROWS``.  ``groups_per_cta`` overrides
+    the layout (a measurement compares layouts).  Mirrors
+    ``csrc/detector_pipe.cu``'s ``ofpt_detect_pipe_coupled``."""
+    if (pipe_plan(n_channels, block_size) is None
+            or not 1 <= n_channels <= WARP_MAX_CHANNELS):
+        return None
+    most = PIPE_CHANNELS // n_channels
+    gpc = (min(most, max(1, -(-n_streams // SMS))) if groups_per_cta is None
+           else groups_per_cta)
+    if not 1 <= gpc <= most:
+        raise ValueError(f"{gpc} groups of {n_channels} channels do not fit "
+                         f"{PIPE_CHANNELS} lanes")
+    few = gpc * n_channels <= COUPLED_SPREAD_LANES
+    rows = (COUPLED_FEW_SUB_ROWS
+            if few and block_size % COUPLED_FEW_SUB_ROWS == 0
+            else PIPE_SUB_ROWS)
+    pipe = pipe_plan(n_channels, block_size, COUPLED_REL_BLOCKS, rows)
+    if pipe is None:
+        return None
+    ctas = -(-n_streams // gpc)
+    per_sm = min(SM_SMEM // (pipe.smem_bytes + CTA_SMEM_RESERVED),
+                 SM_THREADS // pipe.threads, SM_CTAS,
+                 SM_REGS // (pipe.threads * COUPLED_REGS))
+    return CoupledPlan(n_channels, gpc, gpc * n_channels, few, rows,
+                       pipe.rel_slots, pipe.threads, pipe.smem_bytes, ctas,
+                       per_sm, -(-ctas // (SMS * per_sm)))
 
 
 def warp_smem_bytes(n_channels: int, block_size: int) -> int:
@@ -149,19 +223,28 @@ def warp_smem_bytes(n_channels: int, block_size: int) -> int:
     return 2 * n_channels * (block_size + 1) * 4
 
 
-def kernel_for(static: _Static) -> _cuda.Kernel:
-    """The kernel a CUDA chunk of this detector runs on: the pipelined
-    kernel for per-channel gating, the warp-per-channel kernel for the
-    coupled off-gate at up to ``WARP_MAX_CHANNELS`` channels, else
-    ``detector.cu`` (more coupled channels, or a block size with no pipe
-    plan: a size no config uses).  A static test; no launch ever swaps
-    kernels."""
+def kernel_for(static: _Static, t: int | None = None) -> _cuda.Kernel:
+    """The kernel a CUDA chunk of ``t`` samples (default one block) of this
+    detector runs on: the pipe for per-channel gating; for the coupled
+    off-gate at up to ``WARP_MAX_CHANNELS`` channels the pipe's coupled
+    instantiation over more than one block, the warp-per-channel kernel
+    for one block (the engine's step); else ``detector.cu`` (more coupled
+    channels, or a block size whose rings exceed one CTA's shared memory:
+    the pipe's, the coupled pipe's two blocks of rel, the warp kernel's two
+    stages; no config uses such a size).  A static test; no launch ever
+    swaps kernels."""
     c, bsz = static.n_channels, static.block_size
+    t = bsz if t is None else t
     if pipe_plan(c, bsz) is None:
         return _cuda.DETECTOR
     if not static.coupled_off:
         return _cuda.DETECTOR_PIPE
-    if c <= WARP_MAX_CHANNELS and warp_smem_bytes(c, bsz) <= CTA_SMEM_MAX:
+    if c > WARP_MAX_CHANNELS:
+        return _cuda.DETECTOR
+    if t > bsz:
+        return (_cuda.DETECTOR_PIPE_COUPLED if coupled_plan(1, c, bsz)
+                else _cuda.DETECTOR)
+    if warp_smem_bytes(c, bsz) <= CTA_SMEM_MAX:
         return _cuda.DETECTOR_WARP
     return _cuda.DETECTOR
 
@@ -247,7 +330,8 @@ def _launch(fstatic: FusedDetectorStatic, params: DetectorParams,
     another one takes."""
     kernel, entry, args, res, _keep = launch_args(
         fstatic, params, state, x, emit_rel, warmup, kernel, out)
-    kernel.launch(entry, *args)
+    kernel.launch(entry, *args, variant="coupled"
+                  if entry == "ofpt_detect_pipe_coupled" else "")
     return res
 
 
@@ -263,14 +347,19 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
     _check(fstatic, params, state, x, out)
     s = fstatic.plain
     if kernel is None:
-        kernel = kernel_for(s)
+        kernel = kernel_for(s, x.shape[0])
     pipe = "ofpt_detect_pipe" in kernel.entries
+    coupled = "ofpt_detect_pipe_coupled" in kernel.entries
     warp = "ofpt_detect_warp" in kernel.entries
-    if pipe and pipe_plan(s.n_channels, s.block_size) is None:
+    if (pipe or coupled) and pipe_plan(s.n_channels, s.block_size) is None:
         raise ValueError(f"the pipelined detector takes no block size "
                          f"{s.block_size}")
     if pipe and s.coupled_off:
-        raise ValueError("the pipelined detector does not couple channels")
+        raise ValueError("the per-channel pipe does not couple channels")
+    if coupled and (not s.coupled_off
+                    or s.n_channels > WARP_MAX_CHANNELS):
+        raise ValueError(f"the coupled pipe takes a coupled detector of at "
+                         f"most {WARP_MAX_CHANNELS} channels")
     if warp and (s.n_channels > WARP_MAX_CHANNELS or warp_smem_bytes(
             s.n_channels, s.block_size) > CTA_SMEM_MAX):
         raise ValueError(f"the warp-per-channel detector takes at most "
@@ -286,7 +375,8 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
     else:
         new = write_into(out, state)
     bt_in = state.bt_pos
-    if s.backtrack and not warp and bt_in.data_ptr() == new.bt_pos.data_ptr():
+    if (s.backtrack and not (warp or coupled)
+            and bt_in.data_ptr() == new.bt_pos.data_ptr()):
         # many CTAs read it while the first one writes it
         bt_in = bt_in.clone()
     dev = x.device
@@ -316,6 +406,9 @@ def launch_args(fstatic: FusedDetectorStatic, params: DetectorParams,
     if pipe:
         return (kernel, "ofpt_detect_pipe", (*args, _cuda.stream()), res,
                 (p, bt_in))
+    if coupled:  # one recording: one stream, one lane group
+        return (kernel, "ofpt_detect_pipe_coupled",
+                (args[0], 1, 1, *args[1:], _cuda.stream()), res, (p, bt_in))
     if warp:
         return (kernel, "ofpt_detect_warp", (*args, _cuda.stream()), res,
                 (p, bt_in))
@@ -342,7 +435,7 @@ def fused_detect_offline(fstatic: FusedDetectorStatic, params: DetectorParams,
     writes no relative envelope.  ``out``: a state to write the new state
     into (it may be ``state``); the new state is then ``out``."""
     if x.device.type == "cpu":
-        kernel_for(fstatic.plain).plain_calls += 1
+        kernel_for(fstatic.plain, x.shape[0]).plain_calls += 1
         st, (on, d, rel) = detect_offline(fstatic.plain, params, state, x,
                                           out=out)
         return st, (on, d, rel if emit_rel else None)
@@ -352,12 +445,19 @@ def fused_detect_offline(fstatic: FusedDetectorStatic, params: DetectorParams,
 
 def fused_detect_streams(fstatic: FusedDetectorStatic,
                          params: DetectorParams, states: DetectorState,
-                         x: torch.Tensor, emit_rel: bool = False):
-    """The detector over a batch of independent streams ``x [S, T, C]``,
-    each from its own state (``states``: every field with a leading stream
-    axis), in ONE launch: the coupled detector of
-    ``csrc/detector_warp.cu``, one CTA per stream (variant ``"streams"``);
-    the plain version runs ``detect_offline`` stream by stream.  Returns
+                         x: torch.Tensor, emit_rel: bool = False,
+                         groups_per_cta: int | None = None,
+                         kernel: _cuda.Kernel | None = None):
+    """The coupled detector over a batch of independent streams ``x [S, T,
+    C]``, each from its own state (``states``: every field with a leading
+    stream axis), in ONE launch of the kernel :func:`kernel_for` names for
+    T: over more than one block the pipe's coupled instantiation, several
+    streams a CTA, one lane group each (:func:`coupled_plan`, variant
+    ``"coupled_streams"``; ``groups_per_cta`` overrides the plan's layout
+    for a measurement), at one block ``csrc/detector_warp.cu``, one CTA per
+    stream (variant ``"streams"``); the plain version runs
+    ``detect_offline`` stream by stream.  Only a measurement names
+    ``kernel``, to time one kernel at a length the other takes.  Returns
     ``(new states, (on [S, nb, C], deltas [S, nb, C], rel [S, T, C] or
     None))``; ``states`` stay as they were."""
     s = fstatic.plain
@@ -365,7 +465,7 @@ def fused_detect_streams(fstatic: FusedDetectorStatic,
         raise ValueError("x must be [S, T, C]")
     n, t, c = x.shape
     if x.device.type == "cpu":
-        _cuda.DETECTOR_WARP.plain_calls += 1
+        kernel_for(s, t).plain_calls += 1
         res = [detect_offline(s, params, DetectorState(*(v[i] for v in
                                                          states)), x[i])
                for i in range(n)]
@@ -373,10 +473,12 @@ def fused_detect_streams(fstatic: FusedDetectorStatic,
             *(r[0] for r in res))))
         on, d, rel = (torch.stack(f) for f in zip(*(r[1] for r in res)))
         return new, (on, d, rel if emit_rel else None)
-    if kernel_for(s) is not _cuda.DETECTOR_WARP:
+    kernel = kernel_for(s, t) if kernel is None else kernel
+    warp = "ofpt_detect_warp_streams" in kernel.entries
+    if not (warp or "ofpt_detect_pipe_coupled" in kernel.entries):
         raise ValueError(
-            "the stream-batched detector runs detector_warp.cu: a coupled "
-            f"config of at most {WARP_MAX_CHANNELS} channels")
+            "the stream-batched detector takes a coupled config of at most "
+            f"{WARP_MAX_CHANNELS} channels")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("x must be a contiguous float32 [S, T, C] tensor")
     if t % s.block_size or c != s.n_channels:
@@ -397,17 +499,24 @@ def fused_detect_streams(fstatic: FusedDetectorStatic,
     rel = (torch.empty((n, t, c), dtype=torch.float32, device=x.device)
            if emit_rel else None)
     p = _det_params(fstatic, t, c, emit_rel, False)
-    _cuda.DETECTOR_WARP.launch(
-        "ofpt_detect_warp_streams", ctypes.addressof(p), n, x.data_ptr(),
-        params.on_threshold.contiguous().data_ptr(),
-        params.off_threshold.contiguous().data_ptr(),
-        new.zi.data_ptr() if s.use_hipass else None, new.fast.data_ptr(),
-        new.slow.data_ptr(), new.min_val.data_ptr(), new.max_val.data_ptr(),
-        new.gate.data_ptr(), new.prev_rel.data_ptr(), new.debounce.data_ptr(),
-        new.bt_buffer.data_ptr() if s.backtrack else None,
-        new.bt_pos.data_ptr(), new.bt_pos.data_ptr(), on.data_ptr(),
-        deltas.data_ptr(), None if rel is None else rel.data_ptr(),
-        _cuda.stream(), variant="streams")
+    tail = (params.on_threshold.contiguous().data_ptr(),
+            params.off_threshold.contiguous().data_ptr(),
+            new.zi.data_ptr() if s.use_hipass else None, new.fast.data_ptr(),
+            new.slow.data_ptr(), new.min_val.data_ptr(),
+            new.max_val.data_ptr(), new.gate.data_ptr(),
+            new.prev_rel.data_ptr(), new.debounce.data_ptr(),
+            new.bt_buffer.data_ptr() if s.backtrack else None,
+            new.bt_pos.data_ptr(), new.bt_pos.data_ptr(), on.data_ptr(),
+            deltas.data_ptr(), None if rel is None else rel.data_ptr(),
+            _cuda.stream())
+    if warp:
+        kernel.launch("ofpt_detect_warp_streams", ctypes.addressof(p), n,
+                      x.data_ptr(), *tail, variant="streams")
+    else:
+        plan = coupled_plan(n, c, s.block_size, groups_per_cta)
+        kernel.launch("ofpt_detect_pipe_coupled", ctypes.addressof(p), n,
+                      plan.groups_per_cta, x.data_ptr(), *tail,
+                      variant="coupled_streams")
     return new, (on, deltas, rel)
 
 
@@ -418,7 +527,7 @@ def fused_warmup_minmax(fstatic: FusedDetectorStatic, params: DetectorParams,
     filter, envelopes and min/max tracker only, writes no events.
     ``out`` as for :func:`fused_detect_offline`."""
     if x.device.type == "cpu":
-        kernel_for(fstatic.plain).plain_calls += 1
+        kernel_for(fstatic.plain, x.shape[0]).plain_calls += 1
         new = warmup_minmax(fstatic.plain, params, state, x)
         return new if out is None else write_into(out, new)
     new, _ = _launch(fstatic, params, state, x, False, warmup=True, out=out)

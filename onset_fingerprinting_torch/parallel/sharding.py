@@ -488,9 +488,9 @@ def make_detect_locate_sharded(
     the mesh axis (the multi-card form of the realtime engine's step).
 
     Each rank detects the onsets of its streams with the caller's detector
-    (a coupled config: one K1 launch over the batch of streams, one CTA per
-    stream; a per-channel one: the streams folded into channels, K1's
-    pipe), orders each stream's first ``event_capacity`` events by onset,
+    (a coupled config: one K1 launch over the batch of streams, the pipe's
+    coupled instantiation, several streams a CTA in lane groups; a
+    per-channel one: the streams folded into channels, K1's pipe), orders each stream's first ``event_capacity`` events by onset,
     feeds them through the fixed-capacity locator (``csrc/
     locate_block.cu``'s stream-batched entry: one CTA per stream, Newton,
     the JAX function's ``lax.scan``), and classifies a window around each

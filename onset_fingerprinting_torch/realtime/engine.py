@@ -511,7 +511,9 @@ class RealtimeEngine:
 
     def warmup(self, audio: np.ndarray) -> None:
         """Prime the detector's envelopes and thresholds on calibration
-        audio (whole blocks; K1's warmup mode on the card)."""
+        audio (whole blocks; K1's warmup mode on the card: the pipe's
+        coupled instantiation over more than one block, the step's kernel
+        over one)."""
         t = (len(audio) // self.cfg.block_size) * self.cfg.block_size
         if t:
             static, _, _ = detector_init(self.cfg, self.device)

@@ -222,10 +222,12 @@ def locate_calls(audio, blocks, seconds):
             (torch.cat(ons), torch.cat(ds), det, warm))
 
 
-def k1_times(xb, launches=128):
+def k1_times(xb, launches=128, reverse=False):
     """K1 at the engine's shape ``xb [128, 3]``, per launch in a graph of
     ``launches`` bare launches (the state carried from one to the next):
-    the routed kernel, ``detector.cu`` and an empty kernel."""
+    the routed kernel, the coupled pipe (named: the route gives it longer
+    chunks), ``detector.cu`` and an empty kernel, in that order or
+    ``reverse``."""
     from onset_fingerprinting_torch.core.config import DetectorConfig
     from onset_fingerprinting_torch.ops.fused_detector import (
         kernel_for,
@@ -238,15 +240,20 @@ def k1_times(xb, launches=128):
                          sr=sim.SR)
     fst, params, st0, _ = make_fused_detector(cfg, emit_rel=False)
     out = {}
-    for kern in (kernel_for(fst.plain), _cuda.DETECTOR):
+    kernels = [kernel_for(fst.plain), _cuda.DETECTOR_PIPE_COUPLED,
+               _cuda.DETECTOR, None]
+    _cuda.build(kernels[:-1])  # loaded where the caller has not
+    for kern in kernels[::-1] if reverse else kernels:
+        if kern is None:
+            out["empty"] = graph_ms([lambda: _cuda.DETECTOR._lib.ofpt_empty(
+                _cuda.stream())] * launches)
+            continue
         kk, entry, a, _, keep = launch_args(fst, params, st0, xb, False,
                                             False, kern)
         fn = getattr(kk._lib, entry)
         out[kk.name] = graph_ms([lambda: fn(*a[:-1], _cuda.stream())]
                                 * launches)
         del keep
-    out["empty"] = graph_ms([lambda: _cuda.DETECTOR._lib.ofpt_empty(
-        _cuda.stream())] * launches)
     return out
 
 

@@ -806,13 +806,11 @@ def _bursts(t, c, seed):
     return torch.as_tensor(x, device="cuda")
 
 
-@pytest.mark.parametrize("c", [1, 3, 4, 8, 32])
-@pytest.mark.parametrize("backtrack,hipass", [(False, 0.0), (True, 2000.0),
-                                              (False, 2000.0)])
-def test_detector_warp_matches_plain(c, backtrack, hipass):
-    """csrc/detector_warp.cu against the plain detector bit for bit: the
-    multi-block warmup (prefetched blocks), then detection over 40 blocks
-    functionally and again in place (``out`` = the input state)."""
+def _coupled_matches_plain(c, backtrack, hipass, named, thresholds=()):
+    """K1 in the coupled mode against the plain detector bit for bit: the
+    multi-block warmup, then detection over 40 blocks functionally and
+    again in place (``out`` = the input state); through the wrappers'
+    route, or on the ``named`` kernel."""
     from onset_fingerprinting_torch.core.config import DetectorConfig
     from onset_fingerprinting_torch.detect.amplitude import (
         DetectorState,
@@ -821,6 +819,7 @@ def test_detector_warp_matches_plain(c, backtrack, hipass):
     )
     from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.ops.fused_detector import (
+        _launch,
         fused_detect_offline,
         fused_warmup_minmax,
         kernel_for,
@@ -828,34 +827,81 @@ def test_detector_warp_matches_plain(c, backtrack, hipass):
     )
 
     cfg = DetectorConfig(n_channels=c, backtrack=backtrack,
-                         backtrack_buffer_size=256, hipass_freq=hipass)
+                         backtrack_buffer_size=256, hipass_freq=hipass,
+                         **dict(zip(("on_threshold", "off_threshold"),
+                                    thresholds)))
     fst, params, st, _ = make_fused_detector(cfg)
+    assert fst.plain.manual == bool(thresholds)
     assert kernel_for(fst.plain) is _cuda.DETECTOR_WARP
+    assert kernel_for(fst.plain, 256) is _cuda.DETECTOR_PIPE_COUPLED
+    kern = named or _cuda.DETECTOR_PIPE_COUPLED
+
+    def warmup(state, x):
+        if named is None:
+            return fused_warmup_minmax(fst, params, state, x)
+        return _launch(fst, params, state, x, False, True, named)[0]
+
+    def detect(state, x, emit_rel=True, out=None):
+        if named is None:
+            return fused_detect_offline(fst, params, state, x, emit_rel,
+                                        out=out)
+        return _launch(fst, params, state, x, emit_rel, False, named, out)
+
     x = _bursts(128 * 78, c, seed=c)
-    warp = _cuda.DETECTOR_WARP
-    before = (warp.launches, warp.plain_calls, _cuda.DETECTOR.launches)
-    wk = fused_warmup_minmax(fst, params, st, x[: 128 * 38])
+    ks = (kern, _cuda.DETECTOR)
+    before = [(k.launches, k.plain_calls) for k in ks]
+    wk = warmup(st, x[: 128 * 38])
     wp = warmup_minmax(fst.plain, params, st, x[: 128 * 38])
     for name, a, b in zip(wk._fields, wk, wp):
         assert torch.equal(a, b), ("warmup", name)
     x = x[128 * 38:]
     sp, (on_p, d_p, r_p) = detect_offline(fst.plain, params, wp, x)
     assert int(on_p.sum()) >= c
-    sk, (on_k, d_k, r_k) = fused_detect_offline(fst, params, wk, x)
+    sk, (on_k, d_k, r_k) = detect(wk, x)
     assert torch.equal(on_k, on_p) and torch.equal(d_k, d_p)
     assert torch.equal(r_k, r_p)
     for name, a, b in zip(sk._fields, sk, sp):
         assert torch.equal(a, b), name
     # in place: the same events, the state in wk's tensors
     ptrs = [v.data_ptr() for v in wk]
-    si, (on_i, d_i, r_i) = fused_detect_offline(fst, params, wk, x, False,
-                                                out=wk)
+    si, (on_i, d_i, r_i) = detect(wk, x, False, out=wk)
     assert si is wk and [v.data_ptr() for v in si] == ptrs and r_i is None
     assert torch.equal(on_i, on_p) and torch.equal(d_i, d_p)
     for name, a, b in zip(DetectorState._fields, si, sp):
         assert torch.equal(a, b), ("in place", name)
-    assert (warp.launches, warp.plain_calls, _cuda.DETECTOR.launches) == (
-        before[0] + 3, before[1], before[2])
+    assert [(k.launches, k.plain_calls) for k in ks] == [
+        (before[0][0] + 3, before[0][1]), before[1]]
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 8, 32])
+@pytest.mark.parametrize("backtrack,hipass", [(False, 0.0), (True, 2000.0),
+                                              (False, 2000.0)])
+def test_detector_warp_matches_plain(c, backtrack, hipass):
+    """csrc/detector_warp.cu (named: the routes give it one block) against
+    the plain detector over many blocks (prefetched stages)."""
+    from onset_fingerprinting_torch.ops import _cuda
+
+    _coupled_matches_plain(c, backtrack, hipass, _cuda.DETECTOR_WARP)
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 8, 31, 32])
+@pytest.mark.parametrize("backtrack,hipass", [(False, 0.0), (True, 2000.0),
+                                              (False, 2000.0)])
+def test_detector_pipe_coupled_matches_plain(c, backtrack, hipass):
+    """The pipe's coupled instantiation, as the wrappers route a multi-block
+    coupled call (one recording, one lane group), against the plain
+    detector; the launches count under variant "coupled"."""
+    from onset_fingerprinting_torch.ops import _cuda
+
+    before = _cuda.DETECTOR_PIPE_COUPLED.variants["coupled"]
+    _coupled_matches_plain(c, backtrack, hipass, None)
+    assert _cuda.DETECTOR_PIPE_COUPLED.variants["coupled"] == before + 3
+
+
+@pytest.mark.parametrize("c,backtrack", [(3, False), (8, True)])
+def test_detector_pipe_coupled_manual_matches_plain(c, backtrack):
+    """The coupled pipe with manual (absolute) thresholds."""
+    _coupled_matches_plain(c, backtrack, 2000.0, None, (3.0, 1.0))
 
 
 def test_locate_block_in_place_matches_plain():
@@ -1033,7 +1079,7 @@ def test_locate_block_kernel_with_fcnn_matches_plain(mode):
 
 
 def test_mining_detector_matches_plain_on_the_card():
-    """detect_onsets_amplitude on the card (K1 as detector_warp.cu: one
+    """detect_onsets_amplitude on the card (K1 as the coupled pipe: one
     warmup launch, one launch over the recording, the 2 kHz high-pass and
     the coupled off-gate) against the plain detector on the card over the
     same recording: channels, onsets and rel bit for bit."""
@@ -1047,10 +1093,10 @@ def test_mining_detector_matches_plain_on_the_card():
     )
     from onset_fingerprinting_torch.ops import _cuda
 
-    sim, audio, _ = _engine_stream(0.3)
-    before = _cuda.DETECTOR_WARP.launches
+    sim, audio, _ = _engine_stream(0.6)  # two strikes, at 0.25 and 0.5 s
+    before = _cuda.DETECTOR_PIPE_COUPLED.launches
     ch, on, rel = detect_onsets_amplitude(audio, sr=sim.SR)
-    assert _cuda.DETECTOR_WARP.launches == before + 2
+    assert _cuda.DETECTOR_PIPE_COUPLED.launches == before + 2
     fst, params, st = offline_detector(3, sr=sim.SR)
     x = torch.as_tensor(audio, device="cuda")
     t = len(audio) // 128 * 128
@@ -1235,16 +1281,16 @@ def test_engine_cc_refine_graph_is_three_kernels():
     assert types == {"kernel": 3}, (types, names)
 
 
-def test_detector_warp_streams_matches_plain():
-    """K1's stream-batched launch (one CTA per stream, each from its own
-    state) against the plain detector stream by stream: events, rel and
-    every state tensor bit for bit."""
+def _streams_match_plain(n, gpc, named, variant, emit_rel):
+    """K1's stream-batched launch (each stream from its own state, warmed on
+    its own lead) against the plain detector stream by stream: events, rel
+    and every state tensor bit for bit."""
     from onset_fingerprinting_torch.core.config import DetectorConfig
     from onset_fingerprinting_torch.detect.amplitude import (
         DetectorState,
         detect_offline,
+        warmup_minmax,
     )
-    from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.ops.fused_detector import (
         fused_detect_streams,
         make_fused_detector,
@@ -1254,21 +1300,48 @@ def test_detector_warp_streams_matches_plain():
     cfg = DetectorConfig(n_channels=3, block_size=128, hipass_freq=2000.0,
                          backtrack=True, backtrack_buffer_size=256)
     fst, params, st, _ = make_fused_detector(cfg)
-    n = 5
     x = torch.stack([make_audio(128 * 30, 3, seed=10 + s) for s in range(n)])
-    states = DetectorState(*(v.expand((n,) + tuple(v.shape)).contiguous()
-                             for v in st))
-    before = _cuda.DETECTOR_WARP.variants["streams"]
-    new, (on, d, rel) = fused_detect_streams(fst, params, states, x,
-                                             emit_rel=True)
-    assert _cuda.DETECTOR_WARP.variants["streams"] == before + 1
-    assert int(on.sum()) > 0
+    # each stream's own lead of noise (a few blocks of it shift its state)
+    lead = [warmup_minmax(fst.plain, params, st, 1e-3 * torch.randn(
+        (128 * 4, 3), generator=torch.Generator("cuda").manual_seed(90 + s),
+        device="cuda")) for s in range(n)]
+    states = DetectorState(*(torch.stack(f).contiguous()
+                             for f in zip(*lead)))
+    kern = named.variants
+    before = kern[variant]
+    new, (on, d, rel) = fused_detect_streams(
+        fst, params, states, x, emit_rel=emit_rel, groups_per_cta=gpc,
+        kernel=named if variant == "streams" else None)
+    assert kern[variant] == before + 1
+    assert int(on.sum()) > 0 and (rel is None) == (not emit_rel)
     for s in range(n):
-        sp, (on_p, d_p, r_p) = detect_offline(fst.plain, params, st, x[s])
+        sp, (on_p, d_p, r_p) = detect_offline(fst.plain, params, lead[s],
+                                              x[s])
         assert torch.equal(on[s], on_p) and torch.equal(d[s], d_p)
-        assert torch.equal(rel[s], r_p)
+        if emit_rel:
+            assert torch.equal(rel[s], r_p)
         for a, b in zip(new, sp):
             assert torch.equal(a[s], b)
+
+
+def test_detector_warp_streams_matches_plain():
+    """``detector_warp.cu``'s stream batch (one CTA per stream; named: the
+    routes give it one block)."""
+    from onset_fingerprinting_torch.ops import _cuda
+
+    _streams_match_plain(5, None, _cuda.DETECTOR_WARP, "streams", True)
+
+
+@pytest.mark.parametrize("n,gpc,emit_rel", [
+    (5, None, True), (7, 10, True), (7, 3, False), (64, 10, False),
+    (21, 8, True)])
+def test_detector_pipe_coupled_streams_matches_plain(n, gpc, emit_rel):
+    """The coupled pipe over a batch of streams in lane groups (ragged:
+    groups past the last stream, a short last CTA) as the route takes it."""
+    from onset_fingerprinting_torch.ops import _cuda
+
+    _streams_match_plain(n, gpc, _cuda.DETECTOR_PIPE_COUPLED,
+                         "coupled_streams", emit_rel)
 
 
 def test_locate_streams_matches_plain():

@@ -94,9 +94,9 @@ def test_plain_detector_matches_jax_scan(opts):
     jst2, (on_j, d_j, rel_j) = jamp.detect_offline(js, jp, jst,
                                                    jnp.asarray(xd))
     # the wrapper runs the plain version on the CPU and counts it on the
-    # kernel a CUDA chunk would take
-    kernel = kernel_for(ts)
-    assert kernel is (_cuda.DETECTOR_WARP if opts["coupled_off_gate"]
+    # kernel a CUDA chunk of this length would take
+    kernel = kernel_for(ts, xd.shape[0])
+    assert kernel is (_cuda.DETECTOR_PIPE_COUPLED if opts["coupled_off_gate"]
                       else _cuda.DETECTOR_PIPE)
     before = kernel.plain_calls
     tst2, (on_t, d_t, rel_t) = fused_detect_offline(

@@ -294,6 +294,26 @@ def warp2(k, s, params, st, ring, out, warmup):
                else st.bt_pos, ons=ons, deltas=deltas)
 
 
+def schedule(warps, policy, seed):
+    """Run one CTA's warps (generators) to the end, interleaved by
+    ``policy``: a warp resumes only once what it yielded has passed."""
+    rng = random.Random(seed)
+    blocked = dict.fromkeys(range(len(warps)))  # live warps: what each waits on
+    while blocked:
+        ready = [w for w, b in blocked.items() if b is None or b[0].passed(b[1])]
+        assert ready, "deadlock: every warp waits on a barrier"
+        if policy == "random":
+            w = rng.choice(ready)
+        elif policy == "producers_first":
+            w = min(ready)
+        else:  # consumers_first
+            w = max(ready)
+        try:
+            blocked[w] = next(warps[w])
+        except StopIteration:
+            del blocked[w]
+
+
 def run_pipe(s, params, st, x, emit, warmup, policy, seed=0, w2=warp2):
     """The kernel's schedule over one chunk → what ``_launch`` returns."""
     k = tamp.sample_constants(s)
@@ -310,24 +330,9 @@ def run_pipe(s, params, st, x, emit, warmup, policy, seed=0, w2=warp2):
         r_empty=[Barrier() for _ in range(nsb)],
     )
     out = dict(rel=torch.full((t, c), nan) if emit else None)
-    warps = [warp0(k, s, params, x, st, ring, out),
-             warp1(k, s, st, ring, out, emit),
-             w2(k, s, params, st, ring, out, warmup)]
-    rng = random.Random(seed)
-    blocked = {0: None, 1: None, 2: None}  # live warps: what each waits on
-    while blocked:
-        ready = [w for w, b in blocked.items() if b is None or b[0].passed(b[1])]
-        assert ready, "deadlock: every warp waits on a barrier"
-        if policy == "random":
-            w = rng.choice(ready)
-        elif policy == "producers_first":
-            w = min(ready)
-        else:  # consumers_first
-            w = max(ready)
-        try:
-            blocked[w] = next(warps[w])
-        except StopIteration:
-            del blocked[w]
+    schedule([warp0(k, s, params, x, st, ring, out),
+              warp1(k, s, st, ring, out, emit),
+              w2(k, s, params, st, ring, out, warmup)], policy, seed)
     state = tamp.DetectorState(
         zi=out["zi"], fast=out["fast"], slow=out["slow"],
         min_val=out["min_val"], max_val=out["max_val"], gate=out["gate"],
