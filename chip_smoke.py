@@ -15,7 +15,7 @@ Phase 0  prints the card's name and power limit, starts the plain
          engine with ``cc_refine=True`` over the stream's first 2 s in a
          fourth (8d's), the detector tuner at 9a's three slider settings
          over 6b's recording in three more (one each), and builds the
-         eleven kernel libraries from ``onset_fingerprinting_torch/csrc``
+         ten kernel libraries from ``onset_fingerprinting_torch/csrc``
          with nvcc, all started together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
          (TF32 off for cuDNN and matmuls): K1 the fused detector bit for
@@ -79,10 +79,11 @@ Phase 4  drives the realtime engine (``tools.realtime_sim``: 3 sensors at
          96 kHz, 128-sample blocks, the step replayed from a CUDA graph)
          over a 20 s stream of 80 strikes, harvesting every 64 blocks and
          classifying each hit with the bf16 flagship CCCNN (3 x 512) from
-         the device ring; shows that the captured step is three kernel
+         the device ring; shows that the captured step is two kernel
          nodes and nothing else (no copy); gates the locate rate and median
          error, shows that K1 (coupled, one warp per channel, one launch
-         per block), the ring write and the locate kernel ran on every step,
+         per block) and the locate kernel with the ring write ran on every
+         step,
          the coupled pipe once for the warmup, and K3 for the classifier,
          with no plain version; holds the
          device ring after the run to the stream's last 16 s bit for bit,
@@ -92,12 +93,15 @@ Phase 4  drives the realtime engine (``tools.realtime_sim``: 3 sensors at
          first 0.5 s to the plain detector (events and state; the plain
          detector takes ~50 ms a block on the card), the locate kernel,
          in place, to its plain version on their fired and quiet blocks,
-         and the ring write to its plain version on the engine's ring with
-         the head wrapping; times the step (graph replays, a graph of 256
-         steps, eager), K1 at [128, 3] per launch in a graph of launches
-         (detector_warp.cu and the coupled pipe in turns) beside
-         detector.cu and an empty kernel, the ring write, the
-         locate kernel on quiet and fired blocks, and K3 at the
+         and the locate launch's ring write to the plain ring write on
+         copies of the engine's ring with the head wrapping past the
+         ring's end and past the int32 counter's largest value; times the
+         step (graph replays, a graph of 256 steps, eager), K1 at [128, 3]
+         per launch in a graph of launches (detector_warp.cu and the
+         coupled pipe in turns) beside detector.cu and an empty kernel,
+         the locate kernel on quiet and fired blocks, the ring write (the
+         locate launch with it less the launch without it, on quiet
+         blocks, in turns), and K3 at the
          classifier's shape, held there to the witness gate too
          (``tools/step_bench``).
 Phase 5  trains on the card.  5a holds K3 under autograd at the training
@@ -135,8 +139,9 @@ Phase 6  the player's setup loop at the JAX journey's size (3 sensors at
          kernels' two launches timed in turns;
          the FCNN trained (1500 epochs), ``save_setup`` → ``build_engine``
          → 8 fresh hits through ``process`` with the journey's bars; the
-         captured step three kernel nodes, the locate kernel taking the
-         model on every step, no plain version; the events equal to the
+         captured step two kernel nodes, the locate kernel taking the
+         model and the ring write on every step, no plain version; the
+         events equal to the
          plain engine on the CPU with the same weights.  6c the full-head
          journey (``by_channel``, 96 hits, 2500 epochs) served through
          ``run_wav`` (the native executor, the pipelined dispatcher).  6d
@@ -191,14 +196,17 @@ Phase 8  the parallel package on a world-1 NCCL process group (a localhost
          samples on the CPU, bit-identical to ``detector_warp.cu``'s
          stream batch (named) at the full shape and to the plain detector
          under ``vmap`` on the card on 64 streams' first 24064 samples;
-         K1 old and new timed in turns, the locate kernel timed.  8d ``tools.realtime_sim`` with ``cc_refine=True`` over
-         phase 4's 20 s stream: three kernel nodes, phase 4's bars, the
-         first 2 s equal to the plain engine on the CPU (a fourth child
-         process from phase 0), the refining locate kernel in place against
-         its plain version block by block on the first 2 s (each logged
-         refinement held to the plain CC; an argmax may differ only at a
-         float32 tie), its fired-block launch timed beside the Newton
-         kernel's and beside the same with an FCNN (variant
+         K1 old and new timed in turns, the locate kernel timed.  8d
+         ``tools.realtime_sim`` with ``cc_refine=True`` over phase 4's 20 s
+         stream: two kernel nodes, phase 4's bars, the first 2 s equal to
+         the plain engine on the CPU (a fourth child process from phase 0),
+         the refining locate kernel with the ring write in place against
+         the plain ring write and its plain version block by block on the
+         first 2 s (the ring bit for bit; each logged refinement held to
+         the plain CC, where an argmax may differ only at a float32 tie,
+         and to the kernel's schedule on the CPU exactly), its launch
+         timed on fired and on quiet blocks beside the Newton kernel's, in
+         turns, and on fired blocks with an FCNN (variant
          ``fcnn+cc_refine``).  8e the capability fixture's float32
          flagship, 10 full-batch steps with ``Trainer(mesh=)`` against the
          unmeshed trainer: losses within 1e-6 relative.
@@ -222,8 +230,9 @@ Phase 9  the last modules of the JAX package on the card.  9a
          threads, ``Metrics``; every card gate (>= 99% located, median
          error <= 0.2 cm, zone accuracy >= 0.8, audio-thread p99 under
          1.333 ms, 0 drops, 0 harvest overflows, the hit-latency p50 bound,
-         the north-star estimate under 1 ms); K1, the ring write and the
-         locate kernel launched on every served block, the coupled pipe
+         the north-star estimate under 1 ms); K1 and the locate kernel
+         with the ring write launched on every served block, the coupled
+         pipe
          once for the warmup, no plain call.
 
 Each phase line prints the seconds of the phase before it.
@@ -240,7 +249,11 @@ launch; K3 as three rows: ``conv_stack_mma`` in bfloat16, the fleet path's,
 shape and with its launches; ``conv_stack_f32`` in float32, the CUDA-core
 kernel, phase 2b's; ``locate_block``, the realtime engine's locate
 step, which replaces no TPU kernel, timed on fired blocks; ``ring_write``,
-the engine's audio-ring write, which replaces no TPU kernel either;
+the engine's audio-ring write, which replaces no TPU kernel either: it
+runs inside the locate launch, so its source is
+``csrc/locate_block.cu``, its time the launch with the write less the
+launch without it on quiet blocks, and its launches the locate launches
+that wrote the ring;
 ``detector_warp_mining``, K1's warp kernel timed over 6b's warmup and
 recording, which no path launches since PR 14; ``locate_block_fcnn``, the locate kernel
 with the learned locator, timed on fired blocks;
@@ -282,9 +295,11 @@ K3_SEEDS = 4
 #: global hit capacity of the gather and anatomy phases
 G = 32768
 #: H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FMA-unit
-#: FLOP/s (an FMA counted as two), dense bf16 tensor FLOP/s
+#: FLOP/s (an FMA counted as two), f64 FMA-unit FLOP/s (not the tensor
+#: cores'), dense bf16 tensor FLOP/s
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 BF16_FLOPS = 989e12
 #: FP32 lane instructions per second, an FMA or any other one counted as
 #: one: 132 SMs x 128 lanes x 1.98 GHz
@@ -1102,8 +1117,8 @@ def phase_realtime(report, cpu_ref):
     types, names = graph_nodes(eng._graph.graph)
     log(f"the captured step: {sum(types.values())} graph nodes {types}: "
         f"{names}")
-    check(types == {"kernel": 3}, "the captured step holds other nodes than "
-          "its three kernels")
+    check(types == {"kernel": 2}, "the captured step holds other nodes than "
+          "its two kernels")
     model = sim.classifier(0)
     eng.attach_classifier(model, window=sim.CLS_WINDOW, pre=sim.CLS_PRE,
                           capacity=sim.CLS_CAPACITY)
@@ -1122,25 +1137,24 @@ def phase_realtime(report, cpu_ref):
           f"coupled K1 launched {_cuda.DETECTOR_WARP.launches} times on the "
           f"warp kernel, {_cuda.DETECTOR_PIPE_COUPLED.launches} on the "
           f"coupled pipe: want {n_blocks} steps and the warmup")
-    check(_cuda.LOCATE_BLOCK.launches == n_blocks,
-          f"the locate kernel launched {_cuda.LOCATE_BLOCK.launches} times")
-    check(_cuda.RING_WRITE.launches == n_blocks,
-          f"the ring write launched {_cuda.RING_WRITE.launches} times")
+    n_ring = _cuda.ring_writes(_cuda.LOCATE_BLOCK.variants)
+    check(_cuda.LOCATE_BLOCK.launches == n_blocks == n_ring,
+          f"the locate kernel launched {_cuda.LOCATE_BLOCK.launches} times, "
+          f"{n_ring} with the ring write: want {n_blocks} steps")
     k3 = kernel_for(sim.CLS_WINDOW, [m.weight for m in model.convs], 1,
                     torch.bfloat16)
     check(k3.launches > 0 and all(k.launches == 0 for k in _cuda.KERNELS
                                   if k not in (_cuda.DETECTOR_WARP,
                                                _cuda.DETECTOR_PIPE_COUPLED,
-                                               _cuda.RING_WRITE,
                                                _cuda.LOCATE_BLOCK, k3)),
           f"the classifier's K3 ({k3.name}) did not launch, or another "
           "kernel did")
     log(f"classifier: K3 route for B = {3 * sim.CLS_CAPACITY} signals of "
         f"L = {sim.CLS_WINDOW}: {k3.name} ({k3.launches} launches)")
-    for name in ("detector_warp", "ring_write", "locate_block",
-                 "detector_pipe_coupled"):
+    for name in ("detector_warp", "locate_block", "detector_pipe_coupled"):
         report["_launches"][name] = (report["_launches"].get(name, 0)
                                      + counts[name][0])
+    add_launches(report, ("ring_write",), {"ring_write": n_ring})
     report["_launches"]["classifier"] = counts[k3.name][0]
     matched, med, ok = sim.locate_gates(hits, events)
     log(f"locate gates: {len(events)} hits located, {matched}/{len(hits)} "
@@ -1380,45 +1394,73 @@ def phase_realtime(report, cpu_ref):
                                   peak=F32_FLOPS)
     report["_realtime"] = dict(step_nodes=types, replay_ms=rep,
                                step_ms=steps["step_ms"], k1=k1, locate=loc)
-    ring_check(report, eng.state.ring, blocks)
+    ring_check(report, eng.state.ring, blocks, lb, l0, q0, quiet, loc)
     classifier_k3(report, model)
 
 
-def ring_check(report, engine_ring, blocks):
-    """The ring write (``csrc/ring_write.cu``) against its plain version
-    (``core/ring_buffer.ring_write``) on a copy of the engine's ring, the
-    head 50 frames before the ring's end so the blocks wrap: data and
-    counter bit for bit after each of 8 blocks; then both timed per call
-    in a graph of calls."""
+def ring_check(report, engine_ring, blocks, lb, l0, q0, quiet, loc):
+    """The ring write inside the locate launch (``locate_block(block=)``,
+    ``csrc/locate_block.cu``) against its plain version
+    (``core/ring_buffer.ring_write``, then ``locate_block_reference``) on
+    copies of the engine's ring, the head 50 frames before the ring's end
+    (the blocks wrap) and 100 frames before the int32 counter's largest
+    value: ring data, ring counter, locator state, queue and sample
+    counter bit for bit after each of 8 quiet blocks.  The write's time
+    is ``loc``'s (``tools/step_bench.locate_times``: the quiet launches
+    with the write less those without, in turns); the plain ring write is
+    timed per call in a graph of calls."""
     from onset_fingerprinting_torch.core.ring_buffer import (
         RingBuffer,
         ring_write,
     )
-    from onset_fingerprinting_torch.ops.ring_write import write_block
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.locate_block import (
+        locate_block,
+        locate_block_reference,
+    )
+    from onset_fingerprinting_torch.realtime.engine import _clone
     from onset_fingerprinting_torch.tools.step_bench import graph_ms
 
     cap = engine_ring.capacity
-    rk = RingBuffer(engine_ring.data.clone(), engine_ring.counter.clone())
-    rk.counter.fill_(cap - 50)
-    rp = RingBuffer(rk.data.clone(), rk.counter.clone())
-    for i in range(8):
-        blk = blocks[1000 + i]
-        write_block(rk, blk)
-        rp = ring_write(rp, blk)
-        check(torch.equal(rk.data, rp.data)
-              and torch.equal(rk.counter, rp.counter),
-              f"ring write differs from plain at block {i}")
+    before = _cuda.ring_writes(_cuda.LOCATE_BLOCK.variants)
+    for head in (cap - 50, 2 ** 31 - 100):
+        rk = RingBuffer(engine_ring.data.clone(), engine_ring.counter.clone())
+        rk.counter.fill_(head)
+        rp = RingBuffer(rk.data.clone(), rk.counter.clone())
+        lk, qk = type(l0)(*_clone(l0)), type(q0)(*_clone(q0))
+        lp, qp = l0, q0
+        for i in range(8):
+            blk = blocks[1000 + i]
+            on, d, count = quiet[i % len(quiet)]
+            ck = count.clone()
+            locate_block(lb, lk, qk, on, d, ck, rk, out=(lk, qk, ck),
+                         block=blk)
+            rp = ring_write(rp, blk)
+            lp, qp, _, cp = locate_block_reference(lb, lp, qp, on, d, count)
+            check(torch.equal(rk.data, rp.data)
+                  and torch.equal(rk.counter, rp.counter)
+                  and all(torch.equal(u, v) for u, v in zip(
+                      (*lk, *qk, ck), (*lp, *qp, cp))),
+                  f"the fused ring write differs from plain at block {i}, "
+                  f"head {head}")
+    check(_cuda.ring_writes(_cuda.LOCATE_BLOCK.variants) == before + 16,
+          "the ring check's launches did not take the ring write")
     xb = blocks[1000]
-    ms = graph_ms([lambda: write_block(rk, xb)] * 128)
+    rp = RingBuffer(engine_ring.data.clone(), engine_ring.counter.clone())
     plain_ms = graph_ms([lambda: ring_write(rp, xb)] * 16)
     b_n, c = xb.shape
-    report["ring_write"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                                library_ms=None, bytes=2 * b_n * c * 4 + 8,
-                                ops=0, peak=F32_FLOPS)
-    log(f"ring write (ring_write.cu) at [{b_n}, {c}] into [{cap}, {c}], the "
-        f"head wrapping: data and counter bit-identical to plain over 8 "
-        f"blocks; {ms:.5f} ms per launch in a graph of 128 launches, plain "
-        f"(6 kernels) {plain_ms:.5f} ms per call in a graph of calls")
+    report["ring_write"] = dict(max_abs_err=0.0, ms=loc["write"],
+                                plain_ms=plain_ms, library_ms=None,
+                                bytes=2 * b_n * c * 4 + 8, ops=0,
+                                peak=F32_FLOPS)
+    log(f"ring write inside the locate launch at [{b_n}, {c}] into [{cap}, "
+        f"{c}], the head wrapping past the ring's end and past the int32 "
+        f"counter's largest value: ring, counter, state and queue "
+        f"bit-identical to plain over 8 quiet blocks each; per quiet launch "
+        f"in a graph of launches, in turns: with the write "
+        f"{loc['quiet_write']:.6f} ms, without {loc['quiet']:.6f} ms "
+        f"(and again in turn), the write {loc['write']:.6f} ms; plain ring "
+        f"write (6 kernels) {plain_ms:.5f} ms per call in a graph of calls")
 
 
 def classifier_k3(report, model):
@@ -2093,7 +2135,7 @@ def phase_journey_patch(report, mine_ref):
     eng = build_engine(setup, sr=J_SR)
     check(eng._graph is not None, "6b: the engine did not capture its step")
     types, names = graph_nodes(eng._graph.graph)
-    check(types == {"kernel": 3}, f"6b: the captured step holds {types}")
+    check(types == {"kernel": 2}, f"6b: the captured step holds {types}")
     serve_wav, serve_on, serve_loc = journey_session("serve_patch", 8, 11)
     audio, _, _ = posd.load_session(J_DIR / "serve_patch"
                                     / "serve_patch.json")
@@ -2111,14 +2153,13 @@ def phase_journey_patch(report, mine_ref):
     for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran in 6b's serving")
     check(_cuda.LOCATE_BLOCK.launches == n
-          and _cuda.LOCATE_BLOCK.variants["fcnn"] == n
-          and _cuda.DETECTOR_WARP.launches == n
-          and _cuda.RING_WRITE.launches == n,
+          and _cuda.LOCATE_BLOCK.variants["ring+fcnn"] == n
+          and _cuda.DETECTOR_WARP.launches == n,
           f"6b: {n} blocks, launches {counts}, locate variants "
           f"{dict(_cuda.LOCATE_BLOCK.variants)}")
-    for name in ("detector_warp", "ring_write"):
-        report["_launches"][name] = (report["_launches"].get(name, 0)
-                                     + counts[name][0])
+    add_launches(report, ("detector_warp", "ring_write"), {
+        "detector_warp": counts["detector_warp"][0],
+        "ring_write": _cuda.ring_writes(_cuda.LOCATE_BLOCK.variants)})
     report["_launches"]["locate_block_fcnn"] = (
         report["_launches"].get("locate_block_fcnn", 0) + n)
     log(f"6b serving: the captured step {types} ({', '.join(names)}), "
@@ -2175,11 +2216,12 @@ def phase_journey_head(report):
     for k in _cuda.KERNELS:
         check(k.plain_calls == 0, f"plain {k.name} ran in 6c's serving")
     check(stats["blocks"] == n and stats["drops"] == 0
-          and _cuda.LOCATE_BLOCK.variants["fcnn"] == n
+          and _cuda.LOCATE_BLOCK.variants["ring+fcnn"] == n
           and _cuda.DETECTOR_WARP.launches == n,
           f"6c: run_wav {stats}, {n} blocks, launches {counts}")
-    for name in ("detector_warp", "ring_write"):
-        report["_launches"][name] += counts[name][0]
+    add_launches(report, ("detector_warp", "ring_write"), {
+        "detector_warp": counts["detector_warp"][0],
+        "ring_write": _cuda.ring_writes(_cuda.LOCATE_BLOCK.variants)})
     report["_launches"]["locate_block_fcnn"] += n
     log(f"6c run_wav: {stats['blocks']} blocks through the native executor "
         f"at audio rate, {stats['drops']} drops, {stats['misses']} deadline "
@@ -3141,14 +3183,22 @@ def phase_sharded_serve(report, mesh):
 
 def phase_cc_refine(report, cc_ref):
     """8d: the realtime engine with ``cc_refine=True`` over phase 4's 20 s
-    stream on the card: three kernel nodes, phase 4's bars, the first 2 s
+    stream on the card: two kernel nodes, phase 4's bars, the first 2 s
     equal to the plain engine on the CPU (a child process from phase 0),
-    the locate kernel in place against its plain version on fired and quiet
-    blocks (each refinement held to the plain one, a differing argmax only
-    at a float32 tie), and its fired-block launch timed beside the Newton
-    kernel's."""
+    the locate kernel with the ring write in place against its plain
+    version (the plain ring write, then the plain step) on fired and quiet
+    blocks: ring, state and queue, each refinement held to the plain one
+    (a differing argmax only at a float32 tie) and its argmax to the
+    kernel's schedule on the CPU (``cc_schedule_reference``); its launch
+    timed on fired and on quiet blocks beside the Newton kernel's."""
     from onset_fingerprinting_torch.core.config import DetectorConfig
-    from onset_fingerprinting_torch.core.ring_buffer import ring_init
+    from onset_fingerprinting_torch.core.ring_buffer import (
+        RingBuffer,
+        ring_init,
+        ring_read_last,
+        ring_write,
+    )
+    from onset_fingerprinting_torch.detect.refine import cc_refine_terms
     from onset_fingerprinting_torch.locate.multilaterate import (
         locator_init,
     )
@@ -3161,35 +3211,39 @@ def phase_cc_refine(report, cc_ref):
     from onset_fingerprinting_torch.ops.locate_block import (
         LOG_W,
         EventQueue,
+        LOG_FIELDS,
         LocateBlock,
+        cc_schedule_reference,
         check_refinements,
         locate_block,
         locate_block_reference,
     )
-    from onset_fingerprinting_torch.ops.ring_write import write_block
     from onset_fingerprinting_torch.tools import realtime_sim as sim
     from onset_fingerprinting_torch.tools.step_bench import (
         graph_ms,
         graph_nodes,
+        small_ring,
     )
 
     audio, _, hits = sim.synth_stream(RT_SECONDS, 0)
     eng = sim.build_engine(None, cc_refine=True)
     types, names = graph_nodes(eng._graph.graph)
-    check(types == {"kernel": 3}, f"8d: the captured step holds {types}")
+    check(types == {"kernel": 2}, f"8d: the captured step holds {types}")
     n_blocks = len(sim.blocks_of(audio))
     _cuda.reset_counts()
     events, _, wall = sim.run(eng, audio, classify=False)
     counts = {k.name: k.launches for k in _cuda.KERNELS}
     check(all(k.plain_calls == 0 for k in _cuda.KERNELS)
-          and _cuda.LOCATE_BLOCK.variants["cc_refine"] == n_blocks
+          and _cuda.LOCATE_BLOCK.variants["ring+cc_refine"] == n_blocks
           and counts["locate_block"] == n_blocks
           and counts["detector_warp"] == n_blocks
           and counts["detector_pipe_coupled"] == 1,
           f"8d: want {n_blocks} refining locate launches and K1 steps, one "
           f"K1 warmup (the coupled pipe): {counts}")
     add_launches(report, ("detector_warp", "ring_write",
-                          "detector_pipe_coupled"), counts)
+                          "detector_pipe_coupled"), {
+        **counts, "ring_write": _cuda.ring_writes(
+            _cuda.LOCATE_BLOCK.variants)})
     report["_launches"]["locate_block_cc_refine"] = n_blocks
     matched, med, ok = sim.locate_gates(hits, events)
     log(f"8d: captured step {types} {names}; {len(events)} hits, "
@@ -3223,6 +3277,7 @@ def phase_cc_refine(report, cc_ref):
     det = fused_warmup_minmax(fst, params, det, torch.as_tensor(
         audio[: sim.WARMUP // 128 * 128], device="cuda"))
     ring = ring_init(int(sim.RING_SECONDS * sim.SR), (3,), device="cuda")
+    ring_p = RingBuffer(ring.data.clone(), ring.counter.clone())
     lb = LocateBlock(eng.locator, 3, 128, cc_refine=True, device="cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
     lp = locator_init(8, "cuda")
@@ -3233,24 +3288,30 @@ def phase_cc_refine(report, cc_ref):
     l0 = type(lp)(*(v.clone() for v in lp))
     q0 = type(qp)(*(v.clone() for v in qp))
     blocks = torch.as_tensor(np.stack(sim.blocks_of(audio)), device="cuda")
-    fired, n_quiet, n_checked, ties, lerr = [], 0, 0, [], 0.0
-    plain_s = 0.0
+    fired, quiet, n_checked, ties, lerr = [], [], 0, [], 0.0
+    plain_s, n_sched = 0.0, 0
     for i in range(int(CC_CPU_SECONDS * sim.SR) // 128):
         det, (on, d, _) = fused_detect_offline(fst, params, det, blocks[i],
                                                False, out=det)
-        ring = write_block(ring, blocks[i])
+        ring_p = ring_write(ring_p, blocks[i])
         on, d = on[0], d[0]
         count = torch.tensor(128 * i, **i32)
         is_fired = bool(on.any())
-        if not is_fired and n_quiet >= 64:
-            continue  # a quiet block leaves the locator and the queue
+        if not is_fired and len(quiet) >= 64:
+            # a quiet block leaves the locator and the queue
+            ring = ring_write(ring, blocks[i])
+            continue
         lk = type(lp)(*(v.clone() for v in lp))
         qk = type(qp)(*(v.clone() for v in qp))
         ck = count.clone()
         was = [v.clone() for v in (*lk, *qk)]
         log_t = torch.zeros((3, LOG_W), **i32)
         _, _, hk, _ = locate_block(lb, lk, qk, on, d, ck, ring, log_t,
-                                   out=(lk, qk, ck))
+                                   out=(lk, qk, ck), block=blocks[i])
+        check(torch.equal(ring.counter, ring_p.counter)
+              and torch.equal(ring.data, ring_p.data),
+              f"8d: the ring written in the locate launch differs from the "
+              f"plain ring write at block {i}")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lp, qp, hp, cp = locate_block_reference(lb, lp, qp, on, d, count,
@@ -3260,6 +3321,23 @@ def phase_cc_refine(report, cc_ref):
         n, t = check_refinements(lb, log_t, ring)
         n_checked += n
         ties += t
+        # each refinement's argmax and corrections: the kernel's schedule on
+        # the CPU, exactly (the same sums in the same order)
+        window = ring_read_last(ring, lb.window_len).cpu()
+        for row in log_t.cpu().numpy():
+            r = dict(zip(LOG_FIELDS, (int(v) for v in row)))
+            if not (r["done"] and r["go"]):
+                continue
+            tm = cc_refine_terms(
+                window[:, [r["ch0"], r["ch1"]]],
+                torch.tensor(r["pos0"], dtype=torch.int32),
+                torch.tensor(r["pos1"], dtype=torch.int32))
+            sched = cc_schedule_reference(tm.x.numpy(), tm.y.numpy(),
+                                          r["pos0"], r["pos1"])
+            check(sched["arg"] == r["arg"] and sched["ok"] == bool(r["ok"]),
+                  f"8d: block {i}: the kernel's argmax {r['arg']} differs "
+                  f"from its schedule's on the CPU {sched['arg']}")
+            n_sched += 1
         same = (all(torch.equal(u, v) for u, v in zip(
             (*lk, *qk[1:], ck), (*lp, *qp[1:], cp)))
             and torch.equal(hk.emits, hp.emits))
@@ -3268,29 +3346,35 @@ def phase_cc_refine(report, cc_ref):
         if same:
             lerr = max(lerr, max_err(hk.points, hp.points),
                        max_err(qk.points, qp.points))
-        if is_fired:
-            fired.append((on, d, count, ring.counter.clone()))
-        else:
-            n_quiet += 1
+        # the stream's last frames as a small ring with the same counter:
+        # the refinement reads the same window from it
+        (fired if is_fired else quiet).append(
+            (on, d, count, small_ring(audio, 128 * (i + 1))))
+        if not is_fired:
             check(all(torch.equal(u, v) for u, v in zip(was, (*lk, *qk))),
                   f"8d: the kernel changed the state on quiet block {i}")
-    check(n_checked >= 10 and lerr <= 1e-3,
-          f"8d: {n_checked} refinements checked, points err {lerr}")
-    log(f"8d: the refining locate kernel in place over the first "
-        f"{CC_CPU_SECONDS:g} s ({len(fired)} fired, {n_quiet} quiet blocks): "
-        f"state, queue, counter and emits equal to plain, points max err "
-        f"{lerr:.3g} cm; {n_checked} refinements held to the plain CC, "
-        f"{len(ties)} float32 ties: {ties}")
+    n_quiet = len(quiet)
+    check(n_checked >= 10 and lerr <= 1e-3 and n_sched == n_checked,
+          f"8d: {n_checked} refinements checked ({n_sched} against the "
+          f"schedule), points err {lerr}")
+    log(f"8d: the refining locate kernel with the ring write in place over "
+        f"the first {CC_CPU_SECONDS:g} s ({len(fired)} fired, {n_quiet} "
+        f"quiet blocks): ring, state, queue, counter and emits equal to "
+        f"plain, points max err {lerr:.3g} cm; {n_checked} refinements held "
+        f"to the plain CC, {len(ties)} float32 ties: {ties}; every argmax "
+        f"equal to the kernel's schedule on the CPU")
 
-    # the fired-block launch with refinement beside the Newton kernel, per
-    # launch in a graph of launches over the fired blocks in stream order
-    # (the ring as it stands after the last one)
+    # the launch with refinement beside the Newton kernel, per launch in a
+    # graph of launches over the fired blocks in stream order (each
+    # refining against its own window: a small ring of the stream up to
+    # the block's end, written before, so no launch writes a ring) and
+    # over the quiet ones; in turns (refining, Newton, Newton, refining)
     lb_n = LocateBlock(eng.locator, 3, 128, device="cuda")
 
-    def fired_ms(b, with_ring):
+    def calls_ms(b, calls, with_ring):
         work = [v.clone() for v in (*l0, *q0)]
         pristine = [v.clone() for v in work]
-        counts_ = [c.clone() for _, _, c, _ in fired]
+        counts_ = [c.clone() for _, _, c, _ in calls]
         lw, qw = type(l0)(*work[:5]), type(q0)(*work[5:9])
 
         def restore():
@@ -3298,31 +3382,46 @@ def phase_cc_refine(report, cc_ref):
                 w.copy_(p)
 
         def chain():
-            for (on, d, _, _), c in zip(fired, counts_):
+            for (on, d, _, small), c in zip(calls, counts_):
                 locate_block(b, lw, qw, on, d, c,
-                             ring if with_ring else None, out=(lw, qw, c))
+                             small if with_ring else None, out=(lw, qw, c))
 
-        return graph_ms([chain], before=restore) / len(fired)
+        return graph_ms([chain], before=restore) / len(calls)
 
-    cc_ms = fired_ms(lb, True)
-    newton_ms = fired_ms(lb_n, False)
+    cc_f, newton_f, cc_q, newton_q = [], [], [], []
+    for cc_first in (True, False):
+        for refining in ((True, False) if cc_first else (False, True)):
+            if refining:
+                cc_f.append(calls_ms(lb, fired, True))
+                cc_q.append(calls_ms(lb, quiet, True))
+            else:
+                newton_f.append(calls_ms(lb_n, fired, False))
+                newton_q.append(calls_ms(lb_n, quiet, False))
+    cc_ms, newton_ms = float(np.mean(cc_f)), float(np.mean(newton_f))
+    cc_quiet_ms = float(np.mean(cc_q))
+    newton_quiet_ms = float(np.mean(newton_q))
     # the learned locator with the refinement (variant "fcnn+cc_refine")
-    fcnn_cc_ms = fired_ms(LocateBlock(eng.locator, 3, 128,
+    fcnn_cc_ms = calls_ms(LocateBlock(eng.locator, 3, 128,
                                       model=locate_fcnn(1), cc_refine=True,
-                                      device="cuda"), True)
+                                      device="cuda"), fired, True)
     plain_ms = 1e3 * plain_s / max(len(fired) + n_quiet, 1)
-    log(f"8d: locate kernel per fired launch in a graph: with cc_refine "
-        f"{cc_ms:.5f} ms, Newton without {newton_ms:.5f} ms, the FCNN with "
-        f"cc_refine {fcnn_cc_ms:.5f} ms; the plain version {plain_ms:.3f} "
-        "ms per block (eager, host clock)")
+    log(f"8d: locate kernel per launch in a graph, in turns: fired blocks "
+        f"with cc_refine {cc_ms:.5f} ms {cc_f}, Newton without "
+        f"{newton_ms:.5f} ms {newton_f}; quiet blocks with cc_refine "
+        f"{cc_quiet_ms:.5f} ms {cc_q}, Newton {newton_quiet_ms:.5f} ms "
+        f"{newton_q}; the FCNN with cc_refine on fired blocks "
+        f"{fcnn_cc_ms:.5f} ms; the plain version {plain_ms:.3f} ms per "
+        "block (eager, host clock)")
     state_bytes = sum(v.numel() * v.element_size() for v in (*l0, *q0))
     win = lb.window_len
     report["locate_block_cc_refine"] = dict(
         max_abs_err=lerr, ms=cc_ms, plain_ms=plain_ms, library_ms=None,
         bytes=2 * state_bytes + n_checked / max(len(fired), 1) * 2 * win * 4,
         ops=n_checked / max(len(fired), 1) * 2 * ONSET_TOL_2 * win,
-        peak=F32_FLOPS)
-    report["_sharded"].update(cc_newton_ms=newton_ms, cc_fcnn_ms=fcnn_cc_ms)
+        peak=F64_FLOPS)
+    report["_sharded"].update(cc_newton_ms=newton_ms, cc_fcnn_ms=fcnn_cc_ms,
+                              cc_quiet_ms=cc_quiet_ms,
+                              cc_newton_quiet_ms=newton_quiet_ms)
 
 
 #: the lags the refinement's CC sums (2 * ONSET_TOL)
@@ -3580,13 +3679,15 @@ def phase_serve(report):
     check(all(plain == 0 for _, plain in counts.values())
           and counts["detector_warp"][0] == n + 1
           and counts["detector_pipe_coupled"][0] == 1
-          and counts["ring_write"][0] == n + 1
+          and res["ring_writes"] == n + 1
           and counts["locate_block"][0] == n + 1,
-          f"9c: want {n} served blocks' launches + the first step's, and "
+          f"9c: want {n} served blocks' launches + the first step's (each "
+          f"locate launch with the ring write: {res['ring_writes']}), and "
           f"the warmup's on the coupled pipe: {counts}")
     add_launches(report, ("detector_warp", "ring_write", "locate_block",
                           "detector_pipe_coupled"),
-                 {k: v[0] for k, v in counts.items()})
+                 {"ring_write": res["ring_writes"],
+                  **{k: v[0] for k, v in counts.items()}})
 
 
 def phase9(report, tuner_ref, phase):
@@ -3785,8 +3886,10 @@ def kernel_rows(report, names=None):
         "locate_block": ("onset_fingerprinting_torch/csrc/locate_block.cu",
                          "onset_fingerprinting_tpu/realtime/engine.py:249",
                          "locate_block"),
-        # no TPU kernel either: the JAX engine's ring scatter
-        "ring_write": ("onset_fingerprinting_torch/csrc/ring_write.cu",
+        # no TPU kernel either: the JAX engine's ring scatter, inside the
+        # locate launch (its time: the launch with it less the launch
+        # without it; its launches: the locate launches that wrote the ring)
+        "ring_write": ("onset_fingerprinting_torch/csrc/locate_block.cu",
                        "onset_fingerprinting_tpu/core/ring_buffer.py:68",
                        "ring_write"),
         # K1 at the mining shape: one launch over a whole recording

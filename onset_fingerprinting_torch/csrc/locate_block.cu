@@ -1,10 +1,12 @@
-// The realtime engine's per-block locate step for Hopper, sm_90a: every
-// channel that fired in a 128-sample block goes through the fixed-capacity
-// locator in onset order, then the completed hits go to the event queue,
-// and the engine's sample counter advances by the block.
+// The realtime engine's per-block locate step for Hopper, sm_90a: the
+// block is written to the device audio ring, every channel that fired in
+// it goes through the fixed-capacity locator in onset order, then the
+// completed hits go to the event queue, and the engine's sample counter
+// advances by the block.
 //
-// Replaces the locate half of the JAX engine's per-block program,
-// onset_fingerprinting_tpu/realtime/engine.py:249-304 (the unrolled
+// Replaces the ring write and the locate half of the JAX engine's
+// per-block program, onset_fingerprinting_tpu/realtime/engine.py:236 (the
+// ring scatter of core/ring_buffer.py:68) and :249-304 (the unrolled
 // make_locate_update calls of locate/multilaterate.py:587 and the queue
 // push).  That is no Pallas kernel: XLA fuses it into the block's program.
 // In PyTorch ops it is about a thousand small operations per channel,
@@ -20,6 +22,14 @@
 //
 // The design, in place (the state and the queue are updated where they
 // lie, so the engine's captured step needs no copies around it):
+// - The ring write (given the block `x`): every thread reads the ring's
+//   counter before the first barrier and copies its elements of the block
+//   to their slots (frame t at (counter mod cap + t) mod cap, as
+//   core/ring_buffer.ring_write and the JAX one); thread 0 writes the
+//   advanced counter after that barrier.  It moves 3 KB at the engine's
+//   shape: as a launch of its own it cost the launch and a graph node
+//   (~0.0017 ms on an H100), here it costs the copy.  The refinement reads the ring
+//   only after that barrier, so it sees this block's rows.
 // - Every thread reads `on`, `deltas` and the counter once, into shared
 //   memory; one __syncthreads_or tells every thread whether a channel
 //   fired.  A quiet block (nearly every block) writes its hit outputs and
@@ -58,17 +68,31 @@
 // onset against the oldest candidate group's seed: locate/multilaterate.py
 // :661-705, detect/refine.py:81-135, ops/xcorr.py:292-325 there) runs in
 // the same launch, between the seed swap and the joins: warp 0 picks the
-// candidate and the two window positions; the whole CTA reads the
-// `win_len`-sample window ending at the block straight from the device
-// audio ring (ring_read_last's rows, the head included), trims it before
-// pos0 - LOOKAROUND, takes the median of 5 (edge-replicated) and the
-// rectified negative first difference of both channels into shared
-// memory, and sums the normalised CC at the 2 * ONSET_TOL lags of the
-// tolerance window only, a warp per lag, in double; warp 0 takes the first
-// argmax, the energy heuristic (its weights' sums in double) and the seed
-// swap.  The plain version's CC is an rFFT in float32, so two lags within
-// its rounding of each other may pick differently: a tie, which an
-// optional per-update log (`log`) lets a caller check against the plain CC.
+// candidate and the two window positions; then the whole CTA, with two
+// barriers:
+// - the sections, in one pass: each thread takes SEC_ROWS consecutive rows
+//   of one channel of the `win_len`-sample window ending at the block,
+//   read straight from the device audio ring (ring_read_last's rows, the
+//   head included; SEC_ROWS + 5 rows, zero before pos0 - LOOKAROUND,
+//   edge-replicated),
+//   their medians of 5 and the rectified negative first difference, into
+//   shared memory as double; each section's maximum by a warp reduction
+//   and one atomic per warp.  Barrier.
+// - the normalised CC at the 2 * ONSET_TOL lags of the tolerance window
+//   only, over 200 threads: 4 lags a thread (4 independent double
+//   accumulators, the section x slid through registers), the contribution
+//   range cut into CC_SEGS segments, one per thread of a group of 8 lanes,
+//   the segment sums combined by a fixed shuffle tree; each warp's first
+//   argmax (max value, lowest index) by a shuffle reduction.  Barrier.
+// - warp 0: the first argmax over the warps' candidates, the energy
+//   heuristic (its weights' expf in float, their sums in double) and the
+//   seed swap; only warp 0 reads the result, so no barrier ends it.
+// Every product x y is exact in double (both are floats), so only the
+// order of the double sums differs from a plain loop;
+// ops/locate_block.py::cc_schedule_reference is this schedule on the CPU.
+// The plain version's CC is an rFFT in float32, so two lags within its
+// rounding of each other may pick differently: a tie, which an optional
+// per-update log (`log`) lets a caller check against the plain CC.
 //
 // A batch of streams (ofpt_locate_streams, the sharded serve path's
 // offline entry): one CTA per stream feeds that stream's onset-ordered
@@ -84,6 +108,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <math.h>
+#include <limits.h>
 
 #define MAX_CH 32
 #define MAX_SLOTS 32
@@ -97,6 +122,14 @@
 #define ONSET_TOL 50
 #define NORM_CUTOFF 10
 #define LOOKAROUND (ONSET_TOL + NORM_CUTOFF)
+// the CC's schedule: lags per thread, threads (segments of the
+// contribution range, ops/locate_block.py::CC_SEGS) per lag group
+#define CC_LAGS 4
+#define CC_SEGS 8
+#define CC_GROUPS (2 * ONSET_TOL / CC_LAGS)
+// rows of a section per thread in its prep: 2 x ceil(639 / 5) = 256 items
+// at the engine's 640-sample window, one per thread
+#define SEC_ROWS 5
 // ints per update in the refinement log: done, then sh.ref (go, seed
 // channel, channel, pos0, pos1, c_seed, c_new, ok, argmax index)
 #define LOG_W 10
@@ -109,7 +142,8 @@ struct LocDesc {
     // the learned locator: layers = hidden + 1, widths[0..layers]
     int has_model, n_layers, act, model_input;
     int widths[FCNN_MAX_HIDDEN + 2];
-    // CC refinement: on, the live window's length, the ring's frames
+    // CC refinement: on, the live window's length; the ring's frames
+    // (with a ring)
     int cc, win_len, ring_cap;
 };
 
@@ -125,9 +159,10 @@ struct Tables {
 };
 
 // the device audio ring [cap, C] after this block's write, and the sample
-// where the live window starts
+// where the live window starts (not const: this launch writes the ring
+// before it reads it, so its reads must not take the read-only path)
 struct Ring {
-    const float* data;
+    float* data;
     int count, win_start;
 };
 
@@ -151,7 +186,9 @@ struct Shared {
     // c_new, ok, argmax index out
     int ref[9];
     int xmax[2];
-    float ccv[2 * ONSET_TOL];
+    // each warp's first argmax of the CC: value, index of the window
+    float cv[THREADS / 32];
+    int cj[THREADS / 32];
 };
 
 // NaN-propagating max of |a|, |b|, as torch.amax
@@ -283,123 +320,202 @@ __device__ __forceinline__ float median5(float a, float b, float c, float d,
     return v[2];
 }
 
-// The CC refinement of the pair in sh.ref (every thread calls it): the
-// section prep of both channels into `buf` ([2][win_len] raw, then [2]
-// [win_len] medians), the masked normalised CC at the tolerance window's
-// lags, its first argmax and the energy heuristic (detect/refine.py::
-// cc_refine_adjust_jax of the port).  Writes c_seed, c_new, ok and the
-// argmax index to sh.ref[5..8].
+// frame r of ring_read_last(ring, W): the int32 sum count - W + r,
+// torch.remainder by the capacity.  `base` is row 0's slot where no sum
+// of the window wraps (then row r is base + r, less cap past the end:
+// W <= cap), else -1 (a modulo per row)
+__device__ __forceinline__ int window_row(const Ring& rg, int cap, int W,
+                                          int base, int r) {
+    if (base >= 0) return base + r < cap ? base + r : base + r - cap;
+    const int s = (int)((unsigned)rg.count - (unsigned)W + (unsigned)r);
+    const int row = s % cap;
+    return row < 0 ? row + cap : row;
+}
+
+// x[i] where i lies in [0, n), else 0 (the sections are >= 0 and finite,
+// so a zero term adds nothing to a sum)
+__device__ __forceinline__ double sec_at(const double* s, int i, int n) {
+    return i >= 0 && i < n ? s[i] : 0.0;
+}
+
+// (value, index) of the larger value, the lower index among equal ones
+// (jnp.argmax's first maximum; -INFINITY with index INT_MAX is none)
+__device__ __forceinline__ void argmax_xor(float& v, int& j, int o) {
+    const float ov = __shfl_xor_sync(FULL, v, o);
+    const int oj = __shfl_xor_sync(FULL, j, o);
+    if (ov > v || (ov == v && oj < j)) {
+        v = ov;
+        j = oj;
+    }
+}
+
+// The CC refinement of the pair in sh.ref (every thread calls it; warp 0
+// set sh.xmax to 0 before the caller's barrier): the sections of both
+// channels into `buf` (x [W], y [W] double), the masked normalised CC at
+// the tolerance window's lags, its first argmax and the energy heuristic
+// (detect/refine.py::cc_refine_adjust_jax of the port).  Warp 0 returns
+// with c_seed, c_new, ok and the argmax index in sh.ref[5..8]; the other
+// warps return before the heuristic.
 __device__ __forceinline__ void cc_refine(const LocDesc& d, Shared& sh,
-                                          float* buf, const Ring& rg) {
+                                          double* buf, const Ring& rg) {
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int W = d.win_len, n = W - 1, C = d.C;
+    const int W = d.win_len, n = W - 1, C = d.C, cap = d.ring_cap;
     const int ch0 = sh.ref[1], ch1 = sh.ref[2];
     const int pos0 = sh.ref[3], pos1 = sh.ref[4];
-    float* raw = buf;          // [2][W]; later the sections x, y
-    float* med = buf + 2 * W;  // [2][W]
-    // ring_read_last: row r is frame count - W + r, modulo the ring
-    for (int r = tid; r < W; r += THREADS) {
-        int row = (rg.count - W + r) % d.ring_cap;
-        if (row < 0) row += d.ring_cap;
-        const bool keep = r >= pos0 - LOOKAROUND;
-        raw[r] = keep ? rg.data[(size_t)row * C + ch0] : 0.0f;
-        raw[W + r] = keep ? rg.data[(size_t)row * C + ch1] : 0.0f;
+    double* x = buf;      // the seed's section [n]
+    double* y = buf + W;  // the new onset's [n]
+    // the sections in one pass: item `it` is rows r0..r0+SEC_ROWS-1 of
+    // one channel, their medians at r0..r0+SEC_ROWS from window rows
+    // r0-2..r0+SEC_ROWS+2 (clamped: edge-replicated; zero before pos0 -
+    // LOOKAROUND), then the rectified negative first difference
+    const int nq = (n + SEC_ROWS - 1) / SEC_ROWS;
+    const long long s0 = (long long)rg.count - W;  // row 0's frame, exact
+    int base = -1;
+    if (s0 >= INT_MIN && s0 + W - 1 <= INT_MAX) {
+        base = (int)s0 % cap;  // a 32-bit modulo: s0 fits an int here
+        if (base < 0) base += cap;
     }
-    if (tid < 2) sh.xmax[tid] = 0;
-    __syncthreads();
-    for (int q = tid; q < 2 * W; q += THREADS) {
-        const int k = q >= W, r = q - k * W;
-        const float* col = raw + k * W;
-        med[q] = median5(col[max(r - 2, 0)], col[max(r - 1, 0)], col[r],
-                         col[min(r + 1, W - 1)], col[min(r + 2, W - 1)]);
+    int mx0 = 0, mx1 = 0;  // the maxima's bits (v >= 0 orders as its bits)
+    for (int it = tid; it < 2 * nq; it += THREADS) {
+        const int k = it >= nq;
+        const int r0 = (it - k * nq) * SEC_ROWS;
+        const int ch = k ? ch1 : ch0;
+        float v[SEC_ROWS + 5];
+#pragma unroll
+        for (int i = 0; i < SEC_ROWS + 5; ++i) {
+            const int r = min(max(r0 - 2 + i, 0), W - 1);
+            v[i] = r >= pos0 - LOOKAROUND
+                       ? rg.data[(size_t)window_row(rg, cap, W, base, r) * C +
+                                 ch]
+                       : 0.0f;
+        }
+        float med[SEC_ROWS + 1];
+#pragma unroll
+        for (int j = 0; j <= SEC_ROWS; ++j)
+            med[j] = median5(v[j], v[j + 1], v[j + 2], v[j + 3], v[j + 4]);
+        double* sec = k ? y : x;
+#pragma unroll
+        for (int j = 0; j < SEC_ROWS; ++j) {
+            if (r0 + j < n) {
+                const float dd = med[j + 1] - med[j];
+                const float o = dd >= 0.0f ? 0.0f : fabsf(dd);
+                sec[r0 + j] = (double)o;
+                if (k) mx1 = max(mx1, __float_as_int(o));
+                else mx0 = max(mx0, __float_as_int(o));
+            }
+        }
+    }
+    mx0 = __reduce_max_sync(FULL, mx0);
+    mx1 = __reduce_max_sync(FULL, mx1);
+    if (lane == 0) {
+        atomicMax(&sh.xmax[0], mx0);
+        atomicMax(&sh.xmax[1], mx1);
     }
     __syncthreads();
-    // the rectified negative first difference, into raw; its maxima
-    int mx0 = 0, mx1 = 0;
-    for (int q = tid; q < 2 * n; q += THREADS) {
-        const int k = q >= n, r = q - k * n;
-        const float dd = med[k * W + r + 1] - med[k * W + r];
-        const float v = dd >= 0.0f ? 0.0f : fabsf(dd);
-        raw[k * W + r] = v;
-        // v >= 0: its bits order as its values
-        if (k) mx1 = max(mx1, __float_as_int(v));
-        else mx0 = max(mx0, __float_as_int(v));
-    }
-    atomicMax(&sh.xmax[0], mx0);
-    atomicMax(&sh.xmax[1], mx1);
-    __syncthreads();
-    const float* x = raw;
-    const float* y = raw + W;
-    // the CC at the tolerance window's lags: index idx of the full CC is
-    // sum_m x[m + l] y[m], l = idx - (n - 1), over the contribution count
+    // the CC at the tolerance window's lags: window index j holds index
+    // idx = lo + j of the full CC, sum_m x[m + l] y[m], l = idx - (n - 1),
+    // over the contribution count.  Lane group g = warp * 4 + lane / 8
+    // sums window indices 4g..4g+3 (CC_LAGS = 4: the accumulators and the
+    // slide below are written out for 4); lane seg = lane % 8 the m of its
+    // segment [seg S, seg S + S), S = ceil(n / 8) made odd, each lag's
+    // terms in order of m
     const int cur = pos1 - pos0;
     const int center = n - cur;
     const int lo = center - ONSET_TOL;
-    for (int j = warp; j < 2 * ONSET_TOL; j += THREADS / 32) {
-        const int idx = lo + j;
-        float val = -INFINITY;
-        if (idx >= 0 && idx < 2 * n - 1) {
-            const int l = idx - (n - 1);
-            const int m0 = max(0, -l), m1 = min(n, n - l);
-            double acc = 0.0;
-            for (int m = m0 + lane; m < m1; m += 32)
-                acc += (double)x[m + l] * (double)y[m];
+    const int grp = warp * (32 / CC_SEGS) + lane / CC_SEGS;
+    const int seg = lane % CC_SEGS;
+    // odd, so the 8 segments' doubles lie in 8 different bank pairs (at
+    // 80, a multiple of 16 doubles, every load was an 8-way conflict)
+    const int seg_len = ((n + CC_SEGS - 1) / CC_SEGS) | 1;
+    double acc[CC_LAGS] = {0.0, 0.0, 0.0, 0.0};
+    if (grp < CC_GROUPS) {
+        const int l0 = lo + CC_LAGS * grp - (n - 1);
+        const int mb = seg * seg_len, me = min(mb + seg_len, n);
+        // x[m + l0 + k], k = 0..3, slid through registers as m advances
+        double x0 = sec_at(x, mb + l0, n), x1 = sec_at(x, mb + l0 + 1, n);
+        double x2 = sec_at(x, mb + l0 + 2, n);
+        // unrolled: the loads of later m issue before this m's products
+#pragma unroll 4
+        for (int m = mb; m < me; ++m) {
+            const double x3 = sec_at(x, m + l0 + 3, n);
+            const double ym = y[m];
+            acc[0] = __fma_rn(x0, ym, acc[0]);
+            acc[1] = __fma_rn(x1, ym, acc[1]);
+            acc[2] = __fma_rn(x2, ym, acc[2]);
+            acc[3] = __fma_rn(x3, ym, acc[3]);
+            x0 = x1;
+            x1 = x2;
+            x2 = x3;
+        }
+    }
+    // the segments' sums: ((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7))
+    // at seg 0; then each lag's value, and the lane's first argmax
+    float bv = -INFINITY;
+    int bj = INT_MAX;
 #pragma unroll
-            for (int o = 16; o; o >>= 1) acc += __shfl_down_sync(FULL, acc, o);
+    for (int k = 0; k < CC_LAGS; ++k) {
+#pragma unroll
+        for (int o = CC_SEGS / 2; o; o >>= 1)
+            acc[k] += __shfl_down_sync(FULL, acc[k], o, CC_SEGS);
+        const int j = CC_LAGS * grp + k, idx = lo + j;
+        if (seg == 0 && grp < CC_GROUPS && idx >= 0 && idx < 2 * n - 1) {
             const int ni = idx < n ? idx : 2 * n - 2 - idx;
-            val = (float)acc / (float)max(ni + 1, NORM_CUTOFF);
+            const float val = (float)acc[k] / (float)max(ni + 1, NORM_CUTOFF);
+            if (val > bv) {  // NaN never wins, as in a loop with >
+                bv = val;
+                bj = j;
+            }
         }
-        if (lane == 0) sh.ccv[j] = val;
     }
-    __syncthreads();
-    if (warp == 0) {
-        // the first argmax (jnp.argmax); no lag in the support: index 0
-        int arg = -1;
-        float best = -INFINITY;
-        for (int j = 0; j < 2 * ONSET_TOL; ++j)
-            if (sh.ccv[j] > best) {
-                best = sh.ccv[j];
-                arg = j;
-            }
-        const int argf = arg < 0 ? 0 : lo + arg;
-        const int lag = -(argf - (center - ONSET_TOL) - (cur + ONSET_TOL));
-        const bool valid = center - ONSET_TOL >= 0 &&
-                           center + ONSET_TOL <= 2 * n - 1 &&
-                           pos0 >= LOOKAROUND && pos1 > pos0 && pos1 < W - 1;
-        // the energy heuristic: weights exp(-e k / (|ld| - 1)) descending
-        // over x from min(pos0, pos0 + ld), ascending over y
-        const int ld = cur - lag;
-        const int nn = abs(ld);
-        const float denom = (float)max(nn - 1, 1);
-        const int sx = min(pos0, pos0 + ld), sy = min(pos1, pos1 - ld);
-        const float ne = -2.7182817459106445f;
-        double da = 0.0, db = 0.0;
-        for (int k = lane; k <= ONSET_TOL; k += 32) {
-            if (k < nn) {
-                const float wd = expf((ne * (float)k) / denom);
-                const float wa = expf((ne * (float)(nn - 1 - k)) / denom);
-                da += (double)(x[min(max(sx + k, 0), n - 1)] * wd);
-                db += (double)(y[min(max(sy + k, 0), n - 1)] * wa);
-            }
-        }
 #pragma unroll
-        for (int o = 16; o; o >>= 1) {
-            da += __shfl_down_sync(FULL, da, o);
-            db += __shfl_down_sync(FULL, db, o);
-        }
-        if (lane == 0) {
-            const float fa = (float)da /
-                             fmaxf(__int_as_float(sh.xmax[0]), 1e-20f);
-            const float fb = (float)db /
-                             fmaxf(__int_as_float(sh.xmax[1]), 1e-20f);
-            const bool move_seed = fa > fb && pos0 + ld >= 0;
-            sh.ref[5] = move_seed ? ld : 0;
-            sh.ref[6] = move_seed ? 0 : -ld;
-            sh.ref[7] = valid;
-            sh.ref[8] = argf;
-        }
+    for (int o = 16; o; o >>= 1) argmax_xor(bv, bj, o);
+    if (lane == 0) {
+        sh.cv[warp] = bv;
+        sh.cj[warp] = bj;
     }
     __syncthreads();
+    if (warp != 0) return;
+    bv = lane < THREADS / 32 ? sh.cv[lane] : -INFINITY;
+    bj = lane < THREADS / 32 ? sh.cj[lane] : INT_MAX;
+#pragma unroll
+    for (int o = THREADS / 64; o; o >>= 1) argmax_xor(bv, bj, o);
+    // no lag in the support: index 0 (jnp.argmax of all -inf)
+    const int argf = bj == INT_MAX ? 0 : lo + bj;
+    const int lag = -(argf - (center - ONSET_TOL) - (cur + ONSET_TOL));
+    const bool valid = center - ONSET_TOL >= 0 &&
+                       center + ONSET_TOL <= 2 * n - 1 &&
+                       pos0 >= LOOKAROUND && pos1 > pos0 && pos1 < W - 1;
+    // the energy heuristic: weights exp(-e k / (|ld| - 1)) descending over
+    // x from min(pos0, pos0 + ld), ascending over y
+    const int ld = cur - lag;
+    const int nn = abs(ld);
+    const float denom = (float)max(nn - 1, 1);
+    const int sx = min(pos0, pos0 + ld), sy = min(pos1, pos1 - ld);
+    const float ne = -2.7182817459106445f;
+    double da = 0.0, db = 0.0;
+    for (int k = lane; k <= ONSET_TOL; k += 32) {
+        if (k < nn) {
+            const float wd = expf((ne * (float)k) / denom);
+            const float wa = expf((ne * (float)(nn - 1 - k)) / denom);
+            da += (double)((float)x[min(max(sx + k, 0), n - 1)] * wd);
+            db += (double)((float)y[min(max(sy + k, 0), n - 1)] * wa);
+        }
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) {
+        da += __shfl_down_sync(FULL, da, o);
+        db += __shfl_down_sync(FULL, db, o);
+    }
+    if (lane == 0) {
+        const float fa = (float)da / fmaxf(__int_as_float(sh.xmax[0]), 1e-20f);
+        const float fb = (float)db / fmaxf(__int_as_float(sh.xmax[1]), 1e-20f);
+        const bool move_seed = fa > fb && pos0 + ld >= 0;
+        sh.ref[5] = move_seed ? ld : 0;
+        sh.ref[6] = move_seed ? 0 : -ld;
+        sh.ref[7] = valid;
+        sh.ref[8] = argf;
+    }
+    __syncwarp();
 }
 
 // One update of the fixed-capacity locator with (sensor, onset), by every
@@ -408,7 +524,7 @@ __device__ __forceinline__ void cc_refine(const LocDesc& d, Shared& sh,
 // warp 0 and the point on its lane 0 (every lane with a model); writes the
 // refinement's log row where `log` is given.
 __device__ __forceinline__ bool locate_update(
-    const LocDesc& d, Shared& sh, float* cc_buf, const Tables& tb,
+    const LocDesc& d, Shared& sh, double* cc_buf, const Tables& tb,
     const Ring& rg, Slots& sl, int i, int sensor, int onset, int* log,
     float* px_out, float* py_out) {
     const int tid = threadIdx.x, lane = tid & 31;
@@ -454,10 +570,15 @@ __device__ __forceinline__ bool locate_update(
                 sh.ref[4] = onset - rg.win_start;
                 sh.ref[5] = sh.ref[6] = sh.ref[7] = 0;
                 sh.ref[8] = -1;
+                sh.xmax[0] = sh.xmax[1] = 0;
             }
         }
     }
     if (d.cc) {
+        // no barrier ends the refinement: only warp 0 reads its result,
+        // and the other warps read sh.ref, the sections and sh.cv/cj
+        // before its second barrier, which warp 0 passes before it writes
+        // them again (the next update comes after the scan's barrier)
         __syncthreads();
         if (sh.ref[0]) cc_refine(d, sh, cc_buf, rg);
         if (tid < 32) {
@@ -481,7 +602,6 @@ __device__ __forceinline__ bool locate_update(
                 }
             }
         }
-        __syncthreads();  // sh.ref is rewritten by the next update
     }
     if (tid < 32) {
         const float lag = (float)(onset - sl.o0);
@@ -619,20 +739,22 @@ __device__ __forceinline__ bool locate_update(
     return emit;
 }
 
-__global__ void __launch_bounds__(THREADS) locate_block_kernel(
+// one CTA a launch: ptxas may give each thread what it needs (at 64
+// registers the refinement spilled)
+__global__ void __launch_bounds__(THREADS, 1) locate_block_kernel(
     LocDesc d, const uint8_t* __restrict__ on, const int32_t* __restrict__ deltas,
     int32_t* sample_count, int32_t* sens_g, int32_t* ons_g, int32_t* cnt_g,
     int32_t* age_g, int32_t* next_g, Tables tb, float* qp, int32_t* qo,
     int32_t* qe, int32_t* qc, int32_t* hit_onsets, float* hit_points,
-    uint8_t* hit_emits, const float* __restrict__ ring,
-    const int32_t* __restrict__ ring_count, int32_t* log) {
+    uint8_t* hit_emits, const float* __restrict__ x, float* ring,
+    int32_t* ring_count, int32_t* log) {
     __shared__ Shared sh;
-    extern __shared__ float cc_buf[];  // [4][win_len] with cc_refine
+    extern __shared__ double cc_buf[];  // [2][win_len] with cc_refine
     const int tid = threadIdx.x, lane = tid & 31;
     const int C = d.C, G = d.G, E = d.E;
 
-    // read once, by every thread, before the first barrier: the counter is
-    // written after it
+    // read once, by every thread, before the first barrier: the counters
+    // are written after it
     int fired = 0;
     if (tid < C) {
         fired = on[tid];
@@ -641,8 +763,23 @@ __global__ void __launch_bounds__(THREADS) locate_block_kernel(
     }
     const int sample = sample_count[0];
     Ring rg = {ring, 0, sample + d.B - d.win_len};
-    if (d.cc) rg.count = ring_count[0];
+    if (ring_count != nullptr) rg.count = ring_count[0];
+    if (x != nullptr) {
+        // the ring write: frame t of the block at (head mod cap + t) mod
+        // cap; the counter advances by B as an int32
+        const int head = rg.count;
+        int hm = head % d.ring_cap;
+        if (hm < 0) hm += d.ring_cap;
+        for (int i = tid; i < d.B * C; i += THREADS) {
+            const int t = i / C;
+            const int r = (int)(((unsigned)hm + (unsigned)t) %
+                                (unsigned)d.ring_cap);
+            ring[(size_t)r * C + (i - t * C)] = x[i];
+        }
+        rg.count = (int)((unsigned)head + (unsigned)d.B);
+    }
     if (!__syncthreads_or(fired)) {
+        if (tid == 0 && x != nullptr) ring_count[0] = rg.count;
         // a quiet block: the block's hits and the counter, nothing else
         if (tid < C) {
             hit_onsets[tid] = sample + sh.delta[tid];
@@ -653,6 +790,7 @@ __global__ void __launch_bounds__(THREADS) locate_block_kernel(
         if (tid == 0) sample_count[0] = sample + d.B;
         return;
     }
+    if (tid == 0 && x != nullptr) ring_count[0] = rg.count;
     // the number of fired channels, in every warp (the loop below is
     // uniform across the CTA: its barriers need every thread)
     const int n_fired =
@@ -799,7 +937,9 @@ extern "C" const char* ofpt_error_string(int code) {
 // counter are updated in place; the block's hits go to fresh outputs.
 // `fcnn` is the packed learned locator (null without one); `ring` and
 // `ring_count` the device audio ring [ring_cap, C] and its frame counter
-// (with cc_refine); `log` [C, LOG_W] int32 the refinement log (or null).
+// (with cc_refine or the block), in place; `x` the block [B, C] to write
+// to the ring first (null: no write); `log` [C, LOG_W] int32 the
+// refinement log (or null).
 extern "C" int ofpt_locate_block(
     const LocDesc* hd, const uint8_t* on, const int32_t* deltas,
     int32_t* sample_count, int32_t* sens, int32_t* ons, int32_t* cnt,
@@ -807,17 +947,20 @@ extern "C" int ofpt_locate_block(
     const float* max_l, const float* mml, const float* xyz, float* qp,
     int32_t* qo, int32_t* qe, int32_t* qc, int32_t* hit_onsets,
     float* hit_points, uint8_t* hit_emits, const float* fcnn,
-    const float* ring, const int32_t* ring_count, int32_t* log,
+    const float* x, float* ring, int32_t* ring_count, int32_t* log,
     void* stream) {
     cudaGetLastError();  // clear an error left by earlier, unrelated work
     const LocDesc d = *hd;
     if (!desc_ok(d, fcnn)) return (int)cudaErrorInvalidValue;
+    if ((x != nullptr || d.cc) && (ring == nullptr || ring_count == nullptr))
+        return (int)cudaErrorInvalidValue;
+    if (x != nullptr && (d.B < 1 || d.B > d.ring_cap))
+        return (int)cudaErrorInvalidValue;
     size_t smem = 0;
     if (d.cc) {
-        if (ring == nullptr || ring_count == nullptr || d.win_len < 8 ||
-            d.win_len > d.ring_cap)
+        if (d.win_len < 8 || d.win_len > d.ring_cap)
             return (int)cudaErrorInvalidValue;
-        smem = (size_t)4 * d.win_len * sizeof(float);
+        smem = (size_t)2 * d.win_len * sizeof(double);
         if (smem > 48 * 1024) {
             cudaError_t e = cudaFuncSetAttribute(
                 locate_block_kernel,
@@ -828,7 +971,8 @@ extern "C" int ofpt_locate_block(
     const Tables tb = {maps, min_l, max_l, mml, xyz, fcnn};
     locate_block_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
         d, on, deltas, sample_count, sens, ons, cnt, age, next, tb, qp, qo,
-        qe, qc, hit_onsets, hit_points, hit_emits, ring, ring_count, log);
+        qe, qc, hit_onsets, hit_points, hit_emits, x, ring, ring_count,
+        log);
     return (int)cudaGetLastError();
 }
 

@@ -12,7 +12,10 @@ counters: ``launches`` (its wrapper adds one each time it launches the
 kernel, and nowhere else), ``plain_calls`` (its plain PyTorch version
 adds one per call) and ``backward_recomputes`` (K3's backward adds one
 each time it recomputes the plain chain to differentiate it), and
-``variants``, the launches by instantiation where a wrapper names one.  ``chip_smoke.py`` reads them to show which path ran.
+``variants``, the launches by instantiation where a wrapper names one, and
+``plain_variants``, the plain calls by part where a plain version names
+one (the locate step's plain ring write).  ``chip_smoke.py`` reads them to
+show which path ran.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; a
 non-zero code raises here, since a refused launch never runs and a later
@@ -59,6 +62,7 @@ class Kernel:
         self.plain_calls = 0
         self.backward_recomputes = 0
         self.variants = collections.Counter()
+        self.plain_variants = collections.Counter()
         self._lib = None
 
     def library_path(self) -> Path:
@@ -150,6 +154,7 @@ def reset_counts() -> None:
         k.plain_calls = 0
         k.backward_recomputes = 0
         k.variants.clear()
+        k.plain_variants.clear()
 
 
 DETECTOR = Kernel(
@@ -206,22 +211,23 @@ GATHER_ROLL_VEC = Kernel(
     "gather_roll_vec", "gather_roll_vec.cu",
     {"ofpt_gather_roll_vec": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
 )
-# the realtime engine's locate step (no TPU kernel: the JAX engine's XLA
-# program), in place; the plain version counts its calls here too
+# the realtime engine's ring write and locate step (no TPU kernel: the JAX
+# engine's XLA program), in place; the plain version counts its calls here
+# too, its ring writes under plain_variants["ring_write"]
 LOCATE_BLOCK = Kernel(
     "locate_block", "locate_block.cu",
-    {"ofpt_locate_block": [_P] * 26,
+    {"ofpt_locate_block": [_P] * 27,
      "ofpt_locate_streams": [_P, _I, _I] + [_P] * 10},
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )
-# the realtime engine's audio-ring write (no TPU kernel: a scatter in the
-# JAX engine's XLA program), in place
-RING_WRITE = Kernel(
-    "ring_write", "ring_write.cu",
-    {"ofpt_ring_write": [_P, _P, _P, _I, _I, _I, _P]},
-)
 KERNELS = (DETECTOR, DETECTOR_WARP, DETECTOR_PIPE, DETECTOR_PIPE_COUPLED,
            GATHER, CONV_STACK,
            CONV_STACK_MMA, GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC,
-           LOCATE_BLOCK, RING_WRITE)
+           LOCATE_BLOCK)
+
+
+def ring_writes(variants) -> int:
+    """The launches of ``LOCATE_BLOCK`` (``variants``, its launches by
+    instantiation) that wrote the ring: the variants named ``"ring"``."""
+    return sum(n for v, n in variants.items() if "ring" in v.split("+"))

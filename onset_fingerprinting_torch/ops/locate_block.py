@@ -1,10 +1,11 @@
-"""The realtime engine's per-block locate step: every channel that fired in
-a block goes through the fixed-capacity locator in onset order, the
-completed hits go to the device event queue, and the sample counter
-advances by the block.
+"""The realtime engine's per-block locate step: the block is written to the
+device audio ring, every channel that fired in it goes through the
+fixed-capacity locator in onset order, the completed hits go to the device
+event queue, and the sample counter advances by the block.
 
-This is the locate half of the JAX engine's step (``realtime/engine.py:
-232-320`` of the JAX package), which XLA fuses into the block's program.
+This is the ring write and the locate half of the JAX engine's step
+(``realtime/engine.py:232-320`` of the JAX package), which XLA fuses into
+the block's program.
 Written as PyTorch ops it is about a thousand small operations per channel
 (the masked slot table, two feasibility tiers, twenty unrolled Newton
 iterations), several thousand kernels per block: even replayed from a
@@ -20,6 +21,15 @@ kernel or raises.  The kernel takes the Newton locator or the learned one
 (``model=FCNNBundle``, JAX multilaterate.py:789-815), with or without CC
 refinement.
 
+The ring write (``block=``, with ``ring=``): the step's block ``[B, C]``
+goes to the ring at its head, wrapping, and the ring's counter advances by
+B, in place, before anything reads the ring (the JAX step's
+``core/ring_buffer.ring_write`` before its ``ring_read_last``).  On the
+card it runs at the start of the same launch (variants named ``"ring"``,
+``"ring+fcnn"``, ...); the plain version is ``core/ring_buffer.ring_write``
+ahead of :func:`locate_block_reference` (counted in
+``plain_variants["ring_write"]``).  Without ``block`` nothing is written.
+
 CC refinement (``cc_refine=True``, JAX multilaterate.py:661-705): each
 fired onset is refined against the oldest candidate group's seed over the
 ``window_len``-sample window of live audio ending at the block.  The step
@@ -32,6 +42,9 @@ version takes an rFFT, so two lags within float32 rounding of each other
 may pick differently: ``log=`` (an int32 ``[C, LOG_W]`` buffer) records
 each update's refinement, and :func:`refine_reference` recomputes one in
 the plain version, with the CC, to tell a tie from a fault.
+:func:`cc_schedule_reference` is the kernel's CC schedule on the CPU (its
+order of double sums, its first argmax, its heuristic), which the CPU
+tests hold to the JAX package's refinement.
 
 :func:`locate_streams` is the sharded serve path's offline entry: a batch
 of streams' onset-ordered events through the same update from empty slot
@@ -68,6 +81,7 @@ import numpy as np
 from onset_fingerprinting_torch.core.ring_buffer import (
     RingBuffer,
     ring_read_last,
+    ring_write,
 )
 from onset_fingerprinting_torch.core.tree import leaves, write_into
 from onset_fingerprinting_torch.detect.refine import (
@@ -111,6 +125,9 @@ LOG_FIELDS = ("done", "go", "ch0", "ch1", "pos0", "pos1", "c_seed", "c_new",
               "ok", "arg")
 #: the sharded serve path's empty event key (parallel/sharding.py::_BIG)
 EV_BIG = 2 ** 30
+#: the kernel's CC schedule (csrc/locate_block.cu::CC_SEGS): each lag's
+#: terms in CC_SEGS segments of the contribution range, summed apart
+CC_SEGS = 8
 
 
 class EventQueue(NamedTuple):
@@ -328,18 +345,55 @@ def locate_block_reference(lb: LocateBlock, lstate: LocatorState,
     return new[0], new[1], BlockHits(onsets_abs, points, emits), new[2]
 
 
+def _check_ring(lb: LocateBlock, ring: RingBuffer | None,
+                block: torch.Tensor | None, device) -> None:
+    """Raise on a ring (and block) the step cannot take: the ring
+    contiguous float32 ``[N, C]`` with a 0-d int32 counter, the block
+    contiguous float32 ``[B, C]`` (B the step's block size, at most N), all
+    on the events' device."""
+    c = lb.n_channels
+    if ring is None:
+        if block is not None:
+            raise ValueError("the block is written to a ring: give ring=")
+        return
+    data, counter = ring.data, ring.counter
+    if (data.dtype != torch.float32 or data.dim() != 2
+            or tuple(data.shape[1:]) != (c,) or not data.is_contiguous()):
+        raise ValueError(f"the ring must be contiguous float32 [N, {c}]")
+    if counter.dtype != torch.int32 or counter.dim() != 0:
+        raise ValueError("the ring's counter must be a 0-d int32 tensor")
+    if block is not None:
+        if (block.dtype != torch.float32 or not block.is_contiguous()
+                or tuple(block.shape) != (lb.block_size, c)):
+            raise ValueError(f"the block must be contiguous float32 "
+                             f"[{lb.block_size}, {c}]")
+        if block.shape[0] > ring.capacity:
+            raise ValueError(f"a block of {block.shape[0]} frames does not "
+                             f"fit a ring of {ring.capacity} once")
+    if any(v is not None and v.device != device
+           for v in (data, counter, block)):
+        raise ValueError("ring, counter and block must be on the events' "
+                         "device")
+
+
 def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
                  on: torch.Tensor, deltas: torch.Tensor,
                  sample_count: torch.Tensor, ring: RingBuffer | None = None,
-                 log: torch.Tensor | None = None, out=None):
-    """The block's locate step: :func:`locate_block_reference` for CPU
-    tensors, ``csrc/locate_block.cu`` for CUDA tensors.  ``ring``: the
-    engine's audio ring after the block's write (with ``cc_refine``);
-    ``log``: a zeroed int32 ``[C, LOG_W]`` the kernel writes each update's
-    refinement into (the plain version writes none).  Returns ``(locator
-    state, event queue, BlockHits, sample_count + block size)``; ``out`` as
-    for the plain version."""
+                 log: torch.Tensor | None = None, out=None,
+                 block: torch.Tensor | None = None):
+    """The block's step: :func:`locate_block_reference` for CPU tensors,
+    ``csrc/locate_block.cu`` for CUDA tensors.  ``ring``: the engine's
+    audio ring; ``block``: the block ``[B, C]`` to write to ``ring`` first,
+    in place, data and counter (without it the ring is only read, by
+    ``cc_refine``, as it stands); ``log``: a zeroed int32 ``[C, LOG_W]``
+    the kernel writes each update's refinement into (the plain version
+    writes none).  Returns ``(locator state, event queue, BlockHits,
+    sample_count + block size)``; ``out`` as for the plain version."""
+    _check_ring(lb, ring, block, on.device)
     if on.device.type == "cpu":
+        if block is not None:
+            _cuda.LOCATE_BLOCK.plain_variants["ring_write"] += 1
+            ring.counter.copy_(ring_write(ring, block).counter)
         return locate_block_reference(lb, lstate, queue, on, deltas,
                                       sample_count, ring, out)
     lb.check_kernel_shape()
@@ -389,21 +443,18 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
         for i, w in enumerate(plan.widths):
             d.widths[i] = w
         fcnn_ptr = packed.data_ptr()
-    ring_ptrs = (None, None)
+    ring_ptrs = (None, None, None)
     if lb.cc_refine:
-        if ring is None or ring.data.device != on.device \
-                or ring.data.dtype != torch.float32 \
-                or not ring.data.is_contiguous() \
-                or tuple(ring.data.shape[1:]) != (c,) \
-                or ring.counter.dtype != torch.int32:
-            raise ValueError("cc_refine needs the engine's audio ring: "
-                             f"contiguous float32 [N, {c}] on the events' "
-                             "device, an int32 counter")
+        if ring is None:
+            raise ValueError("cc_refine needs the engine's audio ring")
         if lb.window_len > ring.capacity:
             raise ValueError(f"the refinement window ({lb.window_len}) "
                              f"exceeds the ring ({ring.capacity})")
-        d.cc, d.win_len, d.ring_cap = 1, lb.window_len, ring.capacity
-        ring_ptrs = (ring.data.data_ptr(), ring.counter.data_ptr())
+        d.cc, d.win_len = 1, lb.window_len
+    if ring is not None:
+        d.ring_cap = ring.capacity
+        ring_ptrs = (None if block is None else block.data_ptr(),
+                     ring.data.data_ptr(), ring.counter.data_ptr())
     if log is not None and (log.shape != (c, LOG_W)
                             or log.dtype != torch.int32
                             or log.device != on.device
@@ -416,10 +467,11 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
                      torch.empty_like(on))
     ptrs = [v.data_ptr() for v in (
         on, deltas, count, *new_l, *lb.tables, *new_q, *hits)]
-    # the variant: "fcnn" with the learned locator, "cc_refine" with the
-    # refinement, "fcnn+cc_refine" with both
+    # the variant: "ring" with the ring write, "fcnn" with the learned
+    # locator, "cc_refine" with the refinement, joined by "+" in that order
     variant = "+".join(name for name, on in (
-        ("fcnn", fcnn_ptr is not None), ("cc_refine", lb.cc_refine)) if on)
+        ("ring", block is not None), ("fcnn", fcnn_ptr is not None),
+        ("cc_refine", lb.cc_refine)) if on)
     _cuda.LOCATE_BLOCK.launch(
         "ofpt_locate_block", ctypes.addressof(d), *ptrs, fcnn_ptr,
         *ring_ptrs, None if log is None else log.data_ptr(), _cuda.stream(),
@@ -431,14 +483,20 @@ def refine_reference(ring: RingBuffer, win_len: int, ch0: int, ch1: int,
                      pos0: int, pos1: int) -> dict:
     """One update's CC refinement in the plain version, with what a tie
     check needs: the pair's window read from ``ring`` as the step reads it
-    (``ring_read_last``), then ``cc_refine_terms``: the masked normalised CC
-    ``cc`` (rFFT), its first argmax ``arg`` (an index of the full CC), the
-    heuristic's energies ``da``, ``db``; ``c_seed``, ``c_new`` and ``ok``
-    as ``cc_refine_adjust_jax`` gives them; and ``tie_tol(a, b)``: how far
+    (``ring_read_last``), then :func:`refine_pair_reference`."""
+    window = ring_read_last(ring, win_len)
+    return refine_pair_reference(
+        torch.stack([window[:, ch0], window[:, ch1]], dim=1), pos0, pos1)
+
+
+def refine_pair_reference(pair: torch.Tensor, pos0: int, pos1: int) -> dict:
+    """The plain refinement of one pair's window ``[W, 2]``:
+    ``cc_refine_terms``' masked normalised CC ``cc`` (rFFT), its first
+    argmax ``arg`` (an index of the full CC), the heuristic's energies
+    ``da``, ``db``; ``c_seed``, ``c_new`` and ``ok`` as
+    ``cc_refine_adjust_jax`` gives them; and ``tie_tol(a, b)``: how far
     apart the CC at two indices may round (16 float32 ulps of ``|x| |y|
     log2-length``, over the smaller contribution count)."""
-    window = ring_read_last(ring, win_len)
-    pair = torch.stack([window[:, ch0], window[:, ch1]], dim=1)
     p0 = torch.tensor(pos0, dtype=torch.int32, device=pair.device)
     p1 = torch.tensor(pos1, dtype=torch.int32, device=pair.device)
     args = dict(lookaround=LOOKAROUND, onset_tolerance=ONSET_TOL,
@@ -457,6 +515,86 @@ def refine_reference(ring: RingBuffer, win_len: int, ch0: int, ch1: int,
     return dict(arg=int(t.arg), c_seed=int(c_seed), c_new=int(c_new),
                 ok=bool(t.valid), cc=t.cc.cpu().numpy(), tie_tol=tie_tol,
                 da=float(t.da), db=float(t.db))
+
+
+def _sum_tree(v: np.ndarray, offsets) -> np.ndarray:
+    """``__shfl_down_sync`` sums over the last axis, as lane 0 ends them:
+    for each offset o, lanes ``[0, o)`` add lanes ``[o, 2o)``."""
+    v = v.copy()
+    for o in offsets:
+        v[..., :o] = v[..., :o] + v[..., o: 2 * o]
+    return v[..., 0]
+
+
+def cc_schedule_reference(x: np.ndarray, y: np.ndarray, pos0: int,
+                          pos1: int) -> dict:
+    """The kernel's refinement of one pair (``csrc/locate_block.cu::
+    cc_refine``) on the CPU, from the sections ``x``, ``y`` (``[n]``
+    float32, the plain version's ``cc_refine_terms`` ``x`` and ``y``) and
+    the window positions: its CC at the tolerance window's ``2 *
+    ONSET_TOL`` indices in its order of sums (each window index's terms in
+    order of m within each of ``CC_SEGS`` segments of ``ceil(n /
+    CC_SEGS)`` made odd, in float64, each product exact; the segment sums as
+    ``((s0 + s4) + (s2 + s6)) + ((s1 + s5) + (s3 + s7))``; then float32 over
+    the contribution count), its first argmax (the lowest index of the
+    largest value above -inf; none: index 0 of the full CC), and the
+    energy heuristic (float32 weights, their products' sums in float64 by
+    lane: k = lane, lane + 32, then a shuffle tree).  Returns ``arg`` (an
+    index of the full CC), ``cc`` (the window's values, -inf outside the
+    CC), ``c_seed``, ``c_new`` and ``ok``."""
+    x = np.asarray(x, np.float32)
+    y = np.asarray(y, np.float32)
+    n = x.shape[0]
+    cur = pos1 - pos0
+    center = n - cur
+    lo = center - ONSET_TOL
+    idx = lo + np.arange(2 * ONSET_TOL)
+    lag = idx - (n - 1)
+    seg_len = -(-n // CC_SEGS) | 1
+    xd, yd = x.astype(np.float64), y.astype(np.float64)
+    part = np.zeros((2 * ONSET_TOL, CC_SEGS))
+    for t in range(seg_len):
+        m = np.arange(CC_SEGS) * seg_len + t  # [segs]
+        xi = m[None, :] + lag[:, None]        # [lags, segs]
+        ok = (m[None, :] < n) & (xi >= 0) & (xi < n)
+        term = xd[np.clip(xi, 0, n - 1)] * yd[np.minimum(m, n - 1)][None, :]
+        part = np.where(ok, part + term, part)
+    tot = _sum_tree(part, [CC_SEGS >> k
+                           for k in range(1, CC_SEGS.bit_length())])
+    ni = np.where(idx < n, idx, 2 * n - 2 - idx)
+    cnt = np.maximum(ni + 1, NORM_CUTOFF).astype(np.float32)
+    inside = (idx >= 0) & (idx < 2 * n - 1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        cc = np.where(inside, tot.astype(np.float32) / cnt,
+                      np.float32(-np.inf)).astype(np.float32)
+    above = np.where(cc > -np.inf)[0]
+    argf = 0 if above.size == 0 else lo + int(
+        above[np.argmax(cc[above])])
+    lagv = -(argf - (center - ONSET_TOL) - (cur + ONSET_TOL))
+    valid = (center - ONSET_TOL >= 0 and center + ONSET_TOL <= 2 * n - 1
+             and pos0 >= LOOKAROUND and pos1 > pos0 and pos1 < n)
+    ld = cur - lagv
+    nn = abs(ld)
+    denom = np.float32(max(nn - 1, 1))
+    ne = np.float32(-2.7182817459106445)
+    sx, sy = min(pos0, pos0 + ld), min(pos1, pos1 - ld)
+    terms = np.zeros((2, 64))
+    for k in range(min(nn, ONSET_TOL + 1)):
+        wd = np.exp((ne * np.float32(k)) / denom, dtype=np.float32)
+        wa = np.exp((ne * np.float32(nn - 1 - k)) / denom, dtype=np.float32)
+        lane, rnd = k % 32, k // 32
+        terms[0, lane + 32 * rnd] = np.float64(
+            x[min(max(sx + k, 0), n - 1)] * wd)
+        terms[1, lane + 32 * rnd] = np.float64(
+            y[min(max(sy + k, 0), n - 1)] * wa)
+    lanes = terms[:, :32] + terms[:, 32:]  # each lane: k, then k + 32
+    da, db = _sum_tree(lanes, (16, 8, 4, 2, 1))
+    fa = np.float32(da) / max(np.float32(x.max()), np.float32(1e-20))
+    fb = np.float32(db) / max(np.float32(y.max()), np.float32(1e-20))
+    move_seed = bool(fa > fb) and pos0 + ld >= 0
+    return dict(arg=argf, cc=cc, ok=bool(valid),
+                c_seed=ld if move_seed else 0,
+                c_new=0 if move_seed else -ld)
 
 
 def check_refinements(lb: LocateBlock, log: torch.Tensor, ring: RingBuffer

@@ -9,15 +9,15 @@ fixed-capacity, branch-free PyTorch function
 
 with static shapes, no host read and no Python branch on a device value,
 so that it can be captured once in a ``torch.cuda.CUDAGraph`` and replayed
-per block: the replay is the counterpart of the single program.  Three
+per block: the replay is the counterpart of the single program.  Two
 kernels carry it on the card: the detector K1 (``ops/fused_detector``; the
 engine's config couples the channels' off-gate at 3 channels, so
-``csrc/detector_warp.cu``), the audio ring's write (``ops/ring_write``,
-``csrc/ring_write.cu``) and the locate step (``ops/locate_block``,
-``csrc/locate_block.cu``: the locator's masked slot table, the event-queue
-push and the sample counter in one launch).  The step runs in place
-(``out=`` the state it was given), so the captured graph is those three
-kernels and no copies.
+``csrc/detector_warp.cu``) and the ring write with the locate step
+(``ops/locate_block``, ``csrc/locate_block.cu``: the block to the audio
+ring, the locator's masked slot table, the event-queue push and the sample
+counter in one launch, as the JAX step writes its ring and locates in one
+program).  The step runs in place (``out=`` the state it was given), so
+the captured graph is those two kernels and no copies.
 
 :class:`RealtimeEngine` is the host shim: the per-block call, the device
 event queue drained by :meth:`~RealtimeEngine.harvest` with one packed
@@ -80,7 +80,6 @@ from onset_fingerprinting_torch.ops.locate_block import (
     LocateBlock,
     locate_block,
 )
-from onset_fingerprinting_torch.ops.ring_write import write_block
 from onset_fingerprinting_torch.realtime.actions import Actions, Location
 
 
@@ -207,15 +206,16 @@ def make_engine_step(cfg: DetectorConfig, locator: Multilaterate3D,
             fstatic, params_, state.detector, block, emit_rel=False,
             out=state.detector)
         on, deltas = on[0], deltas[0]
-        ring = write_block(state.ring, block)
-        # the refinement reads its window of live audio ending now from
-        # the ring itself (multilateration.py:457-501)
+        # the block goes to the audio ring first, in the same launch; the
+        # refinement reads its window of live audio ending now from the
+        # ring itself (multilateration.py:457-501)
         lstate, queue, hits, count = locate_block(
             lb, state.locator, queue, on, deltas, state.sample_count,
-            ring if cc_refine else None,
-            out=(state.locator, queue, state.sample_count))
+            state.ring, out=(state.locator, queue, state.sample_count),
+            block=block)
         new_state = EngineState(
-            detector=dstate, locator=lstate, ring=ring, sample_count=count,
+            detector=dstate, locator=lstate, ring=state.ring,
+            sample_count=count,
             ev_points=queue.points, ev_onsets=queue.onsets,
             ev_emits=queue.emits, ev_count=queue.count)
         return new_state, BlockEvents(on, hits.onsets, hits.points,

@@ -653,7 +653,8 @@ def main(argv=None) -> int:
                       device, args.fast)
         # the summary and the kernels' (launches, plain calls), one line
         print(json.dumps({"serve": s, "launches": {
-            k.name: [k.launches, k.plain_calls] for k in _cuda.KERNELS}}))
+            k.name: [k.launches, k.plain_calls] for k in _cuda.KERNELS},
+            "ring_writes": _cuda.ring_writes(_cuda.LOCATE_BLOCK.variants)}))
         print("PASS" if ok else "FAIL")
         return 0 if ok else 1
     seconds = args.seconds or (1.0 if args.cpu else 20.0)

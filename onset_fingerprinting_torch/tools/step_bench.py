@@ -1,5 +1,5 @@
 """The realtime engine's per-block step on the card, K1 and the locate
-kernel.
+kernel (with the ring write, where the checkout folds it in).
 
 At the engine's configuration (``tools/realtime_sim``: 3 sensors, 128-sample
 blocks, coupled K1, the locate kernel) over the first seconds of the
@@ -15,7 +15,14 @@ synthetic stream:
   engine runs, ``detector.cu`` and an empty kernel;
 - the locate kernel per launch in a graph of launches: on the stream's
   quiet blocks, and on its fired blocks in stream order, each from the
-  state the one before left (the state restored before every replay).
+  state the one before left (the state restored before every replay);
+  where the locate step takes the block (``block=``), also on the quiet
+  blocks with the ring write, whose time is the difference;
+- the locate kernel with CC refinement the same way (:func:`refine_times`),
+  each fired block refining against its own window: a small ring of the
+  stream's frames up to the block, written beforehand, so that the launch
+  writes no ring and the same call runs on a checkout whose step writes
+  its ring in another launch.
 
 It reads the engine through the entry points that this package has had
 since the engine was ported, so the same file measures an older checkout
@@ -284,10 +291,83 @@ def locate_times(lb, l0, q0, quiet, fired) -> dict:
         for (on, d, _), count in zip(fired, work[9:]):
             lq = step(*lq, on, d, count)[:2]
 
-    return dict(
+    out = dict(
         quiet=graph_ms([lambda c=c: step(lw, qw, *c) for c in quiet]),
         fired=graph_ms([chain], before=restore) / len(fired),
         quiet_blocks=len(quiet), fired_blocks=len(fired), in_place=in_place)
+    if "block" in inspect.signature(locate_block).parameters:
+        # the quiet launches again with the ring write (into a ring of the
+        # engine's 16 s), in turns with the bare ones
+        from onset_fingerprinting_torch.core.ring_buffer import ring_init
+
+        ring = ring_init(16 * 96000, (3,), device="cuda")
+        xb = torch.zeros((128, 3), device="cuda")
+        write = [graph_ms([lambda c=c: locate_block(
+            lb, lw, qw, *c, ring, out=(lw, qw, c[2]), block=xb)
+            for c in quiet])]
+        bare = graph_ms([lambda c=c: step(lw, qw, *c) for c in quiet])
+        write.append(graph_ms([lambda c=c: locate_block(
+            lb, lw, qw, *c, ring, out=(lw, qw, c[2]), block=xb)
+            for c in quiet]))
+        out.update(quiet_write=float(np.mean(write)),
+                   write=float(np.mean(write)) - (out["quiet"] + bare) / 2)
+    return out
+
+
+#: frames of the small rings the refinement is timed on (>= its window)
+SMALL_RING = 1024
+
+
+def small_ring(audio, end: int, cap: int = SMALL_RING):
+    """A ring of ``cap`` frames on the card holding the stream's frames
+    ``[end - cap, end)`` at their slots (frame s at s mod cap; zeros before
+    the stream), its counter ``end``."""
+    from onset_fingerprinting_torch.core.ring_buffer import ring_init
+
+    ring = ring_init(cap, (audio.shape[1],), device="cuda")
+    s = np.arange(end - cap, end)
+    keep = s >= 0
+    data = np.zeros((cap, audio.shape[1]), np.float32)
+    data[s[keep] % cap] = audio[s[keep]]
+    ring.data.copy_(torch.as_tensor(data))
+    ring.counter.fill_(end)
+    return ring
+
+
+def refine_times(lb, l0, q0, quiet, fired, audio, block: int = 128) -> dict:
+    """The locate kernel with CC refinement (``lb.cc_refine``) per launch
+    in a graph of launches, as :func:`locate_times`: on the quiet blocks,
+    and on the fired ones in stream order from the state the one before
+    left, each call given a small ring of the stream up to its block's end
+    (the ring as the step's write leaves it; no launch writes it)."""
+    from onset_fingerprinting_torch.ops.locate_block import locate_block
+
+    def with_rings(calls):
+        return [(on, d, c.clone(), small_ring(audio, int(c) + block))
+                for on, d, c in calls]
+
+    quiet, fired = with_rings(quiet), with_rings(fired)
+    work = [v.clone() for v in (*l0, *q0)] + [c.clone() for *_, c, _ in fired]
+    pristine = [v.clone() for v in work]
+
+    def restore():
+        for w, p in zip(work, pristine):
+            w.copy_(p)
+
+    lw, qw = type(l0)(*work[:5]), type(q0)(*work[5:9])
+
+    def chain():
+        lq = (lw, qw)
+        for (on, d, _, ring), count in zip(fired, work[9:]):
+            lq = locate_block(lb, *lq, on, d, count, ring,
+                              out=(*lq, count))[:2]
+
+    return dict(
+        quiet=graph_ms([lambda c=c: locate_block(
+            lb, lw, qw, c[0], c[1], c[2], c[3], out=(lw, qw, c[2]))
+            for c in quiet]),
+        fired=graph_ms([chain], before=restore) / len(fired),
+        quiet_blocks=len(quiet), fired_blocks=len(fired))
 
 
 def main(argv=None) -> int:
@@ -328,6 +408,10 @@ def main(argv=None) -> int:
                                              device="cuda"),
                                  l0, q0, quiet, fired)
     print("locate:", json.dumps(res["locate"]), flush=True)
+    res["refine"] = refine_times(
+        LocateBlock(eng.locator, 3, 128, cc_refine=True, device="cuda"),
+        l0, q0, quiet, fired, audio)
+    print("refine:", json.dumps(res["refine"]), flush=True)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -1,5 +1,6 @@
 """Where the realtime engine's per-block step spends its time on the card,
-split inside K1 and the locate kernel (the ring write is a bare copy).
+split inside its two launches: K1 and the locate kernel, which writes the
+block to the audio ring before it locates.
 
 At the engine's configuration (``tools/realtime_sim``: 3 sensors, 128-sample
 blocks, coupled K1, the locate kernel), with the timing and graph reading of
@@ -14,7 +15,15 @@ blocks, coupled K1, the locate kernel), with the timing and graph reading of
 - the locate kernel (``csrc/locate_block.cu``) per launch on the stream's
   quiet blocks and on its fired blocks in stream order, as cumulative
   variants: staging alone, then the slot logic without the lag-map scan
-  and Newton, then with the scan, then whole.
+  and Newton, then with the scan, then whole; and the whole kernel on the
+  quiet blocks with the ring write (``quiet_write``), in turns with the
+  bare launches (``write``: the difference);
+- the locate kernel with CC refinement (``tools/step_bench.refine_times``:
+  each fired block refining against its own window) whole and cut after
+  each of the refinement's two barriers: ``sections`` (the ring read, the
+  medians and differences; no CC) and ``cc`` (the CC and each warp's
+  argmax; no argmax over the warps, no heuristic), each cut leaving the
+  onsets unrefined.
 
 The variants are patched copies of the kernels' sources written to the
 build directory at run time (the sources in the package stay as they
@@ -39,6 +48,7 @@ from onset_fingerprinting_torch.tools.step_bench import (
     graph_ms,
     locate_calls,
     locate_times,
+    refine_times,
     step_graph,
 )
 
@@ -68,6 +78,17 @@ LOCATE_STEPS = (
     ("scan", "        emit = solve_tdoa(tri, lag1 * d.c_over_sr, "
      "lag2 * d.c_over_sr, &px,\n                          &py);",
      "        emit = false;"),
+)
+
+
+_NO_REFINE = ("    if (warp == 0 && lane == 0) sh.ref[7] = 0;\n"
+              "    __syncwarp();\n    return;\n")
+#: refinement cuts, each on its own: (name, anchor, replacement)
+REFINE_STEPS = (
+    ("sections", "    // the CC at the tolerance window's lags:",
+     _NO_REFINE + "    // the CC at the tolerance window's lags:"),
+    ("cc", "    if (warp != 0) return;\n",
+     "    if (warp != 0) return;\n" + _NO_REFINE),
 )
 
 
@@ -108,8 +129,9 @@ def main(argv=None) -> int:
         return 2
     k1v = variants(_cuda.DETECTOR_WARP, K1_STEPS)
     lov = variants(_cuda.LOCATE_BLOCK, LOCATE_STEPS)
+    rfv = variants(_cuda.LOCATE_BLOCK, REFINE_STEPS)
     _cuda.build([_cuda.DETECTOR, _cuda.DETECTOR_WARP, _cuda.LOCATE_BLOCK,
-                 *k1v.values(), *lov.values()])
+                 *k1v.values(), *lov.values(), *rfv.values()])
     res = {"device": torch.cuda.get_device_name(0)}
 
     audio, _, _ = sim.synth_stream(20.0, 0)
@@ -151,9 +173,27 @@ def main(argv=None) -> int:
             _cuda.LOCATE_BLOCK._lib = saved
         lo[f"quiet_{name}"] = t["quiet"]
         lo[f"fired_{name}"] = t["fired"]
+        if name == "whole":
+            lo["quiet_write"], lo["write"] = t["quiet_write"], t["write"]
     res["locate"] = lo
     res["locate_blocks"] = dict(fired=len(fired), quiet=len(quiet))
     print("locate:", json.dumps(lo), flush=True)
+
+    # the refining kernel whole and cut after each of its barriers
+    lb_cc = LocateBlock(eng.locator, 3, 128, cc_refine=True, device="cuda")
+    rf = {}
+    for name, kern in [("whole", None), *rfv.items()]:
+        if kern is not None:
+            _cuda.LOCATE_BLOCK._lib = kern._lib
+        try:
+            t = refine_times(lb_cc, l0, q0, quiet, fired, audio)
+        finally:
+            _cuda.LOCATE_BLOCK._lib = saved
+        rf[f"fired_{name}"] = t["fired"]
+        if name == "whole":
+            rf["quiet_whole"] = t["quiet"]
+    res["refine"] = rf
+    print("refine:", json.dumps(rf), flush=True)
     print(json.dumps(res), flush=True)
     return 0
 

@@ -165,3 +165,89 @@ def test_refine_reference_matches_jax_and_checks_a_log():
     bad[0, LOG_FIELDS.index("ok")] ^= 1
     with pytest.raises(AssertionError):
         check_refinements(lb, bad, ring)
+
+
+def _seeded_pairs(seed, n_cases=12):
+    """Pair windows ``[W, 2]`` of noise with a decaying burst in each
+    channel, the second channel's later by a random lag, and window
+    positions near the bursts' starts (some off by a few samples, some out
+    of the refinement's bounds): ``[(pair, pos0, pos1)]``."""
+    from onset_fingerprinting_torch.ops.locate_block import LocateBlock
+
+    w = LocateBlock(sim.build_engine("cpu", ring_seconds=0.01).locator, 3,
+                    128, cc_refine=True, device="cpu").window_len
+    rng = np.random.default_rng(seed)
+    n = np.arange(600)
+    cases = []
+    for _ in range(n_cases):
+        pair = rng.normal(0, rng.uniform(1e-4, 1e-2),
+                          (w, 2)).astype(np.float32)
+        s0 = int(rng.integers(40, w // 2))
+        s1 = s0 + int(rng.integers(0, 45))
+        f = rng.uniform(800, 6000)
+        for ch, s in enumerate((s0, s1)):
+            m = n[: w - s]
+            pair[s:, ch] += (np.sin(2 * np.pi * f / 96000 * m + ch)
+                             * np.exp(-m / rng.uniform(40, 200))
+                             * rng.uniform(0.1, 1.0)).astype(np.float32)
+        p0 = s0 + int(rng.integers(-6, 7))
+        p1 = s1 + int(rng.integers(-12, 13))
+        cases.append((pair, p0, max(p1, p0 + 1)))
+    return cases
+
+
+def test_cc_schedule_matches_jax_refinement():
+    """The locate kernel's refinement schedule on the CPU
+    (``cc_schedule_reference``: its CC's order of double sums, its first
+    argmax, its heuristic) against JAX's ``cc_refine_adjust_jax`` on the
+    synthetic drum's pairs and on seeded burst pairs: the same validity,
+    and the same corrections except where the plain CC ties (the model's
+    argmax within the plain CC's float32 rounding of the plain one's) or
+    the heuristic's energies tie (within 1e-5).  The model's CC is within
+    that rounding of the plain CC at every lag of the window."""
+    from onset_fingerprinting_torch.detect.refine import cc_refine_terms
+    from onset_fingerprinting_torch.ops.locate_block import (
+        cc_schedule_reference,
+        refine_pair_reference,
+    )
+    from onset_fingerprinting_tpu.detect.refine import (
+        cc_refine_adjust_jax as j_adjust,
+    )
+
+    _, _, window, drum = _refine_cases()
+    pairs = [(window[:, [a, b]], p0, p1) for a, b, p0, p1 in drum]
+    for seed in range(3):
+        pairs += _seeded_pairs(seed)
+    n_ok = moved = 0
+    ties = []
+    for pair, p0, p1 in pairs:
+        t = cc_refine_terms(torch.as_tensor(pair), torch.tensor(p0),
+                            torch.tensor(p1))
+        got = cc_schedule_reference(t.x.numpy(), t.y.numpy(), p0, p1)
+        ref = refine_pair_reference(torch.as_tensor(pair), p0, p1)
+        j = j_adjust(jnp.asarray(pair), jnp.int32(p0), jnp.int32(p1),
+                     lookaround=60, onset_tolerance=50,
+                     normalization_cutoff=10)
+        assert got["ok"] == ref["ok"] == bool(j[2]), (p0, p1)
+        lo = t.x.shape[0] - (p1 - p0) - 50
+        for k, v in enumerate(got["cc"]):
+            if np.isfinite(v) and 0 <= lo + k:
+                assert abs(v - ref["cc"][lo + k]) <= ref["tie_tol"](
+                    lo + k, lo + k), (p0, p1, k)
+        if not got["ok"]:
+            continue
+        n_ok += 1
+        want = (int(j[0]), int(j[1]))
+        moved += want != (0, 0)
+        if (got["c_seed"], got["c_new"]) == want:
+            continue
+        if got["arg"] != ref["arg"]:
+            gap = float(ref["cc"][ref["arg"]] - ref["cc"][got["arg"]])
+            assert 0.0 <= gap <= ref["tie_tol"](ref["arg"], got["arg"]), (
+                p0, p1, got["arg"], ref["arg"], gap)
+        else:
+            assert abs(ref["da"] - ref["db"]) <= 1e-5 * max(
+                abs(ref["da"]), abs(ref["db"])), (p0, p1)
+        ties.append((p0, p1))
+    assert n_ok >= 20 and moved >= 10 and len(ties) <= 2, (n_ok, moved,
+                                                           ties)

@@ -1,7 +1,8 @@
 """The realtime step's in-place contract on the CPU: the plain detector and
 the plain locate step given ``out=`` (the input state itself) against
 their functional results, the routing of the coupled detector, the ring
-write in place against the JAX package's, and the in-place engine step
+write of the locate step (``block=``) in place against the JAX package's,
+before the locate step reads the ring, and the in-place engine step
 against the JAX engine's step.
 
 Inputs are made with numpy from a seed.  Tolerances: the in-place and
@@ -40,7 +41,6 @@ from onset_fingerprinting_torch.ops.locate_block import (
     locate_block,
     locate_block_reference,
 )
-from onset_fingerprinting_torch.ops.ring_write import write_block
 from onset_fingerprinting_torch.realtime import engine as te
 from onset_fingerprinting_torch.tools import realtime_sim as sim
 
@@ -194,10 +194,26 @@ def test_coupled_routing_by_channels_and_shared_memory(coupled, bsz, c,
         assert warp_smem_bytes(c, bsz) > CTA_SMEM_MAX
 
 
+def _ring_step(c, b, cc_refine=False):
+    """A locate step of ``c`` channels and ``b``-sample blocks (a locator
+    of max(c, 2) sensors on the demo's drum), its empty state and queue,
+    and a quiet block's ``(on, deltas)``."""
+    loc = Multilaterate3D([(0.9, 360.0 * i / max(c, 2), 0.0)
+                           for i in range(max(c, 2))], **LOC)
+    lb = LocateBlock(loc, c, b, cc_refine=cc_refine, device="cpu")
+    i32 = dict(dtype=torch.int32)
+    queue = EventQueue(torch.zeros((4, 2)), torch.zeros(4, **i32),
+                       torch.zeros(4, **i32), torch.zeros((), **i32))
+    return (lb, locator_init(8, "cpu"), queue,
+            torch.zeros(c, dtype=torch.bool), torch.zeros(c, **i32))
+
+
 def test_launch_args_refuse_what_the_kernels_do_not_take():
-    """``out`` must be a state shaped like the input, and the ring write
-    takes a block of the ring's channels that fits the ring once: each
-    refused before anything is launched."""
+    """``out`` must be a state shaped like the input, and the locate
+    step's ring write takes a ring of its channels with an int32 counter
+    and a block of its block size that fits the ring once, and a block
+    only with a ring: each refused before anything is launched or
+    written."""
     cfg = DetectorConfig(n_channels=3)
     static, params, state = tamp.detector_init(cfg, device="cpu")
     fst = detector_static(static, params)
@@ -205,25 +221,33 @@ def test_launch_args_refuse_what_the_kernels_do_not_take():
     bad = state._replace(fast=torch.zeros(4))
     with pytest.raises(ValueError, match="out must be"):
         launch_args(fst, params, state, x, False, False, out=bad)
-    calls = _cuda.RING_WRITE.plain_calls
-    with pytest.raises(ValueError, match="does not fit"):
-        write_block(ring_init(100, (3,)), x)
-    with pytest.raises(ValueError, match="the block must be"):
-        write_block(ring_init(256, (4,)), x)
-    with pytest.raises(ValueError, match="counter must be"):
-        write_block(ring_init(256, (3,))._replace(
-            counter=torch.zeros((), dtype=torch.int64)), x)
-    assert _cuda.RING_WRITE.plain_calls == calls
+    lb, lstate, queue, on, d = _ring_step(3, 128)
+    count = torch.zeros((), dtype=torch.int32)
+    calls = (_cuda.LOCATE_BLOCK.plain_calls,
+             _cuda.LOCATE_BLOCK.plain_variants["ring_write"])
+    for ring, blk, match in (
+            (ring_init(100, (3,)), x, "does not fit"),
+            (ring_init(256, (3,)), torch.zeros((64, 3)), "the block must be"),
+            (ring_init(256, (4,)), x, "the ring must be"),
+            (ring_init(256, (3,))._replace(
+                counter=torch.zeros((), dtype=torch.int64)), x,
+             "counter must be"),
+            (None, x, "give ring=")):
+        with pytest.raises(ValueError, match=match):
+            locate_block(lb, lstate, queue, on, d, count, ring, block=blk)
+    assert (_cuda.LOCATE_BLOCK.plain_calls,
+            _cuda.LOCATE_BLOCK.plain_variants["ring_write"]) == calls
 
 
 @pytest.mark.parametrize("cap,b,c,head", [
     (1000, 128, 3, 0), (1000, 128, 3, 950), (300, 300, 1, 299),
     (257, 64, 5, 5000)])
 def test_write_block_matches_jax_ring_write(cap, b, c, head):
-    """The ring write the engine's step runs (``write_block``, in place),
-    block by block from a head ``head`` frames along, against the JAX
-    package's ``ring_write``: the same data and counter, bit for bit, the
-    head wrapping past the ring's end; the ring's tensors stay its own."""
+    """The ring write the engine's step runs (``locate_block(block=)``,
+    in place), block by block from a head ``head`` frames along, against
+    the JAX package's ``ring_write``: the same data and counter, bit for
+    bit, the head wrapping past the ring's end; the ring's tensors stay
+    its own; one plain ring write per step."""
     from onset_fingerprinting_tpu.core.ring_buffer import (
         RingBuffer as JRing,
         ring_write as jax_ring_write,
@@ -236,16 +260,72 @@ def test_write_block_matches_jax_ring_write(cap, b, c, head):
     ring.counter.fill_(head)
     ids = (id(ring.data), id(ring.counter))
     jr = JRing(jnp.asarray(data0), jnp.asarray(head, dtype=jnp.int32))
-    calls = _cuda.RING_WRITE.plain_calls
+    lb, lstate, queue, on, d = _ring_step(c, b)
+    count = torch.zeros((), dtype=torch.int32)
+    calls = _cuda.LOCATE_BLOCK.plain_variants["ring_write"]
     for i in range(7):
         blk = rng.normal(size=(b, c)).astype(np.float32)
-        got = write_block(ring, torch.as_tensor(blk))
+        locate_block(lb, lstate, queue, on, d, count, ring,
+                     out=(lstate, queue, count), block=torch.as_tensor(blk))
         jr = jax_ring_write(jr, jnp.asarray(blk))
-        assert got is ring and (id(got.data), id(got.counter)) == ids
+        assert (id(ring.data), id(ring.counter)) == ids
         np.testing.assert_array_equal(ring.data.numpy(),
                                       np.asarray(jr.data), err_msg=str(i))
         assert int(ring.counter) == int(jr.counter) == head + (i + 1) * b
-    assert _cuda.RING_WRITE.plain_calls == calls + 7
+    assert _cuda.LOCATE_BLOCK.plain_variants["ring_write"] == calls + 7
+
+
+@pytest.mark.parametrize("cap,b,c,head", [
+    (6000, 128, 3, 5950), (300, 300, 1, 299), (257, 64, 5, 2 ** 31 - 100),
+    (700, 128, 3, 0)])
+def test_step_writes_the_ring_then_locates_as_jax(cap, b, c, head,
+                                                  monkeypatch):
+    """The locate step with the block (the engine's call, ``cc_refine``
+    on) runs the ring write, then the locate step over the written ring:
+    at the plain locate step's call the ring's counter has advanced and
+    its last ``window_len`` frames (what the refinement reads) equal the
+    JAX package's ``ring_read_last`` after its ``ring_write``, bit for bit,
+    the head wrapping and the int32 counter passing its largest value."""
+    from onset_fingerprinting_torch.core.ring_buffer import ring_read_last
+    from onset_fingerprinting_torch.ops import locate_block as tlb
+    from onset_fingerprinting_tpu.core.ring_buffer import (
+        RingBuffer as JRing,
+        ring_read_last as jax_ring_read_last,
+        ring_write as jax_ring_write,
+    )
+
+    rng = np.random.default_rng(cap + b + c + 1)
+    data0 = rng.normal(size=(cap, c)).astype(np.float32)
+    ring = ring_init(cap, (c,))
+    ring.data.copy_(torch.as_tensor(data0))
+    ring.counter.fill_(head)
+    jr = JRing(jnp.asarray(data0), jnp.asarray(head, dtype=jnp.int32))
+    lb, lstate, queue, on, d = _ring_step(c, b, cc_refine=True)
+    win = min(lb.window_len, cap)
+    seen = []
+    plain = tlb.locate_block_reference
+
+    def spy(lb_, lstate_, queue_, on_, d_, count_, ring_, out_):
+        seen.append((int(ring_.counter), ring_read_last(ring_, win).clone()))
+        return plain(lb_, lstate_, queue_, on_, d_, count_, ring_, out_)
+
+    monkeypatch.setattr(tlb, "locate_block_reference", spy)
+    count = torch.zeros((), dtype=torch.int32)
+    for i in range(4):
+        blk = rng.normal(size=(b, c)).astype(np.float32)
+        locate_block(lb, lstate, queue, on, d, count, ring,
+                     out=(lstate, queue, count), block=torch.as_tensor(blk))
+        jr = jax_ring_write(jr, jnp.asarray(blk))
+        got_count, window = seen[-1]
+        assert got_count == int(jr.counter) == int(np.int32(
+            np.int64(head) + (i + 1) * b - 2 ** 32 * (
+                head + (i + 1) * b >= 2 ** 31)))
+        np.testing.assert_array_equal(
+            window.numpy(), np.asarray(jax_ring_read_last(jr, win)),
+            err_msg=str(i))
+        np.testing.assert_array_equal(ring.data.numpy(),
+                                      np.asarray(jr.data), err_msg=str(i))
+    assert len(seen) == 4 and int(count) == 4 * b
 
 
 def test_write_into_skips_shared_leaves():
@@ -303,7 +383,8 @@ def test_in_place_engine_step_matches_jax(stream):
 
 
 @pytest.mark.parametrize("source,steps", [
-    ("detector_warp.cu", "K1_STEPS"), ("locate_block.cu", "LOCATE_STEPS")])
+    ("detector_warp.cu", "K1_STEPS"), ("locate_block.cu", "LOCATE_STEPS"),
+    ("locate_block.cu", "REFINE_STEPS")])
 def test_step_split_variants_apply_to_the_sources(source, steps):
     """tools/step_split.py cuts the kernels at anchors in their sources:
     each anchor is there exactly once, and each cut changes the source."""
