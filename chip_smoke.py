@@ -15,7 +15,7 @@ Phase 0  prints the card's name and power limit, starts the plain
          engine with ``cc_refine=True`` over the stream's first 2 s in a
          fourth (8d's), the detector tuner at 9a's three slider settings
          over 6b's recording in three more (one each), and builds the
-         ten kernel libraries from ``onset_fingerprinting_torch/csrc``
+         eleven kernel libraries from ``onset_fingerprinting_torch/csrc``
          with nvcc, all started together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
          (TF32 off for cuDNN and matmuls): K1 the fused detector bit for
@@ -44,7 +44,10 @@ Phase 1  holds each kernel against its plain PyTorch version on the card
          flagship's second weight seed; its plan's CTAs per SM held to the
          card's occupancy query), and a bfloat16 stack with no tensor-core
          plan (16 features at every layer, 8192 windows) on the CUDA-core
-         kernel, each dtype timed beside its cuDNN conv1d chain.
+         kernel, each dtype timed beside its cuDNN conv1d chain; and the
+         bf16 flagship at B = 48 and B = 3 (L = 256) on the cluster kernel
+         (``csrc/conv_stack_mma_cluster.cu``, the route of a batch that
+         leaves the card idle) against the plain version.
 Phase 2  drives the fleet path at full width — 8192 four-channel 96 kHz
          streams, three carried chunks of 32000 samples after a 38-block
          warmup, the flagship CCCNN in bfloat16 with random weights carried
@@ -101,8 +104,12 @@ Phase 4  drives the realtime engine (``tools.realtime_sim``: 3 sensors at
          coupled pipe in turns) beside detector.cu and an empty kernel,
          the locate kernel on quiet and fired blocks, the ring write (the
          locate launch with it less the launch without it, on quiet
-         blocks, in turns), and K3 at the
-         classifier's shape, held there to the witness gate too
+         blocks, in turns), and K3 at the classifier's shape (B = 48, L =
+         512) on the kernel its route takes, the cluster kernel: bit for
+         bit against ``csrc/conv_stack_mma.cu`` (named) on two seeds, held
+         to the plain version and the witness gate, per call in a graph of
+         16 in turns with that kernel, and the engine's whole classify call
+         (ring gather, K3, head, dense) in turns with either kernel
          (``tools/step_bench``).
 Phase 5  trains on the card.  5a holds K3 under autograd at the training
          shape (B = 9216, L = 256, both routes) to autograd of the plain
@@ -124,10 +131,11 @@ Phase 5  trains on the card.  5a holds K3 under autograd at the training
 Phase 6  the player's setup loop at the JAX journey's size (3 sensors at
          96 kHz, 128-sample blocks, FCNN [10, 10, 10] with BatchNorm).  6a
          holds the locate kernel with an FCNN (random weights from a seed,
-         both ``model_input`` modes), in place, to its plain version on the
-         realtime stream's fired and quiet blocks (state and events
-         exactly, points within 1e-3 cm) and times it per launch in a graph
-         of launches beside the Newton kernel.  6b runs
+         both ``model_input`` modes; and FCNNs of [32, 32], [128, 128] and
+         12 layers of 16, past the plan's old bounds), in place, to its
+         plain version on the realtime stream's fired and quiet blocks
+         (state and events exactly, points within 1e-3 cm) and times it
+         per launch in a graph of launches beside the Newton kernel.  6b runs
          tests/test_journey.py's arrival journey on the card: 48 hits (seed
          3) mined by ``mine_file(fix=True)`` with K1 (the coupled pipe,
          one launch for the 0.5 s warmup and one for the whole recording)
@@ -244,9 +252,11 @@ of the coupled mode, the realtime engine's, timed at [128, 3];
 which no path launches; K2 and K4 as two rows each, timed on the random
 hits: ``gather_vec`` and ``gather_roll_vec``, the paths' kernels, and
 ``gather`` and ``gather_roll``, the old kernels, which the paths never
-launch; K3 as three rows: ``conv_stack_mma`` in bfloat16, the fleet path's,
-``conv_stack_mma_classifier``, the same kernel at the realtime classifier's
-shape and with its launches; ``conv_stack_f32`` in float32, the CUDA-core
+launch; K3 as four rows: ``conv_stack_mma`` in bfloat16, the fleet path's,
+``conv_stack_mma_classifier``, the cluster kernel at the realtime
+classifier's shape and with its launches,
+``conv_stack_mma_classifier_pr3``, the fleet's kernel at that shape, which
+no path launches; ``conv_stack_f32`` in float32, the CUDA-core
 kernel, phase 2b's; ``locate_block``, the realtime engine's locate
 step, which replaces no TPU kernel, timed on fired blocks; ``ring_write``,
 the engine's audio-ring write, which replaces no TPU kernel either: it
@@ -256,7 +266,8 @@ launch without it on quiet blocks, and its launches the locate launches
 that wrote the ring;
 ``detector_warp_mining``, K1's warp kernel timed over 6b's warmup and
 recording, which no path launches since PR 14; ``locate_block_fcnn``, the locate kernel
-with the learned locator, timed on fired blocks;
+with the learned locator, timed on fired blocks; ``locate_block_fcnn_wide``,
+the same with a [128, 128] FCNN, which no path launches;
 ``conv_stack_f32_imported``, K3 f32 serving the imported reference CCCNN,
 timed at its shape; ``detector_warp_streams``, K1's warp kernel over 8c's
 batch of streams, which no path launches either; ``locate_streams``, the locate kernel's stream-batched
@@ -653,6 +664,27 @@ def phase_conv(report, windows):
         log(f"K3 {tag} ({kern.name}) B={len(xs)}: max err {err:.3g} vs "
             f"plain (atol {atol}, rtol {rtol}){far}")
         del k, p
+    # the cluster kernel, the route of a batch that leaves the card idle:
+    # B = 48 and an odd B = 3 at L = 256
+    for b_c in (48, 3):
+        xs = normal[0][:b_c].contiguous()
+        tag = f"bf16_cluster_{b_c}"
+        kern = kernel_for(length, ws, 1, torch.bfloat16, b_c)
+        check(kern is _cuda.CONV_STACK_MMA_CLUSTER,
+              f"K3 {tag} routed to {kern.name}")
+        before = kern.launches
+        k = conv_stack(xs, ws, bs, 1, "silu", torch.bfloat16)
+        p = conv_stack_reference(xs, ws, bs, 1, "silu", torch.bfloat16)
+        torch.cuda.synchronize()
+        check(kern.launches == before + 1, f"K3 {tag} did not launch")
+        check(k.shape == p.shape, f"K3 {tag} shape {k.shape} != {p.shape}")
+        err = max_err(k, p)
+        bad = ((k - p).abs() > 3e-2 + 2e-2 * p.abs()).sum()
+        check(int(bad) == 0, f"K3 {tag}: {int(bad)} values outside atol "
+              f"3e-2 rtol 2e-2 (max err {err})")
+        far = gate_far(k, p, xs, ws, bs, tag)
+        log(f"K3 {tag} ({kern.name}) B={b_c}, L={length}: max err {err:.3g} "
+            f"vs plain (atol 3e-2, rtol 2e-2){far}")
     del normal, wide
     times = {}
     for dt in (torch.bfloat16, torch.float32):
@@ -1142,7 +1174,9 @@ def phase_realtime(report, cpu_ref):
           f"the locate kernel launched {_cuda.LOCATE_BLOCK.launches} times, "
           f"{n_ring} with the ring write: want {n_blocks} steps")
     k3 = kernel_for(sim.CLS_WINDOW, [m.weight for m in model.convs], 1,
-                    torch.bfloat16)
+                    torch.bfloat16, 3 * sim.CLS_CAPACITY)
+    check(k3 is _cuda.CONV_STACK_MMA_CLUSTER, f"the classifier's K3 routes "
+          f"to {k3.name}, not the cluster kernel")
     check(k3.launches > 0 and all(k.launches == 0 for k in _cuda.KERNELS
                                   if k not in (_cuda.DETECTOR_WARP,
                                                _cuda.DETECTOR_PIPE_COUPLED,
@@ -1395,7 +1429,7 @@ def phase_realtime(report, cpu_ref):
     report["_realtime"] = dict(step_nodes=types, replay_ms=rep,
                                step_ms=steps["step_ms"], k1=k1, locate=loc)
     ring_check(report, eng.state.ring, blocks, lb, l0, q0, quiet, loc)
-    classifier_k3(report, model)
+    classifier_k3(report, model, eng, last)
 
 
 def ring_check(report, engine_ring, blocks, lb, l0, q0, quiet, loc):
@@ -1463,17 +1497,27 @@ def ring_check(report, engine_ring, blocks, lb, l0, q0, quiet, loc):
         f"write (6 kernels) {plain_ms:.5f} ms per call in a graph of calls")
 
 
-def classifier_k3(report, model):
+def classifier_k3(report, model, eng, events):
     """K3 bf16 at the realtime classifier's shape: B = 48 signals (3
     channels x 16 hits) of L = 512 through the classifier's own stack (as
-    ``CCCNN.fused_features`` calls it), against its plain version and
-    cuDNN's bf16 chain, per call in a graph of calls."""
+    ``CCCNN.fused_features`` calls it), on the kernel the route takes (the
+    cluster kernel, ``csrc/conv_stack_mma_cluster.cu``): bit for bit against
+    ``csrc/conv_stack_mma.cu`` (the fleet's kernel, named) on two seeds, against
+    its plain version (3e-2 / 2e-2 and the witness gate), per call in a
+    graph of 16 calls in turns with that kernel (new, old, old, new),
+    beside cuDNN's bf16 chain; and the engine's whole classify call (ring
+    gather, K3, DFT head, dense) on ``events``' onsets, per call in a graph
+    of 16 with either kernel, in turns."""
     import torch.nn.functional as F
 
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops import conv_stack as k3mod
     from onset_fingerprinting_torch.ops.conv_stack import (
         _ACTIVATIONS,
+        _launch_mma,
         conv_stack,
         conv_stack_reference,
+        kernel_for,
     )
     from onset_fingerprinting_torch.tools import realtime_sim as sim
     from onset_fingerprinting_torch.tools.step_bench import graph_ms
@@ -1481,22 +1525,35 @@ def classifier_k3(report, model):
     ws = [m.weight for m in model.convs]
     bs = [m.bias for m in model.convs]
     pad, act, dt = model.padding, model.activation, model.dtype
-    x = torch.randn((3 * sim.CLS_CAPACITY, sim.CLS_WINDOW), device="cuda",
-                    generator=torch.Generator("cuda").manual_seed(48))
-    with torch.inference_mode():
-        k = conv_stack(x, ws, bs, padding=pad, activation=act,
-                       compute_dtype=dt)
-        t0 = time.perf_counter()
-        p = conv_stack_reference(x, ws, bs, pad, act, dt)
-        torch.cuda.synchronize()
-    plain_ms = 1e3 * (time.perf_counter() - t0)
-    err = max_err(k, p)
-    bad = int(((k.float() - p.float()).abs()
-               > 3e-2 + 2e-2 * p.float().abs()).sum())
-    check(bad == 0, f"K3 at the classifier's shape: {bad} values outside "
-          f"atol 3e-2 rtol 2e-2 (max err {err})")
-    far = gate_far(k, p, x, [w.detach() for w in ws],
-                   [b.detach() for b in bs], "classifier", pad, act)
+    b_n = 3 * sim.CLS_CAPACITY
+    check(kernel_for(sim.CLS_WINDOW, ws, pad, dt, b_n)
+          is _cuda.CONV_STACK_MMA_CLUSTER,
+          "K3 at the classifier's shape does not route to the cluster kernel")
+    errs, old_errs, far = [], [], ""
+    for seed in (48, 49):
+        x = torch.randn((b_n, sim.CLS_WINDOW), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+        with torch.inference_mode():
+            k = conv_stack(x, ws, bs, padding=pad, activation=act,
+                           compute_dtype=dt)
+            old = torch.full_like(k, float("nan"))
+            _launch_mma(_cuda.CONV_STACK_MMA, x, ws, bs, pad, act, old)
+            t0 = time.perf_counter()
+            p = conv_stack_reference(x, ws, bs, pad, act, dt)
+            torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        check(torch.equal(k, old), f"the cluster kernel differs from "
+              f"conv_stack_mma.cu at the classifier's shape (seed {seed}): "
+              f"max err {max_err(k, old)}")
+        errs.append(max_err(k, p))
+        old_errs.append(max_err(old, p))
+        bad = int(((k.float() - p.float()).abs()
+                   > 3e-2 + 2e-2 * p.float().abs()).sum())
+        check(bad == 0, f"K3 at the classifier's shape (seed {seed}): {bad} "
+              f"values outside atol 3e-2 rtol 2e-2 (max err {errs[-1]})")
+        far += gate_far(k, p, x, [w.detach() for w in ws],
+                        [b.detach() for b in bs], f"classifier_{seed}", pad,
+                        act)
     wl = [w.detach().to(dt) for w in ws]
     bl = [b.detach().to(dt) for b in bs]
     xl = x.to(dt)[:, None, :]
@@ -1508,25 +1565,63 @@ def classifier_k3(report, model):
             y = fn(F.conv1d(y, w, b, padding=pad))
         return y
 
+    out_old = torch.empty_like(k)
+    calls = {
+        "cluster": lambda: conv_stack(x, ws, bs, padding=pad, activation=act,
+                                      compute_dtype=dt),
+        "pr3": lambda: _launch_mma(_cuda.CONV_STACK_MMA, x, ws, bs, pad, act,
+                                   out_old),
+    }
+    turns = []
     with torch.inference_mode():
-        ms = graph_ms([lambda: conv_stack(x, ws, bs, padding=pad,
-                                          activation=act, compute_dtype=dt)]
-                      * 16)
+        for tag in ("cluster", "pr3", "pr3", "cluster"):
+            turns.append((tag, graph_ms([calls[tag]] * 16)))
         lib_ms = graph_ms([library] * 16)
-    b_n, t = x.shape
+    ms = {tag: float(np.mean([t for g, t in turns if g == tag]))
+          for tag in calls}
+    # the whole classify call on the engine's ring, with either kernel
+    fn_cls = eng._classify
+    ons = torch.tensor([o for o, _ in events[-sim.CLS_CAPACITY:]],
+                       dtype=torch.int32, device="cuda")
+    valid = torch.ones(sim.CLS_CAPACITY, dtype=torch.bool, device="cuda")
+    routes = {"cluster": k3mod.CLUSTER_MAX_CTAS, "pr3": 0}
+    cls_turns = []
+    try:
+        for tag in ("cluster", "pr3", "pr3", "cluster"):
+            k3mod.CLUSTER_MAX_CTAS = routes[tag]
+            cls_turns.append((tag, graph_ms(
+                [lambda: fn_cls(eng.state.ring, ons, valid)] * 16)))
+    finally:
+        k3mod.CLUSTER_MAX_CTAS = routes["cluster"]
+    cls_ms = {tag: float(np.mean([t for g, t in cls_turns if g == tag]))
+              for tag in routes}
+    t = sim.CLS_WINDOW
     flops = 0
     for w in ws:
         o, i, kk = w.shape
         t = t + 2 * pad - kk + 1
         flops += 2 * o * i * kk * t * b_n
+    work = dict(bytes=b_n * sim.CLS_WINDOW * 4 + b_n * t * ws[-1].shape[0] * 4,
+                ops=flops, peak=BF16_FLOPS)
     report["conv_stack_mma_classifier"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bytes=b_n * sim.CLS_WINDOW * 4 + b_n * t * ws[-1].shape[0] * 4,
-        ops=flops, peak=BF16_FLOPS)
-    log(f"K3 bf16 at the classifier's shape B = {b_n}, L = {sim.CLS_WINDOW}"
-        f": {ms:.5f} ms per call in a graph of calls, cuDNN bf16 chain "
-        f"{lib_ms:.5f} ms, plain {plain_ms:.3f} ms (one call); max err "
-        f"{err:.3g} vs plain{far}; {flops / 1e6:.1f} MFLOP useful")
+        max_abs_err=max(errs), ms=ms["cluster"], plain_ms=plain_ms,
+        library_ms=lib_ms, **work)
+    report["conv_stack_mma_classifier_pr3"] = dict(
+        max_abs_err=max(old_errs), ms=ms["pr3"], plain_ms=plain_ms,
+        library_ms=lib_ms, **work)
+    report["_classify"] = dict(k3_turns=turns, classify_turns=cls_turns)
+    log(f"K3 bf16 at the classifier's shape B = {b_n}, L = {sim.CLS_WINDOW}: "
+        f"the cluster kernel bit-identical to conv_stack_mma.cu on two seeds; "
+        f"per call in a graph of 16, in turns: "
+        + ", ".join(f"{g} {v:.5f}" for g, v in turns)
+        + f" ms; cuDNN bf16 chain {lib_ms:.5f} ms, plain {plain_ms:.3f} ms "
+        f"(one call); max err {max(errs):.3g} vs plain{far}; "
+        f"{flops / 1e6:.1f} MFLOP useful")
+    log(f"the whole classify call (ring gather, K3, DFT head, dense; 16 "
+        f"hits) per call in a graph of 16, in turns: "
+        + ", ".join(f"{g} {v:.5f}" for g, v in cls_turns)
+        + f" ms; K3's share: {ms['cluster'] / cls_ms['cluster']:.2f} "
+        f"(cluster), {ms['pr3'] / cls_ms['pr3']:.2f} (conv_stack_mma.cu)")
 
 
 #: phase 5: the capability fixture's size (JAX demo: 768 hits); its
@@ -1791,18 +1886,19 @@ def start_mine_reference():
     return p, q
 
 
-def locate_fcnn(seed, device="cuda"):
-    """A locate-kernel test FCNN ``[10, 10, 10]`` with BatchNorm: flax's
-    init from ``seed``, its norms' statistics and affine moved off their
-    init, the first Dense scaled by 1/50 and the last by 1/20 (sample lags
-    of tens to points of a few cm, as a trained locator's)."""
+def locate_fcnn(seed, device="cuda", hidden=(10, 10, 10)):
+    """A locate-kernel test FCNN (``[10, 10, 10]`` unless ``hidden`` says
+    otherwise) with BatchNorm: flax's init from ``seed``, its norms'
+    statistics and affine moved off their init, the first Dense scaled by
+    1/50 and the last by 1/20 (sample lags of tens to points of a few cm,
+    as a trained locator's)."""
     from onset_fingerprinting_torch.models.fcnn import (
         FCNN,
         FCNNBundle,
         init_module,
     )
 
-    net = init_module(FCNN(2, hidden_layers=(10, 10, 10)), seed, "cpu")
+    net = init_module(FCNN(2, hidden_layers=hidden), seed, "cpu")
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for bn in net.norms:
@@ -1819,8 +1915,9 @@ def locate_fcnn(seed, device="cuda"):
 def phase_locate_fcnn(report):
     """6a: the locate kernel with an FCNN, in place, against its plain
     version on the realtime stream's fired and quiet blocks, in both
-    model_input modes; then timed per launch in a graph of launches beside
-    the Newton kernel."""
+    model_input modes, and with FCNNs of [32, 32], [128, 128] and 12
+    layers of 16 (past the plan's old 64 units and 8 hidden layers); each
+    timed per launch in a graph of launches beside the Newton kernel."""
     from onset_fingerprinting_torch.ops.locate_block import (
         LocateBlock,
         locate_block,
@@ -1845,10 +1942,11 @@ def phase_locate_fcnn(report):
                               medium="drumhead", sr=sim.SR,
                               feasibility_tols=sim.FEASIBILITY_TOLS)
     model = locate_fcnn(6)
-    rows = {}
-    for mode in ("arrival", "by_channel"):
-        lb = LocateBlock(locator, 3, 128, model=model, model_input=mode,
-                         device="cuda")
+
+    def held(lb, what):
+        """The kernel with ``lb``'s FCNN, in place, against its plain
+        version on the fired then the quiet blocks: (points max err, hits,
+        the plain version's ms per call)."""
         lk, qk = type(l0)(*_clone(l0)), type(q0)(*_clone(q0))
         lp, qp = l0, q0
         lerr, n_hit = 0.0, 0
@@ -1863,23 +1961,30 @@ def phase_locate_fcnn(report):
                   and torch.equal(hk.onsets, hp.onsets)
                   and torch.equal(ck, cp)
                   and all(torch.equal(u, v) for u, v in zip(qk[1:], qp[1:])),
-                  f"locate kernel with an FCNN ({mode}) differs from plain "
+                  f"locate kernel with an FCNN ({what}) differs from plain "
                   f"at block {i}")
             if i >= len(fired):
                 check(all(torch.equal(u, v)
                           for u, v in zip(was, (*lk, *qk))),
-                      f"the FCNN locate kernel changed the state on quiet "
-                      f"block {i}")
+                      f"the FCNN locate kernel ({what}) changed the state on "
+                      f"quiet block {i}")
             lerr = max(lerr, max_err(hk.points, hp.points),
                        max_err(qk.points, qp.points))
             n_hit += int(hk.emits.sum())
         check(n_hit >= 2 and lerr <= 1e-3,
-              f"FCNN locate kernel ({mode}): {n_hit} hits, points max err "
+              f"FCNN locate kernel ({what}): {n_hit} hits, points max err "
               f"{lerr}")
-        t = locate_times(lb, l0, q0, quiet, fired)
         on, d, count = fired[-1]
         plain = time_ms(lambda: locate_block_reference(lb, lp, qp, on, d,
                                                        count), n=5)
+        return lerr, n_hit, plain
+
+    rows = {}
+    for mode in ("arrival", "by_channel"):
+        lb = LocateBlock(locator, 3, 128, model=model, model_input=mode,
+                         device="cuda")
+        lerr, n_hit, plain = held(lb, mode)
+        t = locate_times(lb, l0, q0, quiet, fired)
         rows[mode] = dict(err=lerr, hits=n_hit, times=t, plain=plain)
         log(f"6a locate kernel with an FCNN [10, 10, 10] ({mode}), in place "
             f"at the engine's shape: {n_hit} hits in {len(fired)} fired "
@@ -1888,6 +1993,22 @@ def phase_locate_fcnn(report):
             f"points max err {lerr:.3g} cm (bound 1e-3); per launch in a "
             f"graph of launches: fired {t['fired']:.5f} ms, quiet "
             f"{t['quiet']:.5f} ms; plain {plain:.3f} ms per call")
+    # nets past the plan's old 64 units and 8 hidden layers (the widths on
+    # the card, the vectors in dynamic shared memory), beside [32, 32]
+    wide = {}
+    for hidden in ((32, 32), (128, 128), (16,) * 12):
+        lb = LocateBlock(locator, 3, 128, model=locate_fcnn(7, hidden=hidden),
+                         device="cuda")
+        plan, packed = lb.fcnn
+        lerr, n_hit, plain = held(lb, f"hidden {list(hidden)}")
+        t = locate_times(lb, l0, q0, quiet, fired)
+        wide[hidden] = dict(err=lerr, hits=n_hit, times=t, plain=plain,
+                            plan=plan, packed=packed.numel())
+        log(f"6a locate kernel with an FCNN {list(hidden)} (arrival): {n_hit} "
+            f"hits, events exact, points max err {lerr:.3g} cm; per launch in "
+            f"a graph of launches: fired {t['fired']:.5f} ms, quiet "
+            f"{t['quiet']:.5f} ms; plain {plain:.3f} ms per call; "
+            f"{plan.smem} bytes of dynamic shared memory")
     newton = locate_times(LocateBlock(locator, 3, 128, device="cuda"), l0,
                           q0, quiet, fired)
     log(f"6a the Newton locate kernel on the same blocks: fired "
@@ -1904,7 +2025,17 @@ def phase_locate_fcnn(report):
         ms=r["times"]["fired"], plain_ms=r["plain"], library_ms=None,
         bytes=2 * state_bytes + packed.numel() * 4,
         ops=flops * r["hits"] / len(fired), peak=F32_FLOPS)
-    report["_phase6"] = dict(locate=rows, newton=newton)
+    w = wide[(128, 128)]
+    flops_w = 2 * sum(a * b for a, b in zip(w["plan"].widths[:-1],
+                                            w["plan"].widths[1:]))
+    report["locate_block_fcnn_wide"] = dict(
+        max_abs_err=w["err"], ms=w["times"]["fired"], plain_ms=w["plain"],
+        library_ms=None, bytes=2 * state_bytes + w["packed"] * 4,
+        ops=flops_w * w["hits"] / len(fired), peak=F32_FLOPS)
+    report["_phase6"] = dict(locate=rows, newton=newton, fcnn_wide={
+        str(list(h)): dict(fired=v["times"]["fired"],
+                           quiet=v["times"]["quiet"], err=v["err"])
+        for h, v in wide.items()})
 
 
 def mined_lags(json_path, true_on, true_loc, order):
@@ -3780,7 +3911,7 @@ def main(argv=None) -> int:
         log(smi)
         log(json.dumps({"kernels": kernel_rows(report, (
             "detector_warp_mining", "locate_block_fcnn",
-            "detector_pipe_coupled"))}))
+            "locate_block_fcnn_wide", "detector_pipe_coupled"))}))
         return 0
     if only7:
         from onset_fingerprinting_torch.tools.fingerprint_capability import (
@@ -3869,9 +4000,15 @@ def kernel_rows(report, names=None):
         "conv_stack_mma": ("onset_fingerprinting_torch/csrc/conv_stack_mma.cu",
                            "onset_fingerprinting_tpu/ops/pallas_conv.py:187",
                            "conv_stack_mma"),
+        # the classifier's K3 on the cluster kernel, and the fleet's
+        # kernel at that shape, which no path launches
         "conv_stack_mma_classifier": (
-            "onset_fingerprinting_torch/csrc/conv_stack_mma.cu",
+            "onset_fingerprinting_torch/csrc/conv_stack_mma_cluster.cu",
             "onset_fingerprinting_tpu/ops/pallas_conv.py:187", "classifier"),
+        "conv_stack_mma_classifier_pr3": (
+            "onset_fingerprinting_torch/csrc/conv_stack_mma.cu",
+            "onset_fingerprinting_tpu/ops/pallas_conv.py:187",
+            "classifier_pr3"),
         "conv_stack_f32": ("onset_fingerprinting_torch/csrc/conv_stack.cu",
                            "onset_fingerprinting_tpu/ops/pallas_conv.py:187",
                            "conv_stack"),
@@ -3897,11 +4034,17 @@ def kernel_rows(report, names=None):
             "onset_fingerprinting_torch/csrc/detector_warp.cu",
             "onset_fingerprinting_tpu/ops/pallas_detector.py:85",
             "detector_warp_mining"),
-        # the locate kernel with the learned locator (phase 6)
+        # the locate kernel with the learned locator (phase 6), and with a
+        # wide one (128, 128), past the plan's old bounds
         "locate_block_fcnn": ("onset_fingerprinting_torch/csrc/"
                               "locate_block.cu",
                               "onset_fingerprinting_tpu/locate/"
                               "multilaterate.py:789", "locate_block_fcnn"),
+        "locate_block_fcnn_wide": ("onset_fingerprinting_torch/csrc/"
+                                   "locate_block.cu",
+                                   "onset_fingerprinting_tpu/locate/"
+                                   "multilaterate.py:789",
+                                   "locate_block_fcnn_wide"),
         # K3 f32 serving an imported reference CCCNN (phase 7c)
         "conv_stack_f32_imported": (
             "onset_fingerprinting_torch/csrc/conv_stack.cu",

@@ -52,9 +52,12 @@
 //   locate/multilaterate.py:789-815 there) the completion evaluates the
 //   FCNN instead: its BatchNorm folded into each Dense and all layers
 //   packed into one buffer at LocateBlock's construction
-//   (ops/locate_block.py::pack_fcnn).  Warp 0 runs one unit per lane (in
-//   passes of 32, up to FCNN_MAX_W units per layer), the layer's input and
-//   output vectors in shared memory, one __syncwarp per layer; the
+//   (ops/locate_block.py::pack_fcnn), its depth and widths in a small
+//   int32 array beside the buffer (ops/locate_block.py::FCNNPlan.header).
+//   Warp 0 runs one unit per lane (units l, l + 32, ...), the layer's
+//   input and output vectors in dynamic shared memory after the CC
+//   refinement's buffers, sized at launch from the widest layer
+//   (LocDesc::fcnn_w), one __syncwarp per layer; the
 //   features are the group's two lags ("arrival") or the adjacent
 //   channel-order differences of its onsets in int32 ("by_channel").  A
 //   point is emitted only where the prediction (meters x 100) is finite.
@@ -113,8 +116,14 @@
 #define MAX_CH 32
 #define MAX_SLOTS 32
 #define MAX_TIERS 4
-#define FCNN_MAX_W 64
-#define FCNN_MAX_HIDDEN 8
+// bytes the Shared struct may take (ops/locate_block.py::STATIC_SMEM):
+// the dynamic shared memory of a launch is what is left of the opt-in
+// limit
+#define STATIC_SMEM 2048
+#define SMEM_OPTIN 232448
+// words of the FCNN's header warp 0 reads in one load, a word a lane
+// (ops/locate_block.py::FCNNPlan.header pads it to as many)
+#define FW_LANES 32
 #define THREADS 256
 #define FULL 0xffffffffu
 // the CC refinement's constants (locate/multilaterate.py's ONSET_TOL,
@@ -139,9 +148,9 @@ struct LocDesc {
     int C, G, S, H, W, E, T, B;
     float radius, c_over_sr;
     float tols[MAX_TIERS];
-    // the learned locator: layers = hidden + 1, widths[0..layers]
-    int has_model, n_layers, act, model_input;
-    int widths[FCNN_MAX_HIDDEN + 2];
+    // the learned locator: its depth and widths travel in Tables::fw;
+    // fcnn_w is its widest layer (two vectors of it in shared memory)
+    int has_model, fcnn_w, act, model_input;
     // CC refinement: on, the live window's length; the ring's frames
     // (with a ring)
     int cc, win_len, ring_cap;
@@ -153,9 +162,12 @@ static const int BIG = 1000000000;
 // the sharded serve path's empty event key (parallel/sharding.py::_BIG)
 static const int EV_BIG = 1 << 30;
 
-// the lag maps, the geometry and the packed FCNN
+// the lag maps, the geometry and the packed FCNN; fw its layers and
+// widths: fw[0] = layers L, fw[1 + l] = width l for l = 0..L, zeros after
+// them to at least FW_LANES words
 struct Tables {
     const float *maps, *min_l, *max_l, *mml, *xyz, *fcnn;
+    const int* fw;
 };
 
 // the device audio ring [cap, C] after this block's write, and the sample
@@ -175,7 +187,6 @@ struct Slots {
 struct Shared {
     int on[MAX_CH], delta[MAX_CH], order[MAX_CH], emit[MAX_CH];
     float pts[MAX_CH][2];
-    float h[2][FCNN_MAX_W];
     // per update: the completing groups to scan (two buffers: the next
     // update's count may be written while a warp still reads this one's)
     int nscan[2];
@@ -190,6 +201,7 @@ struct Shared {
     float cv[THREADS / 32];
     int cj[THREADS / 32];
 };
+static_assert(sizeof(Shared) <= STATIC_SMEM, "Shared outgrew STATIC_SMEM");
 
 // NaN-propagating max of |a|, |b|, as torch.amax
 __device__ __forceinline__ float amax2(float a, float b) {
@@ -242,35 +254,46 @@ __device__ __forceinline__ float act(int code, float x) {
 }
 
 // the packed FCNN on (f0, f1), by warp 0 (every lane calls it): lane l
-// computes units l, l + 32 of each layer; h holds the layer's input and
-// output.  Returns whether the point (meters x 100 = cm) is finite.
+// computes units l, l + 32, ... of each layer; h holds the layer's input
+// and output, two vectors of d.fcnn_w floats.  Returns whether the point
+// (meters x 100 = cm) is finite.
 __device__ bool fcnn_point(const LocDesc& d, const float* __restrict__ net,
-                           float (*h)[FCNN_MAX_W], int lane, float f0,
-                           float f1, float* px, float* py) {
+                           const int* __restrict__ fw, float* h, int lane,
+                           float f0, float f1, float* px, float* py) {
     __syncwarp();
     if (lane == 0) {
-        h[0][0] = f0;
-        h[0][1] = f1;
+        h[0] = f0;
+        h[1] = f1;
     }
     __syncwarp();
-    int cur = 0;
+    float* cur = h;
+    float* nxt = h + d.fcnn_w;
     const float* p = net;
-    for (int l = 0; l < d.n_layers; ++l) {
-        const int nin = d.widths[l], nout = d.widths[l + 1];
+    // the header in one load, a word a lane; a width past the lanes (a net
+    // of 31 layers or more) from memory
+    const int hw = fw[lane];
+    const int layers = __shfl_sync(FULL, hw, 0);
+    int nout = __shfl_sync(FULL, hw, 1);
+    for (int l = 0; l < layers; ++l) {
+        const int nin = nout;
+        const int wl = __shfl_sync(FULL, hw, min(l + 2, FW_LANES - 1));
+        nout = l + 2 < FW_LANES ? wl : fw[l + 2];
         const float* w = p;
         const float* b = p + nin * nout;
-        const bool last = l == d.n_layers - 1;
+        const bool last = l == layers - 1;
         for (int j = lane; j < nout; j += 32) {
             float acc = b[j];
-            for (int k = 0; k < nin; ++k) acc = acc + w[j * nin + k] * h[cur][k];
-            h[cur ^ 1][j] = last ? acc : act(d.act, acc);
+            for (int k = 0; k < nin; ++k) acc = acc + w[j * nin + k] * cur[k];
+            nxt[j] = last ? acc : act(d.act, acc);
         }
         __syncwarp();
-        cur ^= 1;
+        float* t = cur;
+        cur = nxt;
+        nxt = t;
         p += nin * nout + nout;
     }
-    *px = h[cur][0] * 100.0f;
-    *py = h[cur][1] * 100.0f;
+    *px = cur[0] * 100.0f;
+    *py = cur[1] * 100.0f;
     return isfinite(*px) && isfinite(*py);
 }
 
@@ -524,9 +547,9 @@ __device__ __forceinline__ void cc_refine(const LocDesc& d, Shared& sh,
 // warp 0 and the point on its lane 0 (every lane with a model); writes the
 // refinement's log row where `log` is given.
 __device__ __forceinline__ bool locate_update(
-    const LocDesc& d, Shared& sh, double* cc_buf, const Tables& tb,
-    const Ring& rg, Slots& sl, int i, int sensor, int onset, int* log,
-    float* px_out, float* py_out) {
+    const LocDesc& d, Shared& sh, double* cc_buf, float* fh,
+    const Tables& tb, const Ring& rg, Slots& sl, int i, int sensor,
+    int onset, int* log, float* px_out, float* py_out) {
     const int tid = threadIdx.x, lane = tid & 31;
     const int S = d.S, H = d.H, W = d.W, T = d.T;
     const int buf = i & 1;
@@ -681,7 +704,7 @@ __device__ __forceinline__ bool locate_update(
             f0 = (float)(g_o1 - seed_o);
             f1 = (float)(onset - seed_o);
         }
-        emit = fcnn_point(d, tb.fcnn, sh.h, lane, f0, f1, &px, &py);
+        emit = fcnn_point(d, tb.fcnn, tb.fw, fh, lane, f0, f1, &px, &py);
     } else if (returned && lane == 0) {
         const int a0 = max(seed_s, 0), a1 = max(g_s1, 0);
         const float lag1 = (float)(g_o1 - seed_o);
@@ -749,7 +772,11 @@ __global__ void __launch_bounds__(THREADS, 1) locate_block_kernel(
     uint8_t* hit_emits, const float* __restrict__ x, float* ring,
     int32_t* ring_count, int32_t* log) {
     __shared__ Shared sh;
-    extern __shared__ double cc_buf[];  // [2][win_len] with cc_refine
+    // [2][win_len] double with cc_refine, then [2][fcnn_w] float with a
+    // model (launch_smem)
+    extern __shared__ double dyn[];
+    double* cc_buf = dyn;
+    float* fh = reinterpret_cast<float*>(dyn + (d.cc ? 2 * d.win_len : 0));
     const int tid = threadIdx.x, lane = tid & 31;
     const int C = d.C, G = d.G, E = d.E;
 
@@ -832,7 +859,7 @@ __global__ void __launch_bounds__(THREADS, 1) locate_block_kernel(
         const int ch = sh.order[i];
         float px, py;
         const bool emit = locate_update(
-            d, sh, cc_buf, tb, rg, sl, i, ch, sample + sh.delta[ch],
+            d, sh, cc_buf, fh, tb, rg, sl, i, ch, sample + sh.delta[ch],
             log == nullptr ? nullptr : log + i * LOG_W, &px, &py);
         if (tid == 0) {
             sh.pts[ch][0] = emit ? px : 0.0f;
@@ -879,13 +906,16 @@ __global__ void __launch_bounds__(THREADS, 1) locate_block_kernel(
 }
 
 // One CTA per stream: its onset-ordered events [E] (EV_BIG = none; the
-// real ones first) from an empty slot table through the update, Newton
-// only; each event's point (zero where not emitted) and emit flag.
+// real ones first) from an empty slot table through the update (Newton or
+// the FCNN, no refinement); each event's point (zero where not emitted)
+// and emit flag.
 __global__ void __launch_bounds__(THREADS) locate_streams_kernel(
     LocDesc d, int n_events, const int32_t* __restrict__ ev_on,
     const int32_t* __restrict__ ev_ch, Tables tb, float* points,
     uint8_t* emits) {
     __shared__ Shared sh;
+    extern __shared__ double dyn[];  // [2][fcnn_w] float with a model
+    float* fh = reinterpret_cast<float*>(dyn);
     const int tid = threadIdx.x, lane = tid & 31;
     const size_t s = blockIdx.x;
     ev_on += s * n_events;
@@ -898,7 +928,7 @@ __global__ void __launch_bounds__(THREADS) locate_streams_kernel(
     const Ring rg = {nullptr, 0, 0};
     for (int i = 0; i < n_valid; ++i) {
         float px, py;
-        const bool emit = locate_update(d, sh, nullptr, tb, rg, sl, i,
+        const bool emit = locate_update(d, sh, nullptr, fh, tb, rg, sl, i,
                                         ev_ch[i], ev_on[i], nullptr, &px,
                                         &py);
         if (tid == 0) {
@@ -914,19 +944,32 @@ __global__ void __launch_bounds__(THREADS) locate_streams_kernel(
     }
 }
 
-static bool desc_ok(const LocDesc& d, const float* fcnn) {
+// the plan's widths live on the card: the wrapper checks them
+// (ops/locate_block.py::fcnn_plan) and fcnn_w is their largest
+static bool desc_ok(const LocDesc& d, const float* fcnn, const int* fw) {
     if (d.C > MAX_CH || d.G < 1 || d.G > MAX_SLOTS || d.T > MAX_TIERS ||
         d.E < 1)
         return false;
-    if (d.has_model) {
-        if (fcnn == nullptr || d.n_layers < 1 ||
-            d.n_layers > FCNN_MAX_HIDDEN + 1 || d.widths[0] != 2 ||
-            d.widths[d.n_layers] != 2 || (d.model_input == 1 && d.S != 3))
-            return false;
-        for (int l = 0; l <= d.n_layers; ++l)
-            if (d.widths[l] < 1 || d.widths[l] > FCNN_MAX_W) return false;
-    }
+    if (d.has_model && (fcnn == nullptr || fw == nullptr || d.fcnn_w < 2 ||
+                        (d.model_input == 1 && d.S != 3)))
+        return false;
     return true;
+}
+
+// the launch's dynamic shared memory: the refinement's two sections, then
+// the FCNN's two activation vectors; 0 where it passes the opt-in limit
+// (the wrapper's plan refuses such a net first)
+static size_t launch_smem(const LocDesc& d) {
+    size_t smem = d.cc ? (size_t)2 * d.win_len * sizeof(double) : 0;
+    if (d.has_model) smem += (size_t)2 * d.fcnn_w * sizeof(float);
+    return smem + STATIC_SMEM > SMEM_OPTIN ? 0 : smem;
+}
+
+template <typename K>
+static cudaError_t set_smem(K kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 extern "C" const char* ofpt_error_string(int code) {
@@ -935,7 +978,8 @@ extern "C" const char* ofpt_error_string(int code) {
 
 // One launch per block.  The locator state, the event queue and the sample
 // counter are updated in place; the block's hits go to fresh outputs.
-// `fcnn` is the packed learned locator (null without one); `ring` and
+// `fcnn` is the packed learned locator and `fcnn_w` its layers and widths
+// (null without one); `ring` and
 // `ring_count` the device audio ring [ring_cap, C] and its frame counter
 // (with cc_refine or the block), in place; `x` the block [B, C] to write
 // to the ring first (null: no write); `log` [C, LOG_W] int32 the
@@ -947,28 +991,22 @@ extern "C" int ofpt_locate_block(
     const float* max_l, const float* mml, const float* xyz, float* qp,
     int32_t* qo, int32_t* qe, int32_t* qc, int32_t* hit_onsets,
     float* hit_points, uint8_t* hit_emits, const float* fcnn,
-    const float* x, float* ring, int32_t* ring_count, int32_t* log,
-    void* stream) {
+    const int* fcnn_w, const float* x, float* ring, int32_t* ring_count,
+    int32_t* log, void* stream) {
     cudaGetLastError();  // clear an error left by earlier, unrelated work
     const LocDesc d = *hd;
-    if (!desc_ok(d, fcnn)) return (int)cudaErrorInvalidValue;
+    if (!desc_ok(d, fcnn, fcnn_w)) return (int)cudaErrorInvalidValue;
     if ((x != nullptr || d.cc) && (ring == nullptr || ring_count == nullptr))
         return (int)cudaErrorInvalidValue;
     if (x != nullptr && (d.B < 1 || d.B > d.ring_cap))
         return (int)cudaErrorInvalidValue;
-    size_t smem = 0;
-    if (d.cc) {
-        if (d.win_len < 8 || d.win_len > d.ring_cap)
-            return (int)cudaErrorInvalidValue;
-        smem = (size_t)2 * d.win_len * sizeof(double);
-        if (smem > 48 * 1024) {
-            cudaError_t e = cudaFuncSetAttribute(
-                locate_block_kernel,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-            if (e != cudaSuccess) return (int)e;
-        }
-    }
-    const Tables tb = {maps, min_l, max_l, mml, xyz, fcnn};
+    if (d.cc && (d.win_len < 8 || d.win_len > d.ring_cap))
+        return (int)cudaErrorInvalidValue;
+    const size_t smem = launch_smem(d);
+    if (smem == 0 && (d.cc || d.has_model)) return (int)cudaErrorInvalidValue;
+    cudaError_t e = set_smem(locate_block_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const Tables tb = {maps, min_l, max_l, mml, xyz, fcnn, fcnn_w};
     locate_block_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(
         d, on, deltas, sample_count, sens, ons, cnt, age, next, tb, qp, qo,
         qe, qc, hit_onsets, hit_points, hit_emits, x, ring, ring_count,
@@ -978,20 +1016,26 @@ extern "C" int ofpt_locate_block(
 
 // One launch over a batch of streams: ev_on, ev_ch [n_streams, n_events]
 // int32; points [n_streams, n_events, 2] float32 and emits
-// [n_streams, n_events] uint8 out.  Newton only (no model, no cc_refine).
+// [n_streams, n_events] uint8 out.  Newton or the FCNN (`fcnn`, `fcnn_w`
+// as for ofpt_locate_block), no cc_refine.
 extern "C" int ofpt_locate_streams(
     const LocDesc* hd, int n_streams, int n_events, const int32_t* ev_on,
     const int32_t* ev_ch, const float* maps, const float* min_l,
-    const float* max_l, const float* mml, const float* xyz, float* points,
-    uint8_t* emits, void* stream) {
+    const float* max_l, const float* mml, const float* xyz,
+    const float* fcnn, const int* fcnn_w, float* points, uint8_t* emits,
+    void* stream) {
     cudaGetLastError();  // clear an error left by earlier, unrelated work
     const LocDesc d = *hd;
-    if (!desc_ok(d, nullptr) || d.has_model || d.cc || n_streams < 1 ||
-        n_events < 0)
+    if (!desc_ok(d, fcnn, fcnn_w) || d.cc || n_streams < 1 || n_events < 0)
         return (int)cudaErrorInvalidValue;
     if (n_events == 0) return 0;
-    const Tables tb = {maps, min_l, max_l, mml, xyz, nullptr};
-    locate_streams_kernel<<<n_streams, THREADS, 0, (cudaStream_t)stream>>>(
-        d, n_events, ev_on, ev_ch, tb, points, emits);
+    const size_t smem = launch_smem(d);
+    if (smem == 0 && d.has_model) return (int)cudaErrorInvalidValue;
+    cudaError_t e = set_smem(locate_streams_kernel, smem);
+    if (e != cudaSuccess) return (int)e;
+    const Tables tb = {maps, min_l, max_l, mml, xyz, fcnn, fcnn_w};
+    locate_streams_kernel<<<n_streams, THREADS, smem,
+                            (cudaStream_t)stream>>>(d, n_events, ev_on,
+                                                    ev_ch, tb, points, emits);
     return (int)cudaGetLastError();
 }

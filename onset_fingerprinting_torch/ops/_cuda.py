@@ -197,6 +197,13 @@ CONV_STACK_MMA = Kernel(
     "conv_stack_mma", "conv_stack_mma.cu",
     {"ofpt_conv_stack_mma": [_P, _P, _P, _P, _P, _P]},
 )
+# K3 bf16 for a batch that cannot fill the card: a thread-block cluster
+# per 16 signals splits the time axis (the route: ops/conv_stack.kernel_for)
+CONV_STACK_MMA_CLUSTER = Kernel(
+    "conv_stack_mma_cluster", "conv_stack_mma_cluster.cu",
+    {"ofpt_conv_stack_mma_cluster": [_P, _P, _P, _P, _P, _P],
+     "ofpt_conv_stack_mma_cluster_occupancy": [_P, _P]},
+)
 GATHER_ROLL = Kernel(
     "gather_roll", "gather_roll.cu",
     {"ofpt_gather_roll": [_P, _P, _P, _P] + [_I] * 5 + [_P]},
@@ -216,15 +223,15 @@ GATHER_ROLL_VEC = Kernel(
 # too, its ring writes under plain_variants["ring_write"]
 LOCATE_BLOCK = Kernel(
     "locate_block", "locate_block.cu",
-    {"ofpt_locate_block": [_P] * 27,
-     "ofpt_locate_streams": [_P, _I, _I] + [_P] * 10},
+    {"ofpt_locate_block": [_P] * 28,
+     "ofpt_locate_streams": [_P, _I, _I] + [_P] * 12},
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )
 KERNELS = (DETECTOR, DETECTOR_WARP, DETECTOR_PIPE, DETECTOR_PIPE_COUPLED,
            GATHER, CONV_STACK,
-           CONV_STACK_MMA, GATHER_ROLL, GATHER_VEC, GATHER_ROLL_VEC,
-           LOCATE_BLOCK)
+           CONV_STACK_MMA, CONV_STACK_MMA_CLUSTER, GATHER_ROLL, GATHER_VEC,
+           GATHER_ROLL_VEC, LOCATE_BLOCK)
 
 
 def ring_writes(variants) -> int:

@@ -14,8 +14,24 @@ Which kernel runs (:func:`kernel_for`, a shape test, no fallback):
 
 - ``compute_dtype=bfloat16`` with ``padding <= 16`` and a plan
   (:func:`mma_plan`) whose shared memory fits one CTA of 16 signals
-  (232448 bytes): ``csrc/conv_stack_mma.cu``, the tensor-core kernel
-  (counter ``_cuda.CONV_STACK_MMA``).  The flagship stack takes it.
+  (232448 bytes), for a batch that would leave the card mostly idle
+  (at most ``CLUSTER_MAX_CTAS`` CTAs of 16 signals) and a cluster plan
+  (:func:`cluster_plan`): ``csrc/conv_stack_mma_cluster.cu``, the same
+  products with each group of 16 signals split along the time axis over
+  a thread-block cluster of ``CLUSTER_CTAS`` CTAs (counter
+  ``_cuda.CONV_STACK_MMA_CLUSTER``).  The realtime classifier's 48
+  signals take it.  Crossover (``tools/conv_stack_split.py --cluster``,
+  the flagship at L = 256 and 512, both kernels in turns, per call in a
+  graph of 16 on an H100 80GB HBM3 at 700 W): the cluster kernel takes
+  0.030-0.031 ms up to B = 112 (7 clusters of 16 CTAs, the most the card
+  keeps resident at one CTA per SM) and twice that from B = 128 on (a
+  second wave), against the tensor-core kernel's 0.047 (L = 256) and
+  0.083-0.085 ms (L = 512) up to B = 2112; so up to 7 groups of 16
+  signals go to the cluster kernel.
+- the same stacks at a larger batch, or without ``batch``:
+  ``csrc/conv_stack_mma.cu``, the tensor-core kernel (counter
+  ``_cuda.CONV_STACK_MMA``), a CTA per 16 signals.  The fleet's flagship
+  stack takes it.
 - every other stack, and every ``float32`` stack (one bf16 or TF32
   tensor-core pass would break its 5e-4/1e-4 bound):
   ``csrc/conv_stack.cu``, the CUDA-core kernel (``_cuda.CONV_STACK``),
@@ -24,7 +40,8 @@ Which kernel runs (:func:`kernel_for`, a shape test, no fallback):
   not fit a CTA's shared memory (e.g. 64 features at L=4096 in float32)
   raises.
 
-The plain version counts its calls on the kernel it stands in for;
+The plain version counts its calls on the kernel it stands in for (the
+route of its batch);
 :func:`far_signals` lists where a bf16 run parts from it by more than about
 one ulp (``tools/conv_stack_gate.py`` holds those to one rounding flip).  The
 packed weights are cached per weight and bias tensor (``data_ptr`` and
@@ -58,6 +75,8 @@ _ACTIVATIONS = dict(ACTIVATIONS, linear=lambda x: x)
 _ACT_CODES = {"linear": 0, "relu": 1, "silu": 2, "leakyrelu": 3, "elu": 4,
               "tanh": 5, "sigmoid": 6}
 MAX_LAYERS = 16
+#: the largest thread-block cluster the H100 takes (non-portable)
+MAX_CLUSTER = 16
 #: shared memory one CTA may take on the H100 (bytes)
 SMEM_LIMIT = 232448
 #: tensor-core kernel: leading zero rows of every activation buffer (the
@@ -67,6 +86,18 @@ ZR = 16
 TB = 16
 MMA_SIGNALS = 16
 _ROW_BYTES = 2 * MMA_SIGNALS
+
+
+#: the cluster kernel: CTAs of one thread-block cluster (8 is the portable
+#: largest; 16 takes the non-portable attribute, and measured faster at the
+#: classifier's shape), warps per CTA, and the most groups of 16 signals
+#: (the tensor-core kernel's CTAs) it takes: one wave of its clusters, 7
+#: resident on the H100 (measured crossover, module docstring)
+CLUSTER_CTAS = 16
+CLUSTER_WARPS = 8
+CLUSTER_MAX_CTAS = 7
+#: output features of one warp unit (csrc/conv_stack_mma.cu's OG_MAX)
+OG_MAX = 5
 
 
 #: CUDA-core kernel: output positions per lane task that a layer may take
@@ -87,6 +118,16 @@ class _StackDesc(ctypes.Structure):
     )] + [(n, ctypes.c_int * MAX_LAYERS) for n in (
         "K", "I", "O", "T_out", "TT", "OW", "n_og", "w_off", "w_len",
     )]
+
+
+class _ClusterDesc(ctypes.Structure):
+    # must match csrc/conv_stack_mma_cluster.cu::ClusterDesc field for field
+    _fields_ = [(n, ctypes.c_int) for n in (
+        "n_layers", "B", "L", "act", "ctas", "in_rows", "max_feat", "win0",
+        "taps_words", "bias_words",
+    )] + [(n, ctypes.c_int * MAX_LAYERS) for n in (
+        "I", "O", "T_out", "S", "n_pair", "fg", "tap_off", "b_off",
+    )] + [("range", ctypes.c_int * (MAX_CLUSTER + 1))]
 
 
 class _MmaDesc(ctypes.Structure):
@@ -182,6 +223,181 @@ def mma_plan(length: int, shapes, padding: int) -> MmaPlan | None:
     if smem > SMEM_LIMIT:
         return None
     return MmaPlan(layers, win0, buf_rows, read_end[0], smem)
+
+
+@dataclass(frozen=True)
+class ClusterLayer:
+    """One layer of the cluster kernel's schedule: the tensor-core kernel's
+    pair tasks (two blocks of ``TB`` positions each) in contiguous runs,
+    one per CTA of the cluster (each CTA's fixed range of tasks, clipped
+    to the layer's), and the features a warp unit takes."""
+
+    in_feat: int
+    out_feat: int
+    t_out: int
+    #: window rows per input feature (:class:`MmaLayer`)
+    s: int
+    #: pair tasks: positions ``[32 p, 32 p + 32)`` are task ``p``
+    n_pair: int
+    #: CTA ``c`` runs tasks ``[runs[c][0], runs[c][1])``
+    runs: tuple
+    #: output features per warp unit: a unit is one task's ``fg`` features
+    #: (the last unit of a task may take fewer)
+    fg: int
+
+    def reads(self, c: int, win0: int) -> tuple[int, int]:
+        """Rows ``[r0, r1)`` of the input buffer (the tensor-core kernel's
+        row numbers: input position ``t`` at row ``ZR + t``) that CTA
+        ``c``'s tasks read; ``(r0, r0)`` where it has none."""
+        p0, p1 = self.runs[c]
+        r0 = win0 + 2 * TB * p0
+        return (r0, r0) if p1 == p0 else (r0, r0 + 2 * TB * (p1 - p0)
+                                          - TB + self.s)
+
+    def writes(self, c: int) -> tuple[int, int]:
+        """Rows ``[w0, w1)`` of the output buffer CTA ``c``'s tasks write
+        (positions past ``t_out`` as zeros)."""
+        p0, p1 = self.runs[c]
+        return ZR + 2 * TB * p0, ZR + 2 * TB * p1
+
+    def units(self, c: int) -> list[tuple[int, int, int]]:
+        """CTA ``c``'s warp units in the order the kernel deals them to its
+        warps (unit ``u`` to warp ``u % CLUSTER_WARPS``): ``(task, first
+        feature, features)``."""
+        return _units(self.runs[c][1] - self.runs[c][0], self.out_feat,
+                      self.fg, self.runs[c][0])
+
+
+@dataclass(frozen=True)
+class ClusterPlan:
+    """Static schedule of the cluster kernel: each group of ``MMA_SIGNALS``
+    signals is one cluster of ``ctas`` CTAs.  CTA ``c`` owns the tasks
+    ``ranges[c]`` of every layer (those the layer has) and keeps, per
+    feature, two input buffers of ``in_rows`` rows, alternating by layer,
+    whose row ``i`` is row ``base(c) + i`` of the tensor-core kernel's
+    buffer: its tasks' windows (its own rows, which its epilogues write
+    there, and the halo, copied from the CTAs that own it), and every
+    layer's pair tables and biases, all in shared memory."""
+
+    layers: tuple
+    ctas: int
+    #: CTA ``c``'s tasks in every layer: ``[ranges[c][0], ranges[c][1])``
+    ranges: tuple
+    win0: int
+    in_rows: int
+    max_feat: int
+    taps_words: int
+    bias_words: int
+    #: clusters of the batch the plan was made for
+    groups: int
+    #: shared memory of one CTA (bytes), the layer table included
+    smem: int
+
+    def base(self, c: int) -> int:
+        """The row of the tensor-core kernel's buffer at row 0 of CTA
+        ``c``'s buffers: ``ZR - 16`` before its first position, a multiple
+        of 8, so every window start (``ZR - padding`` on) lies in it."""
+        return ZR - 16 + 2 * TB * self.ranges[c][0]
+
+    def owner(self, li: int, row: int) -> int | None:
+        """The CTA whose layer-``li`` tasks write output row ``row``, None
+        for a row no task writes (a zero row: before ``ZR`` or past the
+        last task)."""
+        p = (row - ZR) // (2 * TB)
+        if row < ZR or p >= self.layers[li].n_pair:
+            return None
+        return next(c for c, (p0, p1) in enumerate(self.ranges)
+                    if p0 <= p < p1)
+
+    def halo(self, li: int, c: int) -> list[int]:
+        """The rows CTA ``c`` copies from other CTAs after layer ``li``:
+        the rows its layer-``li + 1`` windows read that another CTA
+        wrote."""
+        r0, r1 = self.layers[li + 1].reads(c, self.win0)
+        return [r for r in range(r0, r1)
+                if self.owner(li, r) not in (None, c)]
+
+
+def split_runs(n: int, parts: int) -> tuple:
+    """``n`` tasks in ``parts`` contiguous runs, the last ``n % parts``
+    one longer (so a layer with fewer tasks than the longest, clipped to
+    its own, loses them from the end)."""
+    base, extra = divmod(n, parts)
+    bounds = [c * base + max(0, c - (parts - extra))
+              for c in range(parts + 1)]
+    return tuple(zip(bounds[:-1], bounds[1:]))
+
+
+def _units(run: int, out_feat: int, fg: int, p0: int = 0) -> list:
+    """The warp units of ``run`` tasks from task ``p0``, in the kernel's
+    order: ``(task, first feature, features)``."""
+    return [(p, f, min(fg, out_feat - f))
+            for p in range(p0, p0 + run) for f in range(0, out_feat, fg)]
+
+
+def warp_load(units) -> list[int]:
+    """Products a k step issues on each warp of the CTA (unit ``u`` runs on
+    warp ``u % CLUSTER_WARPS``, its units one after another): 4 per
+    feature (two blocks, two n8 tiles)."""
+    load = [0] * CLUSTER_WARPS
+    for u, (_, _, nf) in enumerate(units):
+        load[u % CLUSTER_WARPS] += 4 * nf
+    return load
+
+
+def _features_per_unit(out_feat: int, run: int) -> int:
+    """Features per warp unit for a CTA of ``run`` tasks: the units whose
+    busiest warp issues the fewest products a step (a warp issues its
+    mma.sync ~35-40 SM cycles apart on the H100), then the fewer units."""
+    return min(range(1, min(OG_MAX, out_feat) + 1), key=lambda fg: (
+        max(warp_load(_units(run, out_feat, fg))),
+        len(_units(run, out_feat, fg))))
+
+
+#: ints of the cluster kernel's per-layer table (csrc/
+#: conv_stack_mma_cluster.cu::Layers): I, O, T_out, S, n_pair, fg,
+#: tap_off, b_off by layer, then the ranges' bounds
+LAYER_TABLE = 8 * MAX_LAYERS + MAX_CLUSTER + 1
+
+
+def cluster_plan(length: int, shapes, padding: int, batch: int = 1,
+                 ctas: int = CLUSTER_CTAS) -> ClusterPlan | None:
+    """The cluster kernel's schedule for ``shapes`` ``[(O, I, K), ...]`` over
+    ``batch`` signals, or None where the tensor-core kernel has no plan
+    (:func:`mma_plan`) or one CTA's buffers pass its shared memory.  The
+    product of every block is the tensor-core kernel's (same window start,
+    ``s``, k steps, pair table and epilogue), so the two agree bit for
+    bit; only which CTA runs a task, and where its rows lie, differs.  Each
+    CTA owns the same tasks in every layer (:func:`split_runs` of the
+    longest layer's), so its outputs are its next windows' own rows."""
+    mma = mma_plan(length, shapes, padding)
+    if mma is None or not 1 <= ctas <= MAX_CLUSTER:
+        return None
+    ranges = split_runs(max(lp.n_blk // 2 for lp in mma.layers), ctas)
+    layers = []
+    for lp in mma.layers:
+        n_pair = lp.n_blk // 2
+        runs = tuple((min(p0, n_pair), min(p1, n_pair)) for p0, p1 in ranges)
+        run = max(p1 - p0 for p0, p1 in runs)
+        layers.append(ClusterLayer(lp.in_feat, lp.out_feat, lp.t_out, lp.s,
+                                   n_pair, runs,
+                                   _features_per_unit(lp.out_feat, run)))
+    in_rows = 0
+    for c, (p0, p1) in enumerate(ranges):
+        base = ZR - 16 + 2 * TB * p0
+        in_rows = max([in_rows, 16 + 2 * TB * (p1 - p0)]
+                      + [lp.reads(c, mma.win0)[1] - base for lp in layers])
+    in_rows = -(-in_rows // 8) * 8
+    max_feat = max([1] + [lp.out_feat for lp in layers])
+    taps_words = sum(lp.out_feat * lp.in_feat * (lp.s + 16) for lp in layers)
+    bias_words = sum(lp.out_feat for lp in layers)
+    smem = (max_feat * 2 * in_rows * _ROW_BYTES + 4 * taps_words
+            + 16 * -(-bias_words // 4) + 4 * LAYER_TABLE)
+    if smem > SMEM_LIMIT:
+        return None
+    return ClusterPlan(tuple(layers), ctas, ranges, mma.win0, in_rows,
+                       max_feat, taps_words, bias_words,
+                       -(-batch // MMA_SIGNALS), smem)
 
 
 def max_taps(layers) -> int:
@@ -338,21 +554,29 @@ def simt_tasks(lp: SimtLayer) -> list[list[tuple[int, int]]]:
 
 
 def kernel_for(length: int, weights, padding: int,
-               compute_dtype: torch.dtype) -> _cuda.Kernel:
-    """The kernel that runs this stack on the card: the tensor-core kernel
-    for a bfloat16 stack it has a plan for, else the CUDA-core kernel."""
-    if compute_dtype == torch.bfloat16 and mma_plan(
-        length, [tuple(w.shape) for w in weights], padding
-    ) is not None:
-        return _cuda.CONV_STACK_MMA
-    return _cuda.CONV_STACK
+               compute_dtype: torch.dtype,
+               batch: int | None = None) -> _cuda.Kernel:
+    """The kernel that runs this stack over ``batch`` signals on the card:
+    for a bfloat16 stack with a tensor-core plan, the cluster kernel where
+    ``batch`` is given and its tensor-core CTAs would leave the card mostly
+    idle (at most ``CLUSTER_MAX_CTAS``), else the tensor-core kernel; the
+    CUDA-core kernel for every other stack."""
+    shapes = [tuple(w.shape) for w in weights]
+    if compute_dtype != torch.bfloat16 or mma_plan(
+            length, shapes, padding) is None:
+        return _cuda.CONV_STACK
+    if batch is not None and -(-batch // MMA_SIGNALS) <= CLUSTER_MAX_CTAS \
+            and cluster_plan(length, shapes, padding, batch) is not None:
+        return _cuda.CONV_STACK_MMA_CLUSTER
+    return _cuda.CONV_STACK_MMA
 
 
 def conv_stack_reference(x, weights, biases, padding=1, activation="silu",
                          compute_dtype=torch.bfloat16):
     """Plain version of K3: an ``F.conv1d`` + activation chain with the
     kernel's rounding points.  ``[B, L] → [B, T_out, O_last]`` float32."""
-    kernel_for(x.shape[1], weights, padding, compute_dtype).plain_calls += 1
+    kernel_for(x.shape[1], weights, padding, compute_dtype,
+               x.shape[0]).plain_calls += 1
     return _chain(x, weights, biases, padding, activation, compute_dtype)
 
 
@@ -508,8 +732,8 @@ class _ConvStack(torch.autograd.Function):
         need = (ctx.needs_input_grad[0], *ctx.needs_input_grad[5:])
         inputs = [t.detach().requires_grad_(r) for t, r in zip(saved, need)]
         x, params = inputs[0], inputs[1:]
-        kernel_for(x.shape[1], params[:n], padding,
-                   compute_dtype).backward_recomputes += 1
+        kernel_for(x.shape[1], params[:n], padding, compute_dtype,
+                   x.shape[0]).backward_recomputes += 1
         with torch.enable_grad(), exact_f32():
             out = _chain(x, params[:n], params[n:], padding, activation,
                          compute_dtype)
@@ -536,10 +760,13 @@ def _forward(x, weights, biases, padding, activation, compute_dtype, t_out):
     bsz, length = x.shape
     out = torch.empty((bsz, t_out, weights[-1].shape[0]),
                       dtype=torch.float32, device=x.device)
-    kernel = kernel_for(length, weights, padding, compute_dtype)
+    kernel = kernel_for(length, weights, padding, compute_dtype, bsz)
     if kernel is _cuda.CONV_STACK_MMA:
         return _launch_mma(kernel, x, weights, biases, padding, activation,
                            out)
+    if kernel is _cuda.CONV_STACK_MMA_CLUSTER:
+        return _launch_cluster(kernel, x, weights, biases, padding,
+                               activation, out)
     plan = simt_plan(length, [tuple(w.shape) for w in weights], padding,
                      compute_dtype.itemsize)
     w_flat = packed_weights(kernel, weights, biases, compute_dtype,
@@ -618,4 +845,50 @@ def _mma_desc(plan: MmaPlan, bsz: int, length: int,
     for li, lp in enumerate(lay):
         d.I[li], d.O[li], d.T_out[li] = lp.in_feat, lp.out_feat, lp.t_out
         d.S[li], d.n_blk[li], d.zero_end[li] = lp.s, lp.n_blk, lp.zero_end
+    return d
+
+
+def _launch_cluster(kernel, x, weights, biases, padding, activation, out,
+                    ctas: int = CLUSTER_CTAS):
+    """Launch a build of ``csrc/conv_stack_mma_cluster.cu`` (``kernel``) on
+    ``x`` into ``out``; the caller has checked the stack and its plan.  The
+    pair tables and biases are the tensor-core kernel's (one cache entry
+    for both)."""
+    bsz, length = x.shape
+    shapes = [tuple(w.shape) for w in weights]
+    plan = cluster_plan(length, shapes, padding, bsz, ctas)
+    if plan is None:
+        raise ValueError(f"no cluster plan of {ctas} CTAs for this stack")
+    d = cluster_desc(plan, bsz, length, activation)
+    taps, b_flat, tap_off, b_off = packed_weights(
+        _cuda.CONV_STACK_MMA, weights, biases, torch.bfloat16,
+        lambda: _pack_mma(weights, biases, mma_plan(length, shapes,
+                                                    padding)))
+    for li in range(len(weights)):
+        d.tap_off[li] = tap_off[li]
+        d.b_off[li] = b_off[li]
+    kernel.launch(
+        "ofpt_conv_stack_mma_cluster", ctypes.addressof(d), x.data_ptr(),
+        taps.data_ptr(), b_flat.data_ptr(), out.data_ptr(), _cuda.stream(),
+    )
+    return out
+
+
+def cluster_desc(plan: ClusterPlan, bsz: int, length: int,
+                 activation: str) -> _ClusterDesc:
+    """The cluster kernel's descriptor of ``plan`` (the weights' offsets
+    are the caller's to set)."""
+    lay = plan.layers
+    d = _ClusterDesc(
+        n_layers=len(lay), B=bsz, L=length, act=_ACT_CODES[activation],
+        ctas=plan.ctas, in_rows=plan.in_rows, max_feat=plan.max_feat,
+        win0=plan.win0, taps_words=plan.taps_words,
+        bias_words=plan.bias_words,
+    )
+    for li, lp in enumerate(lay):
+        d.I[li], d.O[li], d.T_out[li] = lp.in_feat, lp.out_feat, lp.t_out
+        d.S[li], d.n_pair[li], d.fg[li] = lp.s, lp.n_pair, lp.fg
+    for c, (p0, _) in enumerate(plan.ranges):
+        d.range[c] = p0
+    d.range[plan.ctas] = plan.ranges[-1][1]
     return d

@@ -48,17 +48,22 @@ tests hold to the JAX package's refinement.
 
 :func:`locate_streams` is the sharded serve path's offline entry: a batch
 of streams' onset-ordered events through the same update from empty slot
-tables (Newton, no refinement), one launch of the kernel's stream-batched
-entry, one CTA per stream (variant ``"streams"``);
+tables (Newton or the learned locator, no refinement), one launch of the
+kernel's stream-batched entry, one CTA per stream (variant ``"streams"``,
+``"streams+fcnn"`` with a model);
 :func:`locate_streams_reference` is the JAX function's ``lax.scan``.
 
 The learned locator in the kernel: at construction the FCNN's eval-mode
 BatchNorm is folded into each Dense (:func:`fold_fcnn`) and the layers are
 packed into one float32 buffer (:func:`pack_fcnn`), which the kernel's
 first warp evaluates one hidden unit per lane on a completion, in place of
-the Newton solve.  :func:`fcnn_plan` states what the kernel takes (at most
-``FCNN_MAX_WIDTH`` units per layer, ``FCNN_MAX_HIDDEN`` hidden layers, two
-lag features in, a point out); an FCNN outside it raises when the
+the Newton solve; the depth and widths travel beside the buffer in a small
+int32 array on the card (:meth:`FCNNPlan.header`), and the layer's two
+activation vectors lie in the launch's dynamic shared memory, sized from
+the widest layer.  :func:`fcnn_plan` states what the kernel takes: any
+depth and width whose two vectors fit the launch's shared memory (beside
+the CC refinement's sections), two lag features in, a point out, an
+activation the kernel has; an FCNN outside it raises when the
 ``LocateBlock`` is built for the card.  :func:`fcnn_packed_reference`
 evaluates the packed buffer on the CPU in the kernel's order of rounding.
 
@@ -109,10 +114,14 @@ _BIG = 10 ** 9
 MAX_CHANNELS = 32
 MAX_SLOTS = 32
 MAX_TIERS = 4
-#: the kernel's FCNN plan (csrc/locate_block.cu): a unit per lane of warp 0,
-#: in passes of 32
-FCNN_MAX_WIDTH = 64
-FCNN_MAX_HIDDEN = 8
+#: the kernel's shared memory (csrc/locate_block.cu): what its static
+#: ``Shared`` struct may take, and the opt-in limit of one CTA on the H100
+#: (static and dynamic together), in bytes
+STATIC_SMEM = 2048
+SMEM_OPTIN = 232448
+#: words of the FCNN header the kernel reads in one load
+#: (csrc/locate_block.cu::FW_LANES)
+FW_LANES = 32
 #: activation codes of csrc/locate_block.cu::act
 ACT_CODES = {"relu": 0, "silu": 1, "leakyrelu": 2, "elu": 3, "tanh": 4,
              "sigmoid": 5}
@@ -152,9 +161,8 @@ class _LocDesc(ctypes.Structure):
         ("radius", ctypes.c_float), ("c_over_sr", ctypes.c_float),
         ("tols", ctypes.c_float * MAX_TIERS)] + [
         (n, ctypes.c_int) for n in (
-            "has_model", "n_layers", "act", "model_input")] + [
-        ("widths", ctypes.c_int * (FCNN_MAX_HIDDEN + 2))] + [
-        (n, ctypes.c_int) for n in ("cc", "win_len", "ring_cap")]
+            "has_model", "fcnn_w", "act", "model_input", "cc", "win_len",
+            "ring_cap")]
 
 
 class FCNNPlan(NamedTuple):
@@ -164,26 +172,51 @@ class FCNNPlan(NamedTuple):
     widths: tuple
     act: int
 
+    @property
+    def smem(self) -> int:
+        """Bytes of the layer's input and output vectors in the launch's
+        shared memory: two of the widest layer, float32."""
+        return 2 * max(self.widths) * 4
 
-def fcnn_plan(net: FCNN) -> FCNNPlan:
+    def header(self, device=None) -> torch.Tensor:
+        """The depth and widths as the kernel reads them: int32 ``[layers,
+        width 0, ..., width layers]``, zeros after them to at least
+        ``FW_LANES`` words (warp 0 reads the first ``FW_LANES`` in one
+        load)."""
+        words = [len(self.widths) - 1, *self.widths]
+        words += [0] * max(0, FW_LANES - len(words))
+        return torch.tensor(words, dtype=torch.int32, device=device)
+
+
+def fcnn_plan(net: FCNN, smem_used: int = 0) -> FCNNPlan:
     """The kernel's plan for ``net``; raises ``ValueError`` for an FCNN the
-    kernel does not take (there is no plain fallback on the card)."""
+    kernel does not take (there is no plain fallback on the card): one that
+    does not map 2 lag features to a point, an activation the kernel has
+    no code for, or two activation vectors of its widest layer past the
+    launch's shared memory once ``smem_used`` bytes (the CC refinement's
+    sections) are taken."""
     if not isinstance(net, FCNN):
         raise ValueError(f"the locate kernel takes an FCNN, not "
                          f"{type(net).__name__}")
     lins = [*net.layers, net.out]
     widths = (lins[0].in_features, *(lin.out_features for lin in lins))
     if widths[0] != 2 or widths[-1] != 2:
-        raise ValueError(f"the locate kernel's FCNN maps 2 lag features to "
-                         f"a point, not {widths[0]} -> {widths[-1]}")
-    if len(net.layers) > FCNN_MAX_HIDDEN or max(widths) > FCNN_MAX_WIDTH:
-        raise ValueError(
-            f"the locate kernel's FCNN plan is at most {FCNN_MAX_HIDDEN} "
-            f"hidden layers of at most {FCNN_MAX_WIDTH} units; got "
-            f"hidden layers {list(widths[1:-1])}")
+        raise ValueError(f"the locate kernel's FCNN plan maps 2 lag "
+                         f"features to a point, not {widths[0]} -> "
+                         f"{widths[-1]}")
     if net.activation not in ACT_CODES:
-        raise ValueError(f"no kernel activation {net.activation!r}")
-    return FCNNPlan(widths, ACT_CODES[net.activation])
+        raise ValueError(f"the locate kernel's FCNN plan has no activation "
+                         f"{net.activation!r}")
+    plan = FCNNPlan(widths, ACT_CODES[net.activation])
+    room = SMEM_OPTIN - STATIC_SMEM - smem_used
+    if plan.smem > room:
+        raise ValueError(
+            f"the locate kernel's FCNN plan holds two activation vectors "
+            f"of the widest layer ({max(widths)} units) in shared memory: "
+            f"{plan.smem} bytes, past the launch's {room} bytes "
+            f"({SMEM_OPTIN} less {STATIC_SMEM} static and {smem_used} for "
+            f"the CC refinement)")
+    return plan
 
 
 @torch.no_grad()
@@ -250,6 +283,7 @@ class LocateBlock:
         self.model = model
         self.model_input = model_input
         self.fcnn = None
+        self.fcnn_header = None
         if model is not None:
             # an FCNN the kernel cannot run raises here, before anything
             # reaches the card; the CPU runs any FCNN in its plain version
@@ -261,6 +295,7 @@ class LocateBlock:
         device = resolve_device(device)
         if self.fcnn is not None:
             self.fcnn = (self.fcnn[0], self.fcnn[1].to(device))
+            self.fcnn_header = self.fcnn[0].header(device)
         self.update = make_locate_update(
             locator, capacity=capacity, cc_refine=cc_refine, model=model,
             model_input=model_input, device=device)
@@ -275,6 +310,12 @@ class LocateBlock:
                           for t in locator.feasibility_tols)
         self.window_len = self.update.window_len
 
+    @property
+    def cc_smem(self) -> int:
+        """Bytes of the CC refinement's two sections (double) in the
+        launch's shared memory, 0 without it."""
+        return 2 * self.window_len * 8 if self.cc_refine else 0
+
     def check_kernel_shape(self) -> None:
         """Raise on what ``csrc/locate_block.cu`` does not take."""
         if self.n_channels > MAX_CHANNELS or self.capacity > MAX_SLOTS \
@@ -283,7 +324,22 @@ class LocateBlock:
                 f"the locate kernel takes at most {MAX_CHANNELS} channels, "
                 f"{MAX_SLOTS} slots and {MAX_TIERS} feasibility tiers")
         if self.model is not None:
-            fcnn_plan(self.model.model)
+            fcnn_plan(self.model.model, self.cc_smem)
+
+
+def _fcnn_args(lb: LocateBlock, d: _LocDesc, device) -> tuple:
+    """Set the learned locator's fields of ``d`` and return the packed
+    buffer's and the header's pointers (None, None without a model)."""
+    if lb.model is None:
+        return None, None
+    plan, packed = lb.fcnn
+    if packed.device != device or lb.fcnn_header.device != device:
+        raise ValueError("the packed FCNN must be on the events' device")
+    d.has_model = 1
+    d.fcnn_w = max(plan.widths)
+    d.act = plan.act
+    d.model_input = MODEL_INPUTS[lb.model_input]
+    return packed.data_ptr(), lb.fcnn_header.data_ptr()
 
 
 def _window(lb: LocateBlock, ring, sample_count):
@@ -431,18 +487,7 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
                  radius=lb.radius, c_over_sr=lb.c_over_sr)
     for i, t in enumerate(lb.tols):
         d.tols[i] = t
-    fcnn_ptr = None
-    if lb.model is not None:
-        plan, packed = lb.fcnn
-        if packed.device != on.device:
-            raise ValueError("the packed FCNN must be on the events' device")
-        d.has_model = 1
-        d.n_layers = len(plan.widths) - 1
-        d.act = plan.act
-        d.model_input = MODEL_INPUTS[lb.model_input]
-        for i, w in enumerate(plan.widths):
-            d.widths[i] = w
-        fcnn_ptr = packed.data_ptr()
+    fcnn_ptrs = _fcnn_args(lb, d, on.device)
     ring_ptrs = (None, None, None)
     if lb.cc_refine:
         if ring is None:
@@ -470,10 +515,10 @@ def locate_block(lb: LocateBlock, lstate: LocatorState, queue: EventQueue,
     # the variant: "ring" with the ring write, "fcnn" with the learned
     # locator, "cc_refine" with the refinement, joined by "+" in that order
     variant = "+".join(name for name, on in (
-        ("ring", block is not None), ("fcnn", fcnn_ptr is not None),
+        ("ring", block is not None), ("fcnn", lb.model is not None),
         ("cc_refine", lb.cc_refine)) if on)
     _cuda.LOCATE_BLOCK.launch(
-        "ofpt_locate_block", ctypes.addressof(d), *ptrs, fcnn_ptr,
+        "ofpt_locate_block", ctypes.addressof(d), *ptrs, *fcnn_ptrs,
         *ring_ptrs, None if log is None else log.data_ptr(), _cuda.stream(),
         variant=variant)
     return new_l, new_q, hits, count
@@ -660,7 +705,8 @@ def locate_streams(lb: LocateBlock, ev_on: torch.Tensor,
                    ev_ch: torch.Tensor):
     """A batch of streams' events ``ev_on [S, E]`` (onset samples in
     order, ``EV_BIG`` after the last real one) and ``ev_ch [S, E]``
-    (channels) through the fixed-capacity locator from empty slot tables:
+    (channels) through the fixed-capacity locator (Newton, or the learned
+    locator in the same code as the step's) from empty slot tables:
     :func:`locate_streams_reference` for CPU tensors, one launch of
     ``csrc/locate_block.cu``'s stream-batched entry for CUDA tensors.
     Returns ``(points [S, E, 2] cm, zero where not emitted; emits [S, E]
@@ -668,9 +714,9 @@ def locate_streams(lb: LocateBlock, ev_on: torch.Tensor,
     if ev_on.device.type == "cpu":
         return locate_streams_reference(lb, ev_on, ev_ch)
     lb.check_kernel_shape()
-    if lb.model is not None or lb.cc_refine:
-        raise ValueError("the stream-batched locate entry runs Newton "
-                         "without CC refinement")
+    if lb.cc_refine:
+        raise ValueError("the stream-batched locate entry runs without CC "
+                         "refinement")
     if ev_on.dim() != 2 or ev_ch.shape != ev_on.shape \
             or ev_on.dtype != torch.int32 or ev_ch.dtype != torch.int32 \
             or not ev_on.is_contiguous() or not ev_ch.is_contiguous():
@@ -684,12 +730,14 @@ def locate_streams(lb: LocateBlock, ev_on: torch.Tensor,
                  B=lb.block_size, radius=lb.radius, c_over_sr=lb.c_over_sr)
     for i, t in enumerate(lb.tols):
         d.tols[i] = t
+    fcnn_ptrs = _fcnn_args(lb, d, ev_on.device)
     points = torch.empty((n, e, 2), dtype=torch.float32, device=ev_on.device)
     emits = torch.empty((n, e), dtype=torch.bool, device=ev_on.device)
     if n:
         _cuda.LOCATE_BLOCK.launch(
             "ofpt_locate_streams", ctypes.addressof(d), n, e,
             ev_on.data_ptr(), ev_ch.data_ptr(),
-            *(v.data_ptr() for v in lb.tables), points.data_ptr(),
-            emits.data_ptr(), _cuda.stream(), variant="streams")
+            *(v.data_ptr() for v in lb.tables), *fcnn_ptrs,
+            points.data_ptr(), emits.data_ptr(), _cuda.stream(),
+            variant="streams" if lb.model is None else "streams+fcnn")
     return points, emits

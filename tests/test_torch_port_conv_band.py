@@ -192,12 +192,14 @@ def test_route_rule():
     assert mma_plan(256, [tuple(w.shape) for w in wide], 1) is None
     assert kernel_for(256, wide, 1, bf16) is _cuda.CONV_STACK
     assert kernel_for(64, wide, 1, bf16) is _cuda.CONV_STACK_MMA
-    # the plain version counts on the kernel it stands in for
+    # the plain version counts on the kernel it stands in for: the route
+    # of its batch (3 signals: the cluster kernel)
     bs = [torch.zeros(5)] * 7
-    before = (_cuda.CONV_STACK_MMA.plain_calls, _cuda.CONV_STACK.plain_calls)
+    kernels = (_cuda.CONV_STACK_MMA_CLUSTER, _cuda.CONV_STACK_MMA,
+               _cuda.CONV_STACK)
+    before = [k.plain_calls for k in kernels]
     conv_stack_reference(torch.zeros(3, 256), flagship, bs, 1, "silu", bf16)
-    assert (_cuda.CONV_STACK_MMA.plain_calls,
-            _cuda.CONV_STACK.plain_calls) == (before[0] + 1, before[1])
+    assert [k.plain_calls for k in kernels] == [before[0] + 1, *before[1:]]
 
 
 def test_flagship_plan_fits_two_ctas_per_sm():

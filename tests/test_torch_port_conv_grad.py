@@ -90,7 +90,7 @@ def test_function_equals_autograd_of_the_plain_chain(dtype, need_x):
     x = np.random.default_rng(4).normal(size=(5, 256)).astype(np.float32)
     tw, tb, tx = torch_leaves(ws, bs, x)
     tx.requires_grad_(need_x)
-    kernel = kernel_for(256, tw, 1, dtype)
+    kernel = kernel_for(256, tw, 1, dtype, len(x))
     before = (kernel.plain_calls, kernel.backward_recomputes)
     out = conv_stack(tx, tw, tb, 1, "silu", dtype)
     assert type(out.grad_fn).__name__ == "_ConvStackBackward"

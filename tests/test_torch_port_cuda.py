@@ -190,11 +190,13 @@ FLAGSHIP_KS = (1, 33, 64, 15, 15, 15, 1)
     (FLAGSHIP_KS, (16,) * 7, 1, 256, 200, "silu")])
 def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad,
                                          length, batch, act):
-    """Each stack runs on the kernel ``kernel_for`` names (bf16: the
-    tensor-core kernel wherever it has a plan) and equals the plain
-    version."""
+    """Each stack runs on the kernel ``kernel_for`` names for its batch
+    (bf16: where the tensor-core kernel has a plan, the cluster kernel
+    for a batch of at most CLUSTER_MAX_CTAS groups of 16 signals, else the
+    tensor-core kernel) and equals the plain version."""
     from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.ops.conv_stack import (
+        CLUSTER_MAX_CTAS,
         conv_stack,
         conv_stack_reference,
         far_signals,
@@ -206,12 +208,14 @@ def test_conv_stack_kernel_matches_plain(dtype, atol, rtol, ks, widths, pad,
     ws, bs = _stack(ks, widths)
     g = torch.Generator().manual_seed(1)
     x = torch.randn(batch, length, generator=g).cuda()
-    kernel = kernel_for(length, ws, pad, dtype)
+    kernel = kernel_for(length, ws, pad, dtype, batch)
     has_plan = mma_plan(length, [tuple(w.shape) for w in ws],
                         pad) is not None
     assert has_plan == (widths[-1] != 16 or length != 256)
-    assert kernel is (_cuda.CONV_STACK_MMA if dtype == torch.bfloat16
-                      and has_plan else _cuda.CONV_STACK)
+    small = -(-batch // 16) <= CLUSTER_MAX_CTAS
+    assert kernel is (_cuda.CONV_STACK if dtype != torch.bfloat16
+                      or not has_plan else _cuda.CONV_STACK_MMA_CLUSTER
+                      if small else _cuda.CONV_STACK_MMA)
     before = kernel.launches
     k = conv_stack(x, ws, bs, pad, act, dtype)
     assert kernel.launches == before + 1
@@ -256,9 +260,10 @@ def test_conv_stack_grads_match_the_plain_chain(dtype, batch):
         t.requires_grad_()
     x = torch.randn(batch, 256, device="cuda", requires_grad=True,
                     generator=torch.Generator("cuda").manual_seed(2))
-    kernel = kernel_for(256, ws, 1, dtype)
-    assert kernel is (_cuda.CONV_STACK_MMA if dtype == torch.bfloat16
-                      else _cuda.CONV_STACK)
+    kernel = kernel_for(256, ws, 1, dtype, batch)
+    assert kernel is (_cuda.CONV_STACK if dtype == torch.float32
+                      else _cuda.CONV_STACK_MMA_CLUSTER if batch == 37
+                      else _cuda.CONV_STACK_MMA)
     leaves = [x, *ws, *bs]
     out = conv_stack(x, ws, bs, 1, "silu", dtype)
     ct = torch.randn(out.shape, device="cuda",
@@ -335,15 +340,64 @@ def test_trainer_step_on_the_card_matches_the_cpu():
     np.testing.assert_allclose(runs[1][1], runs[0][1], atol=1e-4)
 
 
-def test_flagship_bf16_runs_the_tensor_core_kernel_only():
+@pytest.mark.parametrize("ks,widths,pad,length,batch,act", [
+    (FLAGSHIP_KS, (5,) * 7, 1, 512, 48, "silu"),
+    (FLAGSHIP_KS, (5,) * 7, 1, 512, 3, "silu"),
+    (FLAGSHIP_KS, (5,) * 7, 1, 256, 37, "silu"),
+    (FLAGSHIP_KS, (5,) * 7, 1, 256, 1000, "silu"),
+    ((3, 3), (8, 16), 1, 64, 100, "relu"),
+    ((7, 4), (3, 5), 0, 256, 40, "tanh"),
+    ((1, 3, 5, 3), (4,) * 4, 1, 64, 20, "elu"),
+    ((15, 15), (5, 9), 0, 97, 50, "leakyrelu"),
+    ((1, 64), (9, 1), 3, 300, 40, "linear"),
+    ((33,), (5,), 3, 100, 17, "sigmoid")])
+@pytest.mark.parametrize("ctas", [8, 16])
+def test_cluster_kernel_equals_tensor_core_kernel(ks, widths, pad, length,
+                                                  batch, act, ctas):
+    """``conv_stack_mma_cluster.cu`` (clusters of 8 and of 16 CTAs) against
+    ``conv_stack_mma.cu`` on the same inputs: bit for bit, every stack the
+    tensor-core kernel has a plan for."""
     from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.ops.conv_stack import (
+        _launch_cluster,
+        _launch_mma,
+        cluster_plan,
+    )
+
+    ws, bs = _stack(ks, widths, seed=3)
+    x = torch.randn(batch, length, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(4))
+    assert cluster_plan(length, [tuple(w.shape) for w in ws], pad, batch,
+                        ctas) is not None
+    t_out = length
+    for k in ks:
+        t_out += 2 * pad - k + 1
+    outs = [torch.full((batch, t_out, widths[-1]), float("nan"),
+                       device="cuda") for _ in range(2)]
+    before = _cuda.CONV_STACK_MMA_CLUSTER.launches
+    with torch.inference_mode():
+        _launch_cluster(_cuda.CONV_STACK_MMA_CLUSTER, x, ws, bs, pad, act,
+                        outs[0], ctas)
+        _launch_mma(_cuda.CONV_STACK_MMA, x, ws, bs, pad, act, outs[1])
+    torch.cuda.synchronize()
+    assert _cuda.CONV_STACK_MMA_CLUSTER.launches == before + 1
+    assert bool(torch.isfinite(outs[0]).all())
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_flagship_bf16_runs_the_tensor_core_kernel_only():
+    """At a batch that fills the card the route keeps the tensor-core
+    kernel of a CTA per 16 signals."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.conv_stack import (
+        CLUSTER_MAX_CTAS,
         conv_stack,
         conv_stack_reference,
     )
 
     ws, bs = _stack(FLAGSHIP_KS, (5,) * 7)
-    x = torch.randn(4096, 256, device="cuda")
+    n = max(4096, 16 * CLUSTER_MAX_CTAS + 16)
+    x = torch.randn(n, 256, device="cuda")
     mma, simt = _cuda.CONV_STACK_MMA, _cuda.CONV_STACK
     before = (mma.launches, mma.plain_calls, simt.launches, simt.plain_calls)
     with torch.inference_mode():
@@ -351,7 +405,7 @@ def test_flagship_bf16_runs_the_tensor_core_kernel_only():
     assert (mma.launches, mma.plain_calls, simt.launches,
             simt.plain_calls) == (before[0] + 1, *before[1:])
     torch.cuda.synchronize()
-    assert out.shape == (4096, 133, 5) and bool(torch.isfinite(out).all())
+    assert out.shape == (n, 133, 5) and bool(torch.isfinite(out).all())
     want = conv_stack_reference(x, ws, bs, 1, "silu", torch.bfloat16)
     torch.testing.assert_close(out, want, atol=3e-2, rtol=2e-2)
 
@@ -651,7 +705,8 @@ def test_bf16_dft_head_matches_its_emulation(pairs):
 def test_bf16_cccnn_card_matches_cpu():
     """The classifier as the engine runs it (the flagship bf16 CCCNN, 3
     channels, 512-sample windows) on the card against its plain version on
-    the CPU: K3 on the tensor cores and the bf16 head, within 2e-2."""
+    the CPU: K3 on the tensor cores (the cluster kernel: 48 signals) and
+    the bf16 head, within 2e-2."""
     from onset_fingerprinting_torch.ops import _cuda
 
     sim, audio, _ = _engine_stream()
@@ -660,9 +715,9 @@ def test_bf16_cccnn_card_matches_cpu():
                                   range(20000, 20000 + 16 * 700, 700)]))
     with torch.inference_mode():
         want = model(x)
-        before = _cuda.CONV_STACK_MMA.launches
+        before = _cuda.CONV_STACK_MMA_CLUSTER.launches
         got = model.cuda()(x.cuda()).cpu()
-    assert _cuda.CONV_STACK_MMA.launches == before + 1
+    assert _cuda.CONV_STACK_MMA_CLUSTER.launches == before + 1
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= 2e-2
 
@@ -1132,19 +1187,95 @@ def test_locate_block_ring_write_matches_plain():
     assert n_emit >= 30 and n_quiet >= 40
 
 
-@pytest.mark.parametrize("mode", ["arrival", "by_channel"])
-def test_locate_block_kernel_with_fcnn_matches_plain(mode):
-    """csrc/locate_block.cu with the learned locator (the packed FCNN)
-    against its plain version (the FCNN in torch) on the same blocks: the
-    locator state, the queue and the emits exactly, points within 1e-3
-    cm; every launch counts under the "fcnn" variant."""
-    from onset_fingerprinting_torch.locate.multilaterate import (
-        locator_init,
-    )
+#: the learned locators of the card tests: the plan's old bounds (64 units,
+#: 8 hidden layers) and past them
+FCNN_HIDDEN = [
+    pytest.param("arrival", (32, 32), id="arrival"),
+    pytest.param("by_channel", (32, 32), id="by_channel"),
+    pytest.param("arrival", (128, 128), id="arrival-wide"),
+    pytest.param("by_channel", (16,) * 12, id="by_channel-deep"),
+    # past the header's 32 words a warp reads in one load
+    pytest.param("arrival", (8,) * 40, id="arrival-deeper"),
+]
+
+
+def _locate_fcnn(hidden, seed=1):
+    """A test FCNN on the card: flax's init, the first Dense scaled by
+    1/50 and the last by 1/20 (sample lags to points of a few cm)."""
     from onset_fingerprinting_torch.models.fcnn import (
         FCNN,
         FCNNBundle,
         init_module,
+    )
+
+    net = init_module(FCNN(2, hidden_layers=hidden), seed, "cpu")
+    with torch.no_grad():
+        net.layers[0].weight /= 50
+        net.out.weight /= 20
+        for bn in net.norms:
+            bn.running_mean.normal_(0, 0.3)
+            bn.running_var.uniform_(0.5, 1.5)
+    return FCNNBundle(net.cuda())
+
+
+@pytest.mark.parametrize("hidden", [(128, 128), (16,) * 12],
+                         ids=["wide", "deep"])
+def test_engine_serves_a_wide_and_a_deep_fcnn(hidden):
+    """The realtime engine on the card with a learned locator past the
+    plan's old bounds (64 units, 8 hidden layers): its captured step runs
+    the locate kernel with the FCNN and the ring write on every block, no
+    plain version, and its events equal the plain engine's on the CPU with
+    the same weights over the same stream (points within 1e-3 cm)."""
+    import copy
+
+    from onset_fingerprinting_torch.core.config import DetectorConfig
+    from onset_fingerprinting_torch.locate.multilaterate import (
+        Multilaterate3D,
+    )
+    from onset_fingerprinting_torch.models.fcnn import FCNNBundle
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.realtime.engine import RealtimeEngine
+
+    sim, audio, _ = _engine_stream()
+    _, polar, _, _ = sim._geometry()
+    model = _locate_fcnn(hidden)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        net = model if device == "cuda" else FCNNBundle(
+            copy.deepcopy(model.model).cpu())
+        eng = RealtimeEngine(
+            DetectorConfig(n_channels=3, block_size=128, hipass_freq=0.0,
+                           sr=sim.SR),
+            Multilaterate3D(polar, drum_diameter=sim.DIAM, medium="drumhead",
+                            sr=sim.SR,
+                            feasibility_tols=sim.FEASIBILITY_TOLS),
+            ring_seconds=1.0, event_queue=64, model=net, device=device)
+        assert (eng._graph is not None) == (device == "cuda")
+        _cuda.reset_counts()
+        events, _, _ = sim.run(eng, audio, classify=False)
+        runs[device] = (eng, events,
+                        dict(_cuda.LOCATE_BLOCK.variants),
+                        _cuda.LOCATE_BLOCK.plain_calls)
+    g, c = runs["cuda"], runs["cpu"]
+    n_blocks = len(sim.blocks_of(audio))
+    assert g[2] == {"ring+fcnn": n_blocks} and g[3] == 0
+    assert len(g[1]) >= 2
+    assert [o for o, _ in g[1]] == [o for o, _ in c[1]]
+    assert torch.equal(g[0].state.ev_emits.cpu(), c[0].state.ev_emits)
+    for (_, a), (_, b) in zip(g[1], c[1]):
+        assert abs(a.x - b.x) <= 1e-3 and abs(a.y - b.y) <= 1e-3
+
+
+@pytest.mark.parametrize("mode,hidden", FCNN_HIDDEN)
+def test_locate_block_kernel_with_fcnn_matches_plain(mode, hidden):
+    """csrc/locate_block.cu with the learned locator (the packed FCNN)
+    against its plain version (the FCNN in torch) on the same blocks: the
+    locator state, the queue and the emits exactly, points within 1e-3
+    cm; every launch counts under the "fcnn" variant.  Wide and deep nets
+    too: the widths travel on the card, the vectors in dynamic shared
+    memory."""
+    from onset_fingerprinting_torch.locate.multilaterate import (
+        locator_init,
     )
     from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.ops.locate_block import (
@@ -1156,14 +1287,7 @@ def test_locate_block_kernel_with_fcnn_matches_plain(mode):
 
     sim, _, _ = _engine_stream(0.01)
     eng = sim.build_engine("cpu", ring_seconds=0.01)
-    net = init_module(FCNN(2, hidden_layers=(32, 32)), 1, "cpu")
-    with torch.no_grad():
-        net.layers[0].weight /= 50
-        net.out.weight /= 20
-        for bn in net.norms:
-            bn.running_mean.normal_(0, 0.3)
-            bn.running_var.uniform_(0.5, 1.5)
-    model = FCNNBundle(net.cuda())
+    model = _locate_fcnn(hidden)
     lb = LocateBlock(eng.locator, 3, 128, model=model, model_input=mode,
                      device="cuda")
     i32 = dict(dtype=torch.int32, device="cuda")
@@ -1397,22 +1521,14 @@ def test_locate_block_cc_refine_matches_plain():
     _cc_refine_kernel_matches_plain()
 
 
-@pytest.mark.parametrize("mode", ["arrival", "by_channel"])
-def test_locate_block_fcnn_cc_refine_matches_plain(mode):
+@pytest.mark.parametrize("mode,hidden", FCNN_HIDDEN)
+def test_locate_block_fcnn_cc_refine_matches_plain(mode, hidden):
     """The same with the learned locator as well (variant
     "ring+fcnn+cc_refine", JAX's ``make_locate_update(model=, cc_refine=True)``):
-    the refinement moves the onsets, the packed FCNN places the hit."""
-    from onset_fingerprinting_torch.models.fcnn import (
-        FCNN,
-        FCNNBundle,
-        init_module,
-    )
-
-    net = init_module(FCNN(2, hidden_layers=(32, 32)), 1, "cpu")
-    with torch.no_grad():
-        net.layers[0].weight /= 50
-        net.out.weight /= 20
-    _cc_refine_kernel_matches_plain(FCNNBundle(net.cuda()), mode)
+    the refinement moves the onsets, the packed FCNN places the hit (its
+    vectors after the refinement's sections in the dynamic shared
+    memory)."""
+    _cc_refine_kernel_matches_plain(_locate_fcnn(hidden), mode)
 
 
 def test_engine_cc_refine_graph_is_three_kernels():
@@ -1492,10 +1608,13 @@ def test_detector_pipe_coupled_streams_matches_plain(n, gpc, emit_rel):
                          "coupled_streams", emit_rel)
 
 
-def test_locate_streams_matches_plain():
+@pytest.mark.parametrize("hidden", [None, (128, 128)],
+                         ids=["newton", "fcnn-wide"])
+def test_locate_streams_matches_plain(hidden):
     """The stream-batched locate entry (one CTA per stream) against its
     plain version, the JAX function's scan, on the detector's events of a
-    few synthetic streams: emits exactly, points within 1e-3 cm."""
+    few synthetic streams: emits exactly, points within 1e-3 cm; Newton,
+    and a wide learned locator in the step's FCNN code."""
     from onset_fingerprinting_torch.ops import _cuda
     from onset_fingerprinting_torch.ops.locate_block import (
         EV_BIG,
@@ -1506,7 +1625,9 @@ def test_locate_streams_matches_plain():
 
     sim, _, _ = _engine_stream(0.01)
     eng = sim.build_engine("cpu", ring_seconds=0.01)
-    lb = LocateBlock(eng.locator, 3, 128, device="cuda")
+    model = None if hidden is None else _locate_fcnn(hidden)
+    variant = "streams" if hidden is None else "streams+fcnn"
+    lb = LocateBlock(eng.locator, 3, 128, model=model, device="cuda")
     blocks = _block_events(7, n_strikes=24)
     ev = [(count + int(dd), ch) for count, on, d in blocks
           for ch, (o, dd) in enumerate(zip(on, d)) if o]
@@ -1519,9 +1640,9 @@ def test_locate_streams_matches_plain():
         on_t[s, : len(r)] = torch.tensor([o for o, _ in r[:e]])
         ch_t[s, : len(r)] = torch.tensor([c for _, c in r[:e]])
     on_t, ch_t = on_t.cuda(), ch_t.cuda()
-    before = _cuda.LOCATE_BLOCK.variants["streams"]
+    before = _cuda.LOCATE_BLOCK.variants[variant]
     pk, ek = locate_streams(lb, on_t, ch_t)
-    assert _cuda.LOCATE_BLOCK.variants["streams"] == before + 1
+    assert _cuda.LOCATE_BLOCK.variants[variant] == before + 1
     pp, ep = locate_streams_reference(lb, on_t, ch_t)
     assert torch.equal(ek, ep) and int(ek.sum()) >= 10
     assert float((pk - pp).abs().max()) <= 1e-3

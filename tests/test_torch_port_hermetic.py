@@ -233,8 +233,10 @@ def test_locate_kernel_refuses_an_fcnn_outside_its_plan():
 
     loc = Multilaterate3D([(0.9, 0, 0), (0.9, 120, 0), (0.9, 240, 0)])
     before = (_cuda.LOCATE_BLOCK.launches, _cuda.LOCATE_BLOCK.plain_calls)
-    for hidden in ((65,), (8,) * 9):
-        wide = FCNNBundle(FCNN(2, hidden_layers=hidden))
+    # three lag features in; two vectors of 30000 units past the launch's
+    # shared memory
+    for inputs, hidden in ((3, (8,)), (2, (30000,))):
+        wide = FCNNBundle(FCNN(inputs, hidden_layers=hidden))
         for device in ("cuda", None):
             with pytest.raises(ValueError, match="plan"):
                 LocateBlock(loc, 3, 128, model=wide, device=device)

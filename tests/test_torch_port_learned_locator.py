@@ -148,11 +148,18 @@ def test_locate_update_with_model_matches_jax(mode, tols, seed):
     assert n_emit >= 25
 
 
-@pytest.mark.parametrize("mode", MODES)
-def test_locate_block_reference_with_model_matches_jax_engine(mode):
+@pytest.mark.parametrize("mode,hidden", [
+    pytest.param("arrival", (10, 10, 10), id="arrival"),
+    pytest.param("by_channel", (10, 10, 10), id="by_channel"),
+    # past the old kernel plan's 64 units and 8 hidden layers
+    pytest.param("arrival", (128, 128), id="arrival-wide"),
+    pytest.param("by_channel", (16,) * 12, id="by_channel-deep"),
+])
+def test_locate_block_reference_with_model_matches_jax_engine(mode, hidden):
     """The engine's plain step with an FCNN (``ops/locate_block``'s plain
     version behind the plain detector) against JAX's engine step over a
-    stream of strikes: events exactly, points within 1e-3 cm."""
+    stream of strikes: events exactly, points within 1e-3 cm; also for a
+    wide and a deep FCNN, which the kernel's plan takes too."""
     from onset_fingerprinting_tpu.core.config import DetectorConfig as JCfg
     from onset_fingerprinting_tpu.realtime.engine import (
         make_engine_step as jmake,
@@ -160,8 +167,9 @@ def test_locate_block_reference_with_model_matches_jax_engine(mode):
     from onset_fingerprinting_torch.core.config import DetectorConfig
     from onset_fingerprinting_torch.realtime.engine import make_engine_step
 
-    jb, tb = make_models(4)
+    jb, tb = make_models(4, hidden_layers=hidden)
     th, jh = _locators(mode, jb, tb)
+    tlb.fcnn_plan(tb.model)  # the kernel's plan takes it
     kw = dict(n_channels=3, block_size=128, hipass_freq=0.0, sr=SR)
     tstate, tparams, tstep = make_engine_step(
         DetectorConfig(**kw), th, model=tb, model_input=mode, device="cpu")
@@ -219,26 +227,42 @@ def test_packed_fcnn_matches_eval(cfg):
 
 
 def test_fcnn_plan_bounds():
-    """What the kernel takes: 2 lag features in, a point out, at most 64
-    units per layer and 8 hidden layers; anything else raises."""
-    ok = FCNN(2, hidden_layers=(64,) * 8)
-    assert tlb.fcnn_plan(ok).widths == (2, *(64,) * 8, 2)
-    for bad, match in (
-            (FCNN(2, hidden_layers=(65,)), "64 units"),
-            (FCNN(2, hidden_layers=(8,) * 9), "8 hidden"),
-            (FCNN(3, hidden_layers=(8,)), "2 lag features"),
-            (FCNN(2, hidden_layers=(8,), output_size=3), "2 lag features")):
+    """What the kernel takes: 2 lag features in, a point out, any depth,
+    and any width whose two activation vectors fit the launch's shared
+    memory beside the CC refinement's sections; anything else raises,
+    naming the bytes where the width is at fault."""
+    for hidden in ((64,) * 8, (65,), (8,) * 9, (128, 128), (16,) * 12):
+        plan = tlb.fcnn_plan(FCNN(2, hidden_layers=hidden))
+        assert plan.widths == (2, *hidden, 2)
+        words = [len(hidden) + 1, 2, *hidden, 2]
+        head = plan.header().tolist()
+        assert head[:len(words)] == words and len(head) >= tlb.FW_LANES
+        assert not any(head[len(words):])
+        assert plan.smem == 8 * max(hidden)
+    room = tlb.SMEM_OPTIN - tlb.STATIC_SMEM
+    widest = room // 8
+    assert tlb.fcnn_plan(FCNN(2, hidden_layers=(widest,))).smem <= room
+    for bad, used, match in (
+            (FCNN(2, hidden_layers=(widest + 1,)), 0,
+             f"{8 * (widest + 1)} bytes, past the launch's {room} bytes"),
+            # the refinement's two sections of 640 doubles take 10240
+            (FCNN(2, hidden_layers=(widest - 1000,)), 10240,
+             f"past the launch's {room - 10240} bytes"),
+            (FCNN(3, hidden_layers=(8,)), 0, "2 lag features"),
+            (FCNN(2, hidden_layers=(8,), output_size=3), 0,
+             "2 lag features")):
         with pytest.raises(ValueError, match=match):
-            tlb.fcnn_plan(bad)
+            tlb.fcnn_plan(bad, used)
 
 
 def test_locate_block_on_the_cpu_takes_any_fcnn():
     """On the CPU the plain version runs, so an FCNN outside the kernel's
-    plan builds (and would raise on the card: the hermetic test)."""
-    _, tb = make_models(0, hidden_layers=(80,))
+    plan (here: wider than its shared memory) builds (and would raise on
+    the card: the hermetic test)."""
+    tb = FCNNBundle(FCNN(2, hidden_layers=(30000,)))
     jb, _ = make_models(0)
     th, _ = _locators("arrival", jb, tb)
     lb = tlb.LocateBlock(th, 3, 128, model=tb, device="cpu")
     assert lb.fcnn is None
-    with pytest.raises(ValueError, match="units"):
+    with pytest.raises(ValueError, match="30000 units"):
         lb.check_kernel_shape()

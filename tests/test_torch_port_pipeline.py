@@ -23,6 +23,7 @@ from onset_fingerprinting_torch.models.jax_import import (
     cccnn_state_dict_from_flax,
 )
 from onset_fingerprinting_torch.ops import _cuda
+from onset_fingerprinting_torch.ops.conv_stack import kernel_for
 from onset_fingerprinting_torch.pipeline import (
     HitCapacityError,
     fleet_detector_config,
@@ -115,10 +116,13 @@ def test_slice_matches_jax_composition(audio, dtype):
     np.testing.assert_allclose(preds.numpy(), preds_j, **tol)
     # on the CPU every kernel wrapper of the path ran its plain version
     # (the fleet detector stands in for the pipelined kernel, the bf16
-    # flagship stack for the tensor-core kernel, the f32 one for the
-    # CUDA-core kernel)
-    k3 = (_cuda.CONV_STACK_MMA if torch_dtype == torch.bfloat16
-          else _cuda.CONV_STACK)
+    # flagship stack for the tensor-core kernel its batch of cap x 4
+    # windows is routed to, the f32 one for the CUDA-core kernel)
+    k3 = (kernel_for(wl.WINDOW, [torch.zeros(5, 1 if i == 0 else 5, k)
+                                 for i, k in enumerate(
+                                     wl.FLAGSHIP["kernel_sizes"])], 1,
+                     torch_dtype, cap * 4)
+          if torch_dtype == torch.bfloat16 else _cuda.CONV_STACK)
     path = (_cuda.DETECTOR_PIPE, _cuda.GATHER, k3)
     assert all(k.launches == 0 for k in _cuda.KERNELS)
     assert all(k.plain_calls > 0 for k in path)
