@@ -15,8 +15,9 @@ Phase 0  prints the card's name and power limit, starts the plain
          engine with ``cc_refine=True`` over the stream's first 2 s in a
          fourth (8d's), the detector tuner at 9a's three slider settings
          over 6b's recording in three more (one each), and builds the
-         eleven kernel libraries from ``onset_fingerprinting_torch/csrc``
-         with nvcc, all started together.
+         eleven kernel libraries from
+         ``onset_fingerprinting_torch/csrc`` with nvcc, all started
+         together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
          (TF32 off for cuDNN and matmuls): K1 the fused detector bit for
          bit (warmup state, on, deltas, rel, state) on each of its kernels
@@ -243,6 +244,27 @@ Phase 9  the last modules of the JAX package on the card.  9a
          pipe
          once for the warmup, no plain call.
 
+Phase 10 the examples' twins (``tools/``), each at its example's defaults
+         with the example's gate, its launches (exactly the kernels named,
+         no other) and no plain call.  10a ``serving_window_accuracy``
+         (512 hits, two CCCNNs over 1500 epochs): K1 twice on the coupled
+         pipe, K2 once on ``gather_vec.cu`` at cps 4 (its route printed
+         and held); the session's K1 output (channels, onsets, rel) bit
+         for bit against ``detector_warp.cu`` over the same tensor, the
+         anchors from both equal, the anchored windows equal to exact
+         slices of the session; the models' GroupNorm stacks run the
+         cuDNN chain, not K3.  10b ``location_hpo`` (2 TPE trials x 300
+         epochs): no hand-written kernel.  10c ``fleet_detect`` (8
+         streams of 1 s on ``parallel.default_mesh``, no process group):
+         one K1 launch on the pipe; on/deltas and the located points
+         equal to the CPU's.  10d ``e2e_locate`` (8 hits): K1 twice on
+         the coupled pipe; channels, onsets, groups and points equal to
+         the CPU's.  10c's and 10d's references run in a child process
+         that phase 10 starts beside 10a and 10b (after 9c's realtime
+         pacing).  10e ``calibration_run``, stages 1-4.  10f ``cc_bench``
+         (plain PyTorch: no TPU kernel computes it): the scan against the
+         CPU.
+
 Each phase line prints the seconds of the phase before it.
 
 Prints one ``{"kernels": [...]}`` line (K1 as three rows: ``detector``,
@@ -277,7 +299,7 @@ pipe's coupled instantiation over one recording, timed at mining's two
 launches, with the launches of mining, the tuner, the engines' warmups,
 time sharding and 7a; ``detector_pipe_coupled_streams``, the same over
 8c's batch of streams).  Launch counts are the sums over
-the paths that phases 2, 2b, 3, 4, 5c, 6, 7, 8 and 9 drive, each from
+the paths that phases 2, 2b, 3, 4, 5c, 6, 7, 8, 9 and 10 drive, each from
 counts set to 0 just before it (``detector_warp`` counts the engines'
 (9c's serve loop's too), ``locate_block`` the Newton engines', the FCNN rows phase 6's,
 ``conv_stack_f32_imported`` 7c's).  Last comes ``{"ok": true, "device":
@@ -2363,60 +2385,31 @@ def phase_journey_head(report):
 
 
 def phase_calibration(report):
-    """6d: examples/calibration_demo.py's stages 1-2 on the card and on the
-    CPU in this process: the TDOA residual, the refined C, the card's
-    positions against the CPU's, both timed."""
-    from onset_fingerprinting_torch.core.coords import spherical_to_cartesian
-    from onset_fingerprinting_torch.locate.calibration import (
-        calibrate,
-        calibration_locations,
-        optimize_positions,
-    )
+    """6d: stages 1-2 of ``tools.calibration_run`` (examples/
+    calibration_demo.py) on the card and on the CPU in this process: the
+    TDOA residual, the refined C, the card's positions against the CPU's,
+    both timed."""
+    from onset_fingerprinting_torch.tools import calibration_run as cal
 
-    sr, c_sound = 96000, 343.0
-    radius = 14 * 2.54 / 2 / 100
-    rng = np.random.default_rng(0)
-    true = np.array([[float(v) for v in spherical_to_cartesian(*p)]
-                     for p in [(0.8 * radius, 135, 80),
-                               (0.8 * radius, 15, 60), (0.15, 100, 20)]])
-    sounds = np.asarray([(0.0, 0.0, 0.0)] * 4 + [
-        tuple(float(v) for v in spherical_to_cartesian(*p))
-        for p in calibration_locations(10, 4, radius * 0.9, 0)])
-    dists = np.linalg.norm(sounds[:, None, :] - true[None], axis=-1) \
-        / c_sound
-    tdoa = np.diff(dists, axis=1)
-    onsets = np.cumsum(np.concatenate([np.zeros((len(tdoa), 1)), tdoa * sr],
-                                      axis=1), axis=1)
-    res = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        est = calibrate(onsets, sr=sr, C=c_sound, n_lugs=10, n_each=4,
-                        hits_at=0.9, center_hits=4, norm=2, device=dev)
-        t1 = time.perf_counter()
-        lags01 = (dists[:, :2] - dists[:, 2:]) * sr
-        init = est + np.random.default_rng(0).normal(0, 0.002, est.shape)
-        sens, snd, c2 = optimize_positions(
-            lags01, init, sounds, lr=0.05, num_epochs=800, C=c_sound, sr=sr,
-            patience=50, device=dev)
-        t2 = time.perf_counter()
-        res[dev] = (est, sens, snd, c2, t1 - t0, t2 - t1)
-    est, sens, snd, c2, t_cal, t_opt = res["cuda"]
-    d_est = np.linalg.norm(sounds[:, None, :] - est[None], axis=-1) / c_sound
-    resid = float(np.abs(np.diff(d_est, axis=1) - tdoa).mean() * sr)
-    e_cal = float(np.abs(est - res["cpu"][0]).max())
-    e_opt = max(float(np.abs(sens - res["cpu"][1]).max()),
-                float(np.abs(snd - res["cpu"][2]).max()))
+    fix = cal.make_fixture()
+    res = {dev: cal.stages_1_2(fix, dev) for dev in ("cuda", "cpu")}
+    card, cpu = res["cuda"], res["cpu"]
+    resid, c2 = card["resid"], card["c"]
+    (t_cal, t_opt), (c_cal, c_opt) = card["seconds"], cpu["seconds"]
+    e_cal = float(np.abs(card["est"] - cpu["est"]).max())
+    e_opt = max(float(np.abs(card["sensors"] - cpu["sensors"]).max()),
+                float(np.abs(card["sounds"] - cpu["sounds"]).max()))
     log(f"6d calibrate (TNC, float64 autograd on the card): TDOA residual "
-        f"{resid:.4f} samples (bar 2), {t_cal:.3f} s (CPU {res['cpu'][4]:.3f} "
+        f"{resid:.4f} samples (bar 2), {t_cal:.3f} s (CPU {c_cal:.3f} "
         f"s); positions vs the CPU max |diff| {e_cal:.3g} m (bound 1e-4)")
     log(f"6d optimize_positions (800 adam epochs, float32 on the card): "
-        f"refined C {c2:.4f} m/s (true {c_sound}; CPU {res['cpu'][3]:.4f}), "
-        f"{t_opt:.3f} s (CPU {res['cpu'][5]:.3f} s); positions vs the CPU "
+        f"refined C {c2:.4f} m/s (true {cal.C_SOUND}; CPU {cpu['c']:.4f}), "
+        f"{t_opt:.3f} s (CPU {c_opt:.3f} s); positions vs the CPU "
         f"max |diff| {e_opt:.3g} m (bound 1e-4)")
     check(resid < 2.0, f"6d: TDOA residual {resid} samples")
     check(e_cal <= 1e-4 and e_opt <= 1e-4,
           f"6d: card and CPU positions differ by {e_cal} / {e_opt} m")
-    check(abs(c2 - res["cpu"][3]) <= 1e-3, "6d: card and CPU C differ")
+    check(abs(c2 - cpu["c"]) <= 1e-3, "6d: card and CPU C differ")
     report["_phase6"]["calibration"] = dict(
         resid=resid, c=c2, seconds=(t_cal, t_opt))
 
@@ -3831,16 +3824,319 @@ def phase9(report, tuner_ref, phase):
     phase_serve(report)
 
 
+# -- phase 10: the examples' twins -----------------------------------------
+
+#: 10c/10d: located points against the CPU's (cm)
+EX_POINT_TOL = 1e-3
+
+
+def examples_cpu_reference(out):
+    """10c's and 10d's references, in a child process beside 10a and 10b:
+    ``tools.fleet_detect`` and ``tools.e2e_locate`` at the examples'
+    defaults with the plain versions on the CPU."""
+    from onset_fingerprinting_torch.tools import e2e_locate, fleet_detect
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    e = e2e_locate.run(device="cpu", log=lambda *a: None)
+    t1 = time.perf_counter()
+    f = fleet_detect.run(device="cpu", log=lambda *a: None)
+    out.put(dict(
+        e2e=dict(channels=np.asarray(e["channels"]),
+                 onsets=np.asarray(e["onsets"]), groups=e["groups"],
+                 results=e["results"], seconds=t1 - t0),
+        fleet=dict(on=f["on"], deltas=f["deltas"], located=f["located"],
+                   seconds=time.perf_counter() - t1),
+        cpu_seconds=time.process_time()))
+
+
+def start_examples_reference():
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    p = ctx.Process(target=examples_cpu_reference, args=(q,), daemon=True)
+    p.start()
+    return p, q
+
+
+def check_launches(step, want, report):
+    """The step's launches are exactly ``want`` (kernel name -> launches)
+    with no plain call anywhere; they join the kernels line's counts."""
+    from onset_fingerprinting_torch.ops import _cuda
+
+    got = {k.name: k.launches for k in _cuda.KERNELS if k.launches}
+    plain = {k.name: k.plain_calls for k in _cuda.KERNELS if k.plain_calls}
+    log(f"{step} launches {got}, plain calls {plain}")
+    check(got == want and not plain, f"{step}: launches {got} (want "
+          f"{want}), plain calls {plain}")
+    add_launches(report, got, got)
+
+
+def points_close(card, cpu):
+    """Two lists of ``(onset, x, y, ...)``: the same onsets, the points
+    within EX_POINT_TOL cm."""
+    return (len(card) == len(cpu)
+            and all(a[0] == b[0] for a, b in zip(card, cpu))
+            and all(np.abs(np.subtract(a[1:3], b[1:3])).max()
+                    <= EX_POINT_TOL for a, b in zip(card, cpu)))
+
+
+def check_session_k1(fix, anch):
+    """10a's K1 output over the session (the coupled pipe's warmup and
+    detection launches) against ``detector_warp.cu`` named over the same
+    tensor, which phase 1 holds to the plain detector: channels, onsets
+    and rel bit for bit, then the anchors taken from both."""
+    from onset_fingerprinting_torch.detect.amplitude import offline_detector
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.fused_detector import _launch
+    from onset_fingerprinting_torch.tools import serving_window_accuracy as swa
+
+    fst, params, st0 = offline_detector(fix.audio.shape[1], sr=swa.SR)
+    x = torch.as_tensor(np.ascontiguousarray(fix.audio, np.float32),
+                        device="cuda")
+    warm = min(swa.SR // 2, len(x)) // 128 * 128
+    t = len(x) // 128 * 128
+    st = _launch(fst, params, st0, x[:warm].contiguous(), False, True,
+                 _cuda.DETECTOR_WARP)[0]
+    _, (on, deltas, rel) = _launch(fst, params, st, x[:t].contiguous(),
+                                   True, False, _cuda.DETECTOR_WARP)
+    on, deltas = on.cpu().numpy(), deltas.cpu().numpy()
+    blocks, chans = np.nonzero(on)
+    order = np.argsort(blocks, kind="stable")
+    onsets = blocks[order] * 128 + deltas[blocks[order], chans[order]]
+    det = anch["detected"]
+    same = (np.array_equal(np.asarray(det["channels"]), chans[order])
+            and np.array_equal(np.asarray(det["onsets"]), onsets)
+            and np.array_equal(det["rel"], rel.cpu().numpy()))
+    anchors, missed = swa.anchors_from_onsets(
+        onsets, fix.onsets[fix.test_mask])
+    log(f"10a K1 over the session [{warm}, {x.shape[1]}] + [{t}, "
+        f"{x.shape[1]}] ({len(onsets)} onsets) against detector_warp.cu on "
+        f"the same tensor: channels, onsets and rel "
+        f"{'bit-identical' if same else 'DIFFER'}; anchors "
+        f"{'equal' if np.array_equal(anchors, anch['anchors']) else 'DIFFER'}")
+    check(same and np.array_equal(anchors, anch["anchors"])
+          and missed == anch["missed"],
+          "10a: K1 over the session differs from detector_warp.cu")
+
+
+def phase_serving_windows(report):
+    """10a: ``tools.serving_window_accuracy.run`` at the example's defaults
+    (512 hits, 1500 epochs): K1 twice on the coupled pipe (warmup, session)
+    and K2 once on ``gather_vec.cu`` at cps 4, nothing else (the CCCNNs'
+    GroupNorm stacks are the cuDNN chain, not K3), no plain call; the
+    anchored windows exact slices of the session at the anchors; the
+    example's gate."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.tools import serving_window_accuracy as swa
+
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    res = swa.run(log=lambda *a: log("10a", *a))
+    secs = time.perf_counter() - t0
+    check_launches("10a", {"detector_pipe_coupled": 2, "gather_vec": 1},
+                   report)
+    anch, fix = res["anchored"], res["fixture"]
+    route = anch["route"]
+    log(f"10a K2 route: {route.kernel.source} ({route.variant}); "
+        f"K1 {dict(_cuda.DETECTOR_PIPE_COUPLED.variants)}")
+    check(route.kernel is _cuda.GATHER_VEC
+          and dict(_cuda.GATHER_VEC.variants) == {"cps4": 1}
+          and dict(_cuda.DETECTOR_PIPE_COUPLED.variants) == {"coupled": 2},
+          "10a: K1 or K2 took another route")
+    check_session_k1(fix, anch)
+    rows = np.clip(anch["anchors"] - swa.PRE, 0,
+                   fix.audio.shape[0] - swa.W - 8)
+    want = np.transpose(fix.audio[rows[:, None] + np.arange(swa.W)],
+                        (0, 2, 1))
+    check(np.array_equal(anch["windows"].cpu().numpy(), want),
+          "10a: the anchored windows are not the session's slices")
+    log(f"10a anchored windows {tuple(want.shape)} equal exact slices at "
+        f"the anchors; {anch['missed']} test hits undetected; the anchors "
+        f"{np.abs(anch['anchors'] - fix.onsets[fix.test_mask]).max()} "
+        "samples from the labels at most")
+    swa.report(res, log=lambda *a: log("10a", *a))
+    s = res["seconds"]
+    per_step = 1e3 * (s["train_a"] + s["train_b"]) / res["steps"]
+    log(f"10a host seconds (synchronised): detection + anchored gather "
+        f"{s['anchored']:.3f}, model A {s['train_a']:.2f}, model B "
+        f"{s['train_b']:.2f} ({per_step:.3f} ms per step over "
+        f"{res['steps']} steps and the validations), the whole run "
+        f"{secs:.1f}")
+    anch_ok, legacy_ok = swa.gate(res)
+    check(anch_ok, f"10a: anchored {res['a_anch']:.4f} >= 1.1 x exact "
+          f"{res['a_exact']:.4f}")
+    check(legacy_ok, f"10a: B {res['b_serv']:.4f} misses 2 x A exact or a "
+          f"quarter of the floor {res['floor']:.4f}")
+
+
+def phase_hpo(report):
+    """10b: ``tools.location_hpo.run`` at the example's defaults (the modal
+    fixture, 48 hits, 2 TPE trials x 300 epochs): no hand-written kernel
+    and no plain call; a complete trial and a finite best validation
+    L1."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.tools import location_hpo
+
+    _cuda.reset_counts()
+    res = location_hpo.run(log=lambda *a: log("10b", *a))
+    check_launches("10b", {}, report)
+    study = res["study"]
+    log(f"10b best val L1 {study.best_value:.4f} cm, the selected trial's "
+        f"test L1 {study.best_trial.user_attrs.get('test_l1')}; "
+        f"{res['seconds']:.2f} s for the study (host clock)")
+    check(location_hpo.gate(res), f"10b: trial states {res['states']}")
+
+
+def phase_fleet(report, ref):
+    """10c: ``tools.fleet_detect.run`` at the example's defaults (8 streams
+    of 1 s on ``parallel.default_mesh``, one rank): one K1 launch on the
+    pipe (the 8 streams folded into 24 per-channel lanes), nothing else,
+    no plain call; dense events equal to the plain detector on the CPU
+    and each located point within EX_POINT_TOL of the CPU's
+    (``examples_cpu_reference``); the example's gate."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.tools import fleet_detect
+
+    _cuda.reset_counts()
+    res = fleet_detect.run(log=lambda *a: log("10c", *a))
+    check_launches("10c", {"detector_pipe": 1}, report)
+    same = (np.array_equal(res["on"], ref["on"])
+            and np.array_equal(res["deltas"], ref["deltas"]))
+    close = all(points_close(a, b)
+                for a, b in zip(res["located"], ref["located"]))
+    s = res["seconds"]
+    log(f"10c against the CPU ({ref['seconds']:.1f} s there): on/deltas "
+        f"{'equal' if same else 'DIFFER'}, located points "
+        f"{'within' if close else 'NOT within'} {EX_POINT_TOL} cm; host "
+        f"seconds: detection {s['detect']:.4f}, locate {s['locate']:.4f}, "
+        f"POSD save {s['save']:.4f}")
+    check(same and close, "10c: the fleet's events differ from the CPU's")
+    check(fleet_detect.gate(res), f"10c: {res['matched']}/{res['n_hits']} "
+          f"within 2 cm, {res['sessions']} sessions")
+
+
+def phase_e2e(report, ref):
+    """10d: ``tools.e2e_locate.run`` at the example's defaults (8 hits, 3
+    sensors): K1 twice on the coupled pipe (warmup, recording), nothing
+    else, no plain call; the channels, onsets and groups equal to the
+    plain detector's on the CPU (``examples_cpu_reference``), the located
+    points within EX_POINT_TOL; the example's gate."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.tools import e2e_locate
+
+    _cuda.reset_counts()
+    res = e2e_locate.run(log=lambda *a: log("10d", *a))
+    check_launches("10d", {"detector_pipe_coupled": 2}, report)
+    check(dict(_cuda.DETECTOR_PIPE_COUPLED.variants) == {"coupled": 2},
+          "10d: K1 took another instantiation")
+    same = (np.array_equal(np.asarray(res["channels"]), ref["channels"])
+            and np.array_equal(np.asarray(res["onsets"]), ref["onsets"])
+            and np.array_equal(res["groups"], ref["groups"]))
+    close = points_close([(o, *p) for o, p in res["results"]],
+                         [(o, *p) for o, p in ref["results"]])
+    errs = res["errs"]
+    s = res["seconds"]
+    log(f"10d matched {len(errs)}/{len(res['truths'])} hits, median error "
+        f"{np.median(errs):.4f} cm (max {errs.max():.4f}); against the CPU "
+        f"({ref['seconds']:.1f} s there): events and groups "
+        f"{'equal' if same else 'DIFFER'}, points "
+        f"{'within' if close else 'NOT within'} {EX_POINT_TOL} cm; host "
+        f"seconds: detection {s['detect']:.4f}, grouping {s['group']:.4f}, "
+        f"locate {s['locate']:.4f}")
+    check(same and close, "10d: the events differ from the CPU's")
+    check(e2e_locate.gate(res), "10d: the example's gate failed")
+
+
+def phase_calibration_run(report):
+    """10e: ``tools.calibration_run.run``, all four stages at the example's
+    defaults on the card: no hand-written kernel and no plain call; the
+    residual, the FCNN's train-set error and the reload's bars."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.tools import calibration_run as cal
+
+    _cuda.reset_counts()
+    res = cal.run(log=lambda *a: log("10e", *a))
+    check_launches("10e", {}, report)
+    s3 = res["stage3"]
+    s = res["seconds"]
+    log(f"10e host seconds on the card: calibrate {s[0]:.3f}, "
+        f"optimize_positions {s[1]:.3f}, FCNN {s3['seconds']:.3f} "
+        f"({len(s3['errors'])} epochs, "
+        f"{1e3 * s3['seconds'] / len(s3['errors']):.3f} ms each); the FCNN "
+        f"{s3['err_mm']:.4f} mm")
+    check(cal.gate(res), f"10e: residual {res['resid']:.4f}, FCNN "
+          f"{s3['err_mm']:.4f} mm, reload {res['stage4']['diff']:.3g}")
+
+
+def phase_cc_bench(report):
+    """10f: ``tools.cc_bench.run`` at the example's defaults (n 256, blocks
+    of 64, 2000 blocks, 64 pairs): no TPU kernel computes it and no
+    hand-written kernel runs; |CC - np.correlate| under 1e-3 on every 50th
+    block; the scan's CCs within 1e-4 of their scale of the CPU's."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.xcorr import (
+        streaming_cc_init,
+        streaming_cc_scan,
+    )
+    from onset_fingerprinting_torch.tools import cc_bench
+
+    _cuda.reset_counts()
+    res = cc_bench.run(log=lambda *a: log("10f", *a))
+    check_launches("10f", {}, report)
+    ab, bb = cc_bench.pair_streams(*cc_bench.signals(64 * 2000), 64)
+    t0 = time.perf_counter()
+    _, ccs = streaming_cc_scan(streaming_cc_init(256, (64,), "cpu"),
+                               *cc_bench.blocks(ab, bb, 64))
+    t_cpu = time.perf_counter() - t0
+    err = scale_err(res["ccs"].cpu(), ccs)
+    s = res["seconds"]
+    log(f"10f host seconds (plain PyTorch on the card): per-block dispatch "
+        f"{s['per_block']:.3f} ({1e3 * s['per_block'] / 2000:.4f} ms a "
+        f"block), scan {s['scan']:.3f}; numpy {s['numpy']:.3f}, the scan on "
+        f"the CPU {t_cpu:.3f}; the scan against the CPU {err:.3g} of its "
+        "scale (bound 1e-4)")
+    check(cc_bench.gate(res), f"10f: max |err| {res['max_err']}")
+    check(err <= 1e-4, "10f: the scan on the card differs from the CPU")
+
+
+def phase10(report, phase):
+    """10a-10f; 10c's and 10d's CPU references run in a child process
+    beside 10a and 10b, so none runs beside 9c's realtime pacing."""
+    ex_ref = start_examples_reference()
+    phase("phase 10a: serving-window accuracy")
+    phase_serving_windows(report)
+    torch.cuda.empty_cache()
+    phase("phase 10b: the location HPO study")
+    phase_hpo(report)
+    t_wait = time.perf_counter()
+    ex = wait_cpu_reference(*ex_ref)
+    log(f"10c waited {time.perf_counter() - t_wait:.1f} s for the CPU "
+        f"references ({ex['cpu_seconds']:.1f} s of CPU time in the child)")
+    phase("phase 10c: fleet detection")
+    phase_fleet(report, ex["fleet"])
+    phase("phase 10d: detect, group, locate")
+    phase_e2e(report, ex["e2e"])
+    phase("phase 10e: calibration, stages 1-4")
+    phase_calibration_run(report)
+    phase("phase 10f: streaming CC")
+    phase_cc_bench(report)
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     """``--only-phase6`` / ``--only-phase7`` / ``--only-phase8`` run the
     build and that phase alone and print their rows of the kernels line,
-    ``--only-phase9`` phase 9's launches, without the last line (for
-    iterating on one phase; the smoke run takes no arguments)."""
+    ``--only-phase9`` / ``--only-phase10`` that phase's launches, without
+    the last line (for iterating on one phase; the smoke run takes no
+    arguments)."""
     argv = sys.argv[1:] if argv is None else argv
     only6 = "--only-phase6" in argv
     only7 = "--only-phase7" in argv
     only8 = "--only-phase8" in argv
     only9 = "--only-phase9" in argv
+    only10 = "--only-phase10" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3868,19 +4164,24 @@ def main(argv=None) -> int:
 
     # the plain engine and the plain mining detector on the CPU, beside the
     # card phases
-    only = only6 or only7 or only8 or only9
+    only = only6 or only7 or only8 or only9 or only10
     cpu_ref = None if only else start_cpu_reference()
-    cc_ref = None if (only6 or only7 or only9) else start_cc_reference()
+    cc_ref = (None if (only6 or only7 or only9 or only10)
+              else start_cc_reference())
     if only8 or only9:  # 8b's and 9a's recording only
         import shutil
 
         shutil.rmtree(J_DIR, ignore_errors=True)
         journey_session("train_patch", 48, 3)
         mine_ref = None
+    elif only10:
+        mine_ref = None
     else:
         mine_ref = start_mine_reference()
-    amp_ref = None if (only6 or only8 or only9) else start_amp_reference()
-    tuner_ref = None if (only6 or only7 or only8) else start_tuner_reference()
+    amp_ref = (None if (only6 or only8 or only9 or only10)
+               else start_amp_reference())
+    tuner_ref = (None if (only6 or only7 or only8 or only10)
+                 else start_tuner_reference())
     logs = _cuda.build()
     log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
@@ -3889,6 +4190,12 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
 
     report = {"_launches": {}, "_sharded": {}}
+    if only10:
+        phase10(report, phase)
+        phase("done")
+        log(smi)
+        log(json.dumps({"phase10_launches": report["_launches"]}))
+        return 0
     if only9:
         phase9(report, tuner_ref, phase)
         phase("done")
@@ -3958,6 +4265,8 @@ def main(argv=None) -> int:
     phase8(report, cc_ref, fix, phase)
     torch.cuda.empty_cache()
     phase9(report, tuner_ref, phase)
+    torch.cuda.empty_cache()
+    phase10(report, phase)
     phase("done")
     log(smi)  # again here: a tool that keeps the output's end keeps it
     log(json.dumps({"kernels": kernel_rows(report)}))
