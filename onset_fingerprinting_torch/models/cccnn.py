@@ -44,6 +44,7 @@ from onset_fingerprinting_torch.ops.xcorr import (
     batch_self_correlate_dft,
     self_and_pair_correlate_dft,
 )
+from onset_fingerprinting_torch.utils.metrics import count, trace
 
 
 def paired_xcorr(x: torch.Tensor, C: int, K: int) -> torch.Tensor:
@@ -222,51 +223,60 @@ class CCCNN(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """``model.train()`` as flax's ``train=True``: dropout on the
-        head's input, its masks drawn from ``generator``."""
+        head's input, its masks drawn from ``generator``.  Spans
+        ``cccnn.features`` (the conv stack) and ``cccnn.head`` (the
+        correlation, its normalisation and the dense layer); the counter
+        ``model_rows`` counts the rows of ``x``."""
         b = x.shape[0]
-        feats = (self.fused_features(x) if self.fused
-                 else self.chain_features(x))  # [B, C, K, V]
-        pcc = None
-        if self.cc_impl == "dft":
-            # as the JAX package chooses (cccnn.py:479-497 there): a bf16
-            # model's features carry bf16 error already, so its head runs
-            # one bf16 pass accumulating in f32; f32 models run full f32.
-            # The features go in as they are: rounding them to bf16 again
-            # is exact.
-            prec = "default" if self.dtype == torch.bfloat16 else "highest"
-            # sum over the K maps on the power spectrum (linear: the same
-            # values with K-fold less inverse work)
-            if self.pairs is not None:
-                cc, pcc = self_and_pair_correlate_dft(
-                    feats, self.pair_i, self.pair_j, precision=prec)
+        count("model_rows", b)
+        with trace("cccnn.features"):
+            feats = (self.fused_features(x) if self.fused
+                     else self.chain_features(x))  # [B, C, K, V]
+        with trace("cccnn.head"):
+            pcc = None
+            if self.cc_impl == "dft":
+                # as the JAX package chooses (cccnn.py:479-497 there): a bf16
+                # model's features carry bf16 error already, so its head runs
+                # one bf16 pass accumulating in f32; f32 models run full f32.
+                # The features go in as they are: rounding them to bf16 again
+                # is exact.
+                prec = "default" if self.dtype == torch.bfloat16 else "highest"
+                # sum over the K maps on the power spectrum (linear: the same
+                # values with K-fold less inverse work)
+                if self.pairs is not None:
+                    cc, pcc = self_and_pair_correlate_dft(
+                        feats, self.pair_i, self.pair_j, precision=prec)
+                else:
+                    cc = batch_self_correlate_dft(feats, sum_axis=2,
+                                                  precision=prec)
             else:
-                cc = batch_self_correlate_dft(feats, sum_axis=2,
-                                              precision=prec)
-        else:
-            feats = feats.to(torch.float32)
-            cc = batch_full_correlate(feats, feats).sum(dim=2)  # [B,C,2V-1]
-        v = feats.shape[-1]
-        if self.cc_norm:
-            lag0 = cc[..., v - 1: v] + 1e-6
-            probs = torch.cat(
-                [(cc / lag0).reshape(b, -1), torch.log(lag0).reshape(b, -1)],
-                dim=-1,
-            )
-        else:
-            probs = torch.softmax(cc, dim=-1).reshape(b, -1)
-        if self.pairs is not None:
-            pi, pj = self.pair_i, self.pair_j
-            if pcc is None:
-                # [B, P, K, 2V-1] summed over maps; lag index v-1-d peaks
-                # when channel pi leads pj by d samples
-                pcc = batch_full_correlate(feats[:, pi], feats[:, pj]).sum(
-                    dim=2)
-            if self.cc_pair_lags is not None:
-                lo = v - 1 - self.cc_pair_lags
-                pcc = pcc[..., lo: lo + 2 * self.cc_pair_lags + 1]
-            # normalised by the pair's geometric-mean lag-0 energy
-            lag0c = cc[..., v - 1] + 1e-6  # [B, C]
-            norm = torch.sqrt(lag0c[:, pi] * lag0c[:, pj])[..., None]
-            probs = torch.cat([probs, (pcc / norm).reshape(b, -1)], dim=-1)
-        return self.fc(dropout(probs, self.dropout_rate, self.training,
-                               generator))
+                feats = feats.to(torch.float32)
+                # [B, C, 2V-1]
+                cc = batch_full_correlate(feats, feats).sum(dim=2)
+            v = feats.shape[-1]
+            if self.cc_norm:
+                lag0 = cc[..., v - 1: v] + 1e-6
+                probs = torch.cat(
+                    [(cc / lag0).reshape(b, -1),
+                     torch.log(lag0).reshape(b, -1)],
+                    dim=-1,
+                )
+            else:
+                probs = torch.softmax(cc, dim=-1).reshape(b, -1)
+            if self.pairs is not None:
+                pi, pj = self.pair_i, self.pair_j
+                if pcc is None:
+                    # [B, P, K, 2V-1] summed over maps; lag index v-1-d peaks
+                    # when channel pi leads pj by d samples
+                    pcc = batch_full_correlate(feats[:, pi],
+                                               feats[:, pj]).sum(dim=2)
+                if self.cc_pair_lags is not None:
+                    lo = v - 1 - self.cc_pair_lags
+                    pcc = pcc[..., lo: lo + 2 * self.cc_pair_lags + 1]
+                # normalised by the pair's geometric-mean lag-0 energy
+                lag0c = cc[..., v - 1] + 1e-6  # [B, C]
+                norm = torch.sqrt(lag0c[:, pi] * lag0c[:, pj])[..., None]
+                probs = torch.cat([probs, (pcc / norm).reshape(b, -1)],
+                                  dim=-1)
+            return self.fc(dropout(probs, self.dropout_rate, self.training,
+                                   generator))

@@ -15,7 +15,10 @@ each time it recomputes the plain chain to differentiate it), and
 ``variants``, the launches by instantiation where a wrapper names one, and
 ``plain_variants``, the plain calls by part where a plain version names
 one (the locate step's plain ring write).  ``chip_smoke.py`` reads them to
-show which path ran.
+show which path ran.  ``builds`` and ``build_s`` count the compiles
+:func:`build` ran for the record's library in this process and their
+``nvcc`` wall seconds (a fresh checkout's first run pays them in its
+set-up).
 
 Every C entry point returns ``cudaGetLastError()`` after its launch; a
 non-zero code raises here, since a refused launch never runs and a later
@@ -30,6 +33,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -63,6 +68,8 @@ class Kernel:
         self.backward_recomputes = 0
         self.variants = collections.Counter()
         self.plain_variants = collections.Counter()
+        self.builds = 0
+        self.build_s = 0.0
         self._lib = None
 
     def library_path(self) -> Path:
@@ -123,14 +130,22 @@ def build(kernels=None) -> dict[str, str]:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *k.flags, "-o", str(tmp), str(CSRC / k.source)]
-        procs[k.name] = (k, tmp, subprocess.Popen(
+        procs[k.name] = (k, tmp, time.perf_counter(), subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
+
+    def finish(proc):  # each compiler's output and end, as it ends
+        log, _ = proc.communicate()
+        return log, time.perf_counter()
+    with ThreadPoolExecutor(max(len(procs), 1)) as pool:
+        ends = {name: pool.submit(finish, v[3]) for name, v in procs.items()}
     logs = {}
     failed = []
-    for name, (k, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
+    for name, (k, tmp, t0, proc) in procs.items():
+        log, t1 = ends[name].result()
         logs[name] = log
+        k.builds += 1
+        k.build_s += t1 - t0
         if proc.returncode != 0:
             failed.append(f"{k.source}:\n{log}")
         else:

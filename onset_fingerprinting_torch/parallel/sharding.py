@@ -55,6 +55,7 @@ from onset_fingerprinting_torch.ops.fused_detector import (
     fused_detect_streams,
 )
 from onset_fingerprinting_torch.parallel.mesh import Mesh
+from onset_fingerprinting_torch.utils.metrics import trace
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -506,7 +507,13 @@ def make_detect_locate_sharded(
         event_capacity``.  Slots beyond a stream's real events have
         ``emits`` False; ``points`` are zero where not emitted (the JAX
         function leaves the masked solve's value there).  Detected events
-        beyond ``event_capacity`` per stream are dropped latest-first."""
+        beyond ``event_capacity`` per stream are dropped latest-first.
+
+    Spans (``utils.metrics.trace``): ``drum.call`` around a call, inside it
+    ``drum.detect`` (the state's expansion and K1), ``drum.events``,
+    ``drum.locate``, and with ``model`` ``drum.windows`` (the windows' cut
+    into a contiguous ``[S·E, C, window]``) and ``drum.classify`` (the
+    model and the mask)."""
     from onset_fingerprinting_torch.ops.locate_block import (
         LocateBlock,
         locate_streams,
@@ -543,26 +550,36 @@ def make_detect_locate_sharded(
         return on, deltas
 
     def run(x, model_params=None):
-        xb = shard_batch(mesh, x, axis)
-        on, deltas = detect(xb)  # [per_dev, nb, C]
-        ev_on, ev_ch = stream_events(on, deltas, bsz, e)
-        points, emits = locate_streams(lb, ev_on, ev_ch)
-        if model is None:
-            preds = torch.zeros((per_dev, ev_on.shape[1], 0),
-                                dtype=torch.float32, device=dev)
-        else:
-            starts = torch.clamp(
-                torch.where(ev_on < _BIG, ev_on, 0) - pre, 0, t - window)
-            idx = starts[..., None] + torch.arange(window, device=dev)
-            sidx = torch.arange(per_dev, device=dev)[:, None, None]
-            wins = xb[sidx, idx.long()]  # [per_dev, E, window, C]
-            k = ev_on.shape[1]
-            p = _apply(model, model_params, wins.reshape(
-                per_dev * k, window, c).transpose(1, 2).contiguous())
-            preds = torch.where(emits[..., None],
-                                p.reshape(per_dev, k, -1).float(), 0.0)
-        return tuple(_gather(mesh, axis, v)
-                     for v in (points, ev_on, emits, preds))
+        with trace("drum.call"):
+            xb = shard_batch(mesh, x, axis)
+            with trace("drum.detect"):
+                on, deltas = detect(xb)  # [per_dev, nb, C]
+            with trace("drum.events"):
+                ev_on, ev_ch = stream_events(on, deltas, bsz, e)
+            with trace("drum.locate"):
+                points, emits = locate_streams(lb, ev_on, ev_ch)
+            if model is None:
+                preds = torch.zeros((per_dev, ev_on.shape[1], 0),
+                                    dtype=torch.float32, device=dev)
+            else:
+                with trace("drum.windows"):
+                    starts = torch.clamp(
+                        torch.where(ev_on < _BIG, ev_on, 0) - pre, 0,
+                        t - window)
+                    idx = starts[..., None] + torch.arange(window, device=dev)
+                    sidx = torch.arange(per_dev, device=dev)[:, None, None]
+                    wins = xb[sidx, idx.long()]  # [per_dev, E, window, C]
+                    k = ev_on.shape[1]
+                    cut = wins.reshape(per_dev * k, window, c).transpose(
+                        1, 2).contiguous()
+                with trace("drum.classify"):
+                    p = _apply(model, model_params, cut)
+                    del cut  # the model's input is not held to the end
+                    preds = torch.where(emits[..., None],
+                                        p.reshape(per_dev, k, -1).float(),
+                                        0.0)
+            return tuple(_gather(mesh, axis, v)
+                         for v in (points, ev_on, emits, preds))
 
     return run
 

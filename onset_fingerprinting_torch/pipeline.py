@@ -15,6 +15,11 @@ Port of bench.py:218-318 and 520-524 (the single-device form of
 Calling the pipeline returns ``(state, preds, n_hits, n_dropped)`` and
 reads ``n_dropped`` once: a truncated hit list raises
 :class:`HitCapacityError`, never silently.
+
+Spans (``utils.metrics.trace``, profiler ranges while a profiler records):
+``fleet.call`` around a call, ``fleet.detect``, ``fleet.hit_list``,
+``fleet.windows`` and ``fleet.predict`` inside the stage methods, and
+``fleet.dropped_read`` around the read of ``n_dropped``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from onset_fingerprinting_torch.workload import (
     WINDOW,
     chunk_capacities,
 )
+from onset_fingerprinting_torch.utils.metrics import trace
 
 
 class HitCapacityError(RuntimeError):
@@ -88,28 +94,33 @@ class DetectFingerprint:
 
     def detect(self, state: DetectorState, x: torch.Tensor):
         """→ ``(state, on [nb, C] bool, deltas [nb, C] int32)``."""
-        state, (on, deltas, _) = fused_detect_offline(
-            self.static, self.params, state, x, emit_rel=False
-        )
+        with trace("fleet.detect"):
+            state, (on, deltas, _) = fused_detect_offline(
+                self.static, self.params, state, x, emit_rel=False
+            )
         return state, on, deltas
 
     def hit_list(self, on: torch.Tensor, deltas: torch.Tensor):
         """→ ``(starts [G], stream_ids [G], valid [G], n_dropped)`` with
         sample-anchored starts."""
-        st, v = top_hit_blocks(on, self.cfg.block_size, self.n_streams,
-                               self.max_hits, deltas)
-        return compact_hit_list(st, v, self.global_capacity)
+        with trace("fleet.hit_list"):
+            st, v = top_hit_blocks(on, self.cfg.block_size, self.n_streams,
+                                   self.max_hits, deltas)
+            return compact_hit_list(st, v, self.global_capacity)
 
     def windows(self, x: torch.Tensor, starts: torch.Tensor,
                 stream_ids: torch.Tensor) -> torch.Tensor:
-        return gather_hit_windows(x, starts, stream_ids, CHANNELS_PER_STREAM,
-                                  WINDOW, pre=PRE, anchored=True)
+        with trace("fleet.windows"):
+            return gather_hit_windows(x, starts, stream_ids,
+                                      CHANNELS_PER_STREAM, WINDOW, pre=PRE,
+                                      anchored=True)
 
     def predict(self, windows: torch.Tensor, valid: torch.Tensor
                 ) -> torch.Tensor:
-        with torch.inference_mode():
-            preds = self.model(windows)
-        return torch.where(valid[:, None], preds, 0.0)
+        with trace("fleet.predict"):
+            with torch.inference_mode():
+                preds = self.model(windows)
+            return torch.where(valid[:, None], preds, 0.0)
 
     def fingerprint(self, x: torch.Tensor, on: torch.Tensor,
                     deltas: torch.Tensor):
@@ -126,9 +137,11 @@ class DetectFingerprint:
             raise ValueError(
                 f"x must be [{self.chunk_samples}, {self.cfg.n_channels}]"
             )
-        state, on, deltas = self.detect(state, x)
-        preds, n_hits, n_dropped = self.fingerprint(x, on, deltas)
-        dropped = int(n_dropped)
+        with trace("fleet.call"):
+            state, on, deltas = self.detect(state, x)
+            preds, n_hits, n_dropped = self.fingerprint(x, on, deltas)
+            with trace("fleet.dropped_read"):
+                dropped = int(n_dropped)
         if dropped > 0:
             raise HitCapacityError(
                 f"compacted hit list dropped {dropped} hits "

@@ -1,9 +1,13 @@
 """Structured metrics, tracing and TensorBoard logging (port of
 ``onset_fingerprinting_tpu.utils.metrics``).
 
-- :func:`trace` / :func:`trace_span` — a span inside
-  ``torch.profiler.record_function`` (it names the span in a profiler
-  trace) that doubles as a wall-clock timer.
+- :func:`trace` — a span: while a profiler records, a profiler range of
+  that name (a ``cpu_op`` in the trace, on the same timeline as the
+  card's events, so that each launch inside it links to it); with
+  ``metrics``, also a wall-clock timer.  With no profiler running it is a
+  flag check.  :data:`SPANS` names every span the program opens.
+- :func:`count` / :func:`counters` / :func:`reset_counters` — process-local
+  counts at the same boundaries, kept only while a profiler records.
 - :func:`profile_trace` — a ``torch.profiler`` capture of the card (and the
   host) around a region, written as a Chrome trace under a directory.
 - :class:`Metrics` — a process-local registry of counters and latency
@@ -23,21 +27,67 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from onset_fingerprinting_torch.device import resolve_device
 
 
-@contextlib.contextmanager
+#: every span the program opens: the fleet's stages
+#: (``pipeline.DetectFingerprint``), the drum batch's
+#: (``parallel.sharding.make_detect_locate_sharded``) and the CCCNN's two
+#: halves (``models.cccnn.CCCNN.forward``)
+SPANS = (
+    "fleet.call", "fleet.detect", "fleet.hit_list", "fleet.windows",
+    "fleet.predict", "fleet.dropped_read",
+    "drum.call", "drum.detect", "drum.events", "drum.locate",
+    "drum.windows", "drum.classify",
+    "cccnn.features", "cccnn.head",
+)
+
+_NO_SPAN = contextlib.nullcontext()
+_COUNTS: dict[str, int] = defaultdict(int)
+
+
+def _recording() -> bool:
+    """Whether a profiler records: ``torch.profiler.profile`` sets this
+    flag on entry and clears it on exit (reading it costs a third of
+    ``torch.autograd._profiler_enabled()``)."""
+    return torch.autograd.profiler._is_profiler_enabled
+
+
 def trace(name: str, metrics: Optional["Metrics"] = None):
-    """Profiler-annotated, timed span."""
+    """A span named ``name`` (a context manager): a profiler range while a
+    profiler records, timed into ``metrics`` when given."""
+    if metrics is None and not _recording():
+        return _NO_SPAN
+    return _span(name, metrics)
+
+
+@contextlib.contextmanager
+def _span(name: str, metrics: Optional["Metrics"]):
+    # an op-scope range: a ``record_function`` range is a user annotation,
+    # which the profiler copies onto the card's timeline as if it were
+    # device work, and a kernel launched from C inside it links to no op
     t0 = time.perf_counter()
-    with torch.profiler.record_function(name):
+    with _RecordFunctionFast(name) if _recording() else _NO_SPAN:
         yield
     if metrics is not None:
         metrics.observe(name, (time.perf_counter() - t0) * 1e3)
 
 
-trace_span = trace
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler records."""
+    if _recording():
+        _COUNTS[name] += n
+
+
+def counters() -> dict[str, int]:
+    """The counts kept since the last :func:`reset_counters`."""
+    return dict(_COUNTS)
+
+
+def reset_counters() -> None:
+    _COUNTS.clear()
 
 
 @contextlib.contextmanager

@@ -59,7 +59,7 @@ def test_trace_observes_into_metrics():
     m = pmetrics.Metrics()
     with pmetrics.trace("detect", m):
         time.sleep(0.002)
-    with pmetrics.trace_span("detect", m):
+    with pmetrics.trace("detect", m):
         pass
     with pmetrics.trace("untimed"):
         pass
@@ -77,7 +77,9 @@ def test_profile_trace_cpu_names_the_span(tmp_path):
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     spans = [e for e in events if e.get("name") == "port.span"]
-    assert spans and spans[0]["cat"] == "user_annotation"
+    # an op-scope range: a user annotation would be copied onto the card's
+    # timeline as if it were device work
+    assert spans and spans[0]["cat"] == "cpu_op"
     assert m.summary()["latency"]["port.span"]["count"] == 1
 
 
