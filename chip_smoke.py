@@ -15,7 +15,7 @@ Phase 0  prints the card's name and power limit, starts the plain
          engine with ``cc_refine=True`` over the stream's first 2 s in a
          fourth (8d's), the detector tuner at 9a's three slider settings
          over 6b's recording in three more (one each), and builds the
-         eleven kernel libraries from
+         twelve kernel libraries from
          ``onset_fingerprinting_torch/csrc`` with nvcc, all started
          together.
 Phase 1  holds each kernel against its plain PyTorch version on the card
@@ -70,6 +70,14 @@ Phase 2b drives the same fleet path with the flagship CCCNN in float32, the
          path's windows within atol 5e-4 / rtol 1e-4 of the plain version
          on the CPU and the predictions within 1e-4 + 1e-4 |CPU| (float32,
          TF32 off).
+Phase 2c holds the CCCNN's bf16 DFT head kernel (``csrc/cccnn_head.cu``) to
+         its plain version on the card at the benchmark cells' calls
+         (36480 x 4 windows and 2 outputs, 32768 x 3 and 3, 3712 x 4 and
+         2), one launch a call, and times it beside its bound, the plain
+         version and the chain it replaces (cuBLAS bf16 GEMMs, ATen passes,
+         the f32 dense layer).  ``--only-head`` runs the build, 2c and the
+         realtime engine's classify call (16 hits, a graph of 16; the
+         classifier's 512-sample windows keep the chain).
 Phase 3  drives the fingerprint-stage anatomy
          (``tools.fingerprint_anatomy.main``) at full width — 8192 streams,
          G = 32768, W = 256 — shows that K3 and the routed K2 and K4
@@ -298,7 +306,9 @@ CC refinement, timed on fired blocks; ``detector_pipe_coupled``, the
 pipe's coupled instantiation over one recording, timed at mining's two
 launches, with the launches of mining, the tuner, the engines' warmups,
 time sharding and 7a; ``detector_pipe_coupled_streams``, the same over
-8c's batch of streams).  Launch counts are the sums over
+8c's batch of streams; ``cccnn_head``, the CCCNN's bf16 DFT head, which
+replaces no TPU kernel, timed at the fleet's call).  Launch counts are the
+sums over
 the paths that phases 2, 2b, 3, 4, 5c, 6, 7, 8, 9 and 10 drive, each from
 counts set to 0 just before it (``detector_warp`` counts the engines'
 (9c's serve loop's too), ``locate_block`` the Newton engines', the FCNN rows phase 6's,
@@ -1073,6 +1083,114 @@ def check_bf16_head(feats, cc):
     log(f"bf16 DFT head (tensor-core bf16 GEMMs, f32 accumulation) on "
         f"{HEAD_ROWS} windows of the path's features: max err {err:.3g} vs "
         f"the CPU emulation, {err / scale:.2e} of the scale (bound 1e-3)")
+
+
+#: phase 2c: the head kernel's shapes, the benchmark's cells' calls (name,
+#: windows, channels, outputs); the kernels line's row is the first
+HEAD_SHAPES = (("fleet4-bf16.hits10", 36480, 4, 2),
+               ("drum3-bf16.streams1024", 32768, 3, 3),
+               ("fleet4-bf16.hits1", 3712, 4, 2))
+
+
+def phase_head(report):
+    """2c: the CCCNN's bf16 DFT head kernel (``csrc/cccnn_head.cu``) at the
+    benchmark cells' calls (flagship widths: V = 133, K = 5) against its
+    plain version on the card (TF32 off) within 1e-3 of the output's scale,
+    one launch a call and no plain call; timed (mean of 20 calls by CUDA
+    events) beside its bound (the f32 features, fc and the outputs at the
+    HBM rate; the forward and inverse products at the bf16 peak), the plain
+    version and the chain it replaces (cuBLAS bf16 GEMMs, the ATen passes,
+    the f32 dense layer) as the library; the row is hits10's."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.cccnn_head import (
+        self_cc_head,
+        self_cc_head_reference,
+    )
+    from onset_fingerprinting_torch.ops.xcorr import batch_self_correlate_dft
+
+    v, k = 133, 5
+    f = (2 * v - 1 + 15) // 16 * 8 + 1
+    for name, b, c, o in HEAD_SHAPES:
+        g = torch.Generator("cuda").manual_seed(b)
+        feats = torch.randn((b * c, v, k), device="cuda", generator=g).to(
+            torch.bfloat16).float().reshape(b, c, v, k).transpose(2, 3)
+        torch.manual_seed(c)
+        fc = torch.nn.Linear(c * (2 * v - 1) + c, o).cuda()
+
+        def kernel():
+            return self_cc_head(feats, fc.weight, fc.bias)
+
+        def plain():
+            return self_cc_head_reference(feats, fc.weight, fc.bias)
+
+        def library():
+            cc = batch_self_correlate_dft(feats, sum_axis=2,
+                                          precision="default")
+            lag0 = cc[..., v - 1: v] + 1e-6
+            return fc(torch.cat([(cc / lag0).reshape(b, -1),
+                                 torch.log(lag0).reshape(b, -1)], dim=-1))
+
+        with torch.inference_mode():
+            before = (_cuda.CCCNN_HEAD.launches, _cuda.CCCNN_HEAD.plain_calls)
+            got = kernel()
+            check((_cuda.CCCNN_HEAD.launches, _cuda.CCCNN_HEAD.plain_calls)
+                  == (before[0] + 1, before[1]),
+                  f"2c {name}: the head kernel did not launch once")
+            want = plain()
+            lib = library()
+            scale = float(want.abs().max())
+            err = max_err(got, want)
+            check(bool(torch.isfinite(got).all()) and err <= 1e-3 * scale,
+                  f"2c {name}: the head kernel differs from its plain "
+                  f"version by {err} (scale {scale})")
+            ms = time_ms(kernel, n=20)
+            plain_ms = time_ms(plain, n=3)
+            lib_ms = time_ms(library, n=10)
+        work = dict(bytes=4 * (b * c * v * k + fc.weight.numel() + b * o),
+                    ops=2 * 2 * v * f * b * c * k + 2 * f * (2 * v - 1) * b * c,
+                    peak=BF16_FLOPS)
+        bound = max(1e3 * work["bytes"] / HBM_BPS,
+                    1e3 * work["ops"] / BF16_FLOPS)
+        log(f"2c head kernel, {name} ({b} x {c}, {o} outputs): {ms:.4f} ms "
+            f"(bound {bound:.4f} ms, {work['ops'] / 1e9:.1f} GFLOP, "
+            f"{work['bytes'] / 1e6:.0f} MB), plain {plain_ms:.3f} ms, the "
+            f"chain {lib_ms:.4f} ms; max err {err:.3g} vs plain "
+            f"({err / scale:.2e} of the scale), chain vs plain "
+            f"{max_err(lib, want):.3g}")
+        if "cccnn_head" not in report:
+            report["cccnn_head"] = dict(max_abs_err=err, ms=ms,
+                                        plain_ms=plain_ms, library_ms=lib_ms,
+                                        **work)
+        del feats, got, want, lib
+        torch.cuda.empty_cache()
+
+
+def classify_call(report):
+    """The realtime engine's whole classify call (ring gather, K3, the head,
+    dense; 16 hits) per call in a graph of 16, twice, as phase 4 times it:
+    the classifier's 512-sample windows keep the chain (no head kernel)."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.tools import realtime_sim as sim
+    from onset_fingerprinting_torch.tools.step_bench import graph_ms
+
+    audio, _, _ = sim.synth_stream(6.0, 0)
+    eng = sim.build_engine(None)
+    eng.attach_classifier(sim.classifier(0), window=sim.CLS_WINDOW,
+                          pre=sim.CLS_PRE, capacity=sim.CLS_CAPACITY)
+    events, _, _ = sim.run(eng, audio)
+    check(len(events) >= sim.CLS_CAPACITY, f"{len(events)} events")
+    ons = torch.tensor([o for o, _ in events[-sim.CLS_CAPACITY:]],
+                       dtype=torch.int32, device="cuda")
+    valid = torch.ones(sim.CLS_CAPACITY, dtype=torch.bool, device="cuda")
+    before = _cuda.CCCNN_HEAD.launches
+    turns = [graph_ms([lambda: eng._classify(eng.state.ring, ons, valid)]
+                      * 16) for _ in range(2)]
+    check(_cuda.CCCNN_HEAD.launches == before,
+          "the classifier's head ran on the head kernel")
+    report["_classify_call"] = turns
+    log(f"the whole classify call (ring gather, K3, DFT head, dense; 16 "
+        f"hits) per call in a graph of 16: "
+        + ", ".join(f"{t:.5f}" for t in turns) + " ms")
 
 
 #: phase 4: the realtime stream's length and the CPU reference's prefix
@@ -4130,13 +4248,15 @@ def main(argv=None) -> int:
     build and that phase alone and print their rows of the kernels line,
     ``--only-phase9`` / ``--only-phase10`` that phase's launches, without
     the last line (for iterating on one phase; the smoke run takes no
-    arguments)."""
+    arguments); ``--only-head`` the build, 2c and the realtime classify
+    call, and the head kernel's row."""
     argv = sys.argv[1:] if argv is None else argv
     only6 = "--only-phase6" in argv
     only7 = "--only-phase7" in argv
     only8 = "--only-phase8" in argv
     only9 = "--only-phase9" in argv
     only10 = "--only-phase10" in argv
+    only_head = "--only-head" in argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -4164,9 +4284,9 @@ def main(argv=None) -> int:
 
     # the plain engine and the plain mining detector on the CPU, beside the
     # card phases
-    only = only6 or only7 or only8 or only9 or only10
+    only = only6 or only7 or only8 or only9 or only10 or only_head
     cpu_ref = None if only else start_cpu_reference()
-    cc_ref = (None if (only6 or only7 or only9 or only10)
+    cc_ref = (None if (only6 or only7 or only9 or only10 or only_head)
               else start_cc_reference())
     if only8 or only9:  # 8b's and 9a's recording only
         import shutil
@@ -4174,13 +4294,13 @@ def main(argv=None) -> int:
         shutil.rmtree(J_DIR, ignore_errors=True)
         journey_session("train_patch", 48, 3)
         mine_ref = None
-    elif only10:
+    elif only10 or only_head:
         mine_ref = None
     else:
         mine_ref = start_mine_reference()
-    amp_ref = (None if (only6 or only8 or only9 or only10)
+    amp_ref = (None if (only6 or only8 or only9 or only10 or only_head)
                else start_amp_reference())
-    tuner_ref = (None if (only6 or only7 or only8 or only10)
+    tuner_ref = (None if (only6 or only7 or only8 or only10 or only_head)
                  else start_tuner_reference())
     logs = _cuda.build()
     log(f"built {len(logs)} kernels in {time.perf_counter() - t0:.1f} s")
@@ -4190,6 +4310,14 @@ def main(argv=None) -> int:
                 log(f"  {name}: {line.strip()}")
 
     report = {"_launches": {}, "_sharded": {}}
+    if only_head:
+        phase("phase 2c: the head kernel")
+        phase_head(report)
+        classify_call(report)
+        phase("done")
+        log(smi)
+        log(json.dumps({"kernels": kernel_rows(report, ("cccnn_head",))}))
+        return 0
     if only10:
         phase10(report, phase)
         phase("done")
@@ -4240,6 +4368,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase("phase 2: the fleet path")
     phase_main_path(report)
+    torch.cuda.empty_cache()
+    phase("phase 2c: the head kernel")
+    phase_head(report)
     torch.cuda.empty_cache()
     phase("phase 2b: the fleet path with the float32 flagship")
     phase_main_path(report, torch.float32, ITERS_F32, profile=False)
@@ -4384,6 +4515,11 @@ def kernel_rows(report, names=None):
             "onset_fingerprinting_torch/csrc/detector_pipe.cu",
             "onset_fingerprinting_tpu/ops/pallas_detector.py:85",
             "detector_pipe_coupled_streams"),
+        # no TPU kernel: XLA runs the JAX package's DFT head
+        # (models/cccnn.py:479); timed at the fleet's call (2c)
+        "cccnn_head": ("onset_fingerprinting_torch/csrc/cccnn_head.cu",
+                       "onset_fingerprinting_tpu/models/cccnn.py:479",
+                       "cccnn_head"),
     }
     kernels = []
     for name, (src, replaces, counter) in sources.items():

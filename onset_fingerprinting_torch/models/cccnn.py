@@ -39,6 +39,7 @@ from onset_fingerprinting_torch.models.fcnn import dropout
 # the module, not its names: ops/conv_stack imports models.fcnn, so a first
 # import of ops.conv_stack reaches this line while it is half initialised
 from onset_fingerprinting_torch.ops import conv_stack as _conv_stack
+from onset_fingerprinting_torch.ops.cccnn_head import head_plan, self_cc_head
 from onset_fingerprinting_torch.ops.xcorr import (
     batch_full_correlate,
     batch_self_correlate_dft,
@@ -220,19 +221,41 @@ class CCCNN(nn.Module):
         # grouped: [B, C*K, V] channel-major; shared: [B*C, K, V]
         return y.reshape(b, c, -1, y.shape[-1])
 
+    def head_on_kernel(self, feats: torch.Tensor) -> bool:
+        """Whether :meth:`forward` runs its head on the head kernel
+        (``ops/cccnn_head.py``), from what it observes: the bf16 DFT head
+        with ``cc_norm`` and no pair head, a float32 ``fc``, features on the
+        card, no dropout (not training), no gradient needed, and a shape
+        the kernel serves (``head_plan``).  Else the chain of products and
+        elementwise passes below."""
+        fc = self.fc
+        _, c, k, v = feats.shape
+        return (self.cc_impl == "dft" and self.dtype == torch.bfloat16
+                and self.cc_norm and self.pairs is None
+                and not self.training and feats.device.type == "cuda"
+                and fc.weight.dtype == fc.bias.dtype == torch.float32
+                and not (torch.is_grad_enabled() and (
+                    feats.requires_grad or fc.weight.requires_grad
+                    or fc.bias.requires_grad))
+                and head_plan(c, k, v, fc.weight.shape[0]) is not None)
+
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         """``model.train()`` as flax's ``train=True``: dropout on the
         head's input, its masks drawn from ``generator``.  Spans
         ``cccnn.features`` (the conv stack) and ``cccnn.head`` (the
         correlation, its normalisation and the dense layer); the counter
-        ``model_rows`` counts the rows of ``x``."""
+        ``model_rows`` counts the rows of ``x``, ``head_kernel_rows`` those
+        whose head ran on the head kernel."""
         b = x.shape[0]
         count("model_rows", b)
         with trace("cccnn.features"):
             feats = (self.fused_features(x) if self.fused
                      else self.chain_features(x))  # [B, C, K, V]
         with trace("cccnn.head"):
+            if self.head_on_kernel(feats):
+                count("head_kernel_rows", b)
+                return self_cc_head(feats, self.fc.weight, self.fc.bias)
             pcc = None
             if self.cc_impl == "dft":
                 # as the JAX package chooses (cccnn.py:479-497 there): a bf16

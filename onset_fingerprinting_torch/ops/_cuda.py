@@ -243,10 +243,16 @@ LOCATE_BLOCK = Kernel(
     # every multiply and add rounds on its own, as in the plain version
     extra_flags=("-fmad=false",),
 )
+# the CCCNN's bf16 DFT head, K3's features to the dense layer's outputs
+# (no TPU kernel: XLA runs the JAX package's head)
+CCCNN_HEAD = Kernel(
+    "cccnn_head", "cccnn_head.cu",
+    {"ofpt_cccnn_head": [_P] * 8},
+)
 KERNELS = (DETECTOR, DETECTOR_WARP, DETECTOR_PIPE, DETECTOR_PIPE_COUPLED,
            GATHER, CONV_STACK,
            CONV_STACK_MMA, CONV_STACK_MMA_CLUSTER, GATHER_ROLL, GATHER_VEC,
-           GATHER_ROLL_VEC, LOCATE_BLOCK)
+           GATHER_ROLL_VEC, LOCATE_BLOCK, CCCNN_HEAD)
 
 
 def ring_writes(variants) -> int:

@@ -702,6 +702,85 @@ def test_bf16_dft_head_matches_its_emulation(pairs):
         assert float((g.cpu() - w).abs().max()) <= 1e-3 * scale
 
 
+def _head_inputs(b, c, o, v=133, k=5, layout="k3", seed=0):
+    """bf16-valued f32 features as K3 writes them (``[B*C, V, K]`` seen as
+    ``[B, C, K, V]``) or contiguous ``[B, C, K, V]``, and a dense layer."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    if layout == "k3":
+        raw = torch.randn((b * c, v, k), device="cuda", generator=g)
+        feats = raw.to(torch.bfloat16).float().reshape(b, c, v, k).transpose(
+            2, 3)
+    else:
+        feats = torch.randn((b, c, k, v), device="cuda", generator=g).to(
+            torch.bfloat16).float()
+    torch.manual_seed(seed + 1)
+    return feats, torch.nn.Linear(c * (2 * v - 1) + c, o).cuda()
+
+
+@pytest.mark.parametrize("b,c,o,v,k,layout", [
+    (36480, 4, 2, 133, 5, "k3"),   # fleet4-bf16.hits10's call
+    (32768, 3, 3, 133, 5, "k3"),   # drum3-bf16.streams1024's call
+    (1, 4, 2, 133, 5, "k3"), (37, 3, 3, 133, 5, "k3"),
+    (7, 4, 2, 64, 5, "contiguous"), (5, 2, 8, 20, 3, "k3"),
+    (9, 16, 1, 7, 2, "k3"),
+])
+def test_cccnn_head_kernel_matches_plain(b, c, o, v, k, layout):
+    """csrc/cccnn_head.cu against its plain version on the card (f32
+    products of bf16-rounded operands, TF32 off) at the benchmark's fleet
+    and drum calls, one window, a ragged batch and other widths: within
+    1e-3 of the output's scale (f32 sums in another order can round a power
+    value to its other bf16 neighbour; measured up to 4e-4), one launch and
+    no plain call."""
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops.cccnn_head import (
+        self_cc_head,
+        self_cc_head_reference,
+    )
+
+    feats, fc = _head_inputs(b, c, o, v, k, layout)
+    kern = _cuda.CCCNN_HEAD
+    before = (kern.launches, kern.plain_calls)
+    with torch.inference_mode():
+        got = self_cc_head(feats, fc.weight, fc.bias)
+        want = self_cc_head_reference(feats, fc.weight, fc.bias)
+    assert (kern.launches, kern.plain_calls) == (before[0] + 1, before[1])
+    assert got.shape == (b, o) and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-3 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("channels,out", [(4, 2), (3, 3)])
+def test_bf16_cccnn_runs_the_head_kernel(monkeypatch, channels, out):
+    """The bf16 flagship in inference on the card runs its head on the
+    kernel, one launch a forward and no plain call, and gives the chain's
+    outputs within 1e-3 of their scale; the realtime classifier's 512-sample
+    windows keep the chain."""
+    from onset_fingerprinting_torch.models.cccnn import CCCNN
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.workload import FLAGSHIP
+
+    cfg = {**FLAGSHIP, "channels": channels, "output_size": out}
+    torch.manual_seed(7)
+    model = CCCNN(input_size=256, dtype=torch.bfloat16, **cfg).cuda().eval()
+    x = torch.randn((300, channels, 256), device="cuda")
+    kern = _cuda.CCCNN_HEAD
+    with torch.inference_mode():
+        before = (kern.launches, kern.plain_calls)
+        got = model(x)
+        assert (kern.launches, kern.plain_calls) == (before[0] + 1,
+                                                    before[1])
+        monkeypatch.setattr(CCCNN, "head_on_kernel", lambda self, f: False)
+        want = model(x)
+        monkeypatch.undo()
+        sim, _, _ = _engine_stream(0.01)
+        classifier = sim.classifier(seed=1).cuda()
+        before = kern.launches
+        classifier(torch.randn((16, 3, 512), device="cuda"))
+        assert kern.launches == before
+    assert float((got - want).abs().max()) <= 1e-3 * float(
+        want.abs().max())
+
+
 def test_bf16_cccnn_card_matches_cpu():
     """The classifier as the engine runs it (the flagship bf16 CCCNN, 3
     channels, 512-sample windows) on the card against its plain version on
