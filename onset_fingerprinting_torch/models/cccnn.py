@@ -42,8 +42,9 @@ from onset_fingerprinting_torch.ops import conv_stack as _conv_stack
 from onset_fingerprinting_torch.ops.cccnn_head import head_plan, self_cc_head
 from onset_fingerprinting_torch.ops.xcorr import (
     batch_full_correlate,
-    batch_self_correlate_dft,
     self_and_pair_correlate_dft,
+    self_cc_from_power,
+    self_power_dft,
 )
 from onset_fingerprinting_torch.utils.metrics import count, trace
 
@@ -244,9 +245,13 @@ class CCCNN(nn.Module):
         """``model.train()`` as flax's ``train=True``: dropout on the
         head's input, its masks drawn from ``generator``.  Spans
         ``cccnn.features`` (the conv stack) and ``cccnn.head`` (the
-        correlation, its normalisation and the dense layer); the counter
-        ``model_rows`` counts the rows of ``x``, ``head_kernel_rows`` those
-        whose head ran on the head kernel."""
+        correlation, its normalisation and the dense layer); inside the
+        head's chain ``cccnn.head_spectrum`` (the DFT head's forward
+        products, power and sum over maps), ``cccnn.head_inverse`` (its
+        inverse product) and ``cccnn.head_dense`` (the normalisation and
+        the dense layer).  The counter ``model_rows`` counts the rows of
+        ``x``, ``head_kernel_rows`` those whose head ran on the head
+        kernel."""
         b = x.shape[0]
         count("model_rows", b)
         with trace("cccnn.features"):
@@ -256,27 +261,43 @@ class CCCNN(nn.Module):
             if self.head_on_kernel(feats):
                 count("head_kernel_rows", b)
                 return self_cc_head(feats, self.fc.weight, self.fc.bias)
-            pcc = None
-            if self.cc_impl == "dft":
-                # as the JAX package chooses (cccnn.py:479-497 there): a bf16
-                # model's features carry bf16 error already, so its head runs
-                # one bf16 pass accumulating in f32; f32 models run full f32.
-                # The features go in as they are: rounding them to bf16 again
-                # is exact.
-                prec = "default" if self.dtype == torch.bfloat16 else "highest"
-                # sum over the K maps on the power spectrum (linear: the same
-                # values with K-fold less inverse work)
-                if self.pairs is not None:
-                    cc, pcc = self_and_pair_correlate_dft(
-                        feats, self.pair_i, self.pair_j, precision=prec)
-                else:
-                    cc = batch_self_correlate_dft(feats, sum_axis=2,
-                                                  precision=prec)
-            else:
-                feats = feats.to(torch.float32)
-                # [B, C, 2V-1]
-                cc = batch_full_correlate(feats, feats).sum(dim=2)
-            v = feats.shape[-1]
+            # as the JAX package chooses (cccnn.py:479-497 there): a bf16
+            # model's features carry bf16 error already, so its head runs
+            # one bf16 pass accumulating in f32; other models run full f32,
+            # their products and dense layer held there whatever the
+            # process's TF32 settings
+            if self.dtype == torch.bfloat16:
+                return self.chain_head(feats, "default", generator)
+            with _conv_stack.exact_f32_matmul():
+                return self.chain_head(feats, "highest", generator)
+
+    def chain_head(self, feats: torch.Tensor, prec: str,
+                   generator: torch.Generator | None) -> torch.Tensor:
+        """The head as products and elementwise passes: ``feats [B, C, K,
+        V]`` → ``[B, output_size]``, the DFT's products at ``prec``."""
+        b, v = feats.shape[0], feats.shape[-1]
+        # the DFT takes the features as they are: rounding a bf16 model's
+        # to bf16 again is exact
+        if self.cc_impl == "dft" and self.pairs is not None:
+            cc, pcc = self_and_pair_correlate_dft(
+                feats, self.pair_i, self.pair_j, precision=prec)
+        elif self.cc_impl == "dft":
+            # sum over the K maps on the power spectrum (linear: the same
+            # values with K-fold less inverse work)
+            with trace("cccnn.head_spectrum"):
+                power = self_power_dft(feats, sum_axis=2, precision=prec)
+            with trace("cccnn.head_inverse"):
+                cc = self_cc_from_power(power, v, prec)
+        else:
+            feats = feats.to(torch.float32)
+            # [B, C, 2V-1]
+            cc = batch_full_correlate(feats, feats).sum(dim=2)
+            if self.pairs is not None:
+                # [B, P, K, 2V-1] summed over maps; lag index v-1-d peaks
+                # when channel pi leads pj by d samples
+                pcc = batch_full_correlate(feats[:, self.pair_i],
+                                           feats[:, self.pair_j]).sum(dim=2)
+        with trace("cccnn.head_dense"):
             if self.cc_norm:
                 lag0 = cc[..., v - 1: v] + 1e-6
                 probs = torch.cat(
@@ -288,11 +309,6 @@ class CCCNN(nn.Module):
                 probs = torch.softmax(cc, dim=-1).reshape(b, -1)
             if self.pairs is not None:
                 pi, pj = self.pair_i, self.pair_j
-                if pcc is None:
-                    # [B, P, K, 2V-1] summed over maps; lag index v-1-d peaks
-                    # when channel pi leads pj by d samples
-                    pcc = batch_full_correlate(feats[:, pi],
-                                               feats[:, pj]).sum(dim=2)
                 if self.cc_pair_lags is not None:
                     lo = v - 1 - self.cc_pair_lags
                     pcc = pcc[..., lo: lo + 2 * self.cc_pair_lags + 1]

@@ -60,6 +60,7 @@ convolutions without TF32 whatever the process flags say.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import itertools
 from dataclasses import dataclass
@@ -749,6 +750,56 @@ def exact_f32():
     cudnn = torch.backends.cudnn
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                        deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+@contextlib.contextmanager
+def exact_f32_matmul():
+    """float32 matrix products in full float32 for the block it guards,
+    whatever the process set (``torch.set_float32_matmul_precision``,
+    ``torch.backends.cuda.matmul.allow_tf32`` or the per-backend
+    ``fp32_precision``): the float32 matmul precision ``"highest"`` and
+    cuBLAS without TF32 (a context manager).  The settings it found are
+    back on exit; where they already hold it changes nothing."""
+    mm = torch.backends.cuda.matmul
+    try:
+        prec = torch.get_float32_matmul_precision()
+    except RuntimeError:  # the process set the backends apart
+        prec = None
+    if prec == "highest":
+        yield
+        return
+    if prec is not None:
+        # the process-wide setter also sets the CPU's matmul backend, whose
+        # own setting is put back after it
+        cpu_mm = getattr(torch.backends.mkldnn, "matmul", None)
+        cpu = cpu_mm.fp32_precision if cpu_mm is not None else None
+        torch.set_float32_matmul_precision("highest")
+        try:
+            yield
+        finally:
+            torch.set_float32_matmul_precision(prec)
+            if cpu is not None:
+                cpu_mm.fp32_precision = cpu
+        return
+    try:
+        allow = mm.allow_tf32
+    except RuntimeError:  # cuBLAS's old and new settings disagree
+        allow = None
+    if allow is False:
+        yield
+    elif allow:
+        mm.allow_tf32 = False
+        try:
+            yield
+        finally:
+            mm.allow_tf32 = True
+    else:
+        was = mm.fp32_precision
+        mm.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            mm.fp32_precision = was
 
 
 def _forward(x, weights, biases, padding, activation, compute_dtype, t_out):

@@ -8,11 +8,15 @@ channel-pair cross-correlation on the same forward products (the
 ``cc_pairs`` head).
 
 Both DFT heads take the JAX package's ``precision`` (xcorr.py:149-216
-there), chosen per call and never by a process-wide flag:
+there), chosen per call:
 
-- ``"highest"`` (the default): float32 operands, full float32 products.
-  On the card a float32 ``torch.matmul`` stays full float32 as long as
-  ``torch.backends.cuda.matmul.allow_tf32`` is False, PyTorch's default.
+- ``"highest"`` (the default): float32 operands, float32 products.  On
+  the card a float32 ``torch.matmul`` is cuBLAS's, which runs in TF32
+  wherever the process turned TF32 on (``torch.backends.cuda.matmul.
+  allow_tf32``, ``torch.set_float32_matmul_precision("high")``): these
+  functions leave that to their caller.  The CCCNN's float32 head runs
+  its products and its dense layer under ``ops.conv_stack.
+  exact_f32_matmul()``: full float32 whatever the process set.
 - ``"default"``: the TPU's one-pass semantics.  Both operands of every
   product (the two forward transforms, the inverse of the power spectrum,
   the pair inverses) are rounded to bfloat16, the sums accumulate in
@@ -156,15 +160,30 @@ class _Bf16Matmul(torch.autograd.Function):
 def batch_self_correlate_dft(a: torch.Tensor, sum_axis: int | None = None,
                              precision: str = "highest") -> torch.Tensor:
     """``batch_full_correlate(a, a)`` as two forward matrix products and one
-    inverse.  ``sum_axis`` sums over that axis on the power spectrum,
-    before the (linear) inverse — equal to summing the result, with
-    K-fold less inverse work."""
-    re_m, im_m, inv, _ = _dft_tensors(a.shape[-1], a.device)
+    inverse (:func:`self_power_dft`, then :func:`self_cc_from_power`).
+    ``sum_axis`` sums over that axis on the power spectrum, before the
+    (linear) inverse — equal to summing the result, with K-fold less
+    inverse work."""
+    return self_cc_from_power(self_power_dft(a, sum_axis, precision),
+                              a.shape[-1], precision)
+
+
+def self_power_dft(a: torch.Tensor, sum_axis: int | None = None,
+                   precision: str = "highest") -> torch.Tensor:
+    """The power spectrum ``[..., F]`` of ``a [..., n]`` zero-padded to the
+    DFT's length: the two forward products, summed over ``sum_axis``."""
+    re_m, im_m, _, _ = _dft_tensors(a.shape[-1], a.device)
     re = dft_matmul(a, re_m, precision)
     im = dft_matmul(a, im_m, precision)
     power = re * re + im * im
-    if sum_axis is not None:
-        power = power.sum(dim=sum_axis)
+    return power if sum_axis is None else power.sum(dim=sum_axis)
+
+
+def self_cc_from_power(power: torch.Tensor, n: int,
+                       precision: str = "highest") -> torch.Tensor:
+    """The inverse product: a power spectrum of :func:`self_power_dft` over
+    signals of ``n`` samples → their self-correlation ``[..., 2n-1]``."""
+    _, _, inv, _ = _dft_tensors(n, power.device)
     return dft_matmul(power, inv, precision)
 
 

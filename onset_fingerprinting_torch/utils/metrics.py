@@ -34,14 +34,16 @@ from onset_fingerprinting_torch.device import resolve_device
 
 #: every span the program opens: the fleet's stages
 #: (``pipeline.DetectFingerprint``), the drum batch's
-#: (``parallel.sharding.make_detect_locate_sharded``) and the CCCNN's two
-#: halves (``models.cccnn.CCCNN.forward``)
+#: (``parallel.sharding.make_detect_locate_sharded``), the CCCNN's two
+#: halves (``models.cccnn.CCCNN.forward``) and the parts of its head's
+#: chain (``CCCNN.chain_head``)
 SPANS = (
     "fleet.call", "fleet.detect", "fleet.hit_list", "fleet.windows",
     "fleet.predict", "fleet.dropped_read",
     "drum.call", "drum.detect", "drum.events", "drum.locate",
     "drum.windows", "drum.classify",
     "cccnn.features", "cccnn.head",
+    "cccnn.head_spectrum", "cccnn.head_inverse", "cccnn.head_dense",
 )
 
 _NO_SPAN = contextlib.nullcontext()

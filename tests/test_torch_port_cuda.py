@@ -5,6 +5,8 @@ they skip on a machine without CUDA.  Run on the card with
     python -m pytest tests/test_torch_port_cuda.py -q -m cuda
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -779,6 +781,54 @@ def test_bf16_cccnn_runs_the_head_kernel(monkeypatch, channels, out):
         assert kern.launches == before
     assert float((got - want).abs().max()) <= 1e-3 * float(
         want.abs().max())
+
+
+def test_f32_flagship_holds_f32_with_tf32_on(monkeypatch):
+    """The float32 flagship through ``make_detect_fingerprint`` at 384
+    streams of hits10's traffic, with TF32 turned on process-wide, is the
+    plain reference's forward on the same windows to the CPU test's
+    float32 tolerance (``test_torch_port_fleet_f32.F32_TOL``, 1e-5 of the
+    outputs' scale), on K3 f32 and the head's chain; with the head's pin
+    taken out, its TF32 products are not."""
+    import json
+    from pathlib import Path
+
+    from portbench import common
+    from portbench.reference import cccnn as ref_cccnn
+    from portbench.systems import fleet
+    from onset_fingerprinting_torch.ops import _cuda
+    from onset_fingerprinting_torch.ops import conv_stack
+
+    root = Path(__file__).resolve().parent.parent / "portbench"
+    cfg = dict(json.loads((root / "configs" / "fleet4-cccnn-f32.json")
+                          .read_text()), streams=384)
+    tr = json.loads((root / "traffic" / "fleet4-bf16.hits10.json")
+                    .read_text())
+    system = fleet.System(cfg, tr, 2 ** 31 + 11, "cuda")
+    run, x = system.run, system.audio.chunk_view(0)
+    _, on, deltas = run.detect(system.state, x)
+    starts, sids, valid, _ = run.hit_list(on, deltas)
+    wins = run.windows(x, starts, sids)
+    kernels = (_cuda.CONV_STACK, _cuda.CONV_STACK_MMA, _cuda.CCCNN_HEAD)
+    torch.set_float32_matmul_precision("high")
+    try:
+        assert torch.backends.cuda.matmul.allow_tf32
+        before = [k.launches for k in kernels]
+        got = run.predict(wins, valid)[valid].cpu()
+        assert [k.launches for k in kernels] == [before[0] + 1, before[1],
+                                                 before[2]]
+        monkeypatch.setattr(conv_stack, "exact_f32_matmul",
+                            contextlib.nullcontext)
+        unpinned = run.predict(wins, valid)[valid].cpu()
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    want = ref_cccnn.forward(wins[valid].cpu(),
+                             common.to_cpu(system.weights))
+    assert len(want) > 300
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert float((unpinned - want).abs().max()) > 1e-5 * scale
 
 
 def test_bf16_cccnn_card_matches_cpu():

@@ -27,6 +27,12 @@ DRUM = {"drum.call": None, "drum.detect": "drum.call",
         "drum.events": "drum.call", "drum.locate": "drum.call",
         "drum.windows": "drum.call", "drum.classify": "drum.call",
         "cccnn.features": "drum.classify", "cccnn.head": "drum.classify"}
+#: the head's chain (the CPU's float32 DFT head)
+HEAD = {"cccnn.head_spectrum": "cccnn.head",
+        "cccnn.head_inverse": "cccnn.head",
+        "cccnn.head_dense": "cccnn.head"}
+FLEET.update(HEAD)
+DRUM.update(HEAD)
 
 
 @pytest.fixture
